@@ -1,0 +1,285 @@
+"""One process-global metrics registry over the existing stat surfaces.
+
+Two layers:
+
+- Typed primitives — :class:`Counter` / :class:`Gauge` / :class:`Histogram`
+  — for NEW metrics, created via ``REGISTRY.counter("name")`` etc.
+- Collector adapters — the five stat classes the repo already has
+  (``DataHealth``, ``TrainHealth``, ``ServingStats``, ``HostStageStats``,
+  ``Publisher``) self-register in ``__init__`` via :func:`auto_register`,
+  and :func:`Registry.snapshot` calls their EXISTING snapshot/summary
+  methods. Their result-dict and summary keys are untouched (pinned by
+  tests); the registry is a read-side union, not a rewrite.
+
+Collectors hold the instrumented object by weakref: registering costs one
+dict entry, a dead object prunes itself on the next register/snapshot, and
+short-lived instances (per-test engines, per-epoch pipelines) never leak.
+
+:class:`SnapshotWriter` is the ``--metrics_snapshot_secs`` surface: a
+daemon thread appending one JSON line per period to a file, plus a final
+line on close. Stdlib-only (imported by worker processes).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+import weakref
+from typing import Callable, Dict, List, Optional
+
+_KIND_METHOD = {
+    "data_health": "snapshot",      # data.health.DataHealth
+    "train_health": "snapshot",     # train.guard.TrainHealth
+    "serving": "summary",           # serve.stats.ServingStats
+    "host_stage": "ns_per_record",  # utils.profiling.HostStageStats
+    "publisher": "stats",           # train.publish.Publisher
+    "loop_health": "snapshot",      # loop.health.LoopHealth
+    "experiment": "summary",        # serve.experiment.ExperimentRouter
+    "promotion": "stats",           # train.promote.PromotionController
+}
+
+
+class Counter:
+    """Monotonic int counter."""
+
+    __slots__ = ("name", "_lock", "_v")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._v = 0
+
+    def inc(self, n: int = 1) -> None:
+        with self._lock:
+            self._v += int(n)
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._v
+
+
+class Gauge:
+    """Last-write-wins float."""
+
+    __slots__ = ("name", "_lock", "_v")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._v = 0.0
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._v = float(v)
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._v
+
+
+class Histogram:
+    """Bounded-reservoir value distribution (keeps the newest ``cap``
+    observations; count/sum stay exact over the full stream)."""
+
+    __slots__ = ("name", "_lock", "_vals", "_cap", "_next", "count", "sum")
+
+    def __init__(self, name: str, cap: int = 4096):
+        self.name = name
+        self._lock = threading.Lock()
+        self._vals: List[float] = []
+        self._cap = max(int(cap), 1)
+        self._next = 0
+        self.count = 0
+        self.sum = 0.0
+
+    def observe(self, v: float) -> None:
+        v = float(v)
+        with self._lock:
+            self.count += 1
+            self.sum += v
+            if len(self._vals) < self._cap:
+                self._vals.append(v)
+            else:
+                self._vals[self._next] = v
+                self._next = (self._next + 1) % self._cap
+
+    def percentile(self, q: float) -> Optional[float]:
+        with self._lock:
+            if not self._vals:
+                return None
+            vals = sorted(self._vals)
+        # nearest-rank
+        idx = min(len(vals) - 1,
+                  max(0, -(-int(q * 100) * len(vals) // 100) - 1))
+        return vals[idx]
+
+    def summary(self) -> Dict[str, Optional[float]]:
+        with self._lock:
+            n, s = self.count, self.sum
+        return {"count": n, "sum": s,
+                "p50": self.percentile(0.50), "p99": self.percentile(0.99)}
+
+
+class Registry:
+    """Process-global union of typed metrics and stat-class collectors."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._metrics: Dict[str, object] = {}
+        # name -> (weakref-or-None, callable). With a weakref the callable
+        # takes the live object; with None it takes no arguments.
+        self._collectors: Dict[str, tuple] = {}
+
+    def _typed(self, name: str, cls):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = cls(name)
+                self._metrics[name] = m
+            elif type(m) is not cls:
+                raise TypeError(
+                    f"metric {name!r} already registered as "
+                    f"{type(m).__name__}, not {cls.__name__}")
+            return m
+
+    def counter(self, name: str) -> Counter:
+        return self._typed(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._typed(name, Gauge)
+
+    def histogram(self, name: str) -> Histogram:
+        return self._typed(name, Histogram)
+
+    def register_collector(self, name: str, fn: Callable,
+                           obj: Optional[object] = None) -> str:
+        """Attach a snapshot source. With ``obj``, ``fn(obj)`` is called at
+        snapshot time and the registration dies with the object (weakref).
+        Returns the (possibly suffixed) unique name used."""
+        with self._lock:
+            self._prune_locked()
+            base, n = name, 2
+            while name in self._collectors:
+                name = f"{base}#{n}"
+                n += 1
+            ref = weakref.ref(obj) if obj is not None else None
+            self._collectors[name] = (ref, fn)
+            return name
+
+    def _prune_locked(self) -> None:
+        dead = [k for k, (ref, _) in self._collectors.items()
+                if ref is not None and ref() is None]
+        for k in dead:
+            del self._collectors[k]
+
+    def snapshot(self) -> Dict[str, object]:
+        """Flat dict: typed metrics under their names, collector outputs
+        namespaced ``<collector>.<key>``."""
+        with self._lock:
+            self._prune_locked()
+            metrics = dict(self._metrics)
+            collectors = dict(self._collectors)
+        out: Dict[str, object] = {}
+        for name, m in sorted(metrics.items()):
+            if isinstance(m, Histogram):
+                for k, v in m.summary().items():
+                    out[f"{name}.{k}"] = v
+            else:
+                out[name] = m.value
+        for name, (ref, fn) in sorted(collectors.items()):
+            try:
+                if ref is not None:
+                    obj = ref()
+                    if obj is None:
+                        continue
+                    snap = fn(obj)
+                else:
+                    snap = fn()
+            except Exception as e:  # a broken collector must not sink the rest
+                out[f"{name}.error"] = str(e)[:200]
+                continue
+            if not isinstance(snap, dict):
+                out[name] = snap
+                continue
+            for k, v in snap.items():
+                if isinstance(v, (int, float, str, bool)) or v is None:
+                    out[f"{name}.{k}"] = v
+        return out
+
+    def reset(self) -> None:
+        with self._lock:
+            self._metrics.clear()
+            self._collectors.clear()
+
+
+REGISTRY = Registry()
+
+
+def auto_register(kind: str, obj: object) -> str:
+    """Stat-class ``__init__`` hook: register ``obj``'s existing snapshot
+    method under its kind name (``data_health``, ``serving``, ...). Costs
+    one weakref'd dict entry; nothing is called until a snapshot is taken."""
+    method = _KIND_METHOD.get(kind)
+    if method is None:
+        raise ValueError(f"unknown collector kind {kind!r}; "
+                         f"known: {sorted(_KIND_METHOD)}")
+    fn = getattr(type(obj), method)
+    return REGISTRY.register_collector(kind, fn, obj=obj)
+
+
+class SnapshotWriter:
+    """Periodic JSONL dump of ``REGISTRY.snapshot()`` to ``path``.
+
+    A daemon thread appends ``{"t": <wall>, "metrics": {...}}`` every
+    ``period_secs`` and once more on :meth:`close` (so a short run still
+    leaves one line). ``writes``/``write_s`` expose its own cost for the
+    bench series."""
+
+    def __init__(self, path: str, period_secs: float,
+                 registry: Optional[Registry] = None):
+        if period_secs <= 0:
+            raise ValueError(
+                f"period_secs must be > 0, got {period_secs}")
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        self.path = path
+        self.period_secs = float(period_secs)
+        self._registry = registry if registry is not None else REGISTRY
+        self.writes = 0
+        self.write_s = 0.0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, name="metrics-snapshot", daemon=True)
+        self._thread.start()
+
+    def _write_once(self) -> None:
+        t0 = time.perf_counter()
+        line = json.dumps({"t": time.time(),
+                           "metrics": self._registry.snapshot()},
+                          default=str)
+        with open(self.path, "a") as f:
+            f.write(line + "\n")
+        self.writes += 1
+        self.write_s += time.perf_counter() - t0
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.period_secs):
+            try:
+                self._write_once()
+            except Exception:
+                pass  # metrics must never take down the host process
+
+    def close(self) -> None:
+        if self._stop.is_set():
+            return
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+        try:
+            self._write_once()  # final flush so short runs leave evidence
+        except Exception:
+            pass

@@ -1,0 +1,397 @@
+"""Serving-side observability: latency/QPS/occupancy/swap accounting.
+
+The serving mirror of ``data.health.DataHealth`` / ``train.guard.TrainHealth``
+— one thread-safe object every layer of the serving runtime stamps into, and
+one ``summary()`` dict the drill and ``bench.py``'s ``serving`` series read.
+All timestamps come from an injectable ``clock`` so tests are sleep-free.
+
+What the fields mean (the contract ``SERVING_r0*.json`` reports):
+
+  * ``serving_p50_ms`` / ``serving_p99_ms`` — per-request latency from
+    ``submit()`` admission to future resolution (queue wait + batch wait +
+    predict + demux; the number a client actually experiences).
+  * ``serving_small_p50_ms`` / ``serving_small_p99_ms`` (and the ``large``
+    pair) — the same latency split by priority lane. The small lane exists
+    so a cheap request never queues behind a max-batch fill; its p99 staying
+    at or under the global p99 is the lane's whole job (tier-1 smoke).
+  * ``serving_qps`` — completed requests over the first→last completion
+    window (steady-state, not including warm-up idle).
+  * ``batch_occupancy_pct`` — real rows over padded bucket rows across all
+    flushes: 100% means every flush exactly filled its bucket; low values
+    mean the deadline fires before batches fill (see TUNING §2.10).
+  * ``swap_blackout_ms`` — worst-case time from a hot model swap to the
+    first completed flush that EXECUTED the new model version. Flushes are
+    stamped with the model version that ran them, so a pre-swap flush
+    completing after the swap (normal under pipelined batching) does not
+    close the window early. Near-zero is the design goal: the new model
+    loads and pre-warms off to the side, so a swap should never stall the
+    response stream.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from ..obs import metrics as metrics_lib
+
+#: Lane names the engine stamps requests with. "small" is the priority lane
+#: (row count <= --serve_small_rows); everything else is "large".
+LANE_SMALL = "small"
+LANE_LARGE = "large"
+
+
+def _pct(values: List[float], q: float) -> Optional[float]:
+    if not values:
+        return None
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+class ServingStats:
+    """Thread-safe counters + latency reservoir for one serving engine."""
+
+    def __init__(self, clock: Callable[[], float] = time.monotonic):
+        self._clock = clock
+        self._lock = threading.Lock()
+        self.requests_completed = 0
+        self.requests_failed = 0
+        self.rows_completed = 0
+        self.overloads = 0            # typed ServerOverloaded rejections
+        self.flushes = 0
+        self.padded_rows = 0          # sum of bucket sizes over flushes
+        self.real_rows = 0            # sum of real rows over flushes
+        self.max_batch_flushes = 0    # flushes that filled max_batch rows
+        self.deadline_flushes = 0     # flushes fired by the delay deadline
+        self.watcher_errors = 0       # LatestWatcher poll-loop exceptions
+        # Overload-plane accounting (admission/hedging/degradation). The
+        # reconciliation identity the flood harness asserts:
+        #   offered == completed + failed + overloads + sheds.
+        self.sheds = 0                # typed AdmissionShed rejections
+        self.sheds_by_class: Dict[str, int] = {}
+        self.admission_transitions = 0
+        self.admission_level = 0      # last shed level the gate entered
+        self.hedges_fired = 0         # hedge submitted to another replica
+        self.hedges_won = 0           # hedge resolved before the primary
+        self.hedges_cancelled = 0     # losing leg cancelled after a win
+        # Fast-path accounting (serve/cache.py): a hit resolves at submit
+        # without touching the batcher; a coalesced join attaches to an
+        # in-flight leader and fans out from its flush. Both ALSO count in
+        # requests_completed (they are answered requests); these counters
+        # say how many were answered without device work of their own.
+        self.cache_hits = 0
+        self.cache_misses = 0         # cache armed, lookup missed
+        self.coalesced = 0            # joins attached to an in-flight leader
+        self.degraded_by_rung: Dict[str, int] = {}
+        self.degrade_transitions = 0
+        self.latencies_ms: List[float] = []
+        self.lane_latencies_ms: Dict[str, List[float]] = {
+            LANE_SMALL: [], LANE_LARGE: []}
+        self.swap_blackouts_ms: List[float] = []
+        # Resolved engine policy, stamped by the engine at construction so
+        # the summary self-documents the configuration that produced it
+        # (the implicit serve_queue_rows=0 -> 8*max_batch resolution made
+        # the effective bound invisible before).
+        self.policy: Dict[str, Any] = {}
+        self._first_done: Optional[float] = None
+        self._last_done: Optional[float] = None
+        self._swap_at: Optional[float] = None
+        self._swap_version: Optional[int] = None
+        # Unified registry (obs.metrics): the existing summary() IS this
+        # object's metric surface; registration is one weakref'd entry.
+        metrics_lib.auto_register("serving", self)
+
+    # ------------------------------------------------------------- stamps
+    def set_policy(self, **kw: Any) -> None:
+        """Record resolved engine policy (queue_rows, inflight, ...)."""
+        with self._lock:
+            self.policy.update(kw)
+
+    def record_request_done(self, latency_ms: float,
+                            lane: str = LANE_LARGE) -> None:
+        with self._lock:
+            self.requests_completed += 1
+            self.latencies_ms.append(float(latency_ms))
+            self.lane_latencies_ms.setdefault(lane, []).append(
+                float(latency_ms))
+
+    def record_request_failed(self) -> None:
+        with self._lock:
+            self.requests_failed += 1
+
+    def record_overload(self) -> None:
+        with self._lock:
+            self.overloads += 1
+
+    def record_shed(self, value_class: str) -> None:
+        """Admission gate refused one request's value class (typed
+        AdmissionShed — a policy refusal, not a full queue)."""
+        with self._lock:
+            self.sheds += 1
+            self.sheds_by_class[value_class] = \
+                self.sheds_by_class.get(value_class, 0) + 1
+
+    def record_admission_transition(self, level: int) -> None:
+        """The admission hysteresis ladder moved to ``level``."""
+        with self._lock:
+            self.admission_transitions += 1
+            self.admission_level = int(level)
+
+    def record_hedge_fired(self) -> None:
+        with self._lock:
+            self.hedges_fired += 1
+
+    def record_hedge_won(self) -> None:
+        with self._lock:
+            self.hedges_won += 1
+
+    def record_hedge_cancelled(self) -> None:
+        with self._lock:
+            self.hedges_cancelled += 1
+
+    def record_cache_hit(self) -> None:
+        with self._lock:
+            self.cache_hits += 1
+
+    def record_cache_miss(self) -> None:
+        with self._lock:
+            self.cache_misses += 1
+
+    def record_coalesced(self) -> None:
+        with self._lock:
+            self.coalesced += 1
+
+    def record_degraded(self, rung: str) -> None:
+        """One request answered at a degraded cascade rung (reduced
+        retrieve_k, or retrieval-only with the ranker skipped)."""
+        with self._lock:
+            self.degraded_by_rung[rung] = \
+                self.degraded_by_rung.get(rung, 0) + 1
+
+    def record_degrade_transition(self, rung: str) -> None:
+        with self._lock:
+            self.degrade_transitions += 1
+
+    def record_flush(self, rows: int, bucket: int, *, full: bool = False,
+                     version: Optional[int] = None) -> None:
+        """One batch flushed through predict: ``rows`` real rows padded to
+        ``bucket``. ``full`` = the max-batch policy fired (vs deadline).
+        ``version`` = the model version (watcher swap_count) that EXECUTED
+        this flush; under pipelined batching a pre-swap flush may complete
+        after the swap, and only a flush of the new version may close the
+        blackout window. None (no versioned predict fn) keeps the legacy
+        swap→next-completed-flush measure."""
+        now = self._clock()
+        with self._lock:
+            self.flushes += 1
+            self.real_rows += int(rows)
+            self.rows_completed += int(rows)
+            self.padded_rows += int(bucket)
+            if full:
+                self.max_batch_flushes += 1
+            else:
+                self.deadline_flushes += 1
+            if self._first_done is None:
+                self._first_done = now
+            if self._swap_at is not None and (
+                    version is None or self._swap_version is None
+                    or version >= self._swap_version):
+                self.swap_blackouts_ms.append(
+                    1000.0 * max(0.0, now - self._swap_at))
+                self._swap_at = None
+                self._swap_version = None
+            self._last_done = now
+
+    def record_watcher_error(self) -> None:
+        """The LATEST poll loop hit an unexpected exception (and kept the
+        current model). Alive-but-failing watchers must be visible."""
+        with self._lock:
+            self.watcher_errors += 1
+
+    def record_swap(self, version: Optional[int] = None) -> None:
+        """A hot model swap happened; the first flush that executed model
+        ``version`` (or newer) closes the blackout window. Without a
+        version, any next flush closes it (the pre-pipelining measure,
+        which under-counts when an old-model flush lands post-swap)."""
+        with self._lock:
+            if self._swap_at is None:
+                self._swap_at = self._clock()
+                self._swap_version = version
+
+    # ------------------------------------------------------------ summary
+    def summary(self) -> Dict[str, Any]:
+        with self._lock:
+            window = None
+            if (self._first_done is not None and self._last_done is not None
+                    and self._last_done > self._first_done):
+                window = self._last_done - self._first_done
+            # Zero completed requests is a VALID summary (a fleet that
+            # served nothing — e.g. a challenger replica behind a 0% split
+            # or a drained canary): 0 QPS, None percentiles, no raise. None
+            # QPS is reserved for "requests exist but the window is
+            # degenerate" (a single completion instant).
+            if window:
+                qps = self.requests_completed / window
+            else:
+                qps = 0.0 if self.requests_completed == 0 else None
+            occupancy = (100.0 * self.real_rows / self.padded_rows
+                         if self.padded_rows else None)
+            small = self.lane_latencies_ms.get(LANE_SMALL, [])
+            large = self.lane_latencies_ms.get(LANE_LARGE, [])
+            out = {
+                "serving_requests": self.requests_completed,
+                "serving_failed": self.requests_failed,
+                "serving_overloads": self.overloads,
+                "serving_rows": self.rows_completed,
+                "serving_p50_ms": _pct(self.latencies_ms, 50),
+                "serving_p99_ms": _pct(self.latencies_ms, 99),
+                "serving_small_requests": len(small),
+                "serving_small_p50_ms": _pct(small, 50),
+                "serving_small_p99_ms": _pct(small, 99),
+                "serving_large_p50_ms": _pct(large, 50),
+                "serving_large_p99_ms": _pct(large, 99),
+                "serving_qps": round(qps, 1) if qps is not None else None,
+                "batch_occupancy_pct": (round(occupancy, 2)
+                                        if occupancy is not None else None),
+                "serving_flushes": self.flushes,
+                "serving_rows_per_flush": (
+                    round(self.real_rows / self.flushes, 2)
+                    if self.flushes else None),
+                "serving_max_batch_flushes": self.max_batch_flushes,
+                "serving_deadline_flushes": self.deadline_flushes,
+                "serving_watcher_errors": self.watcher_errors,
+                "serving_sheds": self.sheds,
+                "serving_sheds_by_class": dict(self.sheds_by_class),
+                "admission_level": self.admission_level,
+                "admission_transitions": self.admission_transitions,
+                "hedges_fired": self.hedges_fired,
+                "hedges_won": self.hedges_won,
+                "hedges_cancelled": self.hedges_cancelled,
+                "serving_cache_hits": self.cache_hits,
+                "serving_cache_misses": self.cache_misses,
+                "serving_cache_hit_rate": (
+                    round(self.cache_hits
+                          / (self.cache_hits + self.cache_misses), 4)
+                    if (self.cache_hits + self.cache_misses) else None),
+                "serving_coalesced": self.coalesced,
+                "serving_degraded": sum(self.degraded_by_rung.values()),
+                "serving_degraded_by_rung": dict(self.degraded_by_rung),
+                "degrade_transitions": self.degrade_transitions,
+                "swap_blackout_ms": (
+                    round(max(self.swap_blackouts_ms), 3)
+                    if self.swap_blackouts_ms else None),
+            }
+            out.update(self.policy)
+            return out
+
+
+def aggregate_summary(stats: Sequence[ServingStats]) -> Dict[str, Any]:
+    """Fleet-level summary over N replicas' stats.
+
+    Percentiles are computed over the CONCATENATED latency reservoirs (a
+    true fleet percentile, not an average of per-replica percentiles); QPS
+    uses the union completion window (earliest first-done → latest
+    last-done), so overlapping replicas aggregate instead of double-count;
+    blackout reports the worst replica (the fleet gate is per-replica, and
+    staggered swaps mean the FLEET never sees them all at once — that claim
+    lives with the swap coordinator, not here).
+    """
+    # Materialize first: a generator argument would be consumed by the
+    # accumulation loop and then re-counted as replicas=0 below (and an
+    # EMPTY fleet — or one that served nothing — must still summarize to
+    # 0 QPS / None percentiles, never raise).
+    stats = list(stats)
+    lat: List[float] = []
+    small: List[float] = []
+    large: List[float] = []
+    blackout: List[Optional[float]] = []
+    watcher_errs: List[int] = []
+    totals = {"serving_requests": 0, "serving_failed": 0,
+              "serving_overloads": 0, "serving_rows": 0,
+              "serving_flushes": 0, "serving_watcher_errors": 0,
+              "serving_sheds": 0, "hedges_fired": 0, "hedges_won": 0,
+              "hedges_cancelled": 0, "serving_cache_hits": 0,
+              "serving_cache_misses": 0, "serving_coalesced": 0,
+              "serving_degraded": 0,
+              "degrade_transitions": 0, "admission_transitions": 0}
+    sheds_by_class: Dict[str, int] = {}
+    degraded_by_rung: Dict[str, int] = {}
+    first_done: Optional[float] = None
+    last_done: Optional[float] = None
+    real_rows = padded_rows = 0
+    for s in stats:
+        with s._lock:
+            lat.extend(s.latencies_ms)
+            small.extend(s.lane_latencies_ms.get(LANE_SMALL, []))
+            large.extend(s.lane_latencies_ms.get(LANE_LARGE, []))
+            blackout.append(max(s.swap_blackouts_ms)
+                            if s.swap_blackouts_ms else None)
+            totals["serving_requests"] += s.requests_completed
+            totals["serving_failed"] += s.requests_failed
+            totals["serving_overloads"] += s.overloads
+            totals["serving_rows"] += s.rows_completed
+            totals["serving_flushes"] += s.flushes
+            totals["serving_watcher_errors"] += s.watcher_errors
+            totals["serving_sheds"] += s.sheds
+            totals["hedges_fired"] += s.hedges_fired
+            totals["hedges_won"] += s.hedges_won
+            totals["hedges_cancelled"] += s.hedges_cancelled
+            totals["serving_cache_hits"] += s.cache_hits
+            totals["serving_cache_misses"] += s.cache_misses
+            totals["serving_coalesced"] += s.coalesced
+            totals["serving_degraded"] += sum(s.degraded_by_rung.values())
+            totals["degrade_transitions"] += s.degrade_transitions
+            totals["admission_transitions"] += s.admission_transitions
+            for cls, count in s.sheds_by_class.items():
+                sheds_by_class[cls] = sheds_by_class.get(cls, 0) + count
+            for rung, count in s.degraded_by_rung.items():
+                degraded_by_rung[rung] = degraded_by_rung.get(rung, 0) + count
+            watcher_errs.append(s.watcher_errors)
+            real_rows += s.real_rows
+            padded_rows += s.padded_rows
+            if s._first_done is not None:
+                first_done = (s._first_done if first_done is None
+                              else min(first_done, s._first_done))
+            if s._last_done is not None:
+                last_done = (s._last_done if last_done is None
+                             else max(last_done, s._last_done))
+    window = None
+    if (first_done is not None and last_done is not None
+            and last_done > first_done):
+        window = last_done - first_done
+    if window:
+        qps = totals["serving_requests"] / window
+    else:
+        qps = 0.0 if totals["serving_requests"] == 0 else None
+    known_blackouts = [b for b in blackout if b is not None]
+    looked_up = (totals["serving_cache_hits"]
+                 + totals["serving_cache_misses"])
+    out = dict(totals)
+    out.update({
+        "replicas": len(stats),
+        "serving_cache_hit_rate": (
+            round(totals["serving_cache_hits"] / looked_up, 4)
+            if looked_up else None),
+        "serving_p50_ms": _pct(lat, 50),
+        "serving_p99_ms": _pct(lat, 99),
+        "serving_small_requests": len(small),
+        "serving_small_p50_ms": _pct(small, 50),
+        "serving_small_p99_ms": _pct(small, 99),
+        "serving_large_p50_ms": _pct(large, 50),
+        "serving_large_p99_ms": _pct(large, 99),
+        "serving_qps": round(qps, 1) if qps is not None else None,
+        "batch_occupancy_pct": (round(100.0 * real_rows / padded_rows, 2)
+                                if padded_rows else None),
+        "swap_blackout_ms": (round(max(known_blackouts), 3)
+                             if known_blackouts else None),
+        "serving_sheds_by_class": sheds_by_class,
+        "serving_degraded_by_rung": degraded_by_rung,
+        "swap_blackout_ms_per_replica": [
+            round(b, 3) if b is not None else None for b in blackout],
+        # Per-replica fault visibility: an alive-but-failing watcher on ONE
+        # replica is invisible in the fleet total when the others are clean.
+        "serving_watcher_errors_per_replica": watcher_errs,
+    })
+    return out
