@@ -9,11 +9,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 1. The card's name and power limit (``nvidia-smi``); build every CUDA
    kernel of the port from ``deepfm_tpu_torch/csrc`` with nvcc, in parallel.
-2. Kernel phase: ``fused_fm`` (hand-written CUDA) against ``reference_fm``
+2. Kernel phase: the ``fused_fm`` forward kernel against ``reference_fm``
    (plain PyTorch) on the card, float32 and bfloat16 inputs, at the serving
    shapes and a few others; then the kernel's time beside its bound and the
    plain version's time.
-3. Serve phase: DeepFM at the reference width (``Config()`` defaults:
+3. Backward kernel phase: the ``fused_fm`` backward kernel against
+   ``reference_fm_bwd``, float32 and bfloat16, at the training shapes and a
+   few others, with the gradients' dtypes, and ``torch.autograd.grad``
+   through ``fused_fm`` against the same through ``reference_fm``; then its
+   time beside its bound and the plain version's at the training shape.
+4. Train parity: DeepFM at the reference width, one seeded init, 20 steps
+   on the same batches (dropout keep 1.0) with the kernels
+   (``use_pallas=True``) and with the plain path; the losses must agree.
+5. Train phase, this slice's main path: synthetic TFRecords at the
+   reference width written with the port's ``generate_synthetic_ctr``,
+   then ``tasks.run`` train (the ``Config()`` defaults: dropout keep 0.5,
+   Adam, batch 1024; two epochs, an eval after each), eval and export, all
+   on the card. The logged loss must fall, eval AUC exceed 0.5, the
+   backward kernel launch once per train step and the forward once per
+   train step and eval batch; the trained artifact then serves. Then the
+   step time at B=1024 of the kernel path and the plain path, and one
+   step's device busy time and idle share.
+6. Serve phase: DeepFM at the reference width (``Config()`` defaults:
    V=117,581, F=39, K=32, tower 128-64-32, bfloat16 tower) with random
    weights from a seed, exported, published behind ``LATEST`` and served by
    ``ServingEngine.serve_latest`` to several client threads. Every response
@@ -23,7 +40,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device the script
-exits non-zero and prints no result.
+exits non-zero and prints no result. Every kernel's launch count is read
+over a main-path run (train for both kernels, serve for the forward), with
+the counts set to 0 just before it.
 
 Numerics: float32 matmuls run in full float32
 (``torch.backends.cuda.matmul.allow_tf32 = False``) and bfloat16 matmuls
@@ -35,6 +54,7 @@ below assumes both.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -51,9 +71,12 @@ sys.path.insert(0, HERE)
 
 from deepfm_tpu_torch import _native  # noqa: E402
 from deepfm_tpu_torch.config import Config  # noqa: E402
+from deepfm_tpu_torch.data import libsvm  # noqa: E402
 from deepfm_tpu_torch.models import get_model  # noqa: E402
+from deepfm_tpu_torch.ops import fused_fm as ffm  # noqa: E402
 from deepfm_tpu_torch.ops.fused_fm import fused_fm, reference_fm  # noqa: E402
 from deepfm_tpu_torch.serve import ServingEngine  # noqa: E402
+from deepfm_tpu_torch.train import Trainer, tasks  # noqa: E402
 from deepfm_tpu_torch.utils import export as export_lib  # noqa: E402
 
 SEED = 0
@@ -68,6 +91,30 @@ FM_RTOL, FM_ATOL = 1e-4, 1e-3
 FM_CASES = [(b, 39, 32) for b in (1, 7, 256, 1024)] + [(256, 13, 8),
                                                        (256, 39, 48)]
 TIMED_SHAPE = (256, 39, 32)  # one full serving flush (serve_max_batch)
+
+# Backward kernel vs reference_fm_bwd: one float32 sum over F (in another
+# order) then elementwise float32 products; float32 cotangents agree to
+# 1e-5 relative. bfloat16 cotangents are rounded from float32 on both
+# sides, so a value at a rounding boundary can land one bf16 ulp apart
+# (at most 2^-7 of its magnitude).
+BWD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),
+           torch.bfloat16: dict(rtol=2 ** -7, atol=1e-3)}
+BWD_CASES = [(b, 39, 32) for b in (1, 7, 1024, 4096)] + [(1024, 13, 8),
+                                                         (1024, 39, 48)]
+TRAIN_SHAPE = (1024, 39, 32)  # one training batch at the reference width
+
+# Train parity, kernels vs plain path, 20 steps at lr 5e-4. They differ
+# only in float32 sum order (the FM reductions, and the atomics of the
+# embedding backward) until a bfloat16 tower rounds an input one ulp
+# apart; between the JAX package and the port on the CPU the same bf16
+# trajectory agreed to 2e-5 per step (tests/test_torch_train.py).
+PARITY_STEPS = 20
+PARITY_LOSS_ATOL = 1e-3
+
+# Train phase: the reference width with 64 Ki train and 8 Ki eval records,
+# decoded per record in Python on the pipeline's prefetch thread.
+TRAIN_FILES, TRAIN_PER_FILE, EVAL_RECORDS = 8, 8192, 8192
+TRAIN_EPOCHS = 2
 
 # Serve phase. Embedding tables are scaled up from their glorot init so the
 # FM term moves probabilities well away from 0.5: a wrong kernel then shows
@@ -184,6 +231,244 @@ def kernel_phase():
     print("fused_fm library_ms: none (no single PyTorch call computes the "
           "fused first+second order FM)")
     return max_err, timing[TIMED_SHAPE]
+
+
+def bwd_bound(b, f, k, itemsize):
+    """(bound_ms, bound_by) of the backward: w, vals, xv and g read once,
+    dw, dvals, dxv written once, over HBM bandwidth; vs ~2 flops per
+    output element over the float32 rate."""
+    nbytes = 2 * b * f * (k + 2) * itemsize + 4 * b
+    flops = b * f * (2 * k + 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_bwd_phase():
+    max_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (b, f, k) in enumerate(BWD_CASES):
+            w, vals, xv = fm_inputs(b, f, k, dtype, SEED + 100 + i)
+            g = torch.randn(b, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(i))
+            got = ffm._launch_bwd(g, w, vals, xv)
+            want = ffm.reference_fm_bwd(g, w, vals, xv)
+            torch.cuda.synchronize()
+            for name, gt, wt, prim in zip(("dw", "dvals", "dxv"), got, want,
+                                          (w, vals, xv)):
+                assert gt.dtype == wt.dtype == prim.dtype, (name, gt.dtype)
+                assert gt.shape == prim.shape, (name, gt.shape)
+                torch.testing.assert_close(gt, wt, **BWD_TOL[dtype])
+                max_err = max(max_err, float((gt.float() - wt.float())
+                                             .abs().max()))
+            # autograd through the kernels vs through the plain forward
+            tw, tv, tx = (t.clone().requires_grad_() for t in (w, vals, xv))
+            kern = torch.autograd.grad(fused_fm(tw, tv, tx), (tw, tv, tx), g)
+            plain = torch.autograd.grad(reference_fm(tw, tv, tx),
+                                        (tw, tv, tx), g)
+            torch.cuda.synchronize()
+            for kt, pt in zip(kern, plain):
+                assert kt.dtype == pt.dtype == dtype
+                torch.testing.assert_close(kt, pt, **BWD_TOL[dtype])
+            print(f"fused_fm_bwd check dtype={str(dtype)[6:]} B={b} F={f} "
+                  f"K={k} grads ok, autograd ok")
+
+    b, f, k = TRAIN_SHAPE
+    w, vals, xv = fm_inputs(b, f, k, torch.float32, SEED)
+    g = torch.randn(b, device="cuda")
+    kern_call = cuda_ms(lambda: ffm._launch_bwd(g, w, vals, xv))
+    plain_call = cuda_ms(lambda: ffm.reference_fm_bwd(g, w, vals, xv))
+    kern = device_profile(lambda: ffm._launch_bwd(g, w, vals, xv))[0]
+    plain = device_profile(lambda: ffm.reference_fm_bwd(g, w, vals, xv))[0]
+    source = "profiler"
+    if kern is None or plain is None:
+        kern, plain, source = kern_call, plain_call, "cuda_events"
+    bound, bound_by = bwd_bound(b, f, k, 4)
+    print(f"fused_fm_bwd time f32 B={b} F={f} K={k}: kernel_ms={kern:.6f} "
+          f"plain_ms={plain:.6f} ({source}) kernel_call_ms={kern_call:.6f} "
+          f"plain_call_ms={plain_call:.6f} (cuda_events) "
+          f"bound_ms={bound:.6f} ({bound_by}: HBM "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s)")
+    print("fused_fm_bwd library_ms: none (no single PyTorch call computes "
+          "the FM cotangents)")
+    return max_err, (kern, plain, bound, bound_by, source)
+
+
+def random_batches(cfg: Config, n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    b, f = cfg.batch_size, cfg.field_size
+    return [{"feat_ids": rng.integers(0, cfg.feature_size, (b, f)
+                                      ).astype(np.int32),
+             "feat_vals": rng.random((b, f), dtype=np.float32),
+             "label": (rng.random((b, 1)) < 0.3).astype(np.float32)}
+            for _ in range(n)]
+
+
+def train_parity_phase(cfg: Config, dev: torch.device,
+                       steps: int = PARITY_STEPS) -> None:
+    """20 steps from one seeded init on the same batches, dropout off,
+    with the kernels and with the plain path; per-step losses agree."""
+    cfg = cfg.replace(dropout="1.0,1.0,1.0")
+    batches = random_batches(cfg, steps, SEED + 7)
+    losses = {}
+    for use_pallas in (True, False):
+        trainer = Trainer(cfg.replace(use_pallas=use_pallas), device=dev)
+        state = trainer.init_state(SEED)
+        out = []
+        for b in batches:
+            state, m = trainer.train_step(state, trainer.put_batch(b))
+            out.append(m["loss"])
+        losses[use_pallas] = np.array([float(x) for x in out])
+    diff = np.abs(losses[True] - losses[False])
+    assert np.all(np.isfinite(losses[True])), losses[True]
+    assert diff.max() <= PARITY_LOSS_ATOL, (losses, diff)
+    print(f"train parity: {steps} steps kernel vs plain, max |loss diff| "
+          f"{diff.max():.3e} (atol {PARITY_LOSS_ATOL}); loss "
+          f"{losses[True][0]:.5f} -> {losses[True][-1]:.5f}")
+
+
+class _LossLog(logging.Handler):
+    """Collects the fit loop's ``step=... loss=...`` log lines."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.losses = []
+
+    def emit(self, record):
+        if record.msg.startswith("step=") and record.args:
+            self.losses.append((int(record.args[0]), float(record.args[1])))
+
+
+def train_phase(workdir: str, cfg: Config, dev: torch.device, *,
+                files: int = TRAIN_FILES, per_file: int = TRAIN_PER_FILE,
+                eval_records: int = EVAL_RECORDS):
+    """Synthetic data, then the launcher's tasks on ``dev``: train (with an
+    eval after each epoch), eval, export; the trained artifact serves.
+    Returns ({kernel: launches in the train task}, train result). On a CPU
+    device (a rehearsal at a small size) the wrappers launch nothing."""
+    data = os.path.join(workdir, "data")
+    t0 = time.perf_counter()
+    libsvm.generate_synthetic_ctr(
+        data, num_files=files, examples_per_file=per_file,
+        feature_size=cfg.feature_size, field_size=cfg.field_size, seed=SEED)
+    libsvm.generate_synthetic_ctr(
+        data, num_files=1, examples_per_file=eval_records,
+        feature_size=cfg.feature_size, field_size=cfg.field_size,
+        seed=SEED + 1, prefix="va")
+    print(f"train data: {files * per_file} train + {eval_records} eval "
+          f"records written in {time.perf_counter() - t0:.1f}s")
+    cfg = cfg.replace(data_dir=data, val_data_dir=data,
+                      model_dir=os.path.join(workdir, "ckpt"),
+                      servable_model_dir=os.path.join(workdir, "servable"),
+                      num_epochs=TRAIN_EPOCHS)
+    steps = TRAIN_EPOCHS * (files * per_file // cfg.batch_size)
+    eval_batches = -(-eval_records // cfg.batch_size)
+
+    loss_log = _LossLog()
+    loop_log = logging.getLogger("deepfm_tpu_torch.train.loop")
+    loop_log.addHandler(loss_log)
+    loop_log.setLevel(logging.INFO)
+    fused_fm.launches = fused_fm.bwd_launches = 0
+    t0 = time.perf_counter()
+    try:
+        res = tasks.run(cfg.replace(task_type="train"), device=dev)
+    finally:
+        loop_log.removeHandler(loss_log)
+    wall = time.perf_counter() - t0
+    launches = {"fused_fm": fused_fm.launches,
+                "fused_fm_bwd": fused_fm.bwd_launches}
+    print(f"train: steps={res['steps']:.0f} wall_s={wall:.2f} "
+          f"examples_per_sec={res.get('examples_per_sec', 0):.1f} "
+          f"step_ms_p50={res.get('step_ms_p50', 0):.3f} (host clock, whole "
+          f"input path) final_loss={res['loss']:.5f} auc={res['auc']:.5f} "
+          f"eval_loss={res['eval_loss']:.5f} launches={launches}")
+    print("train logged losses: " + " ".join(
+        f"{s}:{l:.4f}" for s, l in loss_log.losses))
+    assert res["steps"] == steps, res
+    first = np.mean([l for _, l in loss_log.losses[:3]])
+    last = np.mean([l for _, l in loss_log.losses[-3:]])
+    assert len(loss_log.losses) >= 6 and last < first, loss_log.losses
+    assert res["auc"] > 0.5, res
+    on_card = dev.type == "cuda"
+    assert launches["fused_fm_bwd"] == (steps if on_card else 0), launches
+    assert launches["fused_fm"] == ((steps + TRAIN_EPOCHS * eval_batches)
+                                    if on_card else 0), launches
+
+    fused_fm.launches = 0
+    ev = tasks.run(cfg.replace(task_type="eval"), device=dev)
+    assert abs(ev["auc"] - res["auc"]) < 1e-3, (ev, res)
+    assert fused_fm.launches == (eval_batches if on_card else 0)
+    out = tasks.run(cfg.replace(task_type="export",
+                                servable_model_dir=os.path.join(
+                                    workdir, "exported")), device=dev)
+    assert out["step"] == steps
+    artifact = os.path.join(workdir, "exported", str(steps))
+    serve = export_lib.load_serving(artifact, device=dev,
+                                    buckets=export_lib.serving_buckets(256))
+    rng = np.random.default_rng(SEED + 3)
+    ids = rng.integers(0, cfg.feature_size, (100, cfg.field_size)
+                       ).astype(np.int32)
+    vals = rng.random((100, cfg.field_size), dtype=np.float32)
+    probs = serve(ids, vals)
+    plain = export_lib.load_model(artifact, device=dev, use_pallas=False)[0]
+    with torch.inference_mode():
+        ref = torch.sigmoid(plain(torch.from_numpy(ids).to(dev),
+                                  torch.from_numpy(vals).to(dev))).cpu()
+    assert probs.shape == (100,) and np.all(np.isfinite(probs))
+    err = float(np.abs(probs - ref.numpy()).max())
+    assert err <= SERVE_ATOL, err
+    print(f"eval task: auc={ev['auc']:.5f} loss={ev['loss']:.5f}; export "
+          f"step {out['step']:.0f} served 100 rows, max_abs_err_vs_plain="
+          f"{err:.3e}")
+    return launches, res
+
+
+def train_step_timing(cfg: Config) -> None:
+    """One training step at B=1024, reference width: kernel path vs plain
+    path (CUDA events over back-to-back steps), and the kernel path's
+    device busy time per step (torch.profiler) and idle share."""
+    dev = torch.device("cuda")
+    batch = random_batches(cfg, 1, SEED + 11)[0]
+    for i, (name, use_pallas) in enumerate((
+            ("kernel_path", True), ("plain_path", False),
+            ("kernel_path", True), ("plain_path", False))):
+        trainer = Trainer(cfg.replace(use_pallas=use_pallas), device=dev)
+        state = trainer.init_state(SEED)
+        dev_batch = trainer.put_batch(batch)
+        step = lambda: trainer.train_step(state, dev_batch)  # noqa: E731
+        call = cuda_ms(step, iters=50, warmup=5)
+        busy, events = device_profile(step, iters=10)
+        busy_txt = "not measured" if busy is None else f"{busy:.4f}"
+        idle = ("not measured" if busy is None
+                else f"{max(0.0, 1 - busy / call):.3f}")
+        print(f"train step B={cfg.batch_size} {name}: step_ms={call:.4f} "
+              f"examples_per_sec={cfg.batch_size / call * 1e3:.0f} "
+              f"device_busy_ms={busy_txt} device_events={events:g} "
+              f"idle_share={idle}")
+        if i == 0 and busy is not None:
+            top_kernels(step)
+
+
+def top_kernels(fn, iters: int = 10, top: int = 8) -> None:
+    """Device time per step by kernel name, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    short = lambda n: n.replace("void ", "").replace(  # noqa: E731
+        "at::native::", "").replace("(anonymous namespace)::", "")[:90]
+    print("train step top kernels (us per step): " + "; ".join(
+        f"{short(name)}={us / iters:.1f}" for name, us in ranked))
 
 
 def serve_phase(workdir: str, cfg: Config, dev: torch.device,
@@ -323,12 +608,17 @@ def main() -> int:
 
     fm_err, (kern_ms, plain_ms, bound_ms, bound_by, ms_source) = \
         kernel_phase()
+    bwd_err, (bwd_ms, bwd_plain_ms, bwd_bound_ms, bwd_bound_by,
+              bwd_source) = kernel_bwd_phase()
 
     cfg = Config()
+    dev = torch.device("cuda")
+    train_parity_phase(cfg, dev)
     workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=HERE)
     try:
-        fm_launches, artifact = serve_phase(workdir, cfg,
-                                            torch.device("cuda"))
+        train_launches, _ = train_phase(workdir, cfg, dev)
+        train_step_timing(cfg)
+        serve_launches, artifact = serve_phase(workdir, cfg, dev)
         forward_timing(artifact, cfg)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -338,10 +628,22 @@ def main() -> int:
         "name": "fused_fm", "route": "cuda",
         "source": "deepfm_tpu_torch/csrc/fused_fm.cu",
         "replaces": "deepfm_tpu/ops/pallas_fm.py:79",
-        "launches": fm_launches, "max_abs_err": fm_err,
+        "launches": train_launches["fused_fm"],
+        "launches_by_path": {"train": train_launches["fused_fm"],
+                             "serve": serve_launches},
+        "max_abs_err": fm_err,
         "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
-        "ms_source": ms_source}]}))
+        "ms_source": ms_source}, {
+        "name": "fused_fm_bwd", "route": "cuda",
+        "source": "deepfm_tpu_torch/csrc/fused_fm.cu",
+        "replaces": "deepfm_tpu/ops/pallas_fm.py:92",
+        "launches": train_launches["fused_fm_bwd"],
+        "launches_by_path": {"train": train_launches["fused_fm_bwd"]},
+        "max_abs_err": bwd_err,
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
+        "bound_by": bwd_bound_by, "library_ms": None,
+        "ms_source": bwd_source}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

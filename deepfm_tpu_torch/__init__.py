@@ -8,9 +8,9 @@ copy of what it needs (``config``, ``obs``, the serving engine).
 
 Entry points take an explicit ``device`` that defaults to ``"cuda"``; the
 CPU is used only when a caller passes ``device="cpu"`` (the tests do). The
-TPU package's one Pallas kernel on the serving path, the fused FM forward,
-is a hand-written CUDA kernel here (``csrc/fused_fm.cu``), built with nvcc
-at first use into ``_build/``.
+TPU package's Pallas kernels on the training and serving paths, the fused
+FM forward and backward, are hand-written CUDA kernels here
+(``csrc/fused_fm.cu``), built with nvcc at first use into ``_build/``.
 """
 
 __version__ = "0.1.0"

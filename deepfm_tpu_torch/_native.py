@@ -36,10 +36,14 @@ _P = ctypes.c_void_p
 
 
 def _bind_fused_fm(lib: ctypes.CDLL) -> None:
-    fn = lib.dfm_fused_fm_fwd
-    fn.argtypes = [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, _P]
-    fn.restype = ctypes.c_int
+    fwd = lib.dfm_fused_fm_fwd
+    fwd.argtypes = [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, _P]
+    fwd.restype = ctypes.c_int
+    bwd = lib.dfm_fused_fm_bwd
+    bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, _P]
+    bwd.restype = ctypes.c_int
 
 
 # Kernel library name -> function that declares its C signatures.

@@ -1,0 +1,79 @@
+"""LibSVM text -> TFRecord conversion and the synthetic CTR generator.
+
+The port's copy of the single-label subset of ``deepfm_tpu.data.libsvm``:
+each LibSVM line ``"label id:val id:val ..."`` becomes one
+``Example{label: float, ids: int64[F], values: float[F]}``.
+``generate_synthetic_ctr`` writes the same bytes as the JAX package's for
+the same arguments.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from . import example_codec, tfrecord
+
+
+def parse_libsvm_line(line: str) -> Tuple[float, np.ndarray, np.ndarray]:
+    parts = line.strip().split()
+    if not parts:
+        raise ValueError("empty LibSVM line")
+    label = float(parts[0])
+    ids = np.empty(len(parts) - 1, dtype=np.int64)
+    vals = np.empty(len(parts) - 1, dtype=np.float32)
+    for i, tok in enumerate(parts[1:]):
+        k, _, v = tok.partition(":")
+        ids[i] = int(k)
+        vals[i] = float(v)
+    return label, ids, vals
+
+
+def convert_libsvm_file(in_path: str, out_path: str, *,
+                        field_size: Optional[int] = None) -> int:
+    """Convert a LibSVM text file to one TFRecord file; returns the record
+    count."""
+    n = 0
+    with tfrecord.TFRecordWriter(out_path) as w, open(in_path, "r") as f:
+        for line in f:
+            if not line.strip():
+                continue
+            label, ids, vals = parse_libsvm_line(line)
+            if field_size is not None and ids.shape[0] != field_size:
+                raise ValueError(f"line {n}: expected {field_size} features, "
+                                 f"got {ids.shape[0]}")
+            w.write(example_codec.encode_ctr_example(label, ids, vals))
+            n += 1
+    return n
+
+
+def generate_synthetic_ctr(out_dir: str, *, num_files: int,
+                           examples_per_file: int, feature_size: int,
+                           field_size: int, prefix: str = "tr",
+                           seed: int = 0, hidden_seed: int = 12345
+                           ) -> List[str]:
+    """Write synthetic Criteo-shaped TFRecords with a learnable signal.
+
+    Labels follow a logistic model over a hidden random weight vector
+    (fixed by ``hidden_seed``, independently of the example sampler's
+    ``seed``), so train/eval splits made with different seeds share one
+    ground truth and AUC above 0.5 is reachable."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    hidden_w = np.random.default_rng(hidden_seed).normal(
+        0, 1.0, size=feature_size).astype(np.float32)
+    paths = []
+    for fi in range(num_files):
+        path = os.path.join(out_dir, f"{prefix}_{fi:04d}.tfrecords")
+        paths.append(path)
+        with tfrecord.TFRecordWriter(path) as w:
+            for _ in range(examples_per_file):
+                ids = rng.integers(0, feature_size, size=field_size,
+                                   dtype=np.int64)
+                vals = rng.normal(0, 1, size=field_size).astype(np.float32)
+                logit = float(np.dot(hidden_w[ids], vals)) * 0.5
+                label = float(rng.random() < 1.0 / (1.0 + np.exp(-logit)))
+                w.write(example_codec.encode_ctr_example(label, ids, vals))
+    return paths

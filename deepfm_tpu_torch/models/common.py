@@ -1,11 +1,13 @@
-"""Shared model building blocks (the serving subset of
-``deepfm_tpu.models.common``): initializers, the DNN tower in eval mode and
-the monolithic embedding layout.
+"""Shared model building blocks (the dense single-device subset of
+``deepfm_tpu.models.common``): initializers, the DNN tower with BN and
+dropout, the l2 terms and the monolithic embedding layout.
 
 Behavioral parity with the JAX package:
-  * Hidden layers: dense -> ReLU -> [BatchNorm]; BN runs from its running
-    statistics, in float32 (eval mode). Dropout is a training-only op and
-    comes with the training slice.
+  * Hidden layers: dense -> ReLU -> [BatchNorm] -> [dropout]. BN runs in
+    float32, from batch statistics in train mode and running statistics in
+    eval mode (see :func:`batch_norm`). ``dropout`` values are KEEP
+    probabilities, applied in train mode only; the masks come from an
+    explicit ``torch.Generator`` and so differ from ``jax.random``'s bits.
   * Tower weights keep the JAX layout, ``w`` is ``[d_in, d_out]`` applied
     as ``x @ w``, so a JAX param tree carries over without transposes
     (``utils.params.params_from_jax``).
@@ -78,14 +80,29 @@ def glorot_uniform(shape: Sequence[int], *,
 
 
 # ---------------------------------------------------------------------------
-# BatchNorm (eval mode: running statistics)
+# BatchNorm (running-stats state)
 # ---------------------------------------------------------------------------
 
 
 def batch_norm(h32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               mean: torch.Tensor, var: torch.Tensor,
+               stats: "RunningStats", *, train: bool, decay: float,
                eps: float = 1e-3) -> torch.Tensor:
-    """Normalize h32 [B, D] (float32) with running ``mean``/``var``."""
+    """Normalize h32 [B, D] (float32).
+
+    Eval mode uses the running statistics. Train mode uses the batch's
+    statistics with ``var = E[x^2] - E[x]^2`` (the biased variance) and
+    blends them into the running statistics in place, ``decay`` parts old
+    to ``1 - decay`` parts new: what ``deepfm_tpu.models.common.batch_norm``
+    returns as the new model state. ``nn.BatchNorm1d`` differs on both counts
+    (unbiased running variance, ``momentum = 1 - decay``)."""
+    if train:
+        mean = torch.mean(h32, dim=0)
+        var = torch.mean(h32 * h32, dim=0) - mean * mean
+        with torch.no_grad():
+            stats.mean.copy_(decay * stats.mean + (1 - decay) * mean)
+            stats.var.copy_(decay * stats.var + (1 - decay) * var)
+    else:
+        mean, var = stats.mean, stats.var
     return (h32 - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
@@ -147,28 +164,54 @@ def init_tower(in_dim: int, layer_sizes: Sequence[int], use_bn: bool, *,
     return tower, bn
 
 
+def dropout(h: torch.Tensor, keep: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout with a KEEP probability: ``where(mask, h/keep, 0)``
+    in ``h``'s dtype, the mask drawn from ``generator``."""
+    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype,
+                                                   device=h.device))
+
+
 def apply_hidden_stack(layers: nn.ModuleList, bn: nn.ModuleList,
-                       x: torch.Tensor, *, use_bn: bool,
+                       x: torch.Tensor, *, train: bool,
+                       dropout_keep: Sequence[float], use_bn: bool,
+                       bn_decay: float, generator: Optional[torch.Generator],
                        compute_dtype: torch.dtype) -> torch.Tensor:
-    """dense->relu->[BN] stack in eval mode. x: [B, D_in] -> [B, D_last]."""
+    """dense->relu->[BN]->[dropout] stack. x: [B, D_in] -> [B, D_last].
+
+    Dropout runs in train mode only, and only with a ``generator``."""
     h = x.to(compute_dtype)
     for i, layer in enumerate(layers):
         h = h @ layer.w.to(compute_dtype) + layer.b.to(compute_dtype)
         h = torch.relu(h)
         if use_bn:
-            h = batch_norm(h.float(), layer.bn_scale, layer.bn_bias,
-                           bn[i].mean, bn[i].var).to(compute_dtype)
+            h = batch_norm(h.float(), layer.bn_scale, layer.bn_bias, bn[i],
+                           train=train, decay=bn_decay).to(compute_dtype)
+        keep = dropout_keep[i] if i < len(dropout_keep) else 1.0
+        if train and keep < 1.0 and generator is not None:
+            h = dropout(h, keep, generator)
     return h
 
 
 def apply_tower(tower: Tower, bn: nn.ModuleList, x: torch.Tensor, *,
-                use_bn: bool, compute_dtype: torch.dtype) -> torch.Tensor:
-    """Hidden stack + output head in eval mode. x: [B, D] -> [B] float32."""
-    h = apply_hidden_stack(tower.layers, bn, x, use_bn=use_bn,
+                train: bool, dropout_keep: Sequence[float], use_bn: bool,
+                bn_decay: float, generator: Optional[torch.Generator],
+                compute_dtype: torch.dtype) -> torch.Tensor:
+    """Hidden stack + output head. x: [B, D] -> [B] float32."""
+    h = apply_hidden_stack(tower.layers, bn, x, train=train,
+                           dropout_keep=dropout_keep, use_bn=use_bn,
+                           bn_decay=bn_decay, generator=generator,
                            compute_dtype=compute_dtype)
     w = tower.out.w[:, 0].to(compute_dtype).float()
     out = torch.sum(h.float() * w, dim=1).to(compute_dtype)
     return (out + tower.out.b[0].to(compute_dtype)).float()
+
+
+def l2_half_sum(x: torch.Tensor) -> torch.Tensor:
+    """tf.nn.l2_loss semantics: 0.5 * sum(x^2)."""
+    x = x.float()
+    return 0.5 * torch.sum(x * x)
 
 
 # ---------------------------------------------------------------------------
@@ -206,3 +249,12 @@ class EmbeddingSchema:
                feat_ids: torch.Tensor) -> torch.Tensor:
         """[B,F,*trailing] gather, with ``jnp.take``'s out-of-range rules."""
         return emb_ops.lookup(entry, feat_ids)
+
+    def l2(self, entry: torch.Tensor) -> torch.Tensor:
+        """0.5*sum(x^2) over the REAL rows of the full table: pad rows are
+        masked out, so their gradient is exactly zero by construction."""
+        return l2_half_sum(emb_ops.mask_pad_rows(entry, self.feature_size))
+
+    def mask_pad_grads(self, grad_entry: torch.Tensor) -> torch.Tensor:
+        """Zero pad-row gradients on the dense path."""
+        return emb_ops.mask_pad_rows(grad_entry, self.feature_size)

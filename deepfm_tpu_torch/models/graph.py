@@ -10,14 +10,16 @@ Parameter names match the JAX param tree, flattened with dots: ``fm_b``,
 ``{"bn": [...]}``) are buffers ``bn.<i>.{mean,var}``. An artifact or a JAX
 param tree therefore loads with ``load_state_dict``.
 
-This slice serves: ``forward`` is the JAX ``apply(..., train=False)``. A
-module in training mode raises, since dropout, batch statistics and the
-FM kernel's backward come with the training slice.
+``forward`` is the JAX ``apply``: eval mode (``model.eval()``) is
+``train=False``; training mode (``model.train()``) is ``train=True`` with
+batch statistics, whose running update lands in the ``bn`` buffers in
+place (the JAX package returns it as the new model state), and dropout
+drawn from the ``generator`` argument (the JAX ``rng``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -39,8 +41,10 @@ def fm_block(cfg: Config, w: torch.Tensor, feat_vals: torch.Tensor,
     """First-order + FM second-order: ``sum_f(W*vals) + FM(xv)``.
 
     ``cfg.use_pallas`` (the JAX package's switch, name kept) selects the
-    fused kernel: on CUDA tensors the hand-written kernel of
-    ``csrc/fused_fm.cu``, for any F and K. Off, the plain formula."""
+    fused op: on CUDA tensors the hand-written forward and backward kernels
+    of ``csrc/fused_fm.cu``, for any F and K. Off, the plain formula. (The
+    JAX package takes its Pallas kernel on a TPU only, so on the CPU its
+    reference is the plain formula.)"""
     if cfg.use_pallas:
         return fused_fm(w, feat_vals, xv)
     return first_order(w, feat_vals) + fm_ops.fm_interaction(xv)
@@ -56,6 +60,22 @@ class GraphModel(nn.Module):
         self.cfg = cfg
         self.emb = common.EmbeddingSchema(cfg)
         self.padded_vocab = self.emb.padded_vocab
+
+    def embedding_param_names(self) -> Tuple[str, ...]:
+        """The embedding tables (the params the l2 term covers)."""
+        return ("fm_w", "fm_v")
+
+    def l2_loss(self, params: Optional[Mapping[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """l2_reg * pad-aware L2 over every embedding table, in full (the
+        dense path's semantics). ``params`` defaults to the module's own."""
+        if params is None:
+            params = dict(self.named_parameters())
+        names = self.embedding_param_names()
+        total = self.emb.l2(params[names[0]])
+        for n in names[1:]:
+            total = total + self.emb.l2(params[n])
+        return self.cfg.l2_reg * total
 
 
 class GraphDeepFM(GraphModel):
@@ -86,21 +106,28 @@ class GraphDeepFM(GraphModel):
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self.eval()
 
-    def forward(self, feat_ids: torch.Tensor,
-                feat_vals: torch.Tensor) -> torch.Tensor:
-        """Logits [B] float32 from int ids [B,F] and values [B,F]."""
-        if self.training:
-            raise NotImplementedError(
-                "deepfm_tpu_torch serves only (eval mode); training, with "
-                "the fused FM backward kernel, comes with the training slice")
+    def forward(self, feat_ids: torch.Tensor, feat_vals: torch.Tensor, *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits [B] float32 from int ids [B,F] and values [B,F].
+
+        In training mode with a dropout keep below 1, ``generator`` (on the
+        inputs' device) draws the dropout masks; it is required there, so a
+        training step never drops its dropout silently."""
         cfg = self.cfg
+        if self.training and generator is None and any(
+                k < 1.0 for k in cfg.dropout_rates[:len(cfg.deep_layer_sizes)]):
+            raise ValueError(
+                "a training-mode forward with dropout keep < 1 needs a "
+                "torch.Generator for the dropout masks")
         feat_vals = feat_vals.float()
         w = self.emb.lookup(self.fm_w, feat_ids)          # [B,F]
         v = self.emb.lookup(self.fm_v, feat_ids)          # [B,F,K]
         xv = v * feat_vals[..., None]
         y_wv = fm_block(cfg, w, feat_vals, xv)
         deep_in = xv.reshape(xv.shape[0], cfg.field_size * cfg.embedding_size)
-        y_d = common.apply_tower(self.tower, self.bn, deep_in,
-                                 use_bn=cfg.batch_norm,
-                                 compute_dtype=self.compute_dtype)
+        y_d = common.apply_tower(
+            self.tower, self.bn, deep_in, train=self.training,
+            dropout_keep=cfg.dropout_rates, use_bn=cfg.batch_norm,
+            bn_decay=cfg.batch_norm_decay, generator=generator,
+            compute_dtype=self.compute_dtype)
         return self.fm_b[0] + y_wv + y_d

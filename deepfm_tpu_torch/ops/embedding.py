@@ -6,6 +6,13 @@ an id in ``[-V, 0)`` wraps to ``id + V``, and any other out-of-range id gives
 a row of NaN. ``index_select`` would instead hit a device-side assert on the
 card, which poisons the CUDA context for every later request of the
 process; NaN rows make a bad id visible in that request's output alone.
+
+The gradient matches the VJP of ``jnp.take``: a wrapped id scatters into
+row ``id + V`` and an out-of-range id contributes nothing (its NaN row is
+masked out with ``torch.where``, whose gradient there is zero). The
+scatter is ``index_select``'s backward, an ``index_add_`` that uses atomics
+on CUDA, so the order of its float sums, and with it the last bits of a
+table gradient, can change from run to run on the card.
 """
 
 from __future__ import annotations
@@ -43,3 +50,21 @@ def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     ok = ok.reshape(*ids.shape, *([1] * (table.dim() - 1)))
     return torch.where(ok, out, torch.full((), float("nan"), dtype=out.dtype,
                                            device=out.device))
+
+
+def pad_row_mask(num_rows: int, feature_size: int, *,
+                 device=None) -> torch.Tensor:
+    """Bool [num_rows]: True for real vocabulary rows, False for the
+    ``padded_vocab`` pad rows after them (one device: no shard offset)."""
+    return torch.arange(num_rows, device=device) < feature_size
+
+
+def mask_pad_rows(x: torch.Tensor, feature_size: int) -> torch.Tensor:
+    """Zero the pad rows of a table-shaped array (the dense path's embedding
+    gradients: pad rows hold zeros and the l2 term excludes them, so this
+    makes their zero update a structural guarantee)."""
+    if x.shape[0] <= feature_size:
+        return x
+    keep = pad_row_mask(x.shape[0], feature_size, device=x.device)
+    keep = keep.reshape((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -1,20 +1,22 @@
-"""Fused FM forward: first-order + second-order interaction in one pass.
+"""Fused FM: first-order + second-order interaction, forward and backward.
 
 The counterpart of ``deepfm_tpu/ops/pallas_fm.py``. Per row b:
 
     y[b] = sum_f w[b,f]*vals[b,f]
          + 0.5 * sum_k [ (sum_f xv[b,f,k])^2 - sum_f xv[b,f,k]^2 ]
 
-``fused_fm`` dispatches on where its tensors lie. On the CPU it computes
-``reference_fm``, the plain version the tests compare with the JAX package.
-On a CUDA tensor it launches the hand-written kernel in
-``csrc/fused_fm.cu`` (one warp per row, float32 sums; see the source for
-its bound and design) or raises: there is no fallback on the card.
+and, for the float32 cotangent g [B] of y,
 
-This slice is the forward pass only. The TPU package's custom VJP
-(``pallas_fm._bwd_kernel``) is ported with the training slice; until then
-a CUDA call whose inputs require grad raises instead of training through a
-different path.
+    dw = vals*g,  dvals = w*g,  dxv = (sum_f xv - xv)*g
+
+``fused_fm`` goes through the autograd function :class:`FusedFM` on every
+device, so saved tensors and gradient types are the same on the CPU as on
+the card. What each pass runs depends on where its tensors lie: on the CPU
+the plain versions ``reference_fm`` / ``reference_fm_bwd`` (what the tests
+compare with the JAX package); on a CUDA tensor the hand-written kernels of
+``csrc/fused_fm.cu`` (one warp per row, float32 sums; see the source for
+their bounds and design), or an exception. There is no fallback on the
+card.
 """
 
 from __future__ import annotations
@@ -40,6 +42,20 @@ def reference_fm(w: torch.Tensor, vals: torch.Tensor,
     return y_w + y_v
 
 
+def reference_fm_bwd(g: torch.Tensor, w: torch.Tensor, vals: torch.Tensor,
+                     xv: torch.Tensor):
+    """Plain-torch version of the fused backward (``pallas_fm._bwd_kernel``).
+    g: [B] -> (dw, dvals [B,F], dxv [B,F,K]), computed in float32 and each
+    cast to its primal's dtype."""
+    g = g.float()
+    x = xv.float()
+    s = torch.sum(x, dim=1, keepdim=True)
+    dw = (vals.float() * g[:, None]).to(w.dtype)
+    dvals = (w.float() * g[:, None]).to(vals.dtype)
+    dxv = ((s - x) * g[:, None, None]).to(xv.dtype)
+    return dw, dvals, dxv
+
+
 def _check_kernel_inputs(w: torch.Tensor, vals: torch.Tensor,
                          xv: torch.Tensor) -> None:
     if w.dim() != 2 or xv.dim() != 3 or vals.shape != w.shape \
@@ -58,24 +74,30 @@ def _check_kernel_inputs(w: torch.Tensor, vals: torch.Tensor,
     if not (w.is_contiguous() and vals.is_contiguous()
             and xv.is_contiguous()):
         raise ValueError("the CUDA fused_fm kernel needs contiguous inputs")
-    if torch.is_grad_enabled() and (w.requires_grad or vals.requires_grad
-                                    or xv.requires_grad):
-        raise NotImplementedError(
-            "fused_fm on CUDA is forward-only in this slice: its backward "
-            "kernel (pallas_fm._bwd_kernel's port) comes with the training "
-            "slice")
 
 
-def fused_fm(w: torch.Tensor, vals: torch.Tensor,
-             xv: torch.Tensor) -> torch.Tensor:
-    """Fused y_w + y_v. w, vals: [B,F]; xv: [B,F,K] -> [B] float32.
+def _check_bwd_inputs(g: torch.Tensor, w: torch.Tensor, vals: torch.Tensor,
+                      xv: torch.Tensor) -> None:
+    _check_kernel_inputs(w, vals, xv)
+    if g.shape != w.shape[:1] or g.dtype != torch.float32 \
+            or g.device != w.device or not g.is_contiguous():
+        raise ValueError(
+            f"the CUDA fused_fm backward takes a contiguous float32 "
+            f"cotangent [B] on {w.device}; got {tuple(g.shape)} {g.dtype} "
+            f"on {g.device}")
 
-    CPU tensors take :func:`reference_fm`; CUDA tensors launch the kernel
-    (counted in ``fused_fm.launches``) or raise."""
-    if w.device.type == "cpu":
-        return reference_fm(w, vals, xv)
-    if w.device.type != "cuda":
-        raise ValueError(f"fused_fm runs on cpu or cuda, not {w.device}")
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        setattr(fused_fm, name, getattr(fused_fm, name) + 1)
+
+
+def _launch_fwd(w: torch.Tensor, vals: torch.Tensor,
+                xv: torch.Tensor) -> torch.Tensor:
     _check_kernel_inputs(w, vals, xv)
     b, f = w.shape
     k = xv.shape[2]
@@ -84,14 +106,68 @@ def fused_fm(w: torch.Tensor, vals: torch.Tensor,
         return out
     lib = _native.load("fused_fm")
     with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
         err = lib.dfm_fused_fm_fwd(
             w.data_ptr(), vals.data_ptr(), xv.data_ptr(), out.data_ptr(),
-            b, f, k, _KERNEL_DTYPES[w.dtype], stream)
-    _native.check(err, "fused_fm")
-    with _count_lock:
-        fused_fm.launches += 1
+            b, f, k, _KERNEL_DTYPES[w.dtype], _stream(w.device))
+    _native.check(err, "fused_fm forward")
+    _count("launches")
     return out
 
 
+def _launch_bwd(g: torch.Tensor, w: torch.Tensor, vals: torch.Tensor,
+                xv: torch.Tensor):
+    _check_bwd_inputs(g, w, vals, xv)
+    b, f = w.shape
+    k = xv.shape[2]
+    dw, dvals, dxv = (torch.empty_like(t) for t in (w, vals, xv))
+    if b == 0:
+        return dw, dvals, dxv
+    lib = _native.load("fused_fm")
+    with torch.cuda.device(w.device):
+        err = lib.dfm_fused_fm_bwd(
+            g.data_ptr(), w.data_ptr(), vals.data_ptr(), xv.data_ptr(),
+            dw.data_ptr(), dvals.data_ptr(), dxv.data_ptr(), b, f, k,
+            _KERNEL_DTYPES[w.dtype], _stream(w.device))
+    _native.check(err, "fused_fm backward")
+    _count("bwd_launches")
+    return dw, dvals, dxv
+
+
+class FusedFM(torch.autograd.Function):
+    """``pallas_fm.fused_fm``'s custom VJP. The residuals are ``w``, ``vals``
+    and ``xv`` as given (bfloat16 stays bfloat16: no float32 copies), and
+    each cotangent comes back in its primal's dtype."""
+
+    @staticmethod
+    def forward(ctx, w, vals, xv):
+        ctx.save_for_backward(w, vals, xv)
+        if w.device.type == "cpu":
+            return reference_fm(w, vals, xv)
+        return _launch_fwd(w, vals, xv)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, vals, xv = ctx.saved_tensors
+        g = g.float().contiguous()
+        if w.device.type == "cpu":
+            grads = reference_fm_bwd(g, w, vals, xv)
+        else:
+            grads = _launch_bwd(g, w, vals, xv)
+        return tuple(d if need else None
+                     for d, need in zip(grads, ctx.needs_input_grad))
+
+
+def fused_fm(w: torch.Tensor, vals: torch.Tensor,
+             xv: torch.Tensor) -> torch.Tensor:
+    """Fused y_w + y_v. w, vals: [B,F]; xv: [B,F,K] -> [B] float32.
+
+    CPU tensors take the plain versions; CUDA tensors launch the forward
+    kernel (counted in ``fused_fm.launches``) and, when autograd reaches
+    it, the backward kernel (``fused_fm.bwd_launches``), or raise."""
+    if w.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_fm runs on cpu or cuda, not {w.device}")
+    return FusedFM.apply(w, vals, xv)
+
+
 fused_fm.launches = 0
+fused_fm.bwd_launches = 0

@@ -1,0 +1,373 @@
+"""Trainer: train, eval and predict steps and the fit loop, dense and on
+one device (port of ``deepfm_tpu.train.loop``).
+
+The model module is a stateless template built on the ``meta`` device; a
+:class:`TrainState` carries the tensors, and every step runs the module
+over them with ``torch.func.functional_call``, so two states never share
+storage. A train step is the JAX ``_step_impl``'s dense path: forward in
+training mode, loss = mean per-example loss + l2 over the full embedding
+tables (pad rows excluded), gradients of both, pad-row gradients zeroed,
+then the optimizer updates every parameter in place.
+
+``multi_step`` runs ``steps_per_loop`` steps per dispatch as a Python loop
+(the JAX package's ``lax.scan``), bit-identical to as many ``train_step``
+calls; ``fit`` fires its hooks once per dispatch and reads the loss back to
+the host only at the ``log_steps`` cadence, so the host stays ahead of the
+card. Host batches go to the card through pinned memory with
+``non_blocking`` copies made from the fit thread, while the pipeline's
+prefetch thread decodes ahead.
+
+Not ported yet, each raising ``NotImplementedError`` naming its flag: the
+sparse embedding update and the hot/cold tier, gradient accumulation,
+the device-resident dataset, a mesh other than 1x1 and the stall watchdog.
+The JAX package's background staging thread and slot ring
+(``--transfer_ahead``, ``--staging_buffers``) have no counterpart: their
+values are not read.
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import math
+import time
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, \
+    Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.func import functional_call
+
+from ..config import Config
+from ..models import get_model
+from ..obs import trace as trace_lib
+from ..utils import device as device_lib
+from ..utils import profiling as prof_lib
+from . import guard as guard_lib
+from . import metrics as metrics_lib
+from . import optimizers as opt_lib
+from .state import TrainState
+
+log = logging.getLogger(__name__)
+
+Batch = Dict[str, np.ndarray]
+
+
+def pad_batch(batch: Batch, bs: int) -> Batch:
+    """Pad a short tail batch up to ``bs`` rows by repeating the last row.
+    Callers trim the padded rows from the output (predict) or give them a
+    zero weight (evaluate)."""
+    n = batch["label"].shape[0]
+    pad = bs - n
+    return {k: np.concatenate([v, np.tile(v[-1:], (pad,) + (1,) * (v.ndim - 1))])
+            for k, v in batch.items()}
+
+
+def zero_batch(field_size: int, bs: int) -> Batch:
+    """All-zero batch with the canonical CTR schema."""
+    return {
+        "feat_ids": np.zeros((bs, field_size), np.int32),
+        "feat_vals": np.zeros((bs, field_size), np.float32),
+        "label": np.zeros((bs, 1), np.float32),
+    }
+
+
+def _with_weight(batch: Batch, bs: int) -> Batch:
+    """Attach a per-row validity weight and pad to ``bs`` rows: real rows
+    weigh 1, padding 0, so tail records count once and padding not at
+    all."""
+    n = batch["label"].shape[0]
+    bs = max(bs, n)
+    w = np.zeros((bs, 1), np.float32)
+    w[:n] = 1.0
+    if n < bs:
+        batch = pad_batch(batch, bs)
+    return {**batch, "weight": w}
+
+
+def check_ported(cfg: Config) -> None:
+    """Raise ``NotImplementedError`` for a Trainer option that the port has
+    not reached yet, naming its flag."""
+    unported = [
+        (cfg.embedding_update != "dense",
+         f"--embedding_update {cfg.embedding_update} (the sparse embedding "
+         "update)"),
+        (cfg.embedding_tiering != "off",
+         f"--embedding_tiering {cfg.embedding_tiering} (the hot/cold tier)"),
+        (cfg.grad_accum_steps > 1,
+         "--grad_accum_steps > 1 (gradient accumulation)"),
+        (cfg.device_dataset, "--device_dataset (the device-resident dataset)"),
+        (cfg.mesh_data > 1 or cfg.mesh_model > 1,
+         f"--mesh_data {cfg.mesh_data} --mesh_model {cfg.mesh_model} (a mesh "
+         "other than 1x1)"),
+        (cfg.dispatch_timeout_s > 0,
+         "--dispatch_timeout_s (the stall watchdog)"),
+    ]
+    for hit, what in unported:
+        if hit:
+            raise NotImplementedError(
+                f"{what} is not yet ported to deepfm_tpu_torch")
+
+
+class Trainer:
+    """Runs the train, eval and predict steps of one model on one device."""
+
+    def __init__(self, cfg: Config, *, device="cuda"):
+        check_ported(cfg)
+        self.cfg = cfg
+        self.device = device_lib.resolve(device)
+        self.model = get_model(cfg, device="meta")
+        self.opt = opt_lib.build_optimizer(cfg, world_size=1)
+        self._embed_names = self.model.embedding_param_names()
+
+    # ------------------------------------------------------------------
+    # State
+    # ------------------------------------------------------------------
+    def init_state(self, seed: Optional[int] = None) -> TrainState:
+        """Fresh state: weights drawn from a generator seeded with ``seed``
+        (default ``cfg.seed``) on the trainer's device; the dropout
+        generator seeded with ``seed + 1``."""
+        seed = self.cfg.seed if seed is None else seed
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        model = get_model(self.cfg, device=self.device, generator=gen)
+        params = {k: v.detach().requires_grad_()
+                  for k, v in model.named_parameters()}
+        model_state = {k: v.detach() for k, v in model.named_buffers()}
+        opt_state = self.opt.init({k: v.detach() for k, v in params.items()})
+        rng = torch.Generator(device=self.device).manual_seed(seed + 1)
+        return TrainState(step=0, params=params, opt_state=opt_state,
+                          model_state=model_state, rng=rng)
+
+    def load_weights(self, state: TrainState,
+                     params: Dict[str, torch.Tensor],
+                     model_state: Dict[str, torch.Tensor]) -> TrainState:
+        """Copy flat ``{name: tensor}`` weights (``params_from_jax``, an
+        artifact's) into ``state``, in place; returns the state."""
+        with torch.no_grad():
+            for src, dst in ((params, state.params),
+                             (model_state, state.model_state)):
+                if set(src) != set(dst):
+                    raise ValueError(f"weights {sorted(src)} do not match "
+                                     f"the model's {sorted(dst)}")
+                for k, v in src.items():
+                    dst[k].copy_(v)
+        return state
+
+    def servable_model(self, state: TrainState) -> torch.nn.Module:
+        """An eval-mode module holding ``state``'s weights (for export)."""
+        model = get_model(self.cfg, device="meta")
+        model.load_state_dict(
+            {k: v.detach() for k, v in {**state.params,
+                                        **state.model_state}.items()},
+            assign=True)
+        return model.eval()
+
+    def put_batch(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        """Host numpy batch -> tensors on the trainer's device (pinned host
+        memory and ``non_blocking`` copies on the card)."""
+        if self.device.type != "cuda":
+            return {k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in batch.items()}
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(
+            self.device, non_blocking=True) for k, v in batch.items()}
+
+    # ------------------------------------------------------------------
+    # Steps
+    # ------------------------------------------------------------------
+    def _logits(self, state: TrainState, batch: Dict[str, torch.Tensor], *,
+                train: bool) -> torch.Tensor:
+        self.model.train(train)
+        return functional_call(
+            self.model, {**state.params, **state.model_state},
+            (batch["feat_ids"], batch["feat_vals"]),
+            {"generator": state.rng if train else None})
+
+    def _per_example_loss(self, logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+        """``optax.sigmoid_binary_cross_entropy`` for log_loss; the squared
+        error of the probability for square_loss."""
+        if self.cfg.loss_type == "log_loss":
+            return (-labels * F.logsigmoid(logits)
+                    - (1.0 - labels) * F.logsigmoid(-logits))
+        return torch.square(torch.sigmoid(logits) - labels)
+
+    def loss_and_grads(self, state: TrainState,
+                       batch: Dict[str, torch.Tensor]):
+        """Training-mode forward and backward: ``(loss, xent, grads)`` with
+        loss = xent + l2 and pad-row gradients zeroed. Updates the BN
+        running statistics in ``state`` and draws from its generator."""
+        names = list(state.params)
+        with torch.enable_grad():
+            logits = self._logits(state, batch, train=True)
+            labels = batch["label"].reshape(-1).float()
+            xent = torch.mean(self._per_example_loss(logits, labels))
+            loss = xent + self.model.l2_loss(state.params)
+            grads = dict(zip(names, torch.autograd.grad(
+                loss, [state.params[n] for n in names])))
+        # Pad rows never move: their gradient is already zero (no real id
+        # reaches them; the l2 term excludes them), and this makes it so.
+        for n in self._embed_names:
+            grads[n] = self.model.emb.mask_pad_grads(grads[n])
+        return loss.detach(), xent.detach(), grads
+
+    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One optimizer step on a device batch; updates ``state`` in place
+        and returns it with the step's ``loss`` and ``xent`` (on the
+        device: reading them waits for the card)."""
+        loss, xent, grads = self.loss_and_grads(state, batch)
+        self.opt.apply(state.params, grads, state.opt_state)
+        state.step += 1
+        return state, {"loss": loss, "xent": xent}
+
+    def multi_step(self, state: TrainState,
+                   batches: List[Dict[str, torch.Tensor]]
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """K optimizer steps in one dispatch; the last step's metrics."""
+        m: Dict[str, torch.Tensor] = {}
+        for batch in batches:
+            state, m = self.train_step(state, batch)
+        return state, m
+
+    # ------------------------------------------------------------------
+    # Fit
+    # ------------------------------------------------------------------
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def fit(self, state: TrainState, batches: Iterable[Batch], *,
+            hooks: Optional[List[Callable]] = None,
+            max_steps: Optional[int] = None,
+            on_log: Optional[Callable[[int, float, float], None]] = None,
+            guard: Optional[guard_lib.NonFiniteGuard] = None
+            ) -> Tuple[TrainState, Dict[str, float]]:
+        """Train over an iterable of host batches.
+
+        Groups ``cfg.steps_per_loop`` batches per dispatch (a shorter tail
+        runs one step per dispatch, as the JAX package stages it); hooks
+        fire once per dispatch with ``m["steps_done"]``. The loss is read
+        back only when a dispatch crosses a ``log_steps`` boundary, where
+        ``guard`` (the abort policy) also looks at it."""
+        cfg = self.cfg
+        k = max(cfg.steps_per_loop, 1)
+        if max_steps is not None:
+            batches = itertools.islice(iter(batches), max_steps)
+        last_loss = float("nan")
+        n_steps = 0
+        examples_since_log = 0
+        m: Dict[str, Any] = {}
+        meter = prof_lib.ThroughputMeter()
+        t0 = time.time()
+        for group in _groups(batches, k):
+            n_ex = sum(int(b["label"].shape[0]) for b in group)
+            with trace_lib.span("train.dispatch", steps=len(group),
+                                examples=n_ex):
+                dev = [self.put_batch(b) for b in group]
+                if len(dev) == 1:
+                    state, m = self.train_step(state, dev[0])
+                else:
+                    state, m = self.multi_step(state, dev)
+            prev_steps = n_steps
+            n_steps += len(group)
+            examples_since_log += n_ex
+            meter.update(n_ex, len(group))
+            if cfg.log_steps and (n_steps // cfg.log_steps
+                                  > prev_steps // cfg.log_steps):
+                loss = float(m["loss"])  # device sync, bounded by the cadence
+                last_loss = loss
+                if guard is not None:
+                    guard.observe(loss, state.step, params_bad=(
+                        guard.params_nonfinite(state.params)
+                        if math.isfinite(loss) else False))
+                eps = examples_since_log / max(time.time() - t0, 1e-9)
+                log.info("step=%d loss=%.5f examples/sec=%.0f", state.step,
+                         loss, eps)
+                if on_log is not None:
+                    on_log(state.step, loss, eps)
+                t0 = time.time()
+                examples_since_log = 0
+            if hooks:
+                m = {**m, "steps_done": len(group)}
+                for hook in hooks:
+                    hook(state, m)
+        if n_steps:
+            # Fold the wait for the card into the rate: completed steps,
+            # not dispatched ones.
+            self._sync()
+            meter.record_drain()
+            if math.isnan(last_loss):
+                last_loss = float(m["loss"])
+        out = {"loss": last_loss, "steps": float(n_steps)}
+        out.update({k_: v for k_, v in meter.summary().items()
+                    if k_ != "steps"})
+        return state, out
+
+    # ------------------------------------------------------------------
+    # Eval / predict
+    # ------------------------------------------------------------------
+    def evaluate(self, state: TrainState,
+                 batches: Iterable[Batch]) -> Dict[str, float]:
+        """Streaming eval: binned AUC + mean loss. Every batch is padded to
+        ``batch_size`` with zero-weight rows, so no record is dropped and
+        none counts twice."""
+        cfg = self.cfg
+        auc_state = metrics_lib.auc_init(cfg.auc_num_thresholds,
+                                         device=self.device)
+        loss_state = metrics_lib.mean_init(device=self.device)
+        n = 0
+        t_start = time.time()
+        t_first = None
+        with torch.no_grad():
+            for batch in batches:
+                dev = self.put_batch(_with_weight(batch, cfg.batch_size))
+                logits = self._logits(state, dev, train=False)
+                labels = dev["label"].reshape(-1).float()
+                w = dev["weight"].reshape(-1)
+                per_ex = self._per_example_loss(logits, labels)
+                auc_state = metrics_lib.auc_update(
+                    auc_state, torch.sigmoid(logits), labels, w)
+                loss_state = metrics_lib.MeanState(
+                    total=loss_state.total + torch.sum(per_ex * w),
+                    count=loss_state.count + torch.sum(w))
+                n += 1
+                if t_first is None:
+                    t_first = time.time()
+        if n == 0:
+            return {"auc": 0.0, "loss": 0.0, "batches": 0.0,
+                    "examples_per_sec": 0.0, "examples_per_sec_steady": 0.0}
+        auc = float(metrics_lib.auc_compute(auc_state))  # device sync
+        n_examples = float(loss_state.count)
+        elapsed = max(time.time() - t_start, 1e-9)
+        raw_eps = n_examples / elapsed
+        # Steady rate: the first batch (kernel build, allocator growth) is
+        # left out of both the window and the count.
+        steady_window = elapsed - (t_first - t_start)
+        steady_eps = (n_examples * (n - 1) / n / steady_window
+                      if n > 1 and steady_window > 1e-9 else raw_eps)
+        return {"auc": auc,
+                "loss": float(metrics_lib.mean_compute(loss_state)),
+                "batches": float(n), "examples_per_sec": raw_eps,
+                "examples_per_sec_steady": steady_eps}
+
+    def predict(self, state: TrainState,
+                batches: Iterable[Batch]) -> Iterator[np.ndarray]:
+        """Yield one probability vector per batch."""
+        with torch.no_grad():
+            for batch in batches:
+                logits = self._logits(state, self.put_batch(batch),
+                                      train=False)
+                yield torch.sigmoid(logits).cpu().numpy()
+
+
+def _groups(batches: Iterable[Batch], k: int) -> Iterator[List[Batch]]:
+    """Full groups of ``k`` batches, then the tail one batch at a time."""
+    group: List[Batch] = []
+    for b in batches:
+        group.append(b)
+        if len(group) == k:
+            yield group
+            group = []
+    for b in group:
+        yield [b]

@@ -1,0 +1,110 @@
+"""Streaming evaluation metrics (port of ``deepfm_tpu.train.metrics``).
+
+The binned AUC of ``tf.metrics.auc``: a pair of float32 histograms of the
+predicted probability, split by label, over ``num_bins`` equal bins, and
+the trapezoidal ROC area swept across the bin thresholds. The state is
+additive, so batches merge by summing. Bin counts are integers held in
+float32 (exact below 2**24 per bin), so they equal the JAX package's on
+the same probabilities whatever the order of the sums.
+
+Everything stays on the device of the inputs; only ``float()`` of a result
+reads it back. The windowed online AUC is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+
+class AucState(NamedTuple):
+    """Histogram of prediction scores split by label."""
+    pos: torch.Tensor  # float32 [num_bins]
+    neg: torch.Tensor  # float32 [num_bins]
+
+
+def auc_init(num_bins: int = 200, *, device=None) -> AucState:
+    return AucState(pos=torch.zeros((num_bins,), device=device),
+                    neg=torch.zeros((num_bins,), device=device))
+
+
+def auc_update(state: AucState, probs: torch.Tensor, labels: torch.Tensor,
+               weights: Optional[torch.Tensor] = None) -> AucState:
+    """Accumulate a batch. probs/labels: [B] or [B,1] in [0,1]."""
+    num_bins = state.pos.shape[0]
+    probs = probs.reshape(-1).float()
+    labels = labels.reshape(-1).float()
+    w = (torch.ones_like(probs) if weights is None
+         else weights.reshape(-1).float())
+    bins = torch.clamp((probs * num_bins).to(torch.int32), 0,
+                       num_bins - 1).long()
+    pos = state.pos + torch.zeros_like(state.pos).index_add_(
+        0, bins, w * labels)
+    neg = state.neg + torch.zeros_like(state.neg).index_add_(
+        0, bins, w * (1.0 - labels))
+    return AucState(pos=pos, neg=neg)
+
+
+def auc_merge(a: AucState, b: AucState) -> AucState:
+    return AucState(pos=a.pos + b.pos, neg=a.neg + b.neg)
+
+
+def auc_compute(state: AucState) -> torch.Tensor:
+    """Trapezoidal AUC over the ROC curve swept across bin thresholds.
+
+    Threshold k = "predict positive iff score >= bin k"; TPR/FPR from suffix
+    sums of the histograms. NaN when either class is empty: undefined is
+    reported as undefined, never as 0.0 or 0.5."""
+    total_pos = torch.sum(state.pos)
+    total_neg = torch.sum(state.neg)
+    zero = state.pos.new_zeros((1,))
+    tp = torch.cat([torch.flip(torch.cumsum(torch.flip(state.pos, [0]), 0),
+                               [0]), zero])
+    fp = torch.cat([torch.flip(torch.cumsum(torch.flip(state.neg, [0]), 0),
+                               [0]), zero])
+    tpr = tp / torch.clamp(total_pos, min=1.0)
+    fpr = fp / torch.clamp(total_neg, min=1.0)
+    auc = torch.sum((fpr[:-1] - fpr[1:]) * (tpr[:-1] + tpr[1:]) * 0.5)
+    return torch.where((total_pos > 0) & (total_neg > 0), auc,
+                       torch.full_like(auc, float("nan")))
+
+
+class MeanState(NamedTuple):
+    total: torch.Tensor  # scalar
+    count: torch.Tensor  # scalar
+
+
+def mean_init(*, device=None) -> MeanState:
+    return MeanState(total=torch.zeros((), device=device),
+                     count=torch.zeros((), device=device))
+
+
+def mean_compute(state: MeanState) -> torch.Tensor:
+    return state.total / torch.clamp(state.count, min=1.0)
+
+
+def auc_numpy_reference(probs, labels) -> float:
+    """Exact (rank-based) AUC on the host, ties averaged: the test oracle
+    for the binned estimator."""
+    probs = np.asarray(probs).reshape(-1)
+    labels = np.asarray(labels).reshape(-1)
+    order = np.argsort(probs, kind="mergesort")
+    ranks = np.empty_like(order, dtype=np.float64)
+    ranks[order] = np.arange(1, len(probs) + 1)
+    sorted_p = probs[order]
+    i = 0
+    while i < len(sorted_p):
+        j = i
+        while j + 1 < len(sorted_p) and sorted_p[j + 1] == sorted_p[i]:
+            j += 1
+        if j > i:
+            ranks[order[i:j + 1]] = (i + 1 + j + 1) / 2.0
+        i = j + 1
+    n_pos = labels.sum()
+    n_neg = len(labels) - n_pos
+    if n_pos == 0 or n_neg == 0:
+        return float("nan")
+    return float((ranks[labels == 1].sum() - n_pos * (n_pos + 1) / 2.0)
+                 / (n_pos * n_neg))

@@ -1,2 +1,3 @@
-"""Serving artifact I/O, weight carry-over from the JAX package, the
-executor chaos seam and device resolution."""
+"""Serving artifact I/O, checkpoints, weight and optimizer-state carry-over
+from the JAX package, the throughput meter, the executor chaos seam and
+device resolution."""

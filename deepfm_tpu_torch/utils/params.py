@@ -10,7 +10,9 @@ as the port's modules name them (``tower.layers.0.w``, ``bn.0.mean``, ...):
 
 No layout change is needed: the port keeps the JAX tower layout
 (``w`` [d_in, d_out], applied as ``x @ w``) and ``fm_b`` as a ``[1]``
-vector. This module never imports jax: numpy is the interchange.
+vector. ``opt_state_from_jax`` carries optax's Adam state over the same
+way, so a port run can resume a JAX trajectory mid-way. This module never
+imports jax: numpy is the interchange.
 """
 
 from __future__ import annotations
@@ -49,3 +51,18 @@ def params_from_jax(params: Dict[str, Any], model_state: Dict[str, Any]
     ``(params, model_state)`` of CPU tensors, flat and dot-named."""
     return ({k: _tensor(v) for k, v in flatten(params).items()},
             {k: _tensor(v) for k, v in flatten(model_state).items()})
+
+
+def opt_state_from_jax(opt_state: Any) -> Dict[str, Any]:
+    """optax Adam state (``jax.tree.map(np.asarray, opt_state)`` of
+    ``optax.adam``: a chain whose first element carries ``count``, ``mu``
+    and ``nu``) -> the port's Adam state ``{"count": int, "mu": {...},
+    "nu": {...}}`` of CPU tensors, named as the port's params."""
+    adam = opt_state
+    while not hasattr(adam, "mu"):
+        if not isinstance(adam, (list, tuple)) or not adam:
+            raise ValueError("no optax Adam state (count/mu/nu) found")
+        adam = adam[0]
+    return {"count": int(np.asarray(adam.count)),
+            "mu": {k: _tensor(v) for k, v in flatten(adam.mu).items()},
+            "nu": {k: _tensor(v) for k, v in flatten(adam.nu).items()}}

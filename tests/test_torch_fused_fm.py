@@ -8,14 +8,21 @@ itself runs only on the card (``chip_smoke.py`` holds it against
 ``reference_fm`` there). Inputs come from a numpy seed and go to both
 frameworks as the same values.
 
-Also here: the wrapper's input checks (they run before any launch, so the
-CPU can reach them), the launch counter, and the kernel build protocol of
-``deepfm_tpu_torch._native`` driven by a stand-in compiler.
+The backward: ``FusedFM``'s gradients (the CPU path runs the autograd
+function with ``reference_fm_bwd``) against ``jax.vjp`` of the Pallas
+kernel's custom VJP, in interpret mode, with the cotangents' dtypes.
+
+Also here: the wrappers' input checks (they run before any launch, so the
+CPU can reach them), the launch counters, the backward's C binding, and the
+kernel build protocol of ``deepfm_tpu_torch._native`` driven by a stand-in
+compiler.
 """
 
+import ctypes
 import os
 import stat
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -85,9 +92,11 @@ def test_fused_equals_first_order_plus_interaction():
 
 def test_cpu_calls_launch_nothing():
     before = ffm.fused_fm.launches
-    w, vals, xv = (torch.from_numpy(a) for a in _inputs(16, 5, 4))
-    ffm.fused_fm(w, vals, xv)
+    w, vals, xv = (torch.from_numpy(a).requires_grad_()
+                   for a in _inputs(16, 5, 4))
+    ffm.fused_fm(w, vals, xv).sum().backward()
     assert ffm.fused_fm.launches == before == 0
+    assert ffm.fused_fm.bwd_launches == 0
 
 
 def test_other_devices_raise():
@@ -124,14 +133,110 @@ def test_kernel_input_checks(w, vals, xv, exc, match):
             ffm._check_kernel_inputs(w, vals, xv)
 
 
-def test_inputs_requiring_grad_raise_not_fall_back():
-    """Forward only in this slice: a grad-requiring call must raise, not
-    train through the plain version."""
-    xv = _t(4, 3, 8).requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward kernel"):
-        ffm._check_kernel_inputs(_t(4, 3), _t(4, 3), xv)
-    with torch.no_grad():
-        ffm._check_kernel_inputs(_t(4, 3), _t(4, 3), xv)
+@pytest.mark.parametrize("g,exc,match", [
+    (_t(4), None, None),
+    (_t(3), ValueError, "float32 cotangent"),
+    (_t(4, dtype=torch.bfloat16), ValueError, "float32 cotangent"),
+    (_t(8)[::2], ValueError, "float32 cotangent"),
+])
+def test_bwd_kernel_input_checks(g, exc, match):
+    w, vals, xv = _t(4, 3), _t(4, 3), _t(4, 3, 8)
+    if exc is None:
+        ffm._check_bwd_inputs(g, w, vals, xv)
+    else:
+        with pytest.raises(exc, match=match):
+            ffm._check_bwd_inputs(g, w, vals, xv)
+    with pytest.raises(ValueError, match="expects w, vals"):
+        ffm._check_bwd_inputs(_t(4), w, _t(4, 2), xv)
+
+
+# ---------------------------------------------------------------------------
+# Backward: FusedFM's gradients against the JAX custom VJP
+# ---------------------------------------------------------------------------
+
+# The backward is elementwise after one float32 sum over F, in the same
+# order on both sides up to XLA's reduction order: float32 cotangents agree
+# to 1e-5. bfloat16 cotangents are rounded from float32 on both sides; a
+# value within float32 rounding of a bf16 rounding boundary can land one
+# bf16 ulp apart (2^-8 relative), hence rtol 2^-7 for them.
+GRAD_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+            "bfloat16": dict(rtol=2 ** -7, atol=2 ** -7)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,f,k", [(1, 3, 4), (5, 39, 32), (64, 8, 8),
+                                   (130, 39, 48)])
+def test_fused_fm_grads_match_jax_vjp(b, f, k, dtype):
+    arrays = _inputs(b, f, k, seed=b + f + k)
+    g = np.random.default_rng(7).normal(size=(b,)).astype(np.float32)
+    tw, tvals, txv = (torch.from_numpy(a).to(_TORCH_DT[dtype])
+                      .requires_grad_() for a in arrays)
+    y = ffm.fused_fm(tw, tvals, txv)
+    got = torch.autograd.grad(y, (tw, tvals, txv), torch.from_numpy(g))
+
+    jarrays = tuple(jnp.asarray(a, _JAX_DT[dtype]) for a in arrays)
+    _, vjp = jax.vjp(lambda *a: pallas_fm.fused_fm(*a, True), *jarrays)
+    want = vjp(jnp.asarray(g))
+    for name, t, gt, wt in zip(("dw", "dvals", "dxv"), (tw, tvals, txv),
+                               got, want):
+        assert gt.dtype == t.dtype == _TORCH_DT[dtype], name
+        assert str(wt.dtype) == dtype, name
+        np.testing.assert_allclose(gt.float().numpy(),
+                                   np.asarray(wt, np.float32),
+                                   err_msg=name, **GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reference_bwd_equals_autograd_of_reference(dtype):
+    """The plain backward is the derivative of the plain forward. Both in
+    float32 then rounded to the primal dtype once (float32: exact up to sum
+    order)."""
+    arrays = _inputs(16, 7, 5, seed=11)
+    tw, tvals, txv = (torch.from_numpy(a).to(_TORCH_DT[dtype])
+                      .requires_grad_() for a in arrays)
+    g = torch.from_numpy(np.random.default_rng(1).normal(size=(16,))
+                         .astype(np.float32))
+    want = torch.autograd.grad(ffm.reference_fm(tw, tvals, txv),
+                               (tw, tvals, txv), g)
+    got = ffm.reference_fm_bwd(g, tw.detach(), tvals.detach(), txv.detach())
+    for gt, wt in zip(got, want):
+        assert gt.dtype == wt.dtype == _TORCH_DT[dtype]
+        torch.testing.assert_close(gt.float(), wt.float(),
+                                   **GRAD_TOL[dtype])
+
+
+def test_fused_fm_saves_primals_as_given_and_skips_unneeded_grads():
+    """Residuals keep the primals' dtype (no float32 copies), and a grad
+    nobody asked for comes back as None."""
+    w, vals, xv = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(4, 3, 8))
+    xv.requires_grad_()
+    y = ffm.fused_fm(w, vals, xv)
+    assert y.dtype == torch.float32
+    saved = [t.dtype for t in y.grad_fn.saved_tensors]
+    assert saved == [torch.bfloat16] * 3
+    dxv, = torch.autograd.grad(y.sum(), (xv,))
+    assert dxv.dtype == torch.bfloat16 and dxv.shape == (4, 3, 8)
+    assert ffm.fused_fm.bwd_launches == 0  # the CPU launches nothing
+
+
+def test_bwd_binder_is_declared():
+    """The C signature of dfm_fused_fm_bwd (12 arguments, int return) is
+    declared on the library the forward lives in."""
+    class FakeFn:
+        argtypes = restype = None
+
+    class FakeLib:
+        dfm_fused_fm_fwd = FakeFn()
+        dfm_fused_fm_bwd = FakeFn()
+
+    lib = FakeLib()
+    _native._BINDERS["fused_fm"](lib)
+    bwd = lib.dfm_fused_fm_bwd
+    assert len(bwd.argtypes) == 12 and bwd.restype is ctypes.c_int
+    assert bwd.argtypes[:7] == [ctypes.c_void_p] * 7
+    assert bwd.argtypes[7] is ctypes.c_int64
+    assert bwd.argtypes[-1] is ctypes.c_void_p
 
 
 # ---------------------------------------------------------------------------

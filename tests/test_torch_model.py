@@ -154,11 +154,18 @@ def test_use_pallas_off_matches_on():
 
 
 def test_training_mode_raises():
-    model = get_model(Config(**_cfg_kw()), device="cpu")
-    ids, vals = _batch(2)
+    """A training-mode forward with dropout needs a generator for its masks:
+    without one it raises instead of training without dropout. With keep
+    1.0, or with a generator, it runs."""
+    ids, vals = (torch.from_numpy(a) for a in _batch(2))
+    model = get_model(Config(**_cfg_kw(dropout="0.5,0.5")), device="cpu")
     model.train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(torch.from_numpy(ids), torch.from_numpy(vals))
+    with pytest.raises(ValueError, match="needs a torch.Generator"):
+        model(ids, vals)
+    assert model(ids, vals, generator=torch.Generator().manual_seed(0)
+                 ).shape == (2,)
+    no_dropout = get_model(Config(**_cfg_kw()), device="cpu").train()
+    assert no_dropout(ids, vals).shape == (2,)
 
 
 @pytest.mark.parametrize("name", sorted(set(jax_registered_models())
