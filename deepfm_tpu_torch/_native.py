@@ -46,9 +46,28 @@ def _bind_fused_fm(lib: ctypes.CDLL) -> None:
     bwd.restype = ctypes.c_int
 
 
+def _bind_embedding(lib: ctypes.CDLL) -> None:
+    tiles = lib.dfm_plan_tiles
+    tiles.argtypes = [ctypes.c_int64]
+    tiles.restype = ctypes.c_int64
+    plan = lib.dfm_plan_build
+    plan.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64,
+                     _P]
+    plan.restype = ctypes.c_int
+    fwd = lib.dfm_take_fwd
+    fwd.argtypes = [_P, _P, _P, ctypes.c_int64, ctypes.c_int64,
+                    ctypes.c_int64, ctypes.c_int, _P]
+    fwd.restype = ctypes.c_int
+    bwd = lib.dfm_take_bwd
+    bwd.argtypes = [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64,
+                    ctypes.c_int, _P]
+    bwd.restype = ctypes.c_int
+
+
 # Kernel library name -> function that declares its C signatures.
 _BINDERS: Dict[str, Callable[[ctypes.CDLL], None]] = {
     "fused_fm": _bind_fused_fm,
+    "embedding": _bind_embedding,
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,7 @@
-"""Shared model building blocks (the dense single-device subset of
+"""Shared model building blocks (the single-device subset of
 ``deepfm_tpu.models.common``): initializers, the DNN tower with BN and
-dropout, the l2 terms and the monolithic embedding layout.
+dropout, the l2 terms and the embedding layouts, monolithic and
+hash-bucketed, with the sparse update's plan and row operations.
 
 Behavioral parity with the JAX package:
   * Hidden layers: dense -> ReLU -> [BatchNorm] -> [dropout]. BN runs in
@@ -27,12 +28,13 @@ over instead of comparing inits.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..ops import embedding as emb_ops
+from ..ops import embedding_kernels as ek
 
 
 def _fans(shape: Sequence[int]) -> Tuple[int, int]:
@@ -215,28 +217,81 @@ def l2_half_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Embedding schema: the monolithic layout
+# Embedding schema: monolithic vs hash-bucketed multi-table layout
 # ---------------------------------------------------------------------------
+
+Entry = Union[torch.Tensor, Dict[str, torch.Tensor]]
+Plan = Dict[str, emb_ops.PlanEntry]
 
 
 class EmbeddingSchema:
-    """The monolithic embedding layout: one ``[padded_vocab, ...]`` table per
-    embedding param. The hash-bucketed multi-table layout is not ported
-    yet."""
+    """The embedding-table layout resolved from cfg, and every operation the
+    model and the trainer perform on it (``deepfm_tpu.models.common.
+    EmbeddingSchema`` on one device).
+
+    * **monolithic** (``embedding_buckets`` empty): one ``[padded_vocab,
+      ...]`` table per embedding param.
+    * **hashed** (``embedding_buckets`` set): tables ``{"t0": [B0, ...],
+      ...}`` per param; each id picks a table (by id hash or by field) and a
+      bucket in it by stateless uint32 mixing (``ops.embedding.
+      hash_bucket``), so the logical ``feature_size`` may exceed any one
+      table.
+
+    An *entry* is one param's table (monolithic) or dict of tables
+    (hashed). In the model's flat state the hashed tables are named
+    ``"<param>.<key>"`` (``fm_v.t0``), as ``params_from_jax`` flattens the
+    JAX tree. The sparse update speaks :class:`ops.embedding.PlanEntry` per
+    table key (``"table"`` when monolithic).
+    """
+
+    #: plan/rows dict key for the monolithic table
+    MONO = "table"
 
     def __init__(self, cfg):
-        if list(cfg.embedding_bucket_sizes):
-            raise NotImplementedError(
-                "hash-bucketed embedding tables (--embedding_buckets) are not "
-                "yet ported to deepfm_tpu_torch")
         self.feature_size = int(cfg.feature_size)
+        self.buckets: List[int] = list(cfg.embedding_bucket_sizes)
+        self.hashed = bool(self.buckets)
+        self.assign = cfg.embedding_assign
+        self.kernels = cfg.embedding_kernels
         self.padded_vocab = emb_ops.padded_vocab(cfg.feature_size,
                                                  cfg.mesh_model)
 
+    # -- layout ---------------------------------------------------------
+    def table_keys(self) -> List[str]:
+        if not self.hashed:
+            return [self.MONO]
+        return [f"t{i}" for i in range(len(self.buckets))]
+
+    def table_rows(self, key: str) -> int:
+        """Row count of one physical table."""
+        if not self.hashed:
+            return self.padded_vocab
+        return self.buckets[int(key[1:])]
+
+    def num_physical_rows(self) -> int:
+        """Rows actually allocated (vs the logical feature_size)."""
+        return sum(self.buckets) if self.hashed else self.padded_vocab
+
+    def param_key(self, name: str, key: str) -> str:
+        """Flat state name of one table of param ``name``."""
+        return name if not self.hashed else f"{name}.{key}"
+
+    def entry(self, params: Mapping[str, torch.Tensor], name: str) -> Entry:
+        """Param ``name``'s entry out of a flat ``{name: tensor}`` state."""
+        if not self.hashed:
+            return params[name]
+        return {k: params[self.param_key(name, k)] for k in self.table_keys()}
+
     def init_entry(self, trailing: Tuple[int, ...], *,
                    generator: Optional[torch.Generator],
-                   device: torch.device) -> torch.Tensor:
-        """Glorot-normal over the REAL vocab, zero pad rows after it."""
+                   device: torch.device) -> Entry:
+        """Glorot-normal tables. Monolithic: over the REAL vocab, zero pad
+        rows after it. Hashed: one glorot table per bucket count, drawn in
+        table order from ``generator``."""
+        if self.hashed:
+            return {f"t{i}": glorot_normal((b, *trailing),
+                                           generator=generator, device=device)
+                    for i, b in enumerate(self.buckets)}
         t = glorot_normal((self.feature_size, *trailing),
                           generator=generator, device=device)
         pad = self.padded_vocab - self.feature_size
@@ -245,16 +300,116 @@ class EmbeddingSchema:
                                           device=device)])
         return t
 
-    def lookup(self, entry: torch.Tensor,
-               feat_ids: torch.Tensor) -> torch.Tensor:
-        """[B,F,*trailing] gather, with ``jnp.take``'s out-of-range rules."""
-        return emb_ops.lookup(entry, feat_ids)
+    def tables(self, entry: Entry) -> Dict[str, torch.Tensor]:
+        """Uniform dict view of an entry: {key: [rows, ...] table}."""
+        return entry if self.hashed else {self.MONO: entry}
 
-    def l2(self, entry: torch.Tensor) -> torch.Tensor:
-        """0.5*sum(x^2) over the REAL rows of the full table: pad rows are
-        masked out, so their gradient is exactly zero by construction."""
+    def from_tables(self, tables: Dict[str, torch.Tensor]) -> Entry:
+        return tables if self.hashed else tables[self.MONO]
+
+    # -- id -> (table, bucket) mapping ---------------------------------
+    def _table_of(self, feat_ids: torch.Tensor) -> torch.Tensor:
+        n = len(self.buckets)
+        if self.assign == "field":
+            f = torch.arange(feat_ids.shape[-1], dtype=torch.int32,
+                             device=feat_ids.device) % n
+            return f.expand(feat_ids.shape)
+        return emb_ops.hash_table_assign(feat_ids, n)
+
+    # -- dense forward --------------------------------------------------
+    def lookup(self, entry: Entry, feat_ids: torch.Tensor) -> torch.Tensor:
+        """[B,F,*trailing] gather (the dense path, eval and serving). The
+        hashed parts are summed in table order t0, t1, ..., as the JAX
+        package sums them."""
+        if not self.hashed:
+            return emb_ops.lookup(entry, feat_ids)
+        table_of = self._table_of(feat_ids)
+        out = None
+        for i, b in enumerate(self.buckets):
+            bucket = emb_ops.hash_bucket(feat_ids, b, salt=i + 1)
+            tab = entry[f"t{i}"]
+            part = tab.index_select(0, bucket.reshape(-1).long()).reshape(
+                tuple(bucket.shape) + tuple(tab.shape[1:]))
+            sel = emb_ops.trailing_dims((table_of == i).to(part.dtype),
+                                        part.dim())
+            part = part * sel
+            out = part if out is None else out + part
+        return out
+
+    # -- sparse-update plan ---------------------------------------------
+    def sparse_plan(self, feat_ids: torch.Tensor,
+                    num_rows: Optional[int] = None) -> Plan:
+        """One batch's dedup plan per table, through the
+        ``embedding_kernels`` plan leg. ``num_rows`` overrides the
+        monolithic fill id. On the card, when the take leg is the kernel,
+        each entry also carries its position segments (built once here,
+        shared by every embedding name's backward)."""
+        if not self.hashed:
+            rows = self.padded_vocab if num_rows is None else int(num_rows)
+            plan = {self.MONO: ek.plan_build(feat_ids, rows,
+                                             mode=self.kernels)}
+        else:
+            table_of = self._table_of(feat_ids)
+            plan = {}
+            for i, b in enumerate(self.buckets):
+                bucket = emb_ops.hash_bucket(feat_ids, b, salt=i + 1)
+                sel = table_of == i
+                per_table = torch.where(sel, bucket, torch.full(
+                    (), b, dtype=torch.int32, device=bucket.device))
+                plan[f"t{i}"] = ek.plan_build(per_table, b, mask=sel.float(),
+                                              mode=self.kernels)
+        if feat_ids.device.type == "cuda" and ek.resolve(
+                self.kernels, "take") == "kernel":
+            plan = {k: e._replace(segments=ek.position_segments(
+                e.inv, e.uids.shape[0],
+                keep=None if e.mask is None else e.mask > 0))
+                for k, e in plan.items()}
+        return plan
+
+    def gather_rows(self, entry: Entry, plan: Plan) -> Dict[str, torch.Tensor]:
+        """Touched rows per table: the sparse path's gradient leaf."""
+        tabs = self.tables(entry)
+        return {k: emb_ops.gather_rows(tabs[k], plan[k]) for k in plan}
+
+    def lookup_rows(self, rows: Dict[str, torch.Tensor],
+                    plan: Optional[Plan]) -> torch.Tensor:
+        """[B,F,*trailing] view over pre-gathered rows, the parts summed in
+        plan key order. With ``plan`` None the rows are already the
+        [B,F,...] batch view (the fused backward's leaves)."""
+        if plan is None:
+            assert len(rows) == 1
+            return next(iter(rows.values()))
+        out = None
+        for k in plan:
+            part = emb_ops.lookup_rows(rows[k], plan[k], mode=self.kernels)
+            out = part if out is None else out + part
+        return out
+
+    # -- regularization -------------------------------------------------
+    def l2(self, entry: Entry) -> torch.Tensor:
+        """0.5*sum(x^2) over REAL rows: monolithic pad rows are masked out,
+        so their gradient is exactly zero by construction; hashed tables
+        have no pad rows and are summed table by table."""
+        if self.hashed:
+            return sum(l2_half_sum(t) for t in entry.values())
         return l2_half_sum(emb_ops.mask_pad_rows(entry, self.feature_size))
 
+    def l2_rows(self, rows: Dict[str, torch.Tensor],
+                plan: Plan) -> torch.Tensor:
+        """Sparse-mode L2 over the batch's TOUCHED rows only (fill slots
+        excluded): idle rows do not decay between touches."""
+        total = None
+        for k, entry in plan.items():
+            x = rows[k].float()
+            valid = emb_ops.trailing_dims(emb_ops.valid_rows(entry).float(),
+                                          x.dim())
+            s = 0.5 * torch.sum(x * x * valid)
+            total = s if total is None else total + s
+        return total
+
     def mask_pad_grads(self, grad_entry: torch.Tensor) -> torch.Tensor:
-        """Zero pad-row gradients on the dense path."""
+        """Zero pad-row gradients on the dense path (hashed tables have no
+        pad rows: the identity)."""
+        if self.hashed:
+            return grad_entry
         return emb_ops.mask_pad_rows(grad_entry, self.feature_size)

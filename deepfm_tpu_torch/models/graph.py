@@ -5,7 +5,8 @@ A ranking model factors into embedding lookup (``fm_w`` [V], ``fm_v``
 second order, the DNN tower) and a head that sums them into one logit.
 
 Parameter names match the JAX param tree, flattened with dots: ``fm_b``,
-``fm_w``, ``fm_v``, ``tower.layers.<i>.{w,b[,bn_scale,bn_bias]}``,
+``fm_w``, ``fm_v`` (``fm_w.t0``, ``fm_v.t0``, ... in the hash-bucketed
+layout, a ``ParameterDict`` each), ``tower.layers.<i>.{w,b[,bn_scale,bn_bias]}``,
 ``tower.out.{w,b}``; the BN running statistics (the JAX model state
 ``{"bn": [...]}``) are buffers ``bn.<i>.{mean,var}``. An artifact or a JAX
 param tree therefore loads with ``load_state_dict``.
@@ -19,7 +20,7 @@ drawn from the ``generator`` argument (the JAX ``rng``).
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -62,19 +63,48 @@ class GraphModel(nn.Module):
         self.padded_vocab = self.emb.padded_vocab
 
     def embedding_param_names(self) -> Tuple[str, ...]:
-        """The embedding tables (the params the l2 term covers)."""
+        """The embedding params (the ones the l2 term covers)."""
         return ("fm_w", "fm_v")
 
-    def l2_loss(self, params: Optional[Mapping[str, torch.Tensor]] = None
-                ) -> torch.Tensor:
+    def _embedding_param(self, entry: common.Entry):
+        """An entry as module state: one Parameter, or a ParameterDict of
+        tables (state names ``<param>.t0``, ...) in the hashed layout."""
+        if isinstance(entry, dict):
+            return nn.ParameterDict({k: nn.Parameter(t)
+                                     for k, t in entry.items()})
+        return nn.Parameter(entry)
+
+    def _entry(self, name: str) -> common.Entry:
+        p = getattr(self, name)
+        return dict(p.items()) if isinstance(p, nn.ParameterDict) else p
+
+    def _emb_lookup(self, name: str, feat_ids: torch.Tensor,
+                    emb_rows: Optional[Dict[str, Dict[str, torch.Tensor]]],
+                    emb_plan: Optional[common.Plan]) -> torch.Tensor:
+        """Dense gather from the full tables, or (sparse update) the view
+        over the batch's pre-gathered rows ``emb_rows[name]``, which are
+        then the gradient leaves."""
+        if emb_rows is not None:
+            return self.emb.lookup_rows(emb_rows[name], emb_plan)
+        return self.emb.lookup(self._entry(name), feat_ids)
+
+    def l2_loss(self, params: Optional[Mapping[str, torch.Tensor]] = None,
+                *, emb_rows: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+                emb_plan: Optional[common.Plan] = None) -> torch.Tensor:
         """l2_reg * pad-aware L2 over every embedding table, in full (the
-        dense path's semantics). ``params`` defaults to the module's own."""
-        if params is None:
-            params = dict(self.named_parameters())
+        dense path), or over the batch's touched rows only when
+        ``emb_rows``/``emb_plan`` are given (the sparse path). ``params``
+        (flat state names) defaults to the module's own."""
         names = self.embedding_param_names()
-        total = self.emb.l2(params[names[0]])
-        for n in names[1:]:
-            total = total + self.emb.l2(params[n])
+        if emb_rows is not None:
+            terms = [self.emb.l2_rows(emb_rows[n], emb_plan) for n in names]
+        else:
+            if params is None:
+                params = dict(self.named_parameters())
+            terms = [self.emb.l2(self.emb.entry(params, n)) for n in names]
+        total = terms[0]
+        for t in terms[1:]:
+            total = total + t
         return self.cfg.l2_reg * total
 
 
@@ -95,9 +125,9 @@ class GraphDeepFM(GraphModel):
         if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(cfg.seed)
         self.fm_b = nn.Parameter(torch.zeros(1, device=dev))
-        self.fm_w = nn.Parameter(
+        self.fm_w = self._embedding_param(
             self.emb.init_entry((), generator=generator, device=dev))
-        self.fm_v = nn.Parameter(
+        self.fm_v = self._embedding_param(
             self.emb.init_entry((cfg.embedding_size,), generator=generator,
                                 device=dev))
         self.tower, self.bn = common.init_tower(
@@ -107,12 +137,16 @@ class GraphDeepFM(GraphModel):
         self.eval()
 
     def forward(self, feat_ids: torch.Tensor, feat_vals: torch.Tensor, *,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                emb_rows: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+                emb_plan: Optional[common.Plan] = None) -> torch.Tensor:
         """Logits [B] float32 from int ids [B,F] and values [B,F].
 
         In training mode with a dropout keep below 1, ``generator`` (on the
         inputs' device) draws the dropout masks; it is required there, so a
-        training step never drops its dropout silently."""
+        training step never drops its dropout silently. ``emb_rows`` and
+        ``emb_plan`` (the sparse update) replace the table lookups by views
+        over pre-gathered rows (``EmbeddingSchema.lookup_rows``)."""
         cfg = self.cfg
         if self.training and generator is None and any(
                 k < 1.0 for k in cfg.dropout_rates[:len(cfg.deep_layer_sizes)]):
@@ -120,8 +154,8 @@ class GraphDeepFM(GraphModel):
                 "a training-mode forward with dropout keep < 1 needs a "
                 "torch.Generator for the dropout masks")
         feat_vals = feat_vals.float()
-        w = self.emb.lookup(self.fm_w, feat_ids)          # [B,F]
-        v = self.emb.lookup(self.fm_v, feat_ids)          # [B,F,K]
+        w = self._emb_lookup("fm_w", feat_ids, emb_rows, emb_plan)  # [B,F]
+        v = self._emb_lookup("fm_v", feat_ids, emb_rows, emb_plan)  # [B,F,K]
         xv = v * feat_vals[..., None]
         y_wv = fm_block(cfg, w, feat_vals, xv)
         deep_in = xv.reshape(xv.shape[0], cfg.field_size * cfg.embedding_size)

@@ -1,5 +1,6 @@
-"""Training: the dense single-device Trainer, optimizers with optax's
-arithmetic, metrics, the non-finite guard and the tasks."""
+"""Training: the single-device Trainer (dense or sparse embedding update),
+optimizers with optax's arithmetic and the lazy sparse Adam, metrics, the
+non-finite guard and the tasks."""
 
 from .loop import Trainer  # noqa: F401
 from .state import TrainState  # noqa: F401

@@ -1,13 +1,17 @@
-"""Trainer: train, eval and predict steps and the fit loop, dense and on
-one device (port of ``deepfm_tpu.train.loop``).
+"""Trainer: train, eval and predict steps and the fit loop on one device
+(port of ``deepfm_tpu.train.loop``).
 
 The model module is a stateless template built on the ``meta`` device; a
 :class:`TrainState` carries the tensors, and every step runs the module
 over them with ``torch.func.functional_call``, so two states never share
-storage. A train step is the JAX ``_step_impl``'s dense path: forward in
-training mode, loss = mean per-example loss + l2 over the full embedding
-tables (pad rows excluded), gradients of both, pad-row gradients zeroed,
-then the optimizer updates every parameter in place.
+storage. A dense train step is the JAX ``_step_impl``: forward in training
+mode, loss = mean per-example loss + l2 over the full embedding tables (pad
+rows excluded), gradients of both, pad-row gradients zeroed, then the
+optimizer updates every parameter in place. With ``--embedding_update
+sparse`` a step is the JAX ``_sparse_step_impl`` on one device, in either
+table layout: the embedding tables move only in the rows the batch touched,
+by lazy Adam (see ``_sparse_step_impl``), and the other params take the
+optimizer.
 
 ``multi_step`` runs ``steps_per_loop`` steps per dispatch as a Python loop
 (the JAX package's ``lax.scan``), bit-identical to as many ``train_step``
@@ -18,8 +22,8 @@ card. Host batches go to the card through pinned memory with
 prefetch thread decodes ahead.
 
 Not ported yet, each raising ``NotImplementedError`` naming its flag: the
-sparse embedding update and the hot/cold tier, gradient accumulation,
-the device-resident dataset, a mesh other than 1x1 and the stall watchdog.
+hot/cold embedding tier, gradient accumulation (dense or sparse), the
+device-resident dataset, a mesh other than 1x1 and the stall watchdog.
 The JAX package's background staging thread and slot ring
 (``--transfer_ahead``, ``--staging_buffers``) have no counterpart: their
 values are not read.
@@ -42,6 +46,8 @@ from torch.func import functional_call
 from ..config import Config
 from ..models import get_model
 from ..obs import trace as trace_lib
+from ..ops import embedding as emb_ops
+from ..ops import embedding_kernels as ek
 from ..utils import device as device_lib
 from ..utils import profiling as prof_lib
 from . import guard as guard_lib
@@ -90,9 +96,6 @@ def check_ported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a Trainer option that the port has
     not reached yet, naming its flag."""
     unported = [
-        (cfg.embedding_update != "dense",
-         f"--embedding_update {cfg.embedding_update} (the sparse embedding "
-         "update)"),
         (cfg.embedding_tiering != "off",
          f"--embedding_tiering {cfg.embedding_tiering} (the hot/cold tier)"),
         (cfg.grad_accum_steps > 1,
@@ -120,6 +123,18 @@ class Trainer:
         self.model = get_model(cfg, device="meta")
         self.opt = opt_lib.build_optimizer(cfg, world_size=1)
         self._embed_names = self.model.embedding_param_names()
+        # Sparse (touched-rows-only) embedding updates with lazy Adam; the
+        # tables' flat state names, and the rest of the params, which the
+        # base optimizer updates.
+        self.sparse_embed = cfg.embedding_update == "sparse"
+        emb = self.model.emb
+        self._embed_keys = {n: {k: emb.param_key(n, k)
+                                for k in emb.table_keys()}
+                            for n in self._embed_names}
+        embed_flat = {p for keys in self._embed_keys.values()
+                      for p in keys.values()}
+        self._rest_keys = [k for k, _ in self.model.named_parameters()
+                           if k not in embed_flat]
 
     # ------------------------------------------------------------------
     # State
@@ -134,10 +149,24 @@ class Trainer:
         params = {k: v.detach().requires_grad_()
                   for k, v in model.named_parameters()}
         model_state = {k: v.detach() for k, v in model.named_buffers()}
-        opt_state = self.opt.init({k: v.detach() for k, v in params.items()})
+        opt_state = self._init_opt_state(
+            {k: v.detach() for k, v in params.items()})
         rng = torch.Generator(device=self.device).manual_seed(seed + 1)
         return TrainState(step=0, params=params, opt_state=opt_state,
                           model_state=model_state, rng=rng)
+
+    def _init_opt_state(self, params: Dict[str, torch.Tensor]) -> dict:
+        """Dense: the optimizer's state over all params. Sparse: the
+        JAX package's ``{"base", "embed", "count"}`` layout, the optimizer
+        over the non-embedding params, lazy-Adam slots per (param, table)
+        and the embeddings' step count (a host int)."""
+        if not self.sparse_embed:
+            return self.opt.init(params)
+        embed = {n: {k: opt_lib.embed_adam_init(params[p])
+                     for k, p in keys.items()}
+                 for n, keys in self._embed_keys.items()}
+        return {"base": self.opt.init({k: params[k] for k in self._rest_keys}),
+                "embed": embed, "count": 0}
 
     def load_weights(self, state: TrainState,
                      params: Dict[str, torch.Tensor],
@@ -176,12 +205,14 @@ class Trainer:
     # Steps
     # ------------------------------------------------------------------
     def _logits(self, state: TrainState, batch: Dict[str, torch.Tensor], *,
-                train: bool) -> torch.Tensor:
+                train: bool, **emb_kw) -> torch.Tensor:
+        """The model over ``state``'s tensors; ``emb_kw`` (``emb_rows``,
+        ``emb_plan``) feeds the sparse update's row leaves."""
         self.model.train(train)
         return functional_call(
             self.model, {**state.params, **state.model_state},
             (batch["feat_ids"], batch["feat_vals"]),
-            {"generator": state.rng if train else None})
+            {"generator": state.rng if train else None, **emb_kw})
 
     def _per_example_loss(self, logits: torch.Tensor,
                           labels: torch.Tensor) -> torch.Tensor:
@@ -207,8 +238,9 @@ class Trainer:
                 loss, [state.params[n] for n in names])))
         # Pad rows never move: their gradient is already zero (no real id
         # reaches them; the l2 term excludes them), and this makes it so.
-        for n in self._embed_names:
-            grads[n] = self.model.emb.mask_pad_grads(grads[n])
+        for keys in self._embed_keys.values():
+            for p in keys.values():
+                grads[p] = self.model.emb.mask_pad_grads(grads[p])
         return loss.detach(), xent.detach(), grads
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
@@ -216,10 +248,184 @@ class Trainer:
         """One optimizer step on a device batch; updates ``state`` in place
         and returns it with the step's ``loss`` and ``xent`` (on the
         device: reading them waits for the card)."""
+        if self.sparse_embed:
+            return self._sparse_step_impl(state, batch)
         loss, xent, grads = self.loss_and_grads(state, batch)
         self.opt.apply(state.params, grads, state.opt_state)
         state.step += 1
         return state, {"loss": loss, "xent": xent}
+
+    # -- sparse embedding update ----------------------------------------
+    def _tables(self, state: TrainState) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{param name: {table key: table}} of ``state``."""
+        return {n: {k: state.params[p] for k, p in keys.items()}
+                for n, keys in self._embed_keys.items()}
+
+    def _use_fused_backward(self) -> bool:
+        """The fused formulation: the [B, F, D] batch views of each table
+        are the gradient leaves (no plan), every name's cotangents land in
+        one table-shaped scatter-add with an occupancy column, and lazy Adam
+        runs as a masked table sweep. Monolithic layout only;
+        ``--embedding_kernels off`` switches back to the plan path."""
+        return self.cfg.embedding_kernels != "off" and not self.model.emb.hashed
+
+    def _fused_tables_ok(self, tabs: Dict[str, torch.Tensor]) -> bool:
+        heights = {t.shape[0] for t in tabs.values()}
+        return (len(heights) == 1
+                and all(t.dim() in (1, 2) for t in tabs.values())
+                and heights.pop() <= ek.PLAN_COUNT_MAX_ROWS)
+
+    def _fused_grad_ext(self, tabs: Dict[str, torch.Tensor],
+                        ids: torch.Tensor,
+                        g_views: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """ONE table-shaped scatter-add for the whole embedding plane:
+        column 0 counts each row's occurrences (the touch marks: exact
+        integers in float32), the other columns sum every name's
+        per-position cotangents. An id in [-V, 0) adds to row id + V and any
+        other out-of-range id adds nothing, as the JAX scatter does.
+
+        ``index_add_`` sums in position order on the CPU, the JAX package's
+        order, but with float atomics on the card, whose order (and so the
+        last bits of a row's gradient) changes from run to run: the port's
+        tests hold this leg to a tolerance on the card, and to the JAX
+        package's band on the CPU."""
+        rows = next(iter(tabs.values())).shape[0]
+        flat = ids.reshape(-1).long()
+        flat = torch.where(flat < 0, flat + rows, flat)
+        flat = torch.where((flat >= 0) & (flat < rows), flat,
+                           torch.full((), rows, dtype=flat.dtype,
+                                      device=flat.device))
+        n_pos = flat.shape[0]
+        cols = [torch.ones((n_pos, 1), dtype=torch.float32,
+                           device=flat.device)]
+        cols += [g_views[n].reshape(n_pos, -1).float()
+                 for n in self._embed_names]
+        gcat = torch.cat(cols, dim=1)
+        gext = torch.zeros((rows + 1, gcat.shape[1]), dtype=torch.float32,
+                           device=flat.device)
+        return gext.index_add_(0, flat, gcat)[:rows]
+
+    @torch.no_grad()
+    def _fused_apply(self, state: TrainState,
+                     tabs: Dict[str, torch.Tensor], gext: torch.Tensor,
+                     count: int) -> torch.Tensor:
+        """Masked lazy-Adam sweep per name over ``gext``'s columns (plus the
+        touched-rows-only L2 gradient, added here as autograd adds it on the
+        plan path), in place. Returns the l2 term's value.
+
+        The idle decays are computed once and shared by every table (tau is
+        the same across them: the same touched set every step), as
+        ``exp2(idle * float32(log2 b))``: the JAX package's formulation on
+        this leg, ~1 ulp from ``pow``."""
+        touched = gext[:, 0] > 0
+        opt_embed = state.opt_state["embed"]
+        mono = self.model.emb.MONO
+        l2_reg = self.cfg.l2_reg
+        tau = opt_embed[self._embed_names[0]][mono].tau
+        idle = (count - tau).float()
+        decay = (torch.exp2(idle * float(np.float32(np.log2(0.9)))),
+                 torch.exp2(idle * float(np.float32(np.log2(0.999)))))
+        l2 = torch.zeros((), dtype=torch.float32, device=gext.device)
+        o = 1
+        for name in self._embed_names:
+            tab = tabs[name]
+            d = 1 if tab.dim() == 1 else tab.shape[-1]
+            g_eff = gext[:, o:o + d].reshape(tab.shape)
+            if l2_reg:
+                # l2 of the pre-update rows, before the sweep overwrites them.
+                sq = tab.float() * tab.float()
+                keep = emb_ops.trailing_dims(touched, sq.dim())
+                l2 = l2 + 0.5 * torch.sum(torch.where(
+                    keep, sq, torch.zeros((), dtype=sq.dtype,
+                                          device=sq.device)))
+                g_eff = g_eff + l2_reg * tab.float()
+            o += d
+            opt_lib.sparse_adam_masked(tab, g_eff, touched,
+                                       opt_embed[name][mono], count,
+                                       lr=self.opt.lr, decay=decay)
+        return l2_reg * l2
+
+    @torch.no_grad()
+    def _sparse_apply(self, state: TrainState, plan, rows0, g_rows,
+                      count: int) -> None:
+        """Lazy-Adam apply and scatter writeback for every (name, table), in
+        place. The counting plans' touched/rank companions are stripped
+        first, as the JAX trainer strips them, so every leg writes back by
+        scatter."""
+        plan = {k: e._replace(touched=None, rank=None)
+                for k, e in plan.items()}
+        opt_embed = state.opt_state["embed"]
+        tabs = self._tables(state)
+        for name in self._embed_names:
+            for key, e in plan.items():
+                opt_lib.sparse_apply_rows(
+                    rows0[name][key], g_rows[name][key], e,
+                    opt_embed[name][key], count, lr=self.opt.lr,
+                    table=tabs[name][key])
+
+    def _sparse_step_impl(self, state: TrainState,
+                          batch: Dict[str, torch.Tensor]
+                          ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One sparse-update optimizer step (the JAX ``_sparse_step_impl``).
+
+        Plan leg: the batch's ids are deduped into one plan per table; the
+        touched rows, not the tables, are the gradient leaves, so the
+        backward of the positionwise view is a batch-sized segment-sum
+        (the take kernels on the card) and lazy Adam touches only those
+        rows. Fused leg (monolithic, kernels not off): the [B, F, D] views
+        are the leaves and one table-shaped scatter-add gathers their
+        cotangents. The leaves are detached tensors differentiated with
+        ``torch.autograd.grad``; the rest of the params go through the
+        optimizer as on the dense path."""
+        emb = self.model.emb
+        tabs = self._tables(state)
+        rest = [state.params[k] for k in self._rest_keys]
+        labels = batch["label"].reshape(-1).float()
+        mono = {n: t[emb.MONO] for n, t in tabs.items()} \
+            if not emb.hashed else None
+        fused = self._use_fused_backward() and self._fused_tables_ok(mono)
+        with torch.enable_grad():
+            if fused:
+                plan = None
+                rows0 = {n: {emb.MONO: emb_ops.lookup(t, batch["feat_ids"])}
+                         for n, t in mono.items()}
+            else:
+                plan = emb.sparse_plan(batch["feat_ids"])
+                rows0 = {n: emb.gather_rows(emb.from_tables(tabs[n]), plan)
+                         for n in self._embed_names}
+            leaves = {n: {k: r.detach().requires_grad_()
+                          for k, r in rows.items()}
+                      for n, rows in rows0.items()}
+            logits = self._logits(state, batch, train=True, emb_rows=leaves,
+                                  emb_plan=plan)
+            xent = torch.mean(self._per_example_loss(logits, labels))
+            loss = xent
+            if not fused:
+                # Touched-rows-only l2: idle rows do not decay between
+                # touches. (The fused leg adds it in ``_fused_apply``.)
+                l2 = self.model.l2_loss(emb_rows=leaves, emb_plan=plan)
+                loss = xent + l2
+            flat = [(n, k) for n in self._embed_names for k in leaves[n]]
+            grads = torch.autograd.grad(
+                loss, [leaves[n][k] for n, k in flat] + rest)
+        g_rows = {n: {} for n in self._embed_names}
+        for (n, k), g in zip(flat, grads):
+            g_rows[n][k] = g
+        opt = state.opt_state
+        self.opt.apply({k: state.params[k] for k in self._rest_keys},
+                       dict(zip(self._rest_keys, grads[len(flat):])),
+                       opt["base"])
+        count = opt["count"] + 1
+        if fused:
+            gext = self._fused_grad_ext(
+                mono, batch["feat_ids"],
+                {n: g[emb.MONO] for n, g in g_rows.items()})
+            l2 = self._fused_apply(state, mono, gext, count)
+        else:
+            self._sparse_apply(state, plan, rows0, g_rows, count)
+        opt["count"] = count
+        state.step += 1
+        return state, {"loss": (xent + l2).detach(), "xent": xent.detach()}
 
     def multi_step(self, state: TrainState,
                    batches: List[Dict[str, torch.Tensor]]

@@ -1,5 +1,5 @@
-"""Optimizers with optax's arithmetic (port of
-``deepfm_tpu.train.optimizers``, dense updates).
+"""Optimizers with optax's arithmetic, and the sparse embedding update's
+lazy Adam (port of ``deepfm_tpu.train.optimizers``).
 
 The JAX package builds its optimizers with optax; ``torch.optim`` orders
 and seeds the same algorithms differently (its Adam divides in another
@@ -16,10 +16,11 @@ repeats optax's formulas, operation for operation:
     u = t.  SGD without momentum: u = g.
   * FTRL-Proximal, the JAX package's own transformation (``ftrl``).
 
-and the step is ``p = p + (-lr) * u``. Every row of every table is updated
-each step (the dense path); the lazy sparse Adam comes with the sparse
-embedding slice. Updates are written in place with ``torch._foreach_*``
-over the parameter list, under ``torch.no_grad()``.
+and the step is ``p = p + (-lr) * u``. These update every row of every
+table each step (the dense path); with ``--embedding_update sparse`` the
+embedding tables take the lazy Adam at the end of this module instead.
+Updates are written in place with ``torch._foreach_*`` over the parameter
+list, under ``torch.no_grad()``.
 
 State is a plain dict of tensors keyed by parameter name (plus the step
 count ``count`` as a Python int for Adam, whose bias correction is computed
@@ -28,12 +29,13 @@ on the host in float32), so it checkpoints with ``torch.save``.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..ops import embedding as emb_ops
 
 Params = Dict[str, torch.Tensor]
 
@@ -173,6 +175,114 @@ class Ftrl:
             w.add_(w_new - w)
             z.copy_(z_new)
             n.copy_(n_new)
+
+
+# ---------------------------------------------------------------------------
+# Sparse (touched-rows-only) Adam with lazy, timestamped moment correction
+# ---------------------------------------------------------------------------
+#
+# The JAX package's lazy Adam (``deepfm_tpu.train.optimizers``): per row the
+# moments (m, v) and the step count ``tau`` at which the row was last
+# touched. On a touch at global step ``count`` (1-based):
+#
+#     m = b1^(count-tau) * m + (1 - b1) * g
+#     v = b2^(count-tau) * v + (1 - b2) * g^2
+#     row -= (lr * m / (1 - b1^count)) / (sqrt(v / (1 - b2^count)) + eps)
+#
+# which is dense Adam's value for that row had its idle steps' zero
+# gradients been applied one by one. The formulas below repeat the JAX
+# package's operation order; the bias corrections are float32 values
+# computed on the host, as the dense ``Adam`` computes them.
+
+
+class EmbedAdamEntry(NamedTuple):
+    """Per-table lazy-Adam slots: m, v float32 like the table, ``tau``
+    int32 [rows], the step count at which each row was last touched."""
+    m: torch.Tensor
+    v: torch.Tensor
+    tau: torch.Tensor
+
+
+def embed_adam_init(table: torch.Tensor) -> EmbedAdamEntry:
+    return EmbedAdamEntry(
+        m=torch.zeros_like(table, dtype=torch.float32),
+        v=torch.zeros_like(table, dtype=torch.float32),
+        tau=torch.zeros(table.shape[0], dtype=torch.int32,
+                        device=table.device))
+
+
+def _bias_corrections(count: int, b1: float, b2: float):
+    """``1 - b^count`` in float32 for both betas (Python floats)."""
+    t = np.float32(count)
+    return (float(np.float32(1) - np.float32(b1) ** t),
+            float(np.float32(1) - np.float32(b2) ** t))
+
+
+@torch.no_grad()
+def sparse_adam_rows(rows0: torch.Tensor, g_rows: torch.Tensor,
+                     m_rows: torch.Tensor, v_rows: torch.Tensor,
+                     tau_rows: torch.Tensor, count: int, *, lr: float,
+                     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    """One lazy-Adam step on gathered rows [U, ...]; returns (new_rows,
+    new_m, new_v). The idle decays are ``pow(b, idle)``, as the JAX
+    package's row form computes them."""
+    g = g_rows.float()
+    idle = emb_ops.trailing_dims((count - tau_rows).float(), g.dim())
+    m = torch.pow(b1, idle) * m_rows + (1.0 - b1) * g
+    v = torch.pow(b2, idle) * v_rows + (1.0 - b2) * (g * g)
+    bc1, bc2 = _bias_corrections(count, b1, b2)
+    m_hat = m / bc1
+    v_hat = v / bc2
+    new_rows = rows0.float() - lr * m_hat / (torch.sqrt(v_hat) + eps)
+    return new_rows.to(rows0.dtype), m, v
+
+
+@torch.no_grad()
+def sparse_adam_masked(table: torch.Tensor, g_rows: torch.Tensor,
+                       touched: torch.Tensor, oe: EmbedAdamEntry, count: int,
+                       *, lr: float, b1: float = 0.9, b2: float = 0.999,
+                       eps: float = 1e-8, decay=None) -> None:
+    """Lazy Adam as a masked TABLE sweep, IN PLACE on ``table`` and ``oe``:
+    the per-row math of :func:`sparse_adam_rows` under ``touched``, and
+    untouched rows keep their exact bits (a ``where``, not a blend).
+    ``g_rows`` is table-shaped (junk on untouched rows). ``decay``: the
+    precomputed ``(b1^idle, b2^idle)`` [R] pair shared by every table of
+    the plane; by default ``pow`` of the table's own idle counts."""
+    g = g_rows.float()
+    if decay is None:
+        idle = (count - oe.tau).float()
+        decay = (torch.pow(b1, idle), torch.pow(b2, idle))
+    pw1, pw2 = (emb_ops.trailing_dims(d, g.dim()) for d in decay)
+    m = pw1 * oe.m + (1.0 - b1) * g
+    v = pw2 * oe.v + (1.0 - b2) * (g * g)
+    bc1, bc2 = _bias_corrections(count, b1, b2)
+    new_rows = table.float() - lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+    keep = emb_ops.trailing_dims(touched, g.dim())
+    table.copy_(torch.where(keep, new_rows.to(table.dtype), table))
+    oe.m.copy_(torch.where(keep, m, oe.m))
+    oe.v.copy_(torch.where(keep, v, oe.v))
+    oe.tau.copy_(torch.where(touched, torch.full((), count, dtype=oe.tau.dtype,
+                                                 device=oe.tau.device),
+                             oe.tau))
+
+
+@torch.no_grad()
+def sparse_apply_rows(rows0: torch.Tensor, g_rows: torch.Tensor,
+                      entry: emb_ops.PlanEntry, oe: EmbedAdamEntry,
+                      count: int, *, lr: float,
+                      table: torch.Tensor) -> None:
+    """One table's sparse-Adam transaction, IN PLACE: gather the lazy
+    slots at the plan's uids, :func:`sparse_adam_rows`, and write the
+    three row sets and the ``tau`` stamps back (``scatter_rows`` /
+    ``set_rows_scalar``: fill slots dropped)."""
+    new_rows, new_m, new_v = sparse_adam_rows(
+        rows0, g_rows, emb_ops.gather_rows(oe.m, entry),
+        emb_ops.gather_rows(oe.v, entry), emb_ops.gather_rows(oe.tau, entry),
+        count, lr=lr)
+    emb_ops.scatter_rows(table, entry, new_rows)
+    emb_ops.scatter_rows(oe.m, entry, new_m)
+    emb_ops.scatter_rows(oe.v, entry, new_v)
+    emb_ops.set_rows_scalar(oe.tau, entry, count)
 
 
 def build_optimizer(cfg: Config, *, world_size: int = 1):

@@ -49,7 +49,16 @@ class TrainState:
         return self
 
 
+def _is_record(tree: Any) -> bool:
+    """A NamedTuple of slots (the sparse update's ``EmbedAdamEntry``)."""
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _to_cpu(tree: Any) -> Any:
+    """CPU copies of the tensors; NamedTuples become dicts of their fields,
+    so ``torch.load(weights_only=True)`` reads the snapshot back."""
+    if _is_record(tree):
+        tree = tree._asdict()
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
@@ -59,7 +68,11 @@ def _to_cpu(tree: Any) -> Any:
 
 def _copy_into(dst: Any, src: Any, where: str) -> Any:
     """Copy ``src`` into ``dst`` tensor by tensor; non-tensor leaves (the
-    Adam step count) are taken from ``src``. Returns the updated ``dst``."""
+    Adam step counts) are taken from ``src``, and a NamedTuple's fields
+    from the dict :func:`_to_cpu` made of it. Returns the updated ``dst``."""
+    if _is_record(dst):
+        fields = _copy_into(dst._asdict(), src, where)
+        return type(dst)(**fields)
     if isinstance(dst, dict):
         if not isinstance(src, dict) or set(dst) != set(src):
             raise ValueError(

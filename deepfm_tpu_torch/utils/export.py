@@ -235,7 +235,7 @@ def load_serving(artifact_dir: str, *,
     else should treat it as a corrupt deployment.
     """
     model, _, meta = load_model(artifact_dir, device=device)
-    dev = model.fm_v.device
+    dev = model.fm_b.device
 
     def serve(feat_ids: np.ndarray, feat_vals: np.ndarray) -> np.ndarray:
         ids = torch.from_numpy(np.ascontiguousarray(feat_ids, np.int32))

@@ -22,6 +22,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from ..train.optimizers import EmbedAdamEntry
+
 
 def flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
     """Nested dicts/lists -> ``{"a.b.0.c": leaf}``."""
@@ -57,7 +59,19 @@ def opt_state_from_jax(opt_state: Any) -> Dict[str, Any]:
     """optax Adam state (``jax.tree.map(np.asarray, opt_state)`` of
     ``optax.adam``: a chain whose first element carries ``count``, ``mu``
     and ``nu``) -> the port's Adam state ``{"count": int, "mu": {...},
-    "nu": {...}}`` of CPU tensors, named as the port's params."""
+    "nu": {...}}`` of CPU tensors, named as the port's params.
+
+    The sparse update's layout ``{"base": <optax Adam over the other
+    params>, "embed": {name: {table: EmbedAdamEntry(m, v, tau)}}, "count":
+    int32}`` comes over as the port's ``{"base": ..., "embed": {name:
+    {table: EmbedAdamEntry}}, "count": int}`` (``tau`` stays int32)."""
+    if isinstance(opt_state, dict) and "embed" in opt_state:
+        return {"base": opt_state_from_jax(opt_state["base"]),
+                "embed": {name: {key: EmbedAdamEntry(
+                    m=_tensor(e.m), v=_tensor(e.v), tau=_tensor(e.tau))
+                    for key, e in tables.items()}
+                    for name, tables in opt_state["embed"].items()},
+                "count": int(np.asarray(opt_state["count"]))}
     adam = opt_state
     while not hasattr(adam, "mu"):
         if not isinstance(adam, (list, tuple)) or not adam:

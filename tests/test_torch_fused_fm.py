@@ -249,7 +249,8 @@ def build_env(tmp_path, monkeypatch):
     nothing but ``bin/`` (where a test may put a fake nvcc)."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
-    (csrc / "fused_fm.cu").write_text("// kernel v1\n")
+    for name in _native._BINDERS:  # a stand-in source per kernel library
+        (csrc / f"{name}.cu").write_text(f"// {name} v1\n")
     bindir = tmp_path / "bin"
     bindir.mkdir()
     monkeypatch.setattr(_native, "CSRC_DIR", str(csrc))
@@ -295,10 +296,11 @@ def test_build_installs_library_once(build_env):
     _fake_nvcc(build_env / "bin", 'while [ "$1" != "-o" ]; do shift; done\n'
                'echo lib > "$2"; echo called >> "$0.calls"\n')
     _native.build()
-    assert os.path.exists(_native.library_path("fused_fm"))
+    for name in _native._BINDERS:
+        assert os.path.exists(_native.library_path(name)), name
     _native.build()  # already built: nvcc is not run again
     calls = (build_env / "bin" / "nvcc.calls").read_text().split()
-    assert calls == ["called"]
+    assert calls == ["called"] * len(_native._BINDERS)  # one per source
 
 
 def test_check_raises_on_cuda_error():

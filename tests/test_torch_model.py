@@ -177,8 +177,18 @@ def test_unported_models_raise(name):
 
 
 def test_hashed_embeddings_not_ported():
+    """Hash-bucketed tables are ported now: the model holds one table per
+    bucket count under the JAX tree's names; a multi-task model over them
+    still raises."""
+    model = get_model(Config(**_cfg_kw(embedding_buckets="64,32")),
+                      device="cpu")
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()
+              if k.startswith("fm_")}
+    assert shapes == {"fm_b": (1,), "fm_w.t0": (64,), "fm_w.t1": (32,),
+                      "fm_v.t0": (64, K), "fm_v.t1": (32, K)}
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_model(Config(**_cfg_kw(embedding_buckets="64,64")), device="cpu")
+        get_model(Config(**_cfg_kw(embedding_buckets="64,32",
+                                   tasks="ctr,cvr")), device="cpu")
 
 
 def test_missing_gpu_raises(monkeypatch):

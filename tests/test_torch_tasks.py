@@ -170,9 +170,8 @@ def test_unported_modes_raise_naming_their_flag(data_dir, tmp_path, flag,
     named = flag
     if flag == "device_dataset":
         kw["decoded_cache"] = "ram"
-    if flag == "embedding_tiering":  # the tier needs the sparse update,
+    if flag == "embedding_tiering":  # the tier rides the sparse update
         kw.update(embedding_update="sparse", embedding_hot_rows=64)
-        named = "embedding_update"   # which is named first
     if flag == "online_mode":
         kw.update(pipe_mode=1, num_epochs=1)
     with pytest.raises(NotImplementedError,

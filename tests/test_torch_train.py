@@ -412,7 +412,7 @@ def test_unported_guard_policies_raise(policy):
 
 
 @pytest.mark.parametrize("flag,value,match", [
-    ("embedding_update", "sparse", "--embedding_update"),
+    ("embedding_tiering", "hot_cold", "--embedding_tiering"),
     ("grad_accum_steps", 2, "--grad_accum_steps"),
     ("mesh_data", 2, "--mesh_data"),
     ("dispatch_timeout_s", 5.0, "--dispatch_timeout_s"),
@@ -421,6 +421,8 @@ def test_unported_trainer_flags_raise(flag, value, match):
     kw = _kw(**{flag: value})
     if flag == "grad_accum_steps":
         kw["steps_per_loop"] = 2
+    if flag == "embedding_tiering":  # the tier rides the sparse update
+        kw.update(embedding_update="sparse", embedding_hot_rows=64)
     with pytest.raises(NotImplementedError, match=match):
         check_ported(Config(**kw))
 
