@@ -30,26 +30,40 @@ Phases, each of which raises (and so exits non-zero) on failure:
    its own second launch, and within a tolerance of the plain backward on
    the card, at D = 1 and 32, U = N = 39,936; then times beside the bounds,
    the plain versions and ``index_select`` / ``index_add_``.
-6. Train parity: DeepFM at the reference width, one seeded init, 20 steps
+6. Install kernel phase: the hot/cold cache install (``dfm_install``) in
+   place into hot tables of 81,920 rows at D = 1 and 32, one transaction
+   of 10,000 installs padded to 16,384 slots (real slots drawn without
+   replacement), bit-equal to ``reference_install`` on the card and to a
+   numpy oracle, untouched rows and out-of-range slots left alone; then
+   I = 1, every slot out of range and I = H; then times beside the bound,
+   the plain version's and four ``index_copy_`` calls'.
+7. Train parity: DeepFM at the reference width, one seeded init, 20 steps
    on the same batches (dropout keep 1.0) with the kernels
    (``use_pallas=True``) and with the plain path; the losses must agree.
    Then the same for the sparse update with hashed tables: kernels
    (``embedding_kernels=auto``) against the plain legs (``xla``, no fused
-   FM).
-7. Train phases: synthetic TFRecords at the reference width written once
+   FM). Then the hot/cold tier through ``fit`` (81,920 hot rows,
+   ``transfer_ahead=2``): tiered against the untiered sparse monolithic
+   run, and against the tier with the plain install leg (``xla``); losses
+   and densified tables must agree.
+8. Train phases: synthetic TFRecords at the reference width written once
    with the port's ``generate_synthetic_ctr``, then ``tasks.run`` train
    (the ``Config()`` defaults: dropout keep 0.5, Adam, batch 1024; two
-   epochs, an eval after each), eval and export, all on the card, three
-   times: the dense update, the sparse update on the monolithic table and
-   the sparse update on 4 hashed tables of 262,144 rows; eval and infer go
-   through the CLI entry point (``deepfm_tpu_torch.launch``). The logged
-   loss must fall, eval AUC exceed 0.5, the FM backward kernel launch once per
-   train step and the forward once per train step and eval batch, the plan
+   epochs, an eval after each), eval and export, all on the card, four
+   times: the dense update, the sparse update on the monolithic table, the
+   sparse update on 4 hashed tables of 262,144 rows, and the sparse update
+   through the hot/cold tier (81,920 hot rows, float32 cold store,
+   ``steps_per_loop=1``, ``transfer_ahead=2``); eval and infer go through
+   the CLI entry point (``deepfm_tpu_torch.launch``). The logged loss must
+   fall, eval AUC exceed 0.5, the FM backward kernel launch once per train
+   step and the forward once per train step and eval batch, the plan
    kernel 4 times and each take kernel 8 times per hashed step and never
-   on the other two; each trained artifact then serves. Then the step time
-   at B=1024 of the dense kernel and plain paths, and of the three layouts,
-   with one step's device busy time and idle share.
-8. Serve phase: DeepFM at the reference width (``Config()`` defaults:
+   on the other layouts, the install kernel twice (fm_w, fm_v) per tiered
+   plan and never elsewhere; each trained artifact then serves. Then the
+   step time at B=1024 of the dense kernel and plain paths, of the three
+   untiered layouts (one step, with its device busy time and idle share),
+   and of the tier (per dispatch through ``fit``: plan, apply and step).
+9. Serve phase: DeepFM at the reference width (``Config()`` defaults:
    V=117,581, F=39, K=32, tower 128-64-32, bfloat16 tower) with random
    weights from a seed, exported, published behind ``LATEST`` and served by
    ``ServingEngine.serve_latest`` to several client threads. Every response
@@ -62,7 +76,8 @@ line is ``{"ok": true, "device": {...}}``. Without a CUDA device the script
 exits non-zero and prints no result. Every kernel's launch count is read
 over main-path runs with the counts set to 0 just before each: the FM
 kernels over the dense train task (``launches``), the sparse train tasks
-and serving; the plan and take kernels over the hashed sparse train task.
+and serving; the plan and take kernels over the hashed sparse train task;
+the install kernel over the tiered train task.
 
 Numerics: float32 matmuls run in full float32
 (``torch.backends.cuda.matmul.allow_tf32 = False``) and bfloat16 matmuls
@@ -95,6 +110,7 @@ from deepfm_tpu_torch import _native, launch  # noqa: E402
 from deepfm_tpu_torch.config import Config  # noqa: E402
 from deepfm_tpu_torch.data import libsvm  # noqa: E402
 from deepfm_tpu_torch.models import get_model  # noqa: E402
+from deepfm_tpu_torch.obs import trace as trace_lib  # noqa: E402
 from deepfm_tpu_torch.ops import embedding as emb_ops  # noqa: E402
 from deepfm_tpu_torch.ops import embedding_kernels as ek  # noqa: E402
 from deepfm_tpu_torch.ops import fused_fm as ffm  # noqa: E402
@@ -173,6 +189,33 @@ TAKE_BWD_TOL = dict(rtol=1e-5, atol=1e-5)
 # and plan are bit-equal across legs; the fused FM's float32 sum order and
 # the bf16 tower differ as in the dense parity.
 SPARSE_PARITY_LOSS_ATOL = 1e-3
+
+# The hot/cold tier at the reference width: 81,920 hot rows hold about 2.4
+# batches' unique ids (one B=1024 batch touches ~33.9k of the 117,581), the
+# ratio of the repo's own tiered bench (24,576 hot rows over ~10k unique
+# ids, scripts/bench_embedding.py). One batch per dispatch: a group of 8
+# would touch ~93% of the ids, and the config keeps hot rows below the
+# vocabulary.
+TIERED = dict(embedding_update="sparse", embedding_tiering="hot_cold",
+              embedding_hot_rows=81_920, steps_per_loop=1, transfer_ahead=2)
+# Tiered parity (20 steps through fit, dropout off): the tier moves where
+# rows live, never their values, and the install legs are bit-identical,
+# so the runs differ only where the fused embedding backward's
+# ``index_add_`` float atomics add a row's cotangents in another order
+# (run to run), which the bf16 tower can carry into a one-ulp rounding
+# flip, as in the sparse parity above. Lazy Adam moves a touched row by
+# lr * m / (sqrt(v) + eps): a gradient a few ulps apart moves that step by
+# a few ulps of it, and a bf16 flip moves it by ~1e-3 of lr. The tables are
+# held within lr / 5 = 1e-4 (an H100 run measured 5.4e-9), 40x below the
+# tables' glorot scale (~4e-3), which one misplaced row would show.
+TIER_PARITY_LOSS_ATOL = 1e-3
+TIER_PARITY_TABLE_ATOL = 1e-4
+# Install kernel: hot tables of 81,920 rows; one transaction of 10,000
+# installs (about one batch's misses), padded to the next power of two.
+INSTALL_H = 81_920
+INSTALL_I = 10_000
+INSTALL_P = 16_384
+INSTALL_ARGS = ("w", "m", "v", "tau", "slots", "wv", "mv", "vv", "tv")
 
 # Serve phase. Embedding tables are scaled up from their glorot init so the
 # FM term moves probabilities well away from 0.5: a wrong kernel then shows
@@ -499,6 +542,96 @@ def take_phase():
     return max_err, timing
 
 
+def install_inputs(h: int, d: int, slots: np.ndarray, rng) -> dict:
+    """Host arrays for one install: tables [H] (D = 1, the 1-D fm_w) or
+    [H, D], tau [H], ``slots`` and values for every slot (the padding's
+    values too, so a dropped slot that was written would show)."""
+    p = slots.size
+    t_shape = (h,) if d == 1 else (h, d)
+    v_shape = (p,) if d == 1 else (p, d)
+    f = lambda s: rng.standard_normal(s, dtype=np.float32)  # noqa: E731
+    return {"w": f(t_shape), "m": f(t_shape), "v": np.abs(f(t_shape)),
+            "tau": rng.integers(0, 1000, h).astype(np.int32),
+            "slots": slots.astype(np.int32), "wv": f(v_shape),
+            "mv": f(v_shape), "vv": np.abs(f(v_shape)),
+            "tv": rng.integers(1000, 2000, p).astype(np.int32)}
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    return a.view(np.int32)
+
+
+def install_case_slots(kind, h: int, rng) -> np.ndarray:
+    if kind == "out_of_range":
+        return np.array([h, h + 7, -1, 2 ** 31 - 1] * 4, np.int64)
+    n = h if kind == "all" else kind
+    slots = np.full(1 << max(n - 1, 0).bit_length(), h, np.int64)
+    slots[:n] = rng.permutation(h)[:n]
+    return slots
+
+
+def install_phase():
+    """The install kernel vs its plain version on the card and the numpy
+    oracle at D = 1 and 32: one transaction of INSTALL_I installs padded to
+    INSTALL_P, I = 1, every slot out of range, I = H. Then times of the
+    transaction beside its bound, the plain version's and four
+    ``index_copy_`` calls on the real slots."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 40)
+    timing = {}
+    for d in (1, 32):
+        for kind in (INSTALL_I, 1, "out_of_range", "all"):
+            slots = install_case_slots(kind, INSTALL_H, rng)
+            host = install_inputs(INSTALL_H, d, slots, rng)
+            on = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+            kern = {k: on[k].clone() for k in INSTALL_ARGS[:4]}
+            plain = {k: on[k].clone() for k in INSTALL_ARGS[:4]}
+            ek._launch_install(*(kern.get(k, on[k]) for k in INSTALL_ARGS))
+            ek.reference_install(*(plain.get(k, on[k])
+                                   for k in INSTALL_ARGS))
+            torch.cuda.synchronize()
+            keep = (slots >= 0) & (slots < INSTALL_H)
+            real = slots[keep]
+            untouched = np.ones(INSTALL_H, bool)
+            untouched[real] = False
+            for key, vkey in zip(INSTALL_ARGS[:4], INSTALL_ARGS[5:]):
+                got = kern[key].cpu().numpy()
+                oracle = host[key].copy()
+                oracle[real] = host[vkey][keep]
+                assert np.array_equal(_bits(got), _bits(oracle)), (kind, d,
+                                                                   key)
+                assert np.array_equal(_bits(got),
+                                      _bits(plain[key].cpu().numpy()))
+                assert np.array_equal(_bits(got[untouched]),
+                                      _bits(host[key][untouched]))
+            print(f"install check I={real.size} P={slots.size} D={d}: "
+                  f"bit-equal to plain and oracle, {int(untouched.sum())} "
+                  f"untouched rows kept, {int((~keep).sum())} out-of-range "
+                  f"slots dropped")
+
+        slots = install_case_slots(INSTALL_I, INSTALL_H, rng)
+        host = install_inputs(INSTALL_H, d, slots, rng)
+        on = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        args = [on[k] for k in INSTALL_ARGS]
+        idx = on["slots"][:INSTALL_I].long()
+        real = [(on[k], on[vk][:INSTALL_I]) for k, vk in zip(
+            INSTALL_ARGS[:4], INSTALL_ARGS[5:])]
+        kern = timed(lambda: ek._launch_install(*args))
+        plain = timed(lambda: ek.reference_install(*args))
+        lib = timed(lambda: [t.index_copy_(0, idx, x) for t, x in real])
+        nbytes = 4 * INSTALL_P + 2 * INSTALL_I * (3 * 4 * d + 4)
+        bound = bound_of(nbytes, 0)
+        timing[d] = (kern, plain, lib, bound)
+        print(f"install time D={d} H={INSTALL_H} I={INSTALL_I} "
+              f"P={INSTALL_P}: kernel_ms={kern[0]:.6f} plain_ms="
+              f"{plain[0]:.6f} library_ms(4x index_copy_ on the real slots)="
+              f"{lib[0]:.6f} ({kern[2]}) kernel_call_ms={kern[1]:.6f} "
+              f"plain_call_ms={plain[1]:.6f} library_call_ms={lib[1]:.6f} "
+              f"(cuda_events) bound_ms={bound[0]:.6f} ({bound[1]}: "
+              f"{nbytes} B)")
+    return timing
+
+
 def random_batches(cfg: Config, n: int, seed: int):
     rng = np.random.default_rng(seed)
     b, f = cfg.batch_size, cfg.field_size
@@ -546,6 +679,61 @@ def train_parity_phase(cfg: Config, dev: torch.device,
         print(f"train parity {name}: {steps} steps kernel vs plain, max "
               f"|loss diff| {diff.max():.3e} (atol {atol}); loss "
               f"{kern[0]:.5f} -> {kern[-1]:.5f}")
+
+
+def _fit_run(cfg: Config, dev: torch.device, batches):
+    """Per-dispatch losses and the (densified) fm_w/fm_v tables of one
+    ``fit`` from the seeded init; and the trainer."""
+    trainer = Trainer(cfg, device=dev)
+    state = trainer.init_state(SEED)
+    losses = []
+    state, _ = trainer.fit(state, batches, hooks=[
+        lambda s, m: losses.append(m["loss"])])
+    if trainer._tier is not None:
+        state = trainer._tier.densified(state)
+    tables = {n: state.params[n].detach().float().cpu()
+              for n in ("fm_w", "fm_v")}
+    return np.array([float(x) for x in losses]), tables, trainer
+
+
+def tiered_parity_phase(cfg: Config, dev: torch.device,
+                        steps: int = PARITY_STEPS, tier: dict = TIERED
+                        ) -> None:
+    """The hot/cold tier, 20 steps through ``fit`` from one seeded init on
+    the same batches, dropout off: against the untiered sparse monolithic
+    run, and against the tier's plain install leg (``xla``). Losses and
+    densified tables agree; the kernel run installs twice per plan."""
+    cfg = cfg.replace(dropout="1.0,1.0,1.0")
+    batches = random_batches(cfg, steps, SEED + 8)
+    tiered = cfg.replace(**tier)
+    before = ek.install_launches
+    loss_t, tab_t, trainer = _fit_run(tiered, dev, batches)
+    plans = trainer._tier.stats["plans"]
+    assert plans == steps and trainer._tier.stats["installs"] > 0
+    if dev.type == "cuda":
+        assert ek.install_launches - before == EMB_PARAMS * plans
+    print(f"tiered parity: {steps} steps, hit_rate="
+          f"{trainer._tier.hit_rate():.4f} evictions="
+          f"{trainer._tier.stats['evictions']:.0f} installs="
+          f"{trainer._tier.stats['installs']:.0f}")
+    untiered = cfg.replace(embedding_update="sparse",
+                           steps_per_loop=tier["steps_per_loop"])
+    for name, other_cfg in (("untiered", untiered),
+                            ("tier_xla", tiered.replace(
+                                embedding_kernels="xla"))):
+        before = ek.install_launches
+        loss_o, tab_o, _ = _fit_run(other_cfg, dev, batches)
+        assert ek.install_launches == before, name
+        assert np.all(np.isfinite(loss_t)), loss_t
+        dl = float(np.abs(loss_t - loss_o).max())
+        dt = {n: float((tab_t[n] - tab_o[n]).abs().max()) for n in tab_t}
+        assert dl <= TIER_PARITY_LOSS_ATOL, (name, loss_t, loss_o)
+        assert max(dt.values()) <= TIER_PARITY_TABLE_ATOL, (name, dt)
+        print(f"tiered parity vs {name}: max |loss diff| {dl:.3e} (atol "
+              f"{TIER_PARITY_LOSS_ATOL}), max |table diff| fm_w "
+              f"{dt['fm_w']:.3e} fm_v {dt['fm_v']:.3e} (atol "
+              f"{TIER_PARITY_TABLE_ATOL}); loss {loss_t[0]:.5f} -> "
+              f"{loss_t[-1]:.5f}")
 
 
 class _LossLog(logging.Handler):
@@ -601,12 +789,14 @@ def _counts() -> dict:
             "fused_fm_bwd": fused_fm.bwd_launches,
             "plan_build": ek.plan_launches,
             "take_fwd": ek.take_fwd_launches,
-            "take_bwd": ek.take_bwd_launches}
+            "take_bwd": ek.take_bwd_launches,
+            "install": ek.install_launches}
 
 
 def _zero_counts() -> None:
     fused_fm.launches = fused_fm.bwd_launches = 0
     ek.plan_launches = ek.take_fwd_launches = ek.take_bwd_launches = 0
+    ek.install_launches = 0
 
 
 def train_phase(workdir: str, data: dict, cfg: Config, dev: torch.device,
@@ -623,6 +813,7 @@ def train_phase(workdir: str, data: dict, cfg: Config, dev: torch.device,
     steps = epochs * (data["train"] // cfg.batch_size)
     eval_batches = -(-data["eval"] // cfg.batch_size)
     hashed = bool(cfg.embedding_bucket_sizes)
+    tiered = cfg.embedding_tiering == "hot_cold"
 
     loss_log = _LossLog()
     loop_log = logging.getLogger("deepfm_tpu_torch.train.loop")
@@ -650,11 +841,24 @@ def train_phase(workdir: str, data: dict, cfg: Config, dev: torch.device,
     assert res["auc"] > 0.5, res
     on = int(dev.type == "cuda")
     emb_steps = steps if hashed else 0
+    plans = 0
+    if tiered:
+        # One plan per dispatch, one dispatch per step; every batch misses
+        # rows, so every plan installs (once per embedding param).
+        plans = int(res["hotcold_plans"])
+        assert plans == steps and res["hotcold_installs"] > 0, res
+        print(f"train {name} tier: plans={plans} hit_rate="
+              f"{res['hotcold_hit_rate']:.4f} evictions="
+              f"{res['hotcold_evictions']:.0f} installs="
+              f"{res['hotcold_installs']:.0f} overlap_fraction="
+              f"{res['hotcold_overlap_fraction']:.4f} apply_s_per_dispatch="
+              f"{res['hotcold_apply_s'] / plans:.6f} (host clock)")
     want = {"fused_fm": on * (steps + epochs * eval_batches),
             "fused_fm_bwd": on * steps,
             "plan_build": on * HASHED_TABLES * emb_steps,
             "take_fwd": on * HASHED_TABLES * EMB_PARAMS * emb_steps,
-            "take_bwd": on * HASHED_TABLES * EMB_PARAMS * emb_steps}
+            "take_bwd": on * HASHED_TABLES * EMB_PARAMS * emb_steps,
+            "install": on * EMB_PARAMS * plans}
     assert launches == want, (name, launches, want)
 
     _zero_counts()
@@ -730,6 +934,58 @@ def train_step_timing(cfg: Config) -> None:
         for name, kw in layouts.items():
             _step_timing(cfg.replace(**kw), name, batch,
                          top=turn == 0 and name != "dense")
+        tiered_dispatch_timing(cfg.replace(**TIERED), top=turn == 0)
+
+
+def tiered_dispatch_timing(cfg: Config, top: bool, n: int = 20) -> None:
+    """One dispatch of the tier at B=1024 through ``fit`` (plan on the
+    staging thread, apply, step): host clock over ``n`` distinct batches
+    after a warm-up that fills the cache; then ``n`` more with span tracing
+    on, for the time per dispatch of each span (``hotcold.plan`` runs on
+    the staging thread) and the tracing's own cost; device busy time and
+    events per dispatch from torch.profiler over single-batch fits."""
+    dev = torch.device("cuda")
+    trainer = Trainer(cfg, device=dev)
+    state = trainer.init_state(SEED)
+    batches = random_batches(cfg, 5 + 2 * n + 2 * 11, SEED + 12)
+    state, _ = trainer.fit(state, batches[:5])
+    stats = trainer._tier.stats
+    apply0 = stats["apply_s"]
+    t0 = time.perf_counter()
+    state, _ = trainer.fit(state, batches[5:5 + n])  # ends in a sync
+    per = (time.perf_counter() - t0) / n * 1e3
+    apply_ms = (stats["apply_s"] - apply0) / n * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_lib.configure("full", export_env=False)
+        try:
+            t0 = time.perf_counter()
+            state, _ = trainer.fit(state, batches[5 + n:5 + 2 * n])
+            traced = (time.perf_counter() - t0) / n * 1e3
+            with open(trace_lib.export(os.path.join(tmp, "t.json"))) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            trace_lib.reset()
+    spans = {}
+    for ev in events:
+        if ev.get("ph") == "X":
+            spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
+    print(f"train dispatch B={cfg.batch_size} sparse_tiered traced: "
+          f"dispatch_ms={traced:.4f} (tracing on; off: {per:.4f}) per "
+          "dispatch: " + " ".join(f"{k}={v / n:.4f}ms"
+                                  for k, v in sorted(spans.items())))
+    rest = iter(batches[5 + 2 * n:])
+    one = lambda: trainer.fit(state, [next(rest)])  # noqa: E731
+    busy, events = device_profile(one, iters=10)
+    busy_txt = "not measured" if busy is None else f"{busy:.4f}"
+    idle = ("not measured" if busy is None
+            else f"{max(0.0, 1 - busy / per):.3f}")
+    print(f"train dispatch B={cfg.batch_size} sparse_tiered: dispatch_ms="
+          f"{per:.4f} (host clock, {n} batches through fit: plan + apply + "
+          f"step) apply_ms={apply_ms:.4f} examples_per_sec="
+          f"{cfg.batch_size / per * 1e3:.0f} device_busy_ms={busy_txt} "
+          f"device_events={events:g} idle_share={idle}")
+    if top and busy is not None:
+        top_kernels(one, label="sparse_tiered")
 
 
 def top_kernels(fn, iters: int = 10, top: int = 8,
@@ -897,15 +1153,17 @@ def main() -> int:
     plan_ms, plan_plain, plan_lib, plan_bound, plan_by, plan_src = \
         plan_phase()
     take_err, take_t = take_phase()
+    install_t = install_phase()
 
     cfg = Config()
     dev = torch.device("cuda")
     train_parity_phase(cfg, dev)
+    tiered_parity_phase(cfg, dev)
     workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=HERE)
     try:
         data = make_train_data(workdir, cfg)
         paths = {"train": train_phase(workdir, data, cfg, dev)[0]}
-        for name, kw in SPARSE_LAYOUTS.items():
+        for name, kw in {**SPARSE_LAYOUTS, "sparse_tiered": TIERED}.items():
             paths["train_" + name] = train_phase(
                 workdir, data, cfg.replace(**kw), dev, name=name)[0]
         train_step_timing(cfg)
@@ -929,6 +1187,14 @@ def main() -> int:
                                   "library_ms": v[2][0],
                                   "bound_ms": v[3][0]}
                          for d, v in per_d.items()}}
+    (ik, _, isrc), (ip, _, _), (il, _, _), (ib, iby) = install_t[32]
+    install = {
+        "ms": ik, "plain_ms": ip, "library_ms": il,
+        "library_call": "4x index_copy_ on the real slots",
+        "bound_ms": ib, "bound_by": iby, "ms_source": isrc,
+        "by_width": {str(d): {"ms": v[0][0], "plain_ms": v[1][0],
+                              "library_ms": v[2][0], "bound_ms": v[3][0]}
+                     for d, v in install_t.items()}}
     print(card_line())
     print(json.dumps({"kernels": [{
         "name": "fused_fm", "route": "cuda",
@@ -969,7 +1235,13 @@ def main() -> int:
         "replaces": "deepfm_tpu/ops/pallas_embedding.py:226",
         "launches": hashed["take_bwd"],
         "launches_by_path": by_path("take_bwd"),
-        "max_abs_err": take_err, **take["take_bwd"]}]}))
+        "max_abs_err": take_err, **take["take_bwd"]}, {
+        "name": "install", "route": "cuda",
+        "source": "deepfm_tpu_torch/csrc/embedding.cu",
+        "replaces": "deepfm_tpu/ops/pallas_embedding.py:302",
+        "launches": paths["train_sparse_tiered"]["install"],
+        "launches_by_path": by_path("install"),
+        "max_abs_err": 0.0, **install}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -62,6 +62,9 @@ def _bind_embedding(lib: ctypes.CDLL) -> None:
     bwd.argtypes = [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64,
                     ctypes.c_int, _P]
     bwd.restype = ctypes.c_int
+    install = lib.dfm_install
+    install.argtypes = [_P] * 9 + [ctypes.c_int64] * 3 + [_P]
+    install.restype = ctypes.c_int
 
 
 # Kernel library name -> function that declares its C signatures.

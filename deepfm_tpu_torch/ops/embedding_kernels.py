@@ -1,6 +1,6 @@
 """Kernels of the sparse embedding plane, with their plain versions: the
-counterpart of ``deepfm_tpu/ops/pallas_embedding.py`` (its plan build and
-its gather/segment-sum pair; the hot/cold cache install is not ported).
+counterpart of ``deepfm_tpu/ops/pallas_embedding.py`` (its plan build, its
+gather/segment-sum pair and the hot/cold tier's cache install).
 
 Each seam has up to three legs, picked by :func:`resolve` from the
 ``--embedding_kernels`` mode as the JAX package picks them:
@@ -8,22 +8,24 @@ Each seam has up to three legs, picked by :func:`resolve` from the
   * ``kernel`` (``auto``, ``pallas``) -- the hand-written CUDA kernels of
     ``csrc/embedding.cu`` on CUDA tensors. A CPU tensor takes the kernel's
     plain version instead; a CUDA tensor launches the kernel or raises.
-  * ``opt`` (``xla``) -- the plain torch legs: the counting plan build and
-    ``rows[inv]`` with autograd's own backward.
+  * ``opt`` (``xla``) -- the plain torch legs: the counting plan build,
+    ``rows[inv]`` with autograd's own backward, and the install's four
+    masked copies under one mask (``reference_install``).
   * ``ref`` (``off``, and plans over more than ``PLAN_COUNT_MAX_ROWS``
-    rows) -- the sort-based plan and ``rows[inv]``.
+    rows) -- the sort-based plan, ``rows[inv]``, and one masked copy per
+    array (``install_array``, the JAX ``_jit_install``).
 
-All legs give bit-identical plans. The take legs give identical values;
-their backward sums each uid slot's cotangents in ascending batch position
-from 0.0 on the CPU and in the kernel (the order of the TPU kernel's loop
-and of XLA's scatter-add, so the gradient equals the JAX package's bit for
-bit), while autograd's ``rows[inv]`` backward on the card may sum in
-another order.
+All legs give bit-identical plans and installs. The take legs give
+identical values; their backward sums each uid slot's cotangents in
+ascending batch position from 0.0 on the CPU and in the kernel (the order
+of the TPU kernel's loop and of XLA's scatter-add, so the gradient equals
+the JAX package's bit for bit), while autograd's ``rows[inv]`` backward on
+the card may sum in another order.
 
 Launch counters are plain ints on this module: ``plan_launches``,
-``take_fwd_launches`` and ``take_bwd_launches``, each raised by one where
-its wrapper launches its kernel (one plan build is one count, whatever
-number of CUDA launches it takes).
+``take_fwd_launches``, ``take_bwd_launches`` and ``install_launches``, each
+raised by one where its wrapper launches its kernel (one plan build is one
+count, whatever number of CUDA launches it takes).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ _count_lock = threading.Lock()
 plan_launches = 0
 take_fwd_launches = 0
 take_bwd_launches = 0
+install_launches = 0
 
 
 def _count(name: str) -> None:
@@ -58,11 +61,12 @@ def _count(name: str) -> None:
 
 
 def resolve(mode: str, kernel: str, *, num_rows: int = 0) -> str:
-    """The leg ("kernel" | "opt" | "ref") of one seam ("plan" | "take")."""
+    """The leg ("kernel" | "opt" | "ref") of one seam ("plan" | "take" |
+    "install")."""
     if mode not in MODES:
         raise ValueError(f"embedding_kernels must be one of {MODES}, "
                          f"got {mode!r}")
-    if kernel not in ("plan", "take"):
+    if kernel not in ("plan", "take", "install"):
         raise ValueError(f"unknown kernel {kernel!r}")
     if mode == "off":
         return "ref"
@@ -300,3 +304,93 @@ def take_rows(rows: torch.Tensor, inv: torch.Tensor, *, mode: str = "auto",
     flat = inv.reshape(-1).to(torch.int32)
     out = TakeRows.apply(rows2, flat, segments)
     return out.reshape(tuple(inv.shape) + tuple(rows.shape[1:]))
+
+
+# ---------------------------------------------------------------------------
+# Cache install (TPU kernel: pallas_embedding.py `_install_kernel`)
+# ---------------------------------------------------------------------------
+# One hot/cold transaction writes the fetched weight rows and their three
+# lazy-Adam companions (m, v, tau) at their hot slots, in place; slots
+# outside [0, H) (the pow-2 padding) are dropped. The in-bounds slots of a
+# transaction are distinct, so every leg is element-identical.
+
+
+def _in_bounds(slots: torch.Tensor, rows: int) -> torch.Tensor:
+    return (slots >= 0) & (slots < rows)
+
+
+@torch.no_grad()
+def install_array(table: torch.Tensor, slots: torch.Tensor,
+                  vals: torch.Tensor) -> None:
+    """``table[slots] = vals`` in place with out-of-range slots dropped:
+    one array of a transaction (the JAX ``_jit_install``, the ``off``
+    leg). The masked select sizes its output from the data, so on the
+    card it waits for the device."""
+    keep = _in_bounds(slots, table.shape[0])
+    table.index_copy_(0, slots[keep].long(), vals[keep].to(table.dtype))
+
+
+@torch.no_grad()
+def reference_install(w, m, v, tau, slots, wv, mv, vv, tv) -> None:
+    """The install kernel's plain version (and the ``xla`` leg, the
+    ``_install_fused_xla`` counterpart): four masked ``index_copy_`` calls
+    that share one mask, in place."""
+    keep = _in_bounds(slots, w.shape[0])
+    idx = slots[keep].long()
+    for table, vals in ((w, wv), (m, mv), (v, vv), (tau, tv)):
+        table.index_copy_(0, idx, vals[keep].to(table.dtype))
+
+
+def _check_install(w, m, v, tau, slots, wv, mv, vv, tv) -> None:
+    h, p = w.shape[0], slots.shape[0]
+    tabs, vals = (w, m, v), (wv, mv, vv)
+    if (w.dim() not in (1, 2) or any(t.shape != w.shape for t in tabs)
+            or tau.shape != (h,) or slots.dim() != 1
+            or any(x.shape != (p,) + tuple(w.shape[1:]) for x in vals)
+            or tv.shape != (p,)):
+        raise ValueError(
+            f"install expects w, m, v [H] or [H,D], tau [H], slots [P] and "
+            f"values [P(,D)]; got w {tuple(w.shape)}, tau {tuple(tau.shape)}, "
+            f"slots {tuple(slots.shape)}, wv {tuple(wv.shape)}, tv "
+            f"{tuple(tv.shape)}")
+    every = (*tabs, tau, slots, *vals, tv)
+    if any(t.device != w.device for t in every):
+        raise ValueError("install inputs lie on different devices")
+    if (any(t.dtype != torch.float32 for t in (*tabs, *vals))
+            or any(t.dtype != torch.int32 for t in (tau, slots, tv))):
+        raise TypeError("the CUDA install kernel takes float32 w/m/v and "
+                        "their values, int32 tau, slots and tau values")
+    if not all(t.is_contiguous() for t in every):
+        raise ValueError("the CUDA install kernel needs contiguous inputs")
+
+
+def _launch_install(w, m, v, tau, slots, wv, mv, vv, tv) -> None:
+    _check_install(w, m, v, tau, slots, wv, mv, vv, tv)
+    h, p = w.shape[0], slots.shape[0]
+    d = 1 if w.dim() == 1 else w.shape[1]
+    if p == 0 or d == 0:
+        return
+    lib = _native.load("embedding")
+    with torch.cuda.device(w.device):
+        err = lib.dfm_install(*(t.data_ptr() for t in (
+            w, m, v, tau, slots, wv, mv, vv, tv)), h, p, d,
+            _stream(w.device))
+    _native.check(err, "cache install")
+    _count("install_launches")
+
+
+def install_rows(w, m, v, tau, slots, wv, mv, vv, tv, *,
+                 mode: str = "auto") -> None:
+    """One cache transaction through the selected leg, in place: rows
+    ``slots`` of w, m, v [H(,D)] and tau [H] take wv, mv, vv and tv; slots
+    outside [0, H) are dropped. The kernel leg launches ``dfm_install`` on
+    CUDA tensors and takes :func:`reference_install` on CPU tensors."""
+    _check_device(w, "install")
+    leg = resolve(mode, "install")
+    if leg == "kernel" and w.device.type == "cuda":
+        _launch_install(w, m, v, tau, slots, wv, mv, vv, tv)
+    elif leg == "ref":
+        for table, vals in ((w, wv), (m, mv), (v, vv), (tau, tv)):
+            install_array(table, slots, vals)
+    else:
+        reference_install(w, m, v, tau, slots, wv, mv, vv, tv)

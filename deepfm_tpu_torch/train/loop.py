@@ -21,12 +21,20 @@ card. Host batches go to the card through pinned memory with
 ``non_blocking`` copies made from the fit thread, while the pipeline's
 prefetch thread decodes ahead.
 
-Not ported yet, each raising ``NotImplementedError`` naming its flag: the
-hot/cold embedding tier, gradient accumulation (dense or sparse), the
-device-resident dataset, a mesh other than 1x1 and the stall watchdog.
-The JAX package's background staging thread and slot ring
-(``--transfer_ahead``, ``--staging_buffers``) have no counterpart: their
-values are not read.
+With ``--embedding_tiering hot_cold`` (sparse update, monolithic table)
+the tables and their lazy-Adam slots live in host RAM and only
+``--embedding_hot_rows`` rows are on the device (``data.hot_cold``): ``fit``
+plans each dispatch group ``--transfer_ahead`` groups early on a staging
+thread (cold fetches and the id -> slot remap, numpy only), applies the
+group's cache transaction on the fit thread just before its dispatch, and
+``evaluate``/``predict`` run on the densified full tables.
+
+Not ported yet, each raising ``NotImplementedError`` naming its flag:
+gradient accumulation (dense or sparse), the device-resident dataset, a
+mesh other than 1x1 and the stall watchdog. The JAX package's device
+staging ring (``--staging_buffers``) has no counterpart, and without
+tiering ``--transfer_ahead`` is not read: host batches go to the card from
+the fit thread.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from ..config import Config
+from ..data import pipeline as pipe_lib
 from ..models import get_model
 from ..obs import trace as trace_lib
 from ..ops import embedding as emb_ops
@@ -96,8 +105,6 @@ def check_ported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a Trainer option that the port has
     not reached yet, naming its flag."""
     unported = [
-        (cfg.embedding_tiering != "off",
-         f"--embedding_tiering {cfg.embedding_tiering} (the hot/cold tier)"),
         (cfg.grad_accum_steps > 1,
          "--grad_accum_steps > 1 (gradient accumulation)"),
         (cfg.device_dataset, "--device_dataset (the device-resident dataset)"),
@@ -135,14 +142,24 @@ class Trainer:
                       for p in keys.values()}
         self._rest_keys = [k for k, _ in self.model.named_parameters()
                            if k not in embed_flat]
+        # Hot/cold tiered embedding storage (config-validated: sparse
+        # update, monolithic table).
+        self._tier = None
+        if cfg.embedding_tiering == "hot_cold":
+            from ..data import hot_cold  # noqa: PLC0415
+            self._tier = hot_cold.TieredEmbeddingRuntime(cfg, self.model)
 
     # ------------------------------------------------------------------
     # State
     # ------------------------------------------------------------------
-    def init_state(self, seed: Optional[int] = None) -> TrainState:
+    def init_state(self, seed: Optional[int] = None, *,
+                   tiered: bool = True) -> TrainState:
         """Fresh state: weights drawn from a generator seeded with ``seed``
         (default ``cfg.seed``) on the trainer's device; the dropout
-        generator seeded with ``seed + 1``."""
+        generator seeded with ``seed + 1``. Under hot/cold tiering the
+        state is adopted into the tier; ``tiered=False`` returns the DENSE
+        state instead, the template a tiered run restores its (densified)
+        checkpoints into before ``self._tier.adopt``."""
         seed = self.cfg.seed if seed is None else seed
         gen = torch.Generator(device=self.device).manual_seed(seed)
         model = get_model(self.cfg, device=self.device, generator=gen)
@@ -152,8 +169,11 @@ class Trainer:
         opt_state = self._init_opt_state(
             {k: v.detach() for k, v in params.items()})
         rng = torch.Generator(device=self.device).manual_seed(seed + 1)
-        return TrainState(step=0, params=params, opt_state=opt_state,
-                          model_state=model_state, rng=rng)
+        state = TrainState(step=0, params=params, opt_state=opt_state,
+                           model_state=model_state, rng=rng)
+        if tiered and self._tier is not None:
+            state = self._tier.adopt(state)
+        return state
 
     def _init_opt_state(self, params: Dict[str, torch.Tensor]) -> dict:
         """Dense: the optimizer's state over all params. Sparse: the
@@ -172,7 +192,8 @@ class Trainer:
                      params: Dict[str, torch.Tensor],
                      model_state: Dict[str, torch.Tensor]) -> TrainState:
         """Copy flat ``{name: tensor}`` weights (``params_from_jax``, an
-        artifact's) into ``state``, in place; returns the state."""
+        artifact's) into ``state``, in place; returns the state. Under
+        tiering, load into ``init_state(tiered=False)``, then adopt."""
         with torch.no_grad():
             for src, dst in ((params, state.params),
                              (model_state, state.model_state)):
@@ -460,44 +481,62 @@ class Trainer:
         k = max(cfg.steps_per_loop, 1)
         if max_steps is not None:
             batches = itertools.islice(iter(batches), max_steps)
+        tier = self._tier
+        if tier is not None:
+            groups = self._stage_tiered(batches, k, cfg.transfer_ahead,
+                                        tier.start_staging())
+        else:
+            groups = ((g, sum(int(b["label"].shape[0]) for b in g))
+                      for g in _groups(batches, k))
         last_loss = float("nan")
         n_steps = 0
         examples_since_log = 0
         m: Dict[str, Any] = {}
         meter = prof_lib.ThroughputMeter()
         t0 = time.time()
-        for group in _groups(batches, k):
-            n_ex = sum(int(b["label"].shape[0]) for b in group)
-            with trace_lib.span("train.dispatch", steps=len(group),
-                                examples=n_ex):
-                dev = [self.put_batch(b) for b in group]
-                if len(dev) == 1:
-                    state, m = self.train_step(state, dev[0])
-                else:
-                    state, m = self.multi_step(state, dev)
-            prev_steps = n_steps
-            n_steps += len(group)
-            examples_since_log += n_ex
-            meter.update(n_ex, len(group))
-            if cfg.log_steps and (n_steps // cfg.log_steps
-                                  > prev_steps // cfg.log_steps):
-                loss = float(m["loss"])  # device sync, bounded by the cadence
-                last_loss = loss
-                if guard is not None:
-                    guard.observe(loss, state.step, params_bad=(
-                        guard.params_nonfinite(state.params)
-                        if math.isfinite(loss) else False))
-                eps = examples_since_log / max(time.time() - t0, 1e-9)
-                log.info("step=%d loss=%.5f examples/sec=%.0f", state.step,
-                         loss, eps)
-                if on_log is not None:
-                    on_log(state.step, loss, eps)
-                t0 = time.time()
-                examples_since_log = 0
-            if hooks:
-                m = {**m, "steps_done": len(group)}
-                for hook in hooks:
-                    hook(state, m)
+        try:
+            for group, n_ex in groups:
+                if tier is not None:
+                    # This dispatch's cache transaction goes first, on the
+                    # stream its step is enqueued on.
+                    state = tier.apply_next(state)
+                with trace_lib.span("train.dispatch", steps=len(group),
+                                    examples=n_ex):
+                    dev = [self.put_batch(b) for b in group]
+                    if len(dev) == 1:
+                        state, m = self.train_step(state, dev[0])
+                    else:
+                        state, m = self.multi_step(state, dev)
+                prev_steps = n_steps
+                n_steps += len(group)
+                examples_since_log += n_ex
+                meter.update(n_ex, len(group))
+                if cfg.log_steps and (n_steps // cfg.log_steps
+                                      > prev_steps // cfg.log_steps):
+                    loss = float(m["loss"])  # device sync, bounded by cadence
+                    last_loss = loss
+                    if guard is not None:
+                        guard.observe(loss, state.step, params_bad=(
+                            guard.params_nonfinite(state.params)
+                            if math.isfinite(loss) else False))
+                    eps = examples_since_log / max(time.time() - t0, 1e-9)
+                    log.info("step=%d loss=%.5f examples/sec=%.0f",
+                             state.step, loss, eps)
+                    if on_log is not None:
+                        on_log(state.step, loss, eps)
+                    t0 = time.time()
+                    examples_since_log = 0
+                if hooks:
+                    m = {**m, "steps_done": len(group)}
+                    for hook in hooks:
+                        hook(state, m)
+        finally:
+            if tier is not None:
+                # An abandoned fit stops its staging thread and applies the
+                # plans it had queued, so no pin stays held and no thread
+                # waits on them.
+                groups.close()
+                tier.stop_staging(state)
         if n_steps:
             # Fold the wait for the card into the rate: completed steps,
             # not dispatched ones.
@@ -508,7 +547,30 @@ class Trainer:
         out = {"loss": last_loss, "steps": float(n_steps)}
         out.update({k_: v for k_, v in meter.summary().items()
                     if k_ != "steps"})
+        if tier is not None:
+            out.update({f"hotcold_{k_}": float(v)
+                        for k_, v in tier.stats.items()})
+            out["hotcold_hit_rate"] = tier.hit_rate()
+            out["hotcold_overlap_fraction"] = tier.overlap_fraction()
         return state, out
+
+    def _stage_tiered(self, batches: Iterable[Batch], k: int, depth: int,
+                      generation: int) -> Iterator[Tuple[List[Batch], int]]:
+        """(group with slot ids, examples) per dispatch, in dispatch order:
+        the groups of ``_groups``, each planned by the hot/cold runtime
+        (victims, cold fetches, id -> slot remap) ``depth`` groups ahead on
+        a staging thread (inline when ``depth`` is 0). Numpy work only; the
+        fit thread applies one plan per group it takes."""
+        tier = self._tier
+
+        def gen():
+            for group in _groups(batches, k):
+                n_ex = sum(int(b["label"].shape[0]) for b in group)
+                yield tier.plan_group(group, generation=generation), n_ex
+
+        if depth <= 0:
+            return gen()
+        return pipe_lib.prefetch(gen(), depth)
 
     # ------------------------------------------------------------------
     # Eval / predict
@@ -518,6 +580,10 @@ class Trainer:
         """Streaming eval: binned AUC + mean loss. Every batch is padded to
         ``batch_size`` with zero-weight rows, so no record is dropped and
         none counts twice."""
+        if self._tier is not None:
+            # The ordinary dense forward over the full tables (flushed hot
+            # rows + cold store).
+            state = self._tier.densified(state)
         cfg = self.cfg
         auc_state = metrics_lib.auc_init(cfg.auc_num_thresholds,
                                          device=self.device)
@@ -560,6 +626,8 @@ class Trainer:
     def predict(self, state: TrainState,
                 batches: Iterable[Batch]) -> Iterator[np.ndarray]:
         """Yield one probability vector per batch."""
+        if self._tier is not None:
+            state = self._tier.densified(state)
         with torch.no_grad():
             for batch in batches:
                 logits = self._logits(state, self.put_batch(batch),

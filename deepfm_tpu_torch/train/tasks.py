@@ -17,6 +17,13 @@ Files resolve as in the JAX package: ``tr*`` / ``va*`` / ``te*`` +
 ``run(cfg, device="cuda")`` runs on the card unless the caller asks for
 the CPU. Modes the port has not reached raise ``NotImplementedError``
 naming their flag (see ``check_task_ported``).
+
+Under hot/cold tiering (``--embedding_tiering hot_cold``) every checkpoint
+is written DENSIFIED (``TieredEmbeddingRuntime.checkpoint_state``: full
+tables and full-shape lazy-Adam slots), so it restores bit-exactly into an
+untiered run and back; a tiered task restores into the dense template and
+then adopts the state into its tier. The exported artifact holds the full
+tables, and the train result carries the tier's ``hotcold_*`` stats.
 """
 
 from __future__ import annotations
@@ -131,13 +138,20 @@ def _restore_or_init(trainer: Trainer, cfg: Config, require: bool,
                      ) -> TrainState:
     """Fresh state, restored from the latest checkpoint when one exists.
     ``require`` (eval/infer/export) makes a missing checkpoint an error,
-    checked before any directory is created."""
-    state = trainer.init_state()
+    checked before any directory is created. Under tiering the dense
+    template is restored first, then adopted into the tier (the restored
+    Adam slots seed the cold store)."""
+    tier = trainer._tier
+    state = trainer.init_state(tiered=False)
+
+    def adopted(s: TrainState) -> TrainState:
+        return tier.adopt(s) if tier is not None else s
+
     if not cfg.model_dir:
         if require:
             raise FileNotFoundError(
                 f"task '{cfg.task_type}' requires model_dir")
-        return state
+        return adopted(state)
     if require and not os.path.isdir(cfg.model_dir):
         raise FileNotFoundError(
             f"task '{cfg.task_type}' needs a checkpoint in model_dir="
@@ -145,12 +159,26 @@ def _restore_or_init(trainer: Trainer, cfg: Config, require: bool,
     mgr = mgr or ckpt_lib.CheckpointManager(
         cfg.model_dir, max_to_keep=cfg.keep_checkpoint_max)
     if mgr.latest_step() is not None:
-        return mgr.restore(state)
+        return adopted(mgr.restore(state))
     if require:
         raise FileNotFoundError(
             f"task '{cfg.task_type}' needs a checkpoint in model_dir="
             f"{cfg.model_dir!r}")
-    return state
+    return adopted(state)
+
+
+def _ckpt_state(trainer: Trainer, state: TrainState) -> TrainState:
+    """What goes into every checkpoint: under tiering the densified state
+    with full-shape Adam slots; otherwise ``state`` itself."""
+    tier = trainer._tier
+    return tier.checkpoint_state(state) if tier is not None else state
+
+
+def _servable_state(trainer: Trainer, state: TrainState) -> TrainState:
+    """What the export serves: under tiering the full tables, not the hot
+    window."""
+    tier = trainer._tier
+    return tier.densified(state) if tier is not None else state
 
 
 def run(cfg: Config, device="cuda") -> Dict[str, float]:
@@ -260,8 +288,8 @@ def _resume_position(cfg: Config, restored_step: int, files_digest: str,
 
 def _export(trainer: Trainer, cfg: Config, state: TrainState) -> str:
     out = os.path.join(cfg.servable_model_dir, str(int(state.step)))
-    return export_lib.export_serving(trainer.servable_model(state), cfg, out,
-                                     step=int(state.step))
+    model = trainer.servable_model(_servable_state(trainer, state))
+    return export_lib.export_serving(model, cfg, out, step=int(state.step))
 
 
 def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
@@ -305,7 +333,8 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
     hooks = []
     if mgr is not None:
         def ckpt_hook(s: TrainState, m) -> None:
-            if mgr.should_save(s.step) and mgr.save(s.step, s):
+            if mgr.should_save(s.step) and mgr.save(
+                    s.step, _ckpt_state(trainer, s)):
                 last_saved[0] = s.step
                 _write_resume_meta(cfg.model_dir, meta(s.step, False))
         hooks.append(ckpt_hook)
@@ -324,6 +353,8 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
             result["loss"] = fit_m["loss"]
             result["examples_per_sec"] = fit_m.get("examples_per_sec", 0.0)
             result["step_ms_p50"] = fit_m.get("step_ms_p50", 0.0)
+            result.update({k: v for k, v in fit_m.items()
+                           if k.startswith("hotcold_")})
         if (mgr is not None and last_saved[0] == state.step
                 and epoch + 1 < cfg.num_epochs):
             # A checkpoint landed on this epoch's last step: point the
@@ -338,7 +369,7 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
             result.update({"auc": ev["auc"], "eval_loss": ev["loss"],
                            "eval_examples_per_sec": ev["examples_per_sec"]})
     if mgr is not None:
-        mgr.save(state.step, state)
+        mgr.save(state.step, _ckpt_state(trainer, state))
         _write_resume_meta(cfg.model_dir, meta(state.step, True))
     if cfg.servable_model_dir:
         _export(trainer, cfg, state)

@@ -1,14 +1,24 @@
-"""Chaos seam for the serving executor (the port's copy of the
-``executor_slow`` part of ``deepfm_tpu.utils.faults``).
+"""Chaos seams of the port (its copy of the ``executor_slow`` and
+``cold_fetch`` parts of ``deepfm_tpu.utils.faults``).
 
-A test or drill arms the next ``calls`` serving flushes to sleep
-``delay_s`` each; the engine's executor consumes one armed delay per flush.
-That drives the degradation ladder without depending on host speed.
+* Serving: a test or drill arms the next ``calls`` serving flushes to sleep
+  ``delay_s`` each; the engine's executor consumes one armed delay per
+  flush. That drives the degradation ladder without depending on host
+  speed.
+* Hot/cold tier: a test arms the next N cold-store fetches to raise
+  :class:`InjectedFault`; the tier's fetch retry must heal them without
+  corrupting the hot cache or the training trajectory.
 """
 
 from __future__ import annotations
 
 import threading
+
+
+class InjectedFault(IOError):
+    """Marker subclass so tests can tell injected faults from real ones.
+    An IOError, so the default retryable classification applies."""
+
 
 _exec_slow_lock = threading.Lock()
 _exec_slow_delay_s: float = 0.0
@@ -38,3 +48,25 @@ def executor_slow_delay() -> float:
 def executor_slow_remaining() -> int:
     with _exec_slow_lock:
         return _exec_slow_calls
+
+
+_cold_fetch_lock = threading.Lock()
+_cold_fetch_fails: int = 0
+
+
+def set_cold_fetch_plan(fail_count: int) -> None:
+    """Arm the next ``fail_count`` cold-store fetches to raise (one fault
+    per fetch call; the runtime's retry consumes them)."""
+    global _cold_fetch_fails
+    with _cold_fetch_lock:
+        _cold_fetch_fails = int(fail_count)
+
+
+def check_cold_fetch() -> None:
+    """Called by the cold store at each fetch; raises while armed."""
+    global _cold_fetch_fails
+    with _cold_fetch_lock:
+        if _cold_fetch_fails <= 0:
+            return
+        _cold_fetch_fails -= 1
+    raise InjectedFault("injected cold-store fetch failure")

@@ -162,7 +162,7 @@ def test_eval_infer_export_need_a_checkpoint(data_dir, tmp_path):
     ("online_mode", True), ("pipe_mode", 1), ("device_dataset", True),
     ("publish_every_steps", 10), ("tensorboard_dir", "tb"),
     ("profile_dir", "prof"), ("mesh_model", 2), ("decoded_cache", "ram"),
-    ("eval_throttle_secs", 5), ("embedding_tiering", "hot_cold"),
+    ("eval_throttle_secs", 5), ("grad_accum_steps", 2),
 ])
 def test_unported_modes_raise_naming_their_flag(data_dir, tmp_path, flag,
                                                 value):
@@ -170,8 +170,8 @@ def test_unported_modes_raise_naming_their_flag(data_dir, tmp_path, flag,
     named = flag
     if flag == "device_dataset":
         kw["decoded_cache"] = "ram"
-    if flag == "embedding_tiering":  # the tier rides the sparse update
-        kw.update(embedding_update="sparse", embedding_hot_rows=64)
+    if flag == "grad_accum_steps":  # must divide steps_per_loop
+        kw["steps_per_loop"] = 2
     if flag == "online_mode":
         kw.update(pipe_mode=1, num_epochs=1)
     with pytest.raises(NotImplementedError,
