@@ -18,18 +18,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    few others, with the gradients' dtypes, and ``torch.autograd.grad``
    through ``fused_fm`` against the same through ``reference_fm``; then its
    time beside its bound and the plain version's at the training shape.
-4. Plan kernel phase: the plan build kernel against its plain version
-   ``make_plan_counting`` on the card and the numpy oracle, bit-equal uids,
-   inv and touched (rank under touched), at one hashed table's training
-   view (N = 1024*39 ids, 262,144 rows, 3/4 of the positions at the fill
-   id), the monolithic table, N = 1, all ids equal, all fill, N > rows and
-   2,000,000 rows; then its time beside its bound, the plain version's and
-   ``torch.unique``'s.
-5. Take kernel phase: the gather forward bit-equal to ``rows[inv]``, the
-   segment-sum backward bit-equal to the CPU position-order oracle and to
-   its own second launch, and within a tolerance of the plain backward on
-   the card, at D = 1 and 32, U = N = 39,936; then times beside the bounds,
-   the plain versions and ``index_select`` / ``index_add_``.
+4. Plan kernel phase: the plan build kernel (one cluster launch for up to
+   8 tables) against its plain version ``make_plan_counting`` on the card
+   and the numpy oracle, bit-equal uids, inv and touched (rank under
+   touched), at one hashed table's training view (N = 1024*39 ids, 262,144
+   rows, 3/4 of the positions at the fill id), the monolithic table, N = 1,
+   all ids equal, all fill, N > rows and 2,000,000 rows, one table a
+   launch; then four tables of 262,144, 4,096, 1 and 2,000,000 rows in one
+   launch. Then the times of one table's launch and of the hashed step's
+   four-table launch beside their bounds, the plain version's and
+   ``torch.unique``'s, and of a launch with almost no work (the design's
+   fixed cost).
+5. Take kernel phase: the fused gather forward, one table (bit-equal to
+   ``rows[inv]``, and times its mask) and the hashed step's four masked
+   tables summed (bit-equal to the plain composition), at D = 1 and 32;
+   gradients through ``TakeRowsSum`` bit-equal to the per-table backward
+   kernel on g * mask; the segment-sum backward bit-equal to the CPU
+   position-order oracle and to its own second launch, and within a
+   tolerance of the plain backward on the card, U = N = 39,936; then times
+   beside the bounds, the plain versions and ``index_select`` (per table) /
+   ``index_add_``.
 6. Install kernel phase: the hot/cold cache install (``dfm_install``) in
    place into hot tables of 81,920 rows at D = 1 and 32, one transaction
    of 10,000 installs padded to 16,384 slots (real slots drawn without
@@ -57,8 +65,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the CLI entry point (``deepfm_tpu_torch.launch``). The logged loss must
    fall, eval AUC exceed 0.5, the FM backward kernel launch once per train
    step and the forward once per train step and eval batch, the plan
-   kernel 4 times and each take kernel 8 times per hashed step and never
-   on the other layouts, the install kernel twice (fm_w, fm_v) per tiered
+   kernel once, the take forward twice (fm_w, fm_v) and the take backward
+   8 times per hashed step and never on the other layouts, the install
+   kernel twice (fm_w, fm_v) per tiered
    plan and never elsewhere; each trained artifact then serves. Then the
    step time at B=1024 of the dense kernel and plain paths, of the three
    untiered layouts (one step, with its device busy time and idle share),
@@ -181,6 +190,13 @@ PLAN_CASES = [  # (label, ids, rows, share of positions at the fill id)
     ("n_gt_rows", PLAN_N, 4096, "every_row"),
     ("rows_2m", PLAN_N, 2_000_000, 0.0),
 ]
+# One plan launch over tables of unequal rows (the smallest and the largest
+# the counting plan takes, 3/4 of each table's positions at its fill id).
+MIXED_ROWS = (HASHED_ROWS, 4096, 1, 2_000_000)
+# The previous plan design's single-table time at the hashed shape (a memset
+# and five dependent kernels per table; PERF.md, H100 80GB HBM3, 700 W), the
+# yardstick of the one-launch design.
+FIVE_PASS_PLAN_MS = 0.013058
 # The take backward against the plain backward on the card: a float32 sum
 # of the same terms that autograd's accumulate may take in another order;
 # at most a few dozen terms per slot here, so within 1e-5 of the value.
@@ -425,51 +441,171 @@ def plan_case_ids(n: int, rows: int, kind, rng) -> np.ndarray:
     return ids
 
 
-def plan_phase():
-    """Plan kernel vs plain (and the numpy oracle) at every listed shape,
-    then timings at one hashed table's training view."""
+def hashed_step_ids(rng, t: int = HASHED_TABLES):
+    """The hashed step's view of one batch: every position reads exactly
+    one of ``t`` tables of HASHED_ROWS rows (drawn uniformly, as the id
+    hash assigns them), and the other tables see their fill id there.
+    Returns (ids int32 [t, N], masks float32 [t, N])."""
+    owner = rng.integers(0, t, PLAN_N)
+    ids = rng.integers(0, HASHED_ROWS, (t, PLAN_N)).astype(np.int32)
+    masks = (owner[None, :] == np.arange(t)[:, None])
+    ids[~masks] = HASHED_ROWS
+    return ids, masks.astype(np.float32)
+
+
+def _check_plans(label: str, ids_list, rows_list) -> None:
+    """One plan launch over the tables vs each table's plain version on the
+    card and the numpy oracle."""
     dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED + 20)
-    for label, n, rows, kind in PLAN_CASES:
-        ids = plan_case_ids(n, rows, kind, rng)
-        t = torch.from_numpy(ids).to(dev)
-        got = ek.plan_build_kernel(t, rows)
+    on = [torch.from_numpy(x).to(dev) for x in ids_list]
+    before = ek.plan_launches
+    got = ek.plan_build_tables(on, rows_list)
+    assert ek.plan_launches - before == 1
+    for i, (ids, t, rows, g) in enumerate(zip(ids_list, on, rows_list, got)):
         want = emb_ops.make_plan_counting(t, rows)
         torch.cuda.synchronize()
         for f in ("uids", "inv", "touched"):
-            assert torch.equal(getattr(got, f), getattr(want, f)), (label, f)
-        assert torch.equal(got.rank[got.touched], want.rank[want.touched])
-        uids, inv, touched, rank = ek.reference_plan_numpy(ids, rows)
-        assert np.array_equal(got.uids.cpu().numpy(), uids), label
-        assert np.array_equal(got.inv.cpu().numpy(), inv), label
-        assert np.array_equal(got.touched.cpu().numpy(), touched), label
-        print(f"plan check {label}: N={n} rows={rows} uniques="
-              f"{int((got.uids < rows).sum())} bit-equal to plain and oracle")
+            assert torch.equal(getattr(g, f), getattr(want, f)), (label, i, f)
+        assert torch.equal(g.rank[g.touched], want.rank[want.touched])
+        uids, inv, touched, _ = ek.reference_plan_numpy(ids, rows)
+        assert np.array_equal(g.uids.cpu().numpy(), uids), (label, i)
+        assert np.array_equal(g.inv.cpu().numpy(), inv), (label, i)
+        assert np.array_equal(g.touched.cpu().numpy(), touched), (label, i)
+    print(f"plan check {label}: N={ids_list[0].size} rows={list(rows_list)} "
+          f"uniques={[int((g.uids < r).sum()) for g, r in zip(got, rows_list)]}"
+          f" in one launch, bit-equal to plain and oracle")
 
-    ids = plan_case_ids(PLAN_N, HASHED_ROWS, 0.75, rng)
-    t = torch.from_numpy(ids).to(dev)
-    kern, kern_call, source = timed(lambda: ek.plan_build_kernel(
-        t, HASHED_ROWS))
-    plain, plain_call, _ = timed(lambda: emb_ops.make_plan_counting(
-        t, HASHED_ROWS))
-    lib, lib_call, _ = timed(lambda: torch.unique(
-        t, sorted=True, return_inverse=True))
-    n, rows = PLAN_N, HASHED_ROWS
-    nbytes = 3 * 4 * n + rows + 4 * (rows + 1)
-    bound, bound_by = bound_of(nbytes, 4 * n + 4 * (rows + 1))
-    print(f"plan time N={n} rows={rows} fill=0.75: kernel_ms={kern:.6f} "
-          f"plain_ms={plain:.6f} library_ms(torch.unique)={lib:.6f} "
-          f"({source}) kernel_call_ms={kern_call:.6f} plain_call_ms="
-          f"{plain_call:.6f} library_call_ms={lib_call:.6f} (cuda_events) "
-          f"bound_ms={bound:.6f} ({bound_by}: {nbytes} B)")
-    return kern, plain, lib, bound, bound_by, source
+
+def plan_bound(tables: int, n: int = PLAN_N, rows: int = HASHED_ROWS):
+    """Each input and output once, per table: ids, uids, inv (4N bytes
+    each), touched (rows bytes), rank (4 rows bytes)."""
+    nbytes = tables * (3 * 4 * n + rows + 4 * rows)
+    return bound_of(nbytes, tables * (4 * n + 4 * rows)) + (nbytes,)
+
+
+def plan_phase():
+    """Plan kernel vs plain (and the numpy oracle) at every listed shape and
+    over four tables of unequal rows in one launch; then times of one
+    table's launch and of the hashed step's four-table launch."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 20)
+    for label, n, rows, kind in PLAN_CASES:
+        _check_plans(label, [plan_case_ids(n, rows, kind, rng)], [rows])
+    _check_plans("mixed_4_tables",
+                 [plan_case_ids(PLAN_N, r, 0.75, rng) for r in MIXED_ROWS],
+                 MIXED_ROWS)
+
+    ids, _ = hashed_step_ids(rng)
+    t4 = torch.from_numpy(ids).to(dev)
+    # The four tables' id spaces laid end to end, so that one torch.unique
+    # dedups every table at once.
+    offsets = torch.arange(HASHED_TABLES, device=dev)[:, None] * (
+        HASHED_ROWS + 1)
+    joint = (t4 + offsets).reshape(-1)
+    rows4 = [HASHED_ROWS] * HASHED_TABLES
+    timing = {}
+    for tables, kern_fn, plain_fn, lib_fn in (
+            (1, lambda: ek.plan_build_tables(t4[:1], rows4[:1]),
+             lambda: emb_ops.make_plan_counting(t4[0], HASHED_ROWS),
+             lambda: torch.unique(t4[0], sorted=True, return_inverse=True)),
+            (HASHED_TABLES, lambda: ek.plan_build_tables(t4, rows4),
+             lambda: [emb_ops.make_plan_counting(x, HASHED_ROWS)
+                      for x in t4],
+             lambda: torch.unique(joint, sorted=True, return_inverse=True))):
+        kern, kern_call, source = timed(kern_fn)
+        plain, plain_call, _ = timed(plain_fn)
+        lib, lib_call, _ = timed(lib_fn)
+        bound, bound_by, nbytes = plan_bound(tables)
+        timing[tables] = (kern, plain, lib, bound, bound_by, source)
+        print(f"plan time T={tables} N={PLAN_N} rows={HASHED_ROWS} (one "
+              f"launch): kernel_ms={kern:.6f} plain_ms={plain:.6f} "
+              f"library_ms(torch.unique, one call)={lib:.6f} ({source}) "
+              f"kernel_call_ms={kern_call:.6f} plain_call_ms="
+              f"{plain_call:.6f} library_call_ms={lib_call:.6f} "
+              f"(cuda_events) bound_ms={bound:.6f} ({bound_by}: {nbytes} B)"
+              f" five_pass_ms={FIVE_PASS_PLAN_MS * tables:.6f} ({tables} "
+              f"launch{'es' if tables > 1 else ''} of the five-pass design)")
+    # The design's fixed cost: one table of one row and one id (the cluster
+    # launch, its barriers and DSMEM round trips, almost no bytes).
+    one = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    floor, floor_call, source = timed(lambda: ek.plan_build_tables(one, [1]))
+    timing["floor"] = floor
+    print(f"plan_floor T=1 N=1 rows=1: kernel_ms={floor:.6f} ({source}) "
+          f"kernel_call_ms={floor_call:.6f} (cuda_events)")
+    return timing
+
+
+def take_bound(n: int, d: int, ref_rows, masked: bool):
+    """Each input and output once: inv (and masks) per table, each
+    referenced row once, the output [N, D]; a product per table (with
+    masks) and an add per further table for each output element."""
+    t = len(ref_rows)
+    nbytes = sum(4 * n * (2 if masked else 1) + 4 * d * r for r in ref_rows)
+    ops = ((t if masked else 0) + t - 1) * d * n
+    return bound_of(nbytes + 4 * d * n, ops)
+
+
+def take_tables_phase():
+    """The fused forward over the hashed step's four masked tables (one
+    plan launch over them), bit-equal to the plain composition at D = 1
+    and 32, gradients through ``TakeRowsSum`` bit-equal to the per-table
+    backward kernel on g * mask; then its times."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    ids, masks = hashed_step_ids(np.random.default_rng(SEED + 33))
+    plans = ek.plan_build_tables(
+        torch.from_numpy(ids).to(dev), [HASHED_ROWS] * HASHED_TABLES,
+        [torch.from_numpy(m).to(dev) for m in masks])
+    n = PLAN_N
+    inv = [p.inv for p in plans]
+    mk = [p.mask for p in plans]
+    segs = [ek.position_segments(p.inv, n, keep=p.mask > 0) for p in plans]
+    ref_rows = [int((p.uids < HASHED_ROWS).sum()) + 1 for p in plans]
+    timing = {}
+    for d in (1, 32):
+        # As gather_rows hands them over: the fill slots read zero.
+        rows = [torch.where((p.uids < HASHED_ROWS)[:, None], torch.randn(
+            n, d, device=dev, generator=gen), 0.0) for p in plans]
+        g = torch.randn(n, d, device=dev, generator=gen)
+        out = ek._launch_take_fwd(rows, inv, mk)
+        want = ek.reference_take_sum(rows, inv, mk)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), d
+        leaves = [r.clone().requires_grad_() for r in rows]
+        before = ek.take_fwd_launches
+        view = ek.take_rows_sum(leaves, inv, mk, segs)
+        assert ek.take_fwd_launches - before == 1
+        grads = torch.autograd.grad(view, leaves, g)
+        for i, gr in enumerate(grads):
+            assert torch.equal(gr, ek._launch_take_bwd(
+                g * mk[i][:, None], segs[i], n)), (d, i)
+        print(f"take check T={HASHED_TABLES} masked D={d}: one launch, "
+              f"bit-equal to the plain composition; gradients bit-equal to "
+              f"the backward kernel on g * mask per table")
+
+        inv64 = [v.long() for v in inv]
+        fwd = timed(lambda: ek._launch_take_fwd(rows, inv, mk))
+        plain = timed(lambda: ek.reference_take_sum(rows, inv, mk))
+        lib = timed(lambda: [r.index_select(0, v)
+                             for r, v in zip(rows, inv64)])
+        bound = take_bound(n, d, ref_rows, masked=True)
+        timing[(HASHED_TABLES, d)] = (fwd, plain, lib, bound)
+        print(f"take_fwd time T={HASHED_TABLES} masked D={d} N={n} "
+              f"(referenced rows {ref_rows}): kernel_ms={fwd[0]:.6f} "
+              f"plain_ms={plain[0]:.6f} library_ms(index_select per table)="
+              f"{lib[0]:.6f} ({fwd[2]}) kernel_call_ms={fwd[1]:.6f} "
+              f"plain_call_ms={plain[1]:.6f} library_call_ms={lib[1]:.6f} "
+              f"(cuda_events) bound_ms={bound[0]:.6f} ({bound[1]})")
+    return timing
 
 
 def take_phase():
     """Take forward and backward kernels vs plain and the CPU oracle, at
     D = 1 and 32, U = N = 39,936: random slots (every run a few positions
     long) and one hashed table's plan (3/4 of the positions masked, as the
-    train step feeds it). Then times at the hashed plan's shape."""
+    train step feeds it), one table a launch; then the hashed step's four
+    tables in one launch (``take_tables_phase``). Times at the hashed
+    plan's shape."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 30)
     rng = np.random.default_rng(SEED + 31)
@@ -486,8 +622,11 @@ def take_phase():
         for label, inv, gg, keep in (
                 ("random", rand_inv, g, None),
                 ("hashed_plan", plan.inv, g * mask[:, None], mask > 0)):
-            out = ek._launch_take_fwd(rows, inv)
+            out = ek._launch_take_fwd([rows], [inv])
             assert torch.equal(out, ek.reference_take(rows, inv)), (label, d)
+            masked = ek._launch_take_fwd([rows], [inv], [mask])
+            assert torch.equal(masked, ek.reference_take_sum(
+                [rows], [inv], [mask])), (label, d)
             seg = ek.position_segments(inv, n, keep=keep)
             a = ek._launch_take_bwd(gg, seg, n)
             b = ek._launch_take_bwd(gg, seg, n)
@@ -503,18 +642,17 @@ def take_phase():
             print(f"take check {label} D={d}: forward bit-equal, backward "
                   f"bit-equal to the CPU oracle and to its second launch, "
                   f"max |kernel - plain on card| {err:.3e}")
-        # autograd through take_rows (the path lookup_rows takes)
+        # autograd through one masked table (the path lookup_rows takes)
         leaf = rows.clone().requires_grad_()
         seg = ek.position_segments(plan.inv, n, keep=mask > 0)
-        view = ek.take_rows(leaf, plan.inv, segments=seg) * mask[:, None]
+        view = ek.take_rows_sum([leaf], [plan.inv], [mask], [seg])
         d_rows, = torch.autograd.grad(view, leaf, g)
         assert torch.equal(d_rows, ek._launch_take_bwd(g * mask[:, None],
                                                        seg, n))
 
         inv, gg = plan.inv, g * mask[:, None]
-        seg = ek.position_segments(inv, n, keep=mask > 0)
         inv64 = inv.long()
-        fwd = timed(lambda: ek._launch_take_fwd(rows, inv))
+        fwd = timed(lambda: ek._launch_take_fwd([rows], [inv]))
         fwd_plain = timed(lambda: ek.reference_take(rows, inv))
         fwd_lib = timed(lambda: rows.index_select(0, inv64))
         bwd = timed(lambda: ek._launch_take_bwd(gg, seg, n))
@@ -526,19 +664,22 @@ def take_phase():
         # and their cotangent rows and writes U rows.
         ref_rows = int((plan.uids < HASHED_ROWS).sum()) + 1
         kept = int((mask > 0).sum())
-        fb = bound_of(4 * n + 4 * d * (n + ref_rows), 0)
+        fb = take_bound(n, d, [ref_rows], masked=False)
         bb = bound_of(4 * kept + 4 * d * (kept + n), kept * d)
-        timing[d] = (fwd, fwd_plain, fwd_lib, fb, bwd, bwd_plain, bwd_lib, bb)
+        timing[("take_fwd", 1, d)] = (fwd, fwd_plain, fwd_lib, fb)
+        timing[("take_bwd", 1, d)] = (bwd, bwd_plain, bwd_lib, bb)
         for name, (k, kc, src), (p, pc, _), (lb, lc, _), (bd, by) in (
                 ("take_fwd", fwd, fwd_plain, fwd_lib, fb),
                 ("take_bwd", bwd, bwd_plain, bwd_lib, bb)):
             lib_name = "index_select" if name == "take_fwd" else "index_add_"
-            print(f"{name} time D={d} N=U={n} (hashed plan, {kept} kept "
+            print(f"{name} time T=1 D={d} N=U={n} (hashed plan, {kept} kept "
                   f"positions, {ref_rows} referenced rows): kernel_ms={k:.6f} "
                   f"plain_ms={p:.6f} library_ms({lib_name})={lb:.6f} ({src}) "
                   f"kernel_call_ms={kc:.6f} plain_call_ms={pc:.6f} "
                   f"library_call_ms={lc:.6f} (cuda_events) bound_ms={bd:.6f} "
                   f"({by})")
+    for (t, d), v in take_tables_phase().items():
+        timing[("take_fwd", t, d)] = v
     return max_err, timing
 
 
@@ -669,9 +810,9 @@ def train_parity_phase(cfg: Config, dev: torch.device,
         counts = (ek.plan_launches, ek.take_fwd_launches)
         kern = _losses(kern_cfg, dev, batches)
         if name == "sparse_hashed" and dev.type == "cuda":
-            assert ek.plan_launches - counts[0] == HASHED_TABLES * steps
-            assert ek.take_fwd_launches - counts[1] == (
-                HASHED_TABLES * EMB_PARAMS * steps)
+            # One plan launch for the four tables, one take per name.
+            assert ek.plan_launches - counts[0] == steps
+            assert ek.take_fwd_launches - counts[1] == EMB_PARAMS * steps
         plain = _losses(plain_cfg, dev, batches)
         diff = np.abs(kern - plain)
         assert np.all(np.isfinite(kern)), kern
@@ -855,8 +996,8 @@ def train_phase(workdir: str, data: dict, cfg: Config, dev: torch.device,
               f"{res['hotcold_apply_s'] / plans:.6f} (host clock)")
     want = {"fused_fm": on * (steps + epochs * eval_batches),
             "fused_fm_bwd": on * steps,
-            "plan_build": on * HASHED_TABLES * emb_steps,
-            "take_fwd": on * HASHED_TABLES * EMB_PARAMS * emb_steps,
+            "plan_build": on * emb_steps,
+            "take_fwd": on * EMB_PARAMS * emb_steps,
             "take_bwd": on * HASHED_TABLES * EMB_PARAMS * emb_steps,
             "install": on * EMB_PARAMS * plans}
     assert launches == want, (name, launches, want)
@@ -1150,8 +1291,7 @@ def main() -> int:
         kernel_phase()
     bwd_err, (bwd_ms, bwd_plain_ms, bwd_bound_ms, bwd_bound_by,
               bwd_source) = kernel_bwd_phase()
-    plan_ms, plan_plain, plan_lib, plan_bound, plan_by, plan_src = \
-        plan_phase()
+    plan_t = plan_phase()
     take_err, take_t = take_phase()
     install_t = install_phase()
 
@@ -1176,17 +1316,31 @@ def main() -> int:
         return {p: c[kernel] for p, c in paths.items()}
 
     hashed = paths["train_sparse_hashed"]
+    # The main path's shapes: the hashed step's four-table plan launch, its
+    # four-table take forward and one table's take backward, at D = 32.
+    (pk, pp, pl, pb, pby, psrc) = plan_t[HASHED_TABLES]
+    plan = {
+        "ms": pk, "plain_ms": pp, "library_ms": pl,
+        "library_call": "torch.unique over the four tables' ids at once",
+        "bound_ms": pb, "bound_by": pby, "ms_source": psrc,
+        "five_pass_ms": FIVE_PASS_PLAN_MS * HASHED_TABLES,
+        "floor_ms": plan_t["floor"],
+        "by_tables": {str(t): {"ms": v[0], "plain_ms": v[1],
+                               "library_ms": v[2], "bound_ms": v[3],
+                               "five_pass_ms": FIVE_PASS_PLAN_MS * t}
+                      for t, v in plan_t.items() if t != "floor"}}
     take = {}
-    for i, name in enumerate(("take_fwd", "take_bwd")):
-        per_d = {d: take_t[d][4 * i:4 * i + 4] for d in take_t}
-        (k, _, src), (p, _, _), (lb, _, _), (bd, by) = per_d[32]
+    for name, main_t in (("take_fwd", HASHED_TABLES), ("take_bwd", 1)):
+        (k, _, src), (p, _, _), (lb, _, _), (bd, by) = take_t[
+            (name, main_t, 32)]
         take[name] = {
             "ms": k, "plain_ms": p, "library_ms": lb, "bound_ms": bd,
             "bound_by": by, "ms_source": src,
-            "by_width": {str(d): {"ms": v[0][0], "plain_ms": v[1][0],
-                                  "library_ms": v[2][0],
-                                  "bound_ms": v[3][0]}
-                         for d, v in per_d.items()}}
+            "by_shape": {f"T{t}_D{d}": {
+                "ms": v[0][0], "plain_ms": v[1][0], "library_ms": v[2][0],
+                "bound_ms": v[3][0]}
+                for (n, t, d), v in take_t.items() if n == name}}
+    take["take_fwd"]["library_call"] = "index_select per table"
     (ik, _, isrc), (ip, _, _), (il, _, _), (ib, iby) = install_t[32]
     install = {
         "ms": ik, "plain_ms": ip, "library_ms": il,
@@ -1220,10 +1374,7 @@ def main() -> int:
         "replaces": "deepfm_tpu/ops/pallas_embedding.py:121",
         "launches": hashed["plan_build"],
         "launches_by_path": by_path("plan_build"),
-        "max_abs_err": 0.0,
-        "ms": plan_ms, "plain_ms": plan_plain, "bound_ms": plan_bound,
-        "bound_by": plan_by, "library_ms": plan_lib,
-        "ms_source": plan_src}, {
+        "max_abs_err": 0.0, **plan}, {
         "name": "take_fwd", "route": "cuda",
         "source": "deepfm_tpu_torch/csrc/embedding.cu",
         "replaces": "deepfm_tpu/ops/pallas_embedding.py:216",

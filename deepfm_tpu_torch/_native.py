@@ -47,16 +47,15 @@ def _bind_fused_fm(lib: ctypes.CDLL) -> None:
 
 
 def _bind_embedding(lib: ctypes.CDLL) -> None:
-    tiles = lib.dfm_plan_tiles
-    tiles.argtypes = [ctypes.c_int64]
-    tiles.restype = ctypes.c_int64
+    ptrs = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
+    ints = ctypes.POINTER(ctypes.c_int64)
     plan = lib.dfm_plan_build
-    plan.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64,
+    plan.argtypes = [_P, _P, _P, _P, _P, ints, ctypes.c_int, ctypes.c_int64,
                      _P]
     plan.restype = ctypes.c_int
     fwd = lib.dfm_take_fwd
-    fwd.argtypes = [_P, _P, _P, ctypes.c_int64, ctypes.c_int64,
-                    ctypes.c_int64, ctypes.c_int, _P]
+    fwd.argtypes = [ptrs, ptrs, ptrs, ints, ctypes.c_int, _P,
+                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int, _P]
     fwd.restype = ctypes.c_int
     bwd = lib.dfm_take_bwd
     bwd.argtypes = [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64,

@@ -4,51 +4,109 @@
 //
 // ---------------------------------------------------------------------------
 // dfm_plan_build: replaces the TPU kernel deepfm_tpu/ops/pallas_embedding.py
-// `_plan_kernel`. For ids int32 [N] with values in [0, rows] (the value rows
-// is the fill id of masked positions):
+// `_plan_kernel` (:121, its pallas_call at :173), for up to 8 tables in one
+// launch. For table t, ids int32 [N] (row t of ids [T, N]) with values in
+// [0, rows_t] (the value rows_t is the fill id of masked positions):
 //
-//   touched[r] = r occurs in ids                      (r < rows)
-//   rank[r]    = number of distinct ids below r       (r <= rows)
-//   uids[j]    = the j-th distinct id, ascending; rows past the last one
-//   inv[i]     = rank[ids[i]]
+//   touched[r] = r occurs in ids                      (r < rows_t)
+//   rank[r]    = number of distinct ids below r       (r < rows_t)
+//   uids[j]    = the j-th distinct id, ascending; rows_t past the last one
+//   inv[i]     = number of distinct ids below ids[i]
 //
-// which is jnp.unique(ids, size=N, fill_value=rows, return_inverse=True)
+// which is jnp.unique(ids, size=N, fill_value=rows_t, return_inverse=True)
 // bit for bit: a fill position's inv is the number of real uniques, and a
-// present fill id lands in uids at that slot. An id outside [0, rows] is
-// read as the fill id rows (marked at rows, inv = rank[rows]), so no id
-// ever writes outside a buffer; the JAX package's callers never produce one
-// (hash buckets are < rows, masked positions carry rows).
+// present fill id lands in uids at that slot. An id outside [0, rows_t] is
+// read as the fill id (inv = the number of real uniques), so no id ever
+// writes outside a buffer; the JAX package's callers never produce one
+// (hash buckets are < rows, masked positions carry rows). uids and inv are
+// [T, N]; the tables' touched and rank lie end to end, table t at offset
+// rows_0 + ... + rows_{t-1}.
 //
 // Bound: device-memory bytes. Each input and output once: ids, uids, inv
-// (4N bytes each), touched (rows bytes) and rank (4(rows+1) bytes). At the
-// training shape of one hashed table (N = 39,936, rows = 262,144) that is
-// about 1.79 MB, 0.53 us at 3.35 TB/s. A dozen integer operations per
-// element: far below the card's operation rate.
+// (4N bytes each), touched (rows bytes) and rank (4 rows bytes) a table. At
+// the hashed training step (4 tables, N = 39,936, rows = 262,144) that is
+// 7.16 MB, 2.14 us at 3.35 TB/s (0.53 us a table). A dozen integer
+// operations per id: far below the card's operation rate.
 //
-// Design: the Pallas body is three serial loops over one VMEM-resident
-// count vector. Here the same counting runs as parallel passes on one
-// stream: (1) zero the [rows+1] marks (a memset into the rank buffer);
-// (2) one thread per id marks it (idempotent stores of 1, so the order of
-// the stores cannot matter) and sets its uids slot to the fill id; (3) a
-// hand-written exclusive scan over rows+1 marks: each block scans a tile of
-// 2048 (8 per thread, then a warp-shuffle scan of the thread sums), writes
-// touched and the tile total; (4) one block scans the tile totals; (5) one
-// thread per row adds its tile's offset to its rank and, when touched,
-// writes uids[rank[r]] = r; (6) one thread per id writes inv[i] =
-// rank[ids[i]]. Launch latency, not bytes, sets the time at these sizes:
-// five launches and a memset for half a microsecond of traffic.
+// What held the previous design back: a memset and five dependent kernels a
+// table (mark, tile scan, one block over the tile sums, add and emit,
+// remap), the marks and ranks round-tripping through a [rows+1] int32 array
+// in device memory, launched once per table: 24 device events and ~0.052 ms
+// per hashed step for ~2 us of traffic. Launch latency and the chain of
+// dependent passes, not bytes, set its time.
+//
+// Design: one launch of thread-block clusters of 8 CTAs (portable size).
+// The id space [0, rows] is a bitmap in a cluster's distributed shared
+// memory: CTA c owns words [c*W, (c+1)*W), W = ceil((rows/32 + 1)/8)
+// (1,025 words at 262,144 rows; 7,813 at 2,000,000, which takes dynamic
+// shared memory above 48 KB), plus one int prefix per word. Each table gets
+// as many clusters ("parts") as fit on the card at once beside the other
+// tables' (cudaOccupancyMaxActiveClusters / T); every part builds the
+// table's bitmap, and part p writes only its share of the outputs, so the
+// [rows]-sized writes, which one cluster's 8 SMs issue too slowly, spread
+// over the card. Nothing but the inputs and outputs touches device memory:
+//   1. each CTA zeroes its slice; cluster barrier, its latency overlapping
+//      the loads of the CTA's N/8 ids into registers;
+//   2. each CTA ORs each id's bit into the owning CTA's slice with a remote
+//      atomic (the fill id, 3/4 of a hashed table's positions, is flagged in
+//      shared memory and sent once per CTA); cluster barrier;
+//   3. each CTA scans its words' popcounts into per-word prefixes and
+//      publishes its total; cluster barrier, overlapping the part's touched
+//      writes; every CTA reads the 8 totals over DSMEM: its own base, every
+//      owner's base and the real uniques;
+//   4. inv[i] = the owner's base and word prefix plus the popcount of the
+//      lower bits: two DSMEM loads per id (a fill id needs none), for the
+//      part's share of the CTA's positions (ids still in registers);
+//   5. one warp per word writes rank of its 32 rows (lane l writes row
+//      32w+l: one 128-byte line per store) and uids[rank] = r for set bits;
+//      the parts' CTAs split the fill tail uids[n_real, N), so each uids
+//      slot is written exactly once and nothing pre-fills it;
+//   6. a last cluster barrier (relaxed, arrived at before step 5), so no
+//      CTA exits while its slice is read.
+// No memset, no scratch, no second launch. What remains sets the time: each
+// cluster barrier and DSMEM round trip costs a fraction of a microsecond,
+// and step 2's remote atomics serialise at the owners (chip_smoke's
+// plan_floor line times the launch with almost no work).
 //
 // ---------------------------------------------------------------------------
-// dfm_take_fwd: replaces `_take_fwd_kernel`. out[p, :] = rows[inv[p], :]
-// for rows [U, D] (float32 or bfloat16, copied as raw bits) and inv int32
-// [N]; an inv outside [0, U) reads zeros.
+// dfm_take_fwd: replaces `_take_fwd_kernel` (pallas_embedding.py:216, its
+// pallas_call at :240), fused with the hashed layout's mask and table sum,
+// for up to 8 tables in one launch:
 //
-// Bound: bytes, 4N + 2 N D itemsize with U = N: 10.38 MB at N = 39,936,
-// D = 32, float32, 3.10 us at 3.35 TB/s; no arithmetic.
+//   out[p, :] = (rows_0[inv_0[p], :] * mask_0[p]
+//                + rows_1[inv_1[p], :] * mask_1[p]) + ...   (table order)
 //
-// Design: one thread per output element, e = p*D + c, so a warp writes one
-// contiguous run of the output and reads one contiguous run of a row when
-// D >= 32 (D = 1, fm_w, degenerates to one thread per position).
+// for rows_t [U_t, D] (separate tensors, passed as a pointer array), inv_t
+// int32 [N] and optional float32 masks [N]; an inv outside [0, U_t) reads
+// zeros. Each product and sum is one IEEE float32 operation in this order
+// (__fmul_rn / __fadd_rn, no FMA contraction): the operations of torch's
+// composition `take * mask + take * mask + ...`, so the result equals it
+// bit for bit. Without masks the products are left out; one table without
+// masks is rows[inv], copied as raw bits (float32 or bfloat16). Masks or
+// several tables take float32 rows.
+//
+// Bound: bytes, each input and output once: T*4N (inv) + T*4N (masks) +
+// sum_t 4D*(referenced rows_t + 1) + 4DN (out). At the hashed step (T = 4,
+// N = 39,936, D = 32, ~9,631 referenced rows a table) that is ~11.3 MB,
+// 3.38 us at 3.35 TB/s; one table without masks, 6.5 MB, 1.94 us.
+//
+// What held the previous design back: one thread per 4-byte element with
+// two 64-bit divides each, every element waiting on a dependent inv load
+// and then a row load, over ~5 waves of blocks (0.78 TB/s at D = 32). Around
+// it each embedding name took 4 takes into separate [N, D] tensors, 4 mask
+// products and 3 adds: 11 launches and ~8 [N, D] round trips through device
+// memory per name.
+//
+// Design: each thread moves 16 bytes at a time (8 threads cover a 128-byte
+// float32 row at D = 32; 8-, 4- or 2-byte chunks when the rows are narrower
+// or unaligned, so D = 1 is a scalar path of the same structure). A thread
+// owns one chunk column of several positions: it loads all their inv and
+// mask values first, then issues every table's row loads for all of them,
+// then computes and streams the outputs (st.global.cs), so 4-8 independent
+// row loads are in flight per thread. Index math is 32-bit with no divides;
+// the grid is one wave of resident blocks and strides beyond it. The row
+// load is not skipped where a mask is 0: that row is the plan's fill slot,
+// the zero row every masked position reads, one line that stays in cache.
 //
 // ---------------------------------------------------------------------------
 // dfm_take_bwd: replaces `_take_bwd_kernel`. d_rows[u, :] = sum over the
@@ -104,19 +162,32 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;              // elementwise and scan blocks
-constexpr int kItems = 8;                  // scan elements per thread
-constexpr int kTile = kThreads * kItems;   // scan elements per block
-constexpr int kSumThreads = 1024;          // the one block over tile totals
+constexpr int kThreads = 256;              // elementwise blocks
 constexpr int64_t kMaxBlocks = 1 << 20;    // grid-stride beyond this
+constexpr int kMaxTables = 8;              // tables a plan or take launch serves
+constexpr int kCluster = 8;                // CTAs per table in the plan build
+constexpr int kPlanThreads = 1024;
+constexpr int kPlanIds = 8;                // ids per thread in flight
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ int64_t plan_id(int32_t id, int64_t rows) {
-  return (id < 0 || static_cast<int64_t>(id) > rows) ? rows
-                                                     : static_cast<int64_t>(id);
+__device__ __forceinline__ int plan_id(int32_t id, int rows) {
+  return (id < 0 || id > rows) ? rows : id;
+}
+
+// Bitmap words each CTA of a table's cluster owns: the id space [0, rows]
+// is rows/32 + 1 words.
+__host__ __device__ __forceinline__ int plan_words_per_cta(int rows) {
+  return ((rows >> 5) + 1 + kCluster - 1) / kCluster;
 }
 
 // Exclusive scan of one int per thread across the block (blockDim.x a
@@ -155,87 +226,305 @@ __device__ int block_exclusive_scan(int x, int* total) {
   return out;
 }
 
-__global__ void __launch_bounds__(kThreads)
-plan_mark(const int32_t* __restrict__ ids, int64_t n, int64_t rows,
-          int32_t* __restrict__ marks, int32_t* __restrict__ uids) {
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    marks[plan_id(ids[i], rows)] = 1;
-    uids[i] = static_cast<int32_t>(rows);
+struct PlanArgs {
+  const int32_t* ids;  // [T, n]
+  int32_t* uids;       // [T, n]
+  int32_t* inv;        // [T, n]
+  uint8_t* touched;    // the tables' [rows_t] end to end
+  int32_t* rank;       // the tables' [rows_t] end to end
+  int n;
+  int parts;           // clusters per table, each writing its part
+  int rows[kMaxTables];
+  int64_t off[kMaxTables];
+};
+
+// The two halves of a cluster barrier, so that independent work runs
+// between them: arrive (release: this thread's earlier shared-memory
+// writes are visible after the wait), or arrive relaxed (orders nothing;
+// for the last barrier, which only keeps the slices alive), then wait
+// (acquire).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// This thread's ids of the chunk of positions at b (position b + j *
+// blockDim.x + threadIdx.x in slot j); -1 past hi.
+__device__ __forceinline__ void plan_load(int (&id)[kPlanIds],
+                                          const int32_t* ids, int b, int hi,
+                                          int rows) {
+#pragma unroll
+  for (int j = 0; j < kPlanIds; ++j) {
+    const int i = b + j * static_cast<int>(blockDim.x) +
+                  static_cast<int>(threadIdx.x);
+    id[j] = i < hi ? plan_id(__ldg(ids + i), rows) : -1;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-plan_scan_tiles(int32_t* __restrict__ rank, int64_t len, int64_t rows,
-                uint8_t* __restrict__ touched, int32_t* __restrict__ tiles) {
-  const int64_t base =
-      blockIdx.x * static_cast<int64_t>(kTile) + threadIdx.x * kItems;
-  int v[kItems];
-  int sum = 0;
+// Grid T * parts * kCluster, cluster dimension kCluster: the clusters
+// q = t * parts + p, p < parts, all build table t's bitmap, and cluster p
+// writes part p of the outputs (the steps of the header note). Dynamic
+// shared memory: the bitmap slice and its per-word prefixes,
+// 2 * plan_words_per_cta(max rows) words.
+__global__ void __launch_bounds__(kPlanThreads) plan_kernel(PlanArgs a) {
+  extern __shared__ uint32_t smem[];
+  __shared__ int saw_fill;
+  __shared__ int cta_total;
+  __shared__ int base_of[kCluster];
+  __shared__ int n_real_s;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int me = static_cast<int>(cluster.block_rank());
+  const int q = blockIdx.x / kCluster;
+  const int t = q / a.parts;
+  const int part = q - t * a.parts;
+  const int rows = a.rows[t];
+  const int n = a.n;
+  const int wpc = plan_words_per_cta(rows);
+  uint32_t* bits = smem;
+  int* pre = reinterpret_cast<int*>(smem + wpc);
+  const int32_t* ids = a.ids + static_cast<int64_t>(t) * n;
+  int32_t* uids = a.uids + static_cast<int64_t>(t) * n;
+  int32_t* inv = a.inv + static_cast<int64_t>(t) * n;
+  uint8_t* touched = a.touched + a.off[t];
+  int32_t* rank = a.rank + a.off[t];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int fill_word = rows >> 5;
+  const int fill_owner = fill_word / wpc;
+  // This CTA marks positions [lo, hi); this cluster's part of the rows is
+  // the slice's words [wlo, whi).
+  const int share = (n + kCluster - 1) / kCluster;
+  const int lo = min(n, me * share);
+  const int hi = min(n, lo + share);
+  const int span = blockDim.x * kPlanIds;
+  const int sub = (wpc + a.parts - 1) / a.parts;
+  const int wlo = min(wpc, part * sub);
+  const int whi = min(wpc, wlo + sub);
+  const int first_row = me * wpc * 32;
+
+  // 1. Zero this CTA's slice; the id loads overlap the barrier.
+  for (int w = threadIdx.x; w < wpc; w += blockDim.x) bits[w] = 0u;
+  if (threadIdx.x == 0) saw_fill = 0;
+  cluster_arrive();
+  int id[kPlanIds];
+  plan_load(id, ids, lo, hi, rows);
+  cluster_wait();
+
+  // 2. Mark the ids in the owners' slices; the fill id once per CTA.
+  for (int b = lo;;) {
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t r = base + j;
-    const int m = r < len ? rank[r] : 0;
-    if (r < rows) touched[r] = static_cast<uint8_t>(m != 0);
-    v[j] = m;
-    sum += m;
+    for (int j = 0; j < kPlanIds; ++j) {
+      const int x = id[j];
+      if (x == rows) {
+        saw_fill = 1;
+      } else if (x >= 0) {
+        const int w = x >> 5;
+        const int owner = w / wpc;
+        atomicOr(cluster.map_shared_rank(bits, owner) + (w - owner * wpc),
+                 1u << (x & 31));
+      }
+    }
+    b += span;
+    if (b >= hi) break;
+    plan_load(id, ids, b, hi, rows);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && saw_fill) {
+    atomicOr(cluster.map_shared_rank(bits, fill_owner) +
+                 (fill_word - fill_owner * wpc),
+             1u << (rows & 31));
+  }
+  cluster.sync();
+
+  // 3. Per-word prefixes of this slice; its total goes to the cluster,
+  // and the touched marks of this part's rows overlap the barrier.
+  const int per = (wpc + blockDim.x - 1) / blockDim.x;
+  const int w0 = threadIdx.x * per;
+  int sum = 0;
+  for (int k = 0; k < per; ++k) {
+    if (w0 + k < wpc) sum += __popc(bits[w0 + k]);
   }
   int total;
   int run = block_exclusive_scan(sum, &total);
+  for (int k = 0; k < per; ++k) {
+    if (w0 + k < wpc) {
+      pre[w0 + k] = run;
+      run += __popc(bits[w0 + k]);
+    }
+  }
+  if (threadIdx.x == 0) cta_total = total;
+  cluster_arrive();
+  for (int w = wlo + warp; w < whi; w += nwarps) {
+    const int r = first_row + w * 32 + lane;
+    if (r < rows) touched[r] = (bits[w] >> lane) & 1u;
+  }
+  cluster_wait();
+  if (warp == 0) {
+    const int v = lane < kCluster ? *cluster.map_shared_rank(&cta_total, lane)
+                                  : 0;
+    int inc = v;
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t r = base + j;
-    if (r < len) rank[r] = run;
-    run += v[j];
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, inc, off);
+      if (lane >= off) inc += y;
+    }
+    if (lane < kCluster) base_of[lane] = inc - v;
+    const int all = __shfl_sync(0xffffffffu, inc, 31);
+    if (lane == 0) {
+      const uint32_t fw = *(cluster.map_shared_rank(bits, fill_owner) +
+                            (fill_word - fill_owner * wpc));
+      n_real_s = all - static_cast<int>((fw >> (rows & 31)) & 1u);
+    }
   }
-  if (threadIdx.x == 0) tiles[blockIdx.x] = total;
+  __syncthreads();
+  const int base = base_of[me];
+  const int n_real = n_real_s;
+
+  // 4. inv: slot j of this CTA's positions belongs to part j % parts (the
+  // ids of a single chunk are still in registers).
+  const bool single = hi - lo <= span;
+  for (int b = lo; b < hi; b += span) {
+    if (!single) plan_load(id, ids, b, hi, rows);
+#pragma unroll
+    for (int j = 0; j < kPlanIds; ++j) {
+      const int i = b + j * static_cast<int>(blockDim.x) +
+                    static_cast<int>(threadIdx.x);
+      if (j % a.parts != part || i >= hi) continue;
+      int v = n_real;
+      if (id[j] != rows) {
+        const int w = id[j] >> 5;
+        const int owner = w / wpc;
+        const int lw = w - owner * wpc;
+        const uint32_t word = cluster.map_shared_rank(bits, owner)[lw];
+        v = base_of[owner] + cluster.map_shared_rank(pre, owner)[lw] +
+            __popc(word & ((1u << (id[j] & 31)) - 1u));
+      }
+      inv[i] = v;
+    }
+  }
+  // No other CTA's slice is read past this point.
+  cluster_arrive_relaxed();
+
+  // 5. rank of this part's rows and uids of their set bits; this part's
+  // share of the fill tail.
+  for (int w = wlo + warp; w < whi; w += nwarps) {
+    const uint32_t word = bits[w];
+    const int r = first_row + w * 32 + lane;
+    if (r < rows) {
+      const int rk = base + pre[w] + __popc(word & ((1u << lane) - 1u));
+      rank[r] = rk;
+      if ((word >> lane) & 1u) uids[rk] = r;
+    }
+  }
+  const int tail = n - n_real;
+  const int pieces = a.parts * kCluster;
+  const int tshare = (tail + pieces - 1) / pieces;
+  const int tlo = n_real + min(tail, (part * kCluster + me) * tshare);
+  const int thi = min(n, tlo + tshare);
+  for (int j = tlo + static_cast<int>(threadIdx.x); j < thi; j += blockDim.x) {
+    uids[j] = rows;
+  }
+
+  // 6. Keep this slice alive until every CTA of the cluster is done with it.
+  cluster_wait();
 }
 
-__global__ void __launch_bounds__(kSumThreads)
-plan_scan_sums(int32_t* __restrict__ tiles, int64_t n_tiles) {
-  int carry = 0;
-  for (int64_t base = 0; base < n_tiles; base += blockDim.x) {
-    const int64_t i = base + threadIdx.x;
-    const int x = i < n_tiles ? tiles[i] : 0;
-    int total;
-    const int ex = block_exclusive_scan(x, &total);
-    if (i < n_tiles) tiles[i] = carry + ex;
-    carry += total;
-  }
+struct TakeArgs {
+  const void* rows[kMaxTables];
+  const int32_t* inv[kMaxTables];
+  const float* mask[kMaxTables];  // all null without masks
+  int u[kMaxTables];
+  void* out;
+  int n;
+  int tables;
+  int chunks;  // chunks of the kernel's chunk type per row
+};
+
+__device__ __forceinline__ float mul_rn(float x, float m) {
+  return __fmul_rn(x, m);
+}
+__device__ __forceinline__ float2 mul_rn(float2 x, float m) {
+  return make_float2(__fmul_rn(x.x, m), __fmul_rn(x.y, m));
+}
+__device__ __forceinline__ float4 mul_rn(float4 x, float m) {
+  return make_float4(__fmul_rn(x.x, m), __fmul_rn(x.y, m),
+                     __fmul_rn(x.z, m), __fmul_rn(x.w, m));
+}
+__device__ __forceinline__ float add_rn(float x, float y) {
+  return __fadd_rn(x, y);
+}
+__device__ __forceinline__ float2 add_rn(float2 x, float2 y) {
+  return make_float2(__fadd_rn(x.x, y.x), __fadd_rn(x.y, y.y));
+}
+__device__ __forceinline__ float4 add_rn(float4 x, float4 y) {
+  return make_float4(__fadd_rn(x.x, y.x), __fadd_rn(x.y, y.y),
+                     __fadd_rn(x.z, y.z), __fadd_rn(x.w, y.w));
 }
 
-__global__ void __launch_bounds__(kThreads)
-plan_add_emit(int32_t* __restrict__ rank, int64_t len, int64_t rows,
-              const uint8_t* __restrict__ touched,
-              const int32_t* __restrict__ tiles, int32_t* __restrict__ uids) {
-  for (int64_t r = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       r < len; r += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int v = rank[r] + tiles[r / kTile];
-    rank[r] = v;
-    if (r < rows && touched[r]) uids[v] = static_cast<int32_t>(r);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-plan_remap(const int32_t* __restrict__ ids, int64_t n, int64_t rows,
-           const int32_t* __restrict__ rank, int32_t* __restrict__ inv) {
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    inv[i] = rank[plan_id(ids[i], rows)];
-  }
-}
-
-template <typename T>  // raw bits: uint32_t (float32) or uint16_t (bfloat16)
-__global__ void __launch_bounds__(kThreads)
-take_fwd_kernel(const T* __restrict__ rows, const int32_t* __restrict__ inv,
-                T* __restrict__ out, int64_t n, int64_t u, int64_t d) {
-  const int64_t total = n * d;
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t p = e / d;
-    const int64_t c = e - p * d;
-    const int64_t s = inv[p];
-    out[e] = (s >= 0 && s < u) ? rows[s * d + c] : T(0);
+// C: the chunk a thread moves (float4, float2, float: float32 lanes; or
+// unsigned short, a raw bfloat16, one table and no masks only). kT: tables
+// the registers hold (>= a.tables); kP: positions per thread. Block
+// (x, y): x walks a row's chunks, y the positions.
+template <typename C, int kT, int kP>
+__global__ void __launch_bounds__(kThreads) take_fwd_kernel(TakeArgs a) {
+  constexpr bool kMath = !std::is_same<C, unsigned short>::value;
+  const bool masked = a.mask[0] != nullptr;
+  const int by = blockDim.y;
+  const int group = by * kP;
+  C* out = static_cast<C*>(a.out);
+  for (int base = blockIdx.x * group; base < a.n; base += gridDim.x * group) {
+    int slot[kT][kP];
+    float m[kT][kP];
+#pragma unroll
+    for (int j = 0; j < kP; ++j) {
+      const int p = base + j * by + threadIdx.y;
+#pragma unroll
+      for (int t = 0; t < kT; ++t) {
+        slot[t][j] = -1;
+        m[t][j] = 1.0f;
+        if (t < a.tables && p < a.n) {
+          slot[t][j] = __ldg(a.inv[t] + p);
+          if (masked) m[t][j] = __ldg(a.mask[t] + p);
+        }
+      }
+    }
+    for (int c = threadIdx.x; c < a.chunks; c += blockDim.x) {
+      C r[kT][kP];
+#pragma unroll
+      for (int j = 0; j < kP; ++j) {
+#pragma unroll
+        for (int t = 0; t < kT; ++t) {
+          const int s = slot[t][j];
+          r[t][j] = C{};
+          if (s >= 0 && s < a.u[t]) {
+            r[t][j] = __ldg(static_cast<const C*>(a.rows[t]) +
+                            static_cast<int64_t>(s) * a.chunks + c);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kP; ++j) {
+        const int p = base + j * by + threadIdx.y;
+        if (p >= a.n) continue;
+        C acc = r[0][j];
+        if constexpr (kMath) {
+          if (masked) acc = mul_rn(acc, m[0][j]);
+#pragma unroll
+          for (int t = 1; t < kT; ++t) {
+            if (t < a.tables) {
+              acc = add_rn(acc, masked ? mul_rn(r[t][j], m[t][j]) : r[t][j]);
+            }
+          }
+        }
+        __stcs(out + static_cast<int64_t>(p) * a.chunks + c, acc);
+      }
+    }
   }
 }
 
@@ -302,77 +591,199 @@ unsigned blocks_for(int64_t work) {
   return static_cast<unsigned>(b < 1 ? 1 : b);
 }
 
-int64_t tiles_for(int64_t rows) { return (rows + 1 + kTile - 1) / kTile; }
+
+// Per-device facts the launches need, read once; and, for the plan build,
+// the dynamic shared memory set on the kernel and how many of its clusters
+// fit on the card at that size.
+std::atomic<int> g_sm_count[kMaxDevices];
+std::atomic<int> g_smem_optin[kMaxDevices];
+std::atomic<int> g_plan_smem_set[kMaxDevices];
+std::atomic<int> g_plan_clusters_smem[kMaxDevices];
+std::atomic<int> g_plan_clusters[kMaxDevices];
+
+cudaError_t device_facts(int* dev, int* sms, int* smem_optin) {
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  if (*dev < 0 || *dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int s = g_sm_count[*dev].load();
+  int o = g_smem_optin[*dev].load();
+  if (s == 0 || o == 0) {
+    err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, *dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 *dev);
+    if (err != cudaSuccess) return err;
+    g_sm_count[*dev].store(s);
+    g_smem_optin[*dev].store(o);
+  }
+  *sms = s;
+  *smem_optin = o;
+  return cudaSuccess;
+}
+
+dim3 take_block(int chunks) {
+  const int bx = chunks < kThreads ? chunks : kThreads;
+  return dim3(bx, kThreads / bx);
+}
+
+// One wave of resident blocks, or fewer when the positions need fewer.
+template <typename C, int kT, int kP>
+cudaError_t launch_take(const TakeArgs& a, cudaStream_t s) {
+  static std::atomic<int> per_sm{0};
+  int dev, sms, optin;
+  cudaError_t err = device_facts(&dev, &sms, &optin);
+  if (err != cudaSuccess) return err;
+  int occ = per_sm.load();
+  if (occ == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, take_fwd_kernel<C, kT, kP>, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    occ = occ < 1 ? 1 : occ;
+    per_sm.store(occ);
+  }
+  const dim3 block = take_block(a.chunks);
+  const int64_t group = static_cast<int64_t>(block.y) * kP;
+  int64_t blocks = (a.n + group - 1) / group;
+  const int64_t wave = static_cast<int64_t>(occ) * sms;
+  if (blocks > wave) blocks = wave;
+  take_fwd_kernel<C, kT, kP>
+      <<<static_cast<unsigned>(blocks < 1 ? 1 : blocks), block, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+// Registers for the next power of two of tables; fewer positions per
+// thread as the tables grow, so 4-8 row chunks are in flight per thread.
+template <typename C>
+cudaError_t take_tables(const TakeArgs& a, cudaStream_t s) {
+  if (a.tables == 1) return launch_take<C, 1, 4>(a, s);
+  if (a.tables == 2) return launch_take<C, 2, 4>(a, s);
+  if (a.tables <= 4) return launch_take<C, 4, 2>(a, s);
+  return launch_take<C, 8, 1>(a, s);
+}
 
 }  // namespace
 
-// Tile totals the plan build needs as scratch (int32 elements) for a table
-// of `rows` rows; the caller allocates them.
-extern "C" int64_t dfm_plan_tiles(int64_t rows) { return tiles_for(rows); }
-
-// ids int32 [n] -> uids, inv int32 [n], touched bool [rows], rank int32
-// [rows+1]; tiles int32 [dfm_plan_tiles(rows)] scratch. Returns the first
-// cudaError_t of its launches (0 on success); the caller raises otherwise.
+// ids int32 [t, n] -> uids, inv int32 [t, n]; touched bool and rank int32
+// of the t tables end to end (table i: rows[i] entries at offset rows[0] +
+// ... + rows[i-1]); rows: host int64 [t], 1 <= t <= 8. One cluster launch.
+// Returns the launch's cudaError_t (0 on success), also when the cluster
+// launch is refused; the caller raises otherwise.
 extern "C" int dfm_plan_build(const void* ids, void* uids, void* inv,
-                              void* touched, void* rank, void* tiles,
-                              int64_t n, int64_t rows, void* stream) {
-  if (n < 0 || rows < 1 || rows >= INT32_MAX || n >= INT32_MAX) {
+                              void* touched, void* rank, const int64_t* rows,
+                              int t, int64_t n, void* stream) {
+  if (t < 1 || t > kMaxTables || n < 0 || n >= INT32_MAX || rows == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t len = rows + 1;
-  const int64_t n_tiles = tiles_for(rows);
-  const int32_t* id = static_cast<const int32_t*>(ids);
-  int32_t* rk = static_cast<int32_t*>(rank);
-  int32_t* ti = static_cast<int32_t*>(tiles);
-  uint8_t* tch = static_cast<uint8_t*>(touched);
-  cudaError_t err = cudaMemsetAsync(rk, 0, len * sizeof(int32_t), s);
+  PlanArgs a = {};
+  a.ids = static_cast<const int32_t*>(ids);
+  a.uids = static_cast<int32_t*>(uids);
+  a.inv = static_cast<int32_t*>(inv);
+  a.touched = static_cast<uint8_t*>(touched);
+  a.rank = static_cast<int32_t*>(rank);
+  a.n = static_cast<int>(n);
+  int64_t off = 0;
+  int wpc = 1;
+  for (int i = 0; i < t; ++i) {
+    if (rows[i] < 1 || rows[i] > INT32_MAX - 64) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    a.rows[i] = static_cast<int>(rows[i]);
+    a.off[i] = off;
+    off += rows[i];
+    const int w = plan_words_per_cta(a.rows[i]);
+    wpc = w > wpc ? w : wpc;
+  }
+  const int smem = 2 * wpc * static_cast<int>(sizeof(uint32_t));
+  int dev, sms, optin;
+  cudaError_t err = device_facts(&dev, &sms, &optin);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    plan_mark<<<blocks_for(n), kThreads, 0, s>>>(
-        id, n, rows, rk, static_cast<int32_t*>(uids));
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  // Static shared memory (the scan's and the cluster's words) stays below 1 KB.
+  if (smem + 1024 > optin) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kPlanThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (smem > g_plan_smem_set[dev].load()) {
+    err = cudaFuncSetAttribute(plan_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    g_plan_smem_set[dev].store(smem);
   }
-  plan_scan_tiles<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
-      rk, len, rows, tch, ti);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  plan_scan_sums<<<1, kSumThreads, 0, s>>>(ti, n_tiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  plan_add_emit<<<blocks_for(len), kThreads, 0, s>>>(
-      rk, len, rows, tch, ti, static_cast<int32_t*>(uids));
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    plan_remap<<<blocks_for(n), kThreads, 0, s>>>(
-        id, n, rows, rk, static_cast<int32_t*>(inv));
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (smem != g_plan_clusters_smem[dev].load()) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, plan_kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    g_plan_clusters[dev].store(clusters);
+    g_plan_clusters_smem[dev].store(smem);
   }
-  return 0;
+  // As many clusters per table as fit on the card at once: each builds the
+  // table's bitmap and writes its part of the outputs.
+  a.parts = g_plan_clusters[dev].load() / t;
+  a.parts = a.parts < 1 ? 1 : a.parts;
+  cfg.gridDim = dim3(static_cast<unsigned>(t * a.parts * kCluster));
+  err = cudaLaunchKernelEx(&cfg, plan_kernel, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// rows [u, d] of `dtype` (0 = float32, 1 = bfloat16), inv int32 [n] ->
-// out [n, d]. Same error return as the plan build.
-extern "C" int dfm_take_fwd(const void* rows, const void* inv, void* out,
-                            int64_t n, int64_t u, int64_t d, int dtype,
+// rows: host array of t device pointers to [u[i], d] of `dtype` (0 =
+// float32, 1 = bfloat16); inv: t pointers to int32 [n]; masks: null, or t
+// pointers to float32 [n]; out [n, d]: the fused take above, one launch,
+// 1 <= t <= 8. bfloat16 rows take one table and no masks. Same error
+// return as the plan build.
+extern "C" int dfm_take_fwd(const void* const* rows, const void* const* inv,
+                            const void* const* masks, const int64_t* u, int t,
+                            void* out, int64_t n, int64_t d, int dtype,
                             void* stream) {
-  if (n <= 0 || u < 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = blocks_for(n * d);
-  const int32_t* iv = static_cast<const int32_t*>(inv);
-  switch (dtype) {
-    case 0:
-      take_fwd_kernel<uint32_t><<<blocks, kThreads, 0, s>>>(
-          static_cast<const uint32_t*>(rows), iv, static_cast<uint32_t*>(out),
-          n, u, d);
-      break;
-    case 1:
-      take_fwd_kernel<uint16_t><<<blocks, kThreads, 0, s>>>(
-          static_cast<const uint16_t*>(rows), iv, static_cast<uint16_t*>(out),
-          n, u, d);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (t < 1 || t > kMaxTables || n <= 0 || n >= INT32_MAX || d <= 0 ||
+      (dtype != 0 && dtype != 1) ||
+      (dtype == 1 && (t > 1 || masks != nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  const int64_t item = dtype == 0 ? 4 : 2;
+  const int64_t row_bytes = d * item;
+  TakeArgs a = {};
+  uintptr_t addr = reinterpret_cast<uintptr_t>(out);
+  for (int i = 0; i < t; ++i) {
+    if (u[i] < 0 || u[i] >= INT32_MAX ||
+        (masks != nullptr && masks[i] == nullptr)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    a.rows[i] = rows[i];
+    a.inv[i] = static_cast<const int32_t*>(inv[i]);
+    a.mask[i] = masks == nullptr ? nullptr
+                                 : static_cast<const float*>(masks[i]);
+    a.u[i] = static_cast<int>(u[i]);
+    addr |= reinterpret_cast<uintptr_t>(rows[i]);
+  }
+  // The widest chunk that divides a row and every base address.
+  int64_t chunk = 16;
+  while (chunk > item && (row_bytes % chunk != 0 || addr % chunk != 0)) {
+    chunk >>= 1;
+  }
+  if (row_bytes / chunk >= INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.out = out;
+  a.n = static_cast<int>(n);
+  a.tables = t;
+  a.chunks = static_cast<int>(row_bytes / chunk);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (chunk) {
+    case 16: return static_cast<int>(take_tables<float4>(a, s));
+    case 8: return static_cast<int>(take_tables<float2>(a, s));
+    case 4: return static_cast<int>(take_tables<float>(a, s));
+    default: return static_cast<int>(launch_take<unsigned short, 1, 4>(a, s));
+  }
 }
 
 // g [n, d] of `dtype`, order int32 [n], starts int32 [u+1] -> out [u, d].

@@ -341,23 +341,40 @@ class EmbeddingSchema:
                     num_rows: Optional[int] = None) -> Plan:
         """One batch's dedup plan per table, through the
         ``embedding_kernels`` plan leg. ``num_rows`` overrides the
-        monolithic fill id. On the card, when the take leg is the kernel,
-        each entry also carries its position segments (built once here,
-        shared by every embedding name's backward)."""
+        monolithic fill id. The hashed tables' ids are built stacked,
+        ``[T, B, F]``; on the kernel leg one plan launch serves up to
+        ``ek.MAX_TABLES`` of them. On the card, when the take leg is the
+        kernel, each entry also carries its position segments (built once
+        here, shared by every embedding name's backward)."""
         if not self.hashed:
             rows = self.padded_vocab if num_rows is None else int(num_rows)
             plan = {self.MONO: ek.plan_build(feat_ids, rows,
                                              mode=self.kernels)}
         else:
             table_of = self._table_of(feat_ids)
-            plan = {}
+            ids = torch.empty((len(self.buckets),) + tuple(feat_ids.shape),
+                              dtype=torch.int32, device=feat_ids.device)
+            masks = []
             for i, b in enumerate(self.buckets):
                 bucket = emb_ops.hash_bucket(feat_ids, b, salt=i + 1)
                 sel = table_of == i
-                per_table = torch.where(sel, bucket, torch.full(
-                    (), b, dtype=torch.int32, device=bucket.device))
-                plan[f"t{i}"] = ek.plan_build(per_table, b, mask=sel.float(),
-                                              mode=self.kernels)
+                torch.where(sel, bucket, torch.full(
+                    (), b, dtype=torch.int32, device=bucket.device),
+                    out=ids[i])
+                masks.append(sel.float())
+            keys = self.table_keys()
+            if all(ek.resolve(self.kernels, "plan", num_rows=b) == "kernel"
+                   for b in self.buckets):
+                entries = []
+                for s in range(0, len(keys), ek.MAX_TABLES):
+                    part = slice(s, s + ek.MAX_TABLES)
+                    entries += ek.plan_build_tables(
+                        ids[part], self.buckets[part], masks[part])
+            else:
+                entries = [ek.plan_build(ids[i], b, mask=masks[i],
+                                         mode=self.kernels)
+                           for i, b in enumerate(self.buckets)]
+            plan = dict(zip(keys, entries))
         if feat_ids.device.type == "cuda" and ek.resolve(
                 self.kernels, "take") == "kernel":
             plan = {k: e._replace(segments=ek.position_segments(
@@ -374,11 +391,21 @@ class EmbeddingSchema:
     def lookup_rows(self, rows: Dict[str, torch.Tensor],
                     plan: Optional[Plan]) -> torch.Tensor:
         """[B,F,*trailing] view over pre-gathered rows, the parts summed in
-        plan key order. With ``plan`` None the rows are already the
-        [B,F,...] batch view (the fused backward's leaves)."""
+        plan key order. On the kernel leg one fused take serves every
+        table (up to ``ek.MAX_TABLES``): gather, mask and sum in one
+        launch. With ``plan`` None the rows are already the [B,F,...]
+        batch view (the fused backward's leaves)."""
         if plan is None:
             assert len(rows) == 1
             return next(iter(rows.values()))
+        if (ek.resolve(self.kernels, "take") == "kernel"
+                and len(plan) <= ek.MAX_TABLES):
+            entries = list(plan.values())
+            masks = None if entries[0].mask is None else [
+                e.mask for e in entries]
+            return ek.take_rows_sum([rows[k] for k in plan],
+                                    [e.inv for e in entries], masks,
+                                    [e.segments for e in entries])
         out = None
         for k in plan:
             part = emb_ops.lookup_rows(rows[k], plan[k], mode=self.kernels)

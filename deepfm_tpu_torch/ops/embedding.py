@@ -231,10 +231,14 @@ def gather_rows(table: torch.Tensor, entry: PlanEntry) -> torch.Tensor:
 def lookup_rows(rows: torch.Tensor, entry: PlanEntry, *,
                 mode: str = "auto") -> torch.Tensor:
     """Positionwise view ``rows[inv]`` of gathered rows, times the mask in
-    the hashed layout. Goes through ``embedding_kernels.take_rows``, so its
-    gradient with respect to ``rows`` is the position-order segment-sum."""
-    out = embedding_kernels.take_rows(rows, entry.inv, mode=mode,
-                                      segments=entry.segments)
+    the hashed layout. The kernel leg fuses both in one take
+    (``embedding_kernels.take_rows_sum``), whose gradient with respect to
+    ``rows`` is the position-order segment-sum."""
+    if embedding_kernels.resolve(mode, "take") == "kernel":
+        masks = None if entry.mask is None else [entry.mask]
+        return embedding_kernels.take_rows_sum([rows], [entry.inv], masks,
+                                               [entry.segments])
+    out = embedding_kernels.reference_take(rows, entry.inv)
     if entry.mask is not None:
         out = out * trailing_dims(entry.mask, out.dim())
     return out

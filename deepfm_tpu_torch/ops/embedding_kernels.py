@@ -22,16 +22,21 @@ of the TPU kernel's loop and of XLA's scatter-add, so the gradient equals
 the JAX package's bit for bit), while autograd's ``rows[inv]`` backward on
 the card may sum in another order.
 
+The plan build and the take forward serve up to ``MAX_TABLES`` tables in
+one launch: a hashed step builds all its tables' plans with one launch
+(:func:`plan_build_tables`) and views each embedding name's tables, masks
+and table sum with one more (:func:`take_rows_sum`).
+
 Launch counters are plain ints on this module: ``plan_launches``,
 ``take_fwd_launches``, ``take_bwd_launches`` and ``install_launches``, each
-raised by one where its wrapper launches its kernel (one plan build is one
-count, whatever number of CUDA launches it takes).
+raised by one where its wrapper launches its kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +46,10 @@ from . import embedding as emb_ops
 
 #: embedding_kernels values (config-validated).
 MODES = ("auto", "pallas", "xla", "off")
+
+#: Tables one plan-build or take-forward launch serves
+#: (``csrc/embedding.cu`` ``kMaxTables``).
+MAX_TABLES = 8
 
 # The counting plan build does a [rows+1] prefix sum; above this many rows
 # the sort-based build is kept (``deepfm_tpu.ops.pallas_embedding``).
@@ -89,39 +98,97 @@ def _check_device(t: torch.Tensor, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _launch_plan(ids: torch.Tensor, num_rows: int,
-                 mask: Optional[torch.Tensor]) -> emb_ops.PlanEntry:
-    flat = ids.reshape(-1).to(torch.int32).contiguous()
-    n = flat.numel()
-    dev = flat.device
-    uids = torch.empty(n, dtype=torch.int32, device=dev)
-    inv = torch.empty(n, dtype=torch.int32, device=dev)
-    touched = torch.empty(num_rows, dtype=torch.bool, device=dev)
-    rank = torch.empty(num_rows + 1, dtype=torch.int32, device=dev)
+def _stacked_ids(ids, t: int) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """(ids as int32 [T, N], one table's ids shape), checked."""
+    if isinstance(ids, torch.Tensor):
+        if ids.dim() < 1 or ids.shape[0] != t:
+            raise ValueError(f"plan ids [T, ...] for {t} tables; got "
+                             f"{tuple(ids.shape)}")
+        parts, shape = [ids], tuple(ids.shape[1:])
+    else:
+        parts = list(ids)
+        if len(parts) != t:
+            raise ValueError(f"{len(parts)} id tensors for {t} tables")
+        shape = tuple(parts[0].shape)
+        if any(p.numel() != parts[0].numel() for p in parts):
+            raise ValueError(f"plan ids of one size N per table; got "
+                             f"{[tuple(p.shape) for p in parts]}")
+    for p in parts:
+        _check_device(p, "plan build")
+        if p.dtype.is_floating_point or p.dtype.is_complex \
+                or p.dtype == torch.bool:
+            raise TypeError(f"plan ids must be integers, got {p.dtype}")
+        if p.device != parts[0].device:
+            raise ValueError("plan ids lie on different devices")
+    if len(parts) == 1:
+        flat = parts[0].reshape(t, -1)
+    else:
+        flat = torch.stack([p.reshape(-1) for p in parts])
+    return flat.to(torch.int32).contiguous(), shape
+
+
+def _launch_plan(ids: torch.Tensor, shape: Tuple[int, ...],
+                 rows: List[int], masks) -> List[emb_ops.PlanEntry]:
+    """One ``dfm_plan_build`` launch for every table: the outputs are
+    allocated once, stacked, and each table's entry holds views of them."""
+    t, n = ids.shape
+    dev = ids.device
+    uids = torch.empty((t, n), dtype=torch.int32, device=dev)
+    inv = torch.empty((t, n), dtype=torch.int32, device=dev)
+    touched = torch.empty(sum(rows), dtype=torch.bool, device=dev)
+    rank = torch.empty(sum(rows), dtype=torch.int32, device=dev)
     lib = _native.load("embedding")
-    tiles = torch.empty(int(lib.dfm_plan_tiles(num_rows)), dtype=torch.int32,
-                        device=dev)
     with torch.cuda.device(dev):
         err = lib.dfm_plan_build(
-            flat.data_ptr(), uids.data_ptr(), inv.data_ptr(),
-            touched.data_ptr(), rank.data_ptr(), tiles.data_ptr(), n,
-            num_rows, _stream(dev))
+            ids.data_ptr(), uids.data_ptr(), inv.data_ptr(),
+            touched.data_ptr(), rank.data_ptr(), (ctypes.c_int64 * t)(*rows),
+            t, n, _stream(dev))
     _native.check(err, "plan build")
     _count("plan_launches")
-    return emb_ops.PlanEntry(uids=uids, inv=inv.reshape(ids.shape), mask=mask,
-                             num_rows=num_rows, touched=touched,
-                             rank=rank[:num_rows])
+    out, off = [], 0
+    for i, r in enumerate(rows):
+        out.append(emb_ops.PlanEntry(
+            uids=uids[i], inv=inv[i].reshape(shape), mask=masks[i],
+            num_rows=r, touched=touched[off:off + r], rank=rank[off:off + r]))
+        off += r
+    return out
+
+
+def plan_build_tables(ids, rows: Sequence[int],
+                      masks: Optional[Sequence[Optional[torch.Tensor]]] = None
+                      ) -> List[emb_ops.PlanEntry]:
+    """Counting plans with touched/rank for 1 to ``MAX_TABLES`` tables:
+    one ``dfm_plan_build`` launch for all of them on CUDA tensors, the
+    plain version ``make_plan_counting`` per table on CPU tensors.
+
+    ``ids``: T id tensors of one size N, or one ``[T, ...]`` tensor (row t
+    holds table t's ids, so a caller that builds them stacked spares the
+    copy); ``rows``: each table's row count, its fill id; ``masks``: each
+    entry's ``mask``. Every plan equals ``make_plan_counting``'s bit for
+    bit (uids, inv, touched; rank under touched)."""
+    rows = [int(r) for r in rows]
+    t = len(rows)
+    if not 1 <= t <= MAX_TABLES:
+        raise ValueError(f"a plan launch serves 1 to {MAX_TABLES} tables, "
+                         f"got {t}")
+    if any(r < 1 for r in rows):
+        raise ValueError(f"plan tables need at least one row, got {rows}")
+    masks = [None] * t if masks is None else list(masks)
+    if len(masks) != t:
+        raise ValueError(f"{len(masks)} masks for {t} tables")
+    flat, shape = _stacked_ids(ids, t)
+    if flat.device.type == "cpu":
+        return [emb_ops.make_plan_counting(flat[i].reshape(shape), r, m)
+                for i, (r, m) in enumerate(zip(rows, masks))]
+    return _launch_plan(flat, shape, rows, masks)
 
 
 def plan_build_kernel(ids: torch.Tensor, num_rows: int,
                       mask: Optional[torch.Tensor] = None
                       ) -> emb_ops.PlanEntry:
-    """The counting plan with touched/rank: the CUDA kernel on a CUDA
-    tensor, its plain version ``make_plan_counting`` on a CPU tensor."""
-    _check_device(ids, "plan build")
-    if ids.device.type == "cpu":
-        return emb_ops.make_plan_counting(ids, num_rows, mask)
-    return _launch_plan(ids, num_rows, mask)
+    """One table's counting plan with touched/rank through
+    :func:`plan_build_tables`."""
+    return plan_build_tables([ids], [num_rows], [mask])[0]
 
 
 def plan_build(ids: torch.Tensor, num_rows: int,
@@ -216,18 +283,75 @@ def _check_take(rows: torch.Tensor, inv: torch.Tensor) -> None:
         raise ValueError("the CUDA take kernels need contiguous inputs")
 
 
-def _launch_take_fwd(rows: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
-    _check_take(rows, inv)
-    n, (u, d) = inv.shape[0], rows.shape
-    out = torch.empty((n, d), dtype=rows.dtype, device=rows.device)
+def _check_take_tables(rows: Sequence[torch.Tensor],
+                       inv: Sequence[torch.Tensor],
+                       masks: Optional[Sequence[torch.Tensor]]) -> None:
+    t = len(rows)
+    if not 1 <= t <= MAX_TABLES:
+        raise ValueError(f"a take launch serves 1 to {MAX_TABLES} tables, "
+                         f"got {t}")
+    if len(inv) != t or (masks is not None and len(masks) != t):
+        raise ValueError(f"take needs one inv (and mask) per table: {t} "
+                         f"tables, {len(inv)} invs, "
+                         f"{None if masks is None else len(masks)} masks")
+    for r, i in zip(rows, inv):
+        _check_take(r, i)
+    r0, n = rows[0], inv[0].shape[0]
+    if any(r.shape[1:] != r0.shape[1:] or r.dtype != r0.dtype
+           or r.device != r0.device for r in rows):
+        raise ValueError("take tables need one width, dtype and device")
+    if any(i.shape[0] != n for i in inv):
+        raise ValueError(f"take invs of one length N; got "
+                         f"{[i.shape[0] for i in inv]}")
+    if masks is not None:
+        if any(m.dtype != torch.float32 for m in masks):
+            raise TypeError("take masks must be float32")
+        if any(m.shape != (n,) or m.device != r0.device for m in masks):
+            raise ValueError("take masks must be [N] on the rows' device")
+        if not all(m.is_contiguous() for m in masks):
+            raise ValueError("the CUDA take kernel needs contiguous inputs")
+    if (masks is not None or t > 1) and r0.dtype != torch.float32:
+        raise TypeError(f"masks or several tables take float32 rows, got "
+                        f"{r0.dtype}")
+
+
+def reference_take_sum(rows: Sequence[torch.Tensor],
+                       inv: Sequence[torch.Tensor],
+                       masks: Optional[Sequence[torch.Tensor]] = None
+                       ) -> torch.Tensor:
+    """Plain fused forward: per table ``rows[inv]``, times its mask, summed
+    in table order (the composition the kernel fuses). rows [U_t, D], inv
+    int [N], masks float32 [N] -> [N, D]."""
+    out = None
+    for i, (r, v) in enumerate(zip(rows, inv)):
+        part = reference_take(r, v)
+        if masks is not None:
+            part = part * masks[i][:, None]
+        out = part if out is None else out + part
+    return out
+
+
+def _launch_take_fwd(rows: Sequence[torch.Tensor],
+                     inv: Sequence[torch.Tensor],
+                     masks: Optional[Sequence[torch.Tensor]] = None
+                     ) -> torch.Tensor:
+    _check_take_tables(rows, inv, masks)
+    t, n, d = len(rows), inv[0].shape[0], rows[0].shape[1]
+    dev = rows[0].device
+    out = torch.empty((n, d), dtype=rows[0].dtype, device=dev)
     if n == 0 or d == 0:
         return out
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * t)(*(x.data_ptr() for x in ts))
+
     lib = _native.load("embedding")
-    with torch.cuda.device(rows.device):
-        err = lib.dfm_take_fwd(rows.data_ptr(), inv.data_ptr(),
-                               out.data_ptr(), n, u, d,
-                               _KERNEL_DTYPES[rows.dtype],
-                               _stream(rows.device))
+    with torch.cuda.device(dev):
+        err = lib.dfm_take_fwd(
+            ptrs(rows), ptrs(inv), None if masks is None else ptrs(masks),
+            (ctypes.c_int64 * t)(*(r.shape[0] for r in rows)), t,
+            out.data_ptr(), n, d, _KERNEL_DTYPES[rows[0].dtype],
+            _stream(dev))
     _native.check(err, "take forward")
     _count("take_fwd_launches")
     return out
@@ -263,31 +387,68 @@ def _launch_take_bwd(g: torch.Tensor, segments: Tuple[torch.Tensor,
     return out
 
 
-class TakeRows(torch.autograd.Function):
-    """``take_rows_pallas``'s custom VJP: out[p] = rows[inv[p]], and
-    d_rows[u] = sum over positions p with inv[p] = u of g[p], in ascending
-    p. rows [U, D], inv int32 [N]; CPU tensors take the plain versions,
-    CUDA tensors the kernels."""
+class TakeRowsSum(torch.autograd.Function):
+    """``take_rows_pallas``'s custom VJP, fused over up to ``MAX_TABLES``
+    tables with the hashed layout's masks: out[p] = sum over tables t, in
+    order, of rows_t[inv_t[p]] * mask_t[p] (no product without masks), and
+    d_rows_t[u] = sum over positions p with inv_t[p] = u of g[p] *
+    mask_t[p], in ascending p. CPU tensors take the plain versions (the
+    composition ``reference_take_sum`` and ``reference_take_bwd`` per
+    table), CUDA tensors the kernels: one ``dfm_take_fwd`` launch, then one
+    ``dfm_take_bwd`` launch per table.
+
+    ``segments`` (per table, or None) are the plans' position segments.
+    A plan's segments leave out the positions whose mask is 0
+    (``EmbeddingSchema.sparse_plan`` builds them so), and the mask is 1.0
+    at every other position, so the backward passes g itself there: g *
+    1.0 is g. Without them it builds the segments of every position and
+    passes g * mask_t."""
 
     @staticmethod
-    def forward(ctx, rows, inv, segments):
-        ctx.save_for_backward(inv)
-        ctx.num_slots = rows.shape[0]
+    def forward(ctx, inv, masks, segments, *rows):
+        ctx.save_for_backward(*inv, *(masks or ()))
+        ctx.num_slots = [r.shape[0] for r in rows]
         ctx.segments = segments
-        if rows.device.type == "cpu":
-            return reference_take(rows, inv)
-        return _launch_take_fwd(rows.contiguous(), inv.contiguous())
+        if rows[0].device.type == "cpu":
+            _check_take_tables(rows, inv, masks)
+            return reference_take_sum(rows, inv, masks)
+        return _launch_take_fwd(rows, inv, masks)
 
     @staticmethod
     def backward(ctx, g):
-        inv, = ctx.saved_tensors
+        t = len(ctx.num_slots)
+        saved = ctx.saved_tensors
+        inv, masks = saved[:t], saved[t:] or None
         g = g.contiguous()
-        if g.device.type == "cpu":
-            return reference_take_bwd(g, inv, ctx.num_slots), None, None
-        segments = ctx.segments
-        if segments is None:
-            segments = position_segments(inv, ctx.num_slots)
-        return _launch_take_bwd(g, segments, ctx.num_slots), None, None
+        cpu = g.device.type == "cpu"
+        grads = []
+        for i, (v, u) in enumerate(zip(inv, ctx.num_slots)):
+            seg = None if ctx.segments is None else ctx.segments[i]
+            g_t = g
+            if masks is not None and (cpu or seg is None):
+                g_t = g * masks[i][:, None]
+            if cpu:
+                grads.append(reference_take_bwd(g_t, v, u))
+            else:
+                grads.append(_launch_take_bwd(
+                    g_t, position_segments(v, u) if seg is None else seg, u))
+        return (None, None, None, *grads)
+
+
+def take_rows_sum(rows: Sequence[torch.Tensor], inv: Sequence[torch.Tensor],
+                  masks: Optional[Sequence[torch.Tensor]] = None,
+                  segments: Optional[Sequence[Optional[Tuple[
+                      torch.Tensor, torch.Tensor]]]] = None) -> torch.Tensor:
+    """The kernel leg's positionwise view over 1 to ``MAX_TABLES`` tables
+    (:class:`TakeRowsSum`). rows: [U_t] or [U_t, D] per table (1-D handled
+    as D = 1); inv: int32 [...] of one shape; masks: float32, inv-shaped
+    -> [..., D] (or [...] for 1-D rows)."""
+    _check_device(rows[0], "take")
+    shape = tuple(inv[0].shape) + tuple(rows[0].shape[1:])
+    rows2 = [r if r.dim() == 2 else r.unsqueeze(1) for r in rows]
+    flat = [v.reshape(-1) for v in inv]
+    m = None if masks is None else [x.reshape(-1) for x in masks]
+    return TakeRowsSum.apply(flat, m, segments, *rows2).reshape(shape)
 
 
 def take_rows(rows: torch.Tensor, inv: torch.Tensor, *, mode: str = "auto",
@@ -300,10 +461,7 @@ def take_rows(rows: torch.Tensor, inv: torch.Tensor, *, mode: str = "auto",
     _check_device(rows, "take")
     if resolve(mode, "take") != "kernel":
         return reference_take(rows, inv)
-    rows2 = rows if rows.dim() == 2 else rows.unsqueeze(1)
-    flat = inv.reshape(-1).to(torch.int32)
-    out = TakeRows.apply(rows2, flat, segments)
-    return out.reshape(tuple(inv.shape) + tuple(rows.shape[1:]))
+    return take_rows_sum([rows], [inv.to(torch.int32)], None, [segments])
 
 
 # ---------------------------------------------------------------------------
