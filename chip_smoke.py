@@ -23,9 +23,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and the numpy oracle, bit-equal uids, inv and touched (rank under
    touched), at one hashed table's training view (N = 1024*39 ids, 262,144
    rows, 3/4 of the positions at the fill id), the monolithic table, N = 1,
-   all ids equal, all fill, N > rows and 2,000,000 rows, one table a
-   launch; then four tables of 262,144, 4,096, 1 and 2,000,000 rows in one
-   launch. Then the times of one table's launch and of the hashed step's
+   all ids equal, all fill, N > rows, 2,000,000 rows, and N = 4096*39 (a
+   batch of 4,096, more ids than one pass of a CTA holds) on a hashed
+   and on the monolithic table, one table a launch; then four tables of
+   262,144, 4,096, 1 and 2,000,000 rows in one launch, and the hashed
+   step's four tables (the ids the timing uses). Then the times of one table's launch and of the hashed step's
    four-table launch beside their bounds, the plain version's and
    ``torch.unique``'s, and of a launch with almost no work (the design's
    fixed cost).
@@ -36,8 +38,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    kernel on g * mask; the segment-sum backward bit-equal to the CPU
    position-order oracle and to its own second launch, and within a
    tolerance of the plain backward on the card, U = N = 39,936; then times
-   beside the bounds, the plain versions and ``index_select`` (per table) /
-   ``index_add_``.
+   beside the bounds, the plain versions and the library calls:
+   ``index_select`` for one table, ``embedding_bag`` (sum, masks as
+   per-sample weights, over the tables concatenated) for the four, and
+   ``index_add_`` for the backward.
 6. Install kernel phase: the hot/cold cache install (``dfm_install``) in
    place into hot tables of 81,920 rows at D = 1 and 32, one transaction
    of 10,000 installs padded to 16,384 slots (real slots drawn without
@@ -189,13 +193,18 @@ PLAN_CASES = [  # (label, ids, rows, share of positions at the fill id)
     ("all_fill", PLAN_N, HASHED_ROWS, 1.0),
     ("n_gt_rows", PLAN_N, 4096, "every_row"),
     ("rows_2m", PLAN_N, 2_000_000, 0.0),
+    # More ids than one pass of a CTA's threads holds (N / 8 > 8 * 1024):
+    # the plan kernel's multi-pass marking and inv loop.
+    ("batch_4096_hashed", 4096 * 39, HASHED_ROWS, 0.75),
+    ("batch_4096_monolithic", 4096 * 39, MONO_ROWS, 0.0),
 ]
 # One plan launch over tables of unequal rows (the smallest and the largest
 # the counting plan takes, 3/4 of each table's positions at its fill id).
 MIXED_ROWS = (HASHED_ROWS, 4096, 1, 2_000_000)
 # The previous plan design's single-table time at the hashed shape (a memset
-# and five dependent kernels per table; PERF.md, H100 80GB HBM3, 700 W), the
-# yardstick of the one-launch design.
+# and five dependent kernels per table), as PERF.md records it for an H100
+# 80GB HBM3 at 700 W: printed beside the one-launch design's times as a
+# recorded figure, never as a number of this run.
 FIVE_PASS_PLAN_MS = 0.013058
 # The take backward against the plain backward on the card: a float32 sum
 # of the same terms that autograd's accumulate may take in another order;
@@ -496,13 +505,14 @@ def plan_phase():
                  MIXED_ROWS)
 
     ids, _ = hashed_step_ids(rng)
+    rows4 = [HASHED_ROWS] * HASHED_TABLES
+    _check_plans("hashed_4_tables", list(ids), rows4)
     t4 = torch.from_numpy(ids).to(dev)
     # The four tables' id spaces laid end to end, so that one torch.unique
     # dedups every table at once.
     offsets = torch.arange(HASHED_TABLES, device=dev)[:, None] * (
         HASHED_ROWS + 1)
     joint = (t4 + offsets).reshape(-1)
-    rows4 = [HASHED_ROWS] * HASHED_TABLES
     timing = {}
     for tables, kern_fn, plain_fn, lib_fn in (
             (1, lambda: ek.plan_build_tables(t4[:1], rows4[:1]),
@@ -523,8 +533,9 @@ def plan_phase():
               f"kernel_call_ms={kern_call:.6f} plain_call_ms="
               f"{plain_call:.6f} library_call_ms={lib_call:.6f} "
               f"(cuda_events) bound_ms={bound:.6f} ({bound_by}: {nbytes} B)"
-              f" five_pass_ms={FIVE_PASS_PLAN_MS * tables:.6f} ({tables} "
-              f"launch{'es' if tables > 1 else ''} of the five-pass design)")
+              f"; recorded, not this run: five-pass design "
+              f"{FIVE_PASS_PLAN_MS * tables:.6f} ms for {tables} table"
+              f"{'s' if tables > 1 else ''} (PERF.md)")
     # The design's fixed cost: one table of one row and one id (the cluster
     # launch, its barriers and DSMEM round trips, almost no bytes).
     one = torch.zeros((1, 1), dtype=torch.int32, device=dev)
@@ -583,16 +594,29 @@ def take_tables_phase():
               f"bit-equal to the plain composition; gradients bit-equal to "
               f"the backward kernel on g * mask per table")
 
-        inv64 = [v.long() for v in inv]
+        # The library's one call for the same function: a sum bag of T
+        # rows per position, the masks as per-sample weights, over the
+        # tables concatenated (built once, outside the timing).
+        joint = torch.cat(rows)
+        first = [0]
+        for r in rows[:-1]:
+            first.append(first[-1] + r.shape[0])
+        bag_ids = torch.stack([v.long() + o for v, o in zip(inv, first)], 1)
+        bag_w = torch.stack(mk, 1)
+        bag = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+            bag_ids, joint, mode="sum", per_sample_weights=bag_w)
+        # One mask is 1 at each position and the others multiply the fill
+        # slot's zero row, so any sum order gives the same value.
+        torch.testing.assert_close(bag(), want, rtol=1e-6, atol=1e-6)
         fwd = timed(lambda: ek._launch_take_fwd(rows, inv, mk))
         plain = timed(lambda: ek.reference_take_sum(rows, inv, mk))
-        lib = timed(lambda: [r.index_select(0, v)
-                             for r, v in zip(rows, inv64)])
+        lib = timed(bag)
         bound = take_bound(n, d, ref_rows, masked=True)
         timing[(HASHED_TABLES, d)] = (fwd, plain, lib, bound)
         print(f"take_fwd time T={HASHED_TABLES} masked D={d} N={n} "
               f"(referenced rows {ref_rows}): kernel_ms={fwd[0]:.6f} "
-              f"plain_ms={plain[0]:.6f} library_ms(index_select per table)="
+              f"plain_ms={plain[0]:.6f} library_ms(embedding_bag sum with "
+              f"per-sample weights)="
               f"{lib[0]:.6f} ({fwd[2]}) kernel_call_ms={fwd[1]:.6f} "
               f"plain_call_ms={plain[1]:.6f} library_call_ms={lib[1]:.6f} "
               f"(cuda_events) bound_ms={bound[0]:.6f} ({bound[1]})")
@@ -1323,11 +1347,9 @@ def main() -> int:
         "ms": pk, "plain_ms": pp, "library_ms": pl,
         "library_call": "torch.unique over the four tables' ids at once",
         "bound_ms": pb, "bound_by": pby, "ms_source": psrc,
-        "five_pass_ms": FIVE_PASS_PLAN_MS * HASHED_TABLES,
         "floor_ms": plan_t["floor"],
         "by_tables": {str(t): {"ms": v[0], "plain_ms": v[1],
-                               "library_ms": v[2], "bound_ms": v[3],
-                               "five_pass_ms": FIVE_PASS_PLAN_MS * t}
+                               "library_ms": v[2], "bound_ms": v[3]}
                       for t, v in plan_t.items() if t != "floor"}}
     take = {}
     for name, main_t in (("take_fwd", HASHED_TABLES), ("take_bwd", 1)):
@@ -1340,7 +1362,9 @@ def main() -> int:
                 "ms": v[0][0], "plain_ms": v[1][0], "library_ms": v[2][0],
                 "bound_ms": v[3][0]}
                 for (n, t, d), v in take_t.items() if n == name}}
-    take["take_fwd"]["library_call"] = "index_select per table"
+    take["take_fwd"]["library_call"] = (
+        "embedding_bag(mode='sum', per_sample_weights=masks) over the "
+        "tables concatenated")
     (ik, _, isrc), (ip, _, _), (il, _, _), (ib, iby) = install_t[32]
     install = {
         "ms": ik, "plain_ms": ip, "library_ms": il,

@@ -451,19 +451,6 @@ def take_rows_sum(rows: Sequence[torch.Tensor], inv: Sequence[torch.Tensor],
     return TakeRowsSum.apply(flat, m, segments, *rows2).reshape(shape)
 
 
-def take_rows(rows: torch.Tensor, inv: torch.Tensor, *, mode: str = "auto",
-              segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-              ) -> torch.Tensor:
-    """rows[inv] through the selected leg. rows: [U] or [U, D]; inv: int
-    [...] -> [..., D] (or [...] for 1-D rows, handled as D = 1).
-    ``segments`` (``position_segments(inv, U)``) lets the backward kernel
-    skip rebuilding them."""
-    _check_device(rows, "take")
-    if resolve(mode, "take") != "kernel":
-        return reference_take(rows, inv)
-    return take_rows_sum([rows], [inv.to(torch.int32)], None, [segments])
-
-
 # ---------------------------------------------------------------------------
 # Cache install (TPU kernel: pallas_embedding.py `_install_kernel`)
 # ---------------------------------------------------------------------------

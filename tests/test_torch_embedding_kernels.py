@@ -155,7 +155,10 @@ def _oracle_bwd(g, inv, u):
 
 def _port_take(rows, inv, g, mode):
     r = torch.from_numpy(rows).requires_grad_()
-    out = ek.take_rows(r, torch.from_numpy(inv), mode=mode)
+    entry = emb.PlanEntry(uids=torch.arange(rows.shape[0], dtype=torch.int32),
+                          inv=torch.from_numpy(inv), mask=None,
+                          num_rows=rows.shape[0])
+    out = emb.lookup_rows(r, entry, mode=mode)
     d_rows, = torch.autograd.grad(out, r, torch.from_numpy(g))
     return out.detach().numpy(), d_rows.numpy()
 
