@@ -34,22 +34,39 @@ Phases, each of which raises (and so exits non-zero) on failure:
 5. Take kernel phase: the fused gather forward, one table (bit-equal to
    ``rows[inv]``, and times its mask) and the hashed step's four masked
    tables summed (bit-equal to the plain composition), at D = 1 and 32;
-   gradients through ``TakeRowsSum`` bit-equal to the per-table backward
-   kernel on g * mask; the segment-sum backward bit-equal to the CPU
+   the segment-sum backward, one table a launch, bit-equal to the CPU
    position-order oracle and to its own second launch, and within a
-   tolerance of the plain backward on the card, U = N = 39,936; then times
-   beside the bounds, the plain versions and the library calls:
-   ``index_select`` for one table, ``embedding_bag`` (sum, masks as
-   per-sample weights, over the tables concatenated) for the four, and
-   ``index_add_`` for the backward.
-6. Install kernel phase: the hot/cold cache install (``dfm_install``) in
-   place into hot tables of 81,920 rows at D = 1 and 32, one transaction
-   of 10,000 installs padded to 16,384 slots (real slots drawn without
-   replacement), bit-equal to ``reference_install`` on the card and to a
+   tolerance of the plain backward on the card, U = N = 39,936; the
+   hashed step's four tables in one backward launch, bit-equal to the
+   numpy ascending-p oracle, to its second launch and to one launch per
+   table, and the gradients through ``TakeRowsSum`` (one launch each way)
+   bit-equal to it; the four tables' position segments built per table
+   and in one sort, bit-equal, with the device time and events of each.
+   Then times beside the bounds, the plain versions and the library
+   calls: ``index_select`` for one table, ``embedding_bag`` (sum, masks as
+   per-sample weights, over the tables concatenated) for the four,
+   ``index_add_`` for one table's backward and one ``index_add_`` over the
+   four tables' outputs end to end for theirs.
+6. Segment-sum phase: ``ek.segment_sum`` (segments, then one take backward
+   launch), which sums the dense lookups' and the monolithic fused leg's
+   gradients in position order, at their shapes: bit-equal to the numpy
+   ascending-p oracle and to its second call; its time beside the
+   ``index_add_`` it replaces.
+7. Install kernel phase: the hot/cold cache install (``dfm_install``) in
+   place into the tier's two hot tables of 81,920 rows, fm_w (D = 1) and
+   fm_v (D = 32), in one launch over one transaction of 10,000 installs
+   padded to 16,384 slots (real slots drawn without replacement),
+   bit-equal to ``reference_install`` per table on the card and to a
    numpy oracle, untouched rows and out-of-range slots left alone; then
-   I = 1, every slot out of range and I = H; then times beside the bound,
-   the plain version's and four ``index_copy_`` calls'.
-7. Train parity: DeepFM at the reference width, one seeded init, 20 steps
+   I = 1, every slot out of range and I = H; then times of the two-table
+   launch (and of each table alone) beside the bound, the plain version's
+   and the ``index_copy_`` calls' on the real slots.
+8. Determinism: the dense, sparse monolithic and dense hashed layouts
+   trained twice for 20 steps from the same seed on the same batches;
+   losses and every embedding table must be bit-identical between the two
+   runs (the embedding gradients sum in position order, not by float
+   atomics).
+9. Train parity: DeepFM at the reference width, one seeded init, 20 steps
    on the same batches (dropout keep 1.0) with the kernels
    (``use_pallas=True``) and with the plain path; the losses must agree.
    Then the same for the sparse update with hashed tables: kernels
@@ -58,7 +75,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``transfer_ahead=2``): tiered against the untiered sparse monolithic
    run, and against the tier with the plain install leg (``xla``); losses
    and densified tables must agree.
-8. Train phases: synthetic TFRecords at the reference width written once
+10. Train phases: synthetic TFRecords at the reference width written once
    with the port's ``generate_synthetic_ctr``, then ``tasks.run`` train
    (the ``Config()`` defaults: dropout keep 0.5, Adam, batch 1024; two
    epochs, an eval after each), eval and export, all on the card, four
@@ -69,14 +86,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the CLI entry point (``deepfm_tpu_torch.launch``). The logged loss must
    fall, eval AUC exceed 0.5, the FM backward kernel launch once per train
    step and the forward once per train step and eval batch, the plan
-   kernel once, the take forward twice (fm_w, fm_v) and the take backward
-   8 times per hashed step and never on the other layouts, the install
-   kernel twice (fm_w, fm_v) per tiered
-   plan and never elsewhere; each trained artifact then serves. Then the
-   step time at B=1024 of the dense kernel and plain paths, of the three
-   untiered layouts (one step, with its device busy time and idle share),
-   and of the tier (per dispatch through ``fit``: plan, apply and step).
-9. Serve phase: DeepFM at the reference width (``Config()`` defaults:
+   kernel once and the take forward twice (fm_w, fm_v) per hashed step and
+   never on the other layouts, the take backward twice per step on the
+   dense and hashed layouts (once per name) and once per step on the
+   monolithic and tiered ones (the fused leg, all names at once), the
+   install kernel once per tiered plan and never elsewhere; each trained
+   artifact then serves. Then the step time at B=1024 of the dense kernel
+   and plain paths, of the three untiered layouts (one step, with its
+   device busy time and idle share), and of the tier (per dispatch through
+   ``fit``: plan, apply and step).
+11. Serve phase: DeepFM at the reference width (``Config()`` defaults:
    V=117,581, F=39, K=32, tower 128-64-32, bfloat16 tower) with random
    weights from a seed, exported, published behind ``LATEST`` and served by
    ``ServingEngine.serve_latest`` to several client threads. Every response
@@ -89,8 +108,9 @@ line is ``{"ok": true, "device": {...}}``. Without a CUDA device the script
 exits non-zero and prints no result. Every kernel's launch count is read
 over main-path runs with the counts set to 0 just before each: the FM
 kernels over the dense train task (``launches``), the sparse train tasks
-and serving; the plan and take kernels over the hashed sparse train task;
-the install kernel over the tiered train task.
+and serving; the plan and take kernels over the hashed sparse train task
+(the take backward also over the other three); the install kernel over
+the tiered train task.
 
 Numerics: float32 matmuls run in full float32
 (``torch.backends.cuda.matmul.allow_tf32 = False``) and bfloat16 matmuls
@@ -157,12 +177,22 @@ BWD_CASES = [(b, 39, 32) for b in (1, 7, 1024, 4096)] + [(1024, 13, 8),
 TRAIN_SHAPE = (1024, 39, 32)  # one training batch at the reference width
 
 # Train parity, kernels vs plain path, 20 steps at lr 5e-4. They differ
-# only in float32 sum order (the FM reductions, and the atomics of the
-# embedding backward) until a bfloat16 tower rounds an input one ulp
-# apart; between the JAX package and the port on the CPU the same bf16
+# only in float32 sum order (the FM reductions; both sum the embedding
+# gradients in position order) until a bfloat16 tower rounds an input one
+# ulp apart; between the JAX package and the port on the CPU the same bf16
 # trajectory agreed to 2e-5 per step (tests/test_torch_train.py).
 PARITY_STEPS = 20
 PARITY_LOSS_ATOL = 1e-3
+
+# Same-seed determinism: the layouts whose embedding gradient sums the
+# cotangents of repeated ids, each trained twice for 20 steps.
+DETERMINISM_STEPS = 20
+DETERMINISM_LAYOUTS = {
+    "dense": {},
+    "sparse_monolithic": dict(embedding_update="sparse"),
+    "dense_hashed": dict(embedding_buckets="262144,262144,262144,262144",
+                         embedding_assign="hash"),
+}
 
 # Train phases: the reference width with 64 Ki train and 8 Ki eval records,
 # decoded per record in Python on the pipeline's prefetch thread.
@@ -206,6 +236,11 @@ MIXED_ROWS = (HASHED_ROWS, 4096, 1, 2_000_000)
 # 80GB HBM3 at 700 W: printed beside the one-launch design's times as a
 # recorded figure, never as a number of this run.
 FIVE_PASS_PLAN_MS = 0.013058
+# The previous take-backward design's time per table launch at the hashed
+# shape (one thread per element, one launch per table), as PERF.md records
+# it for an H100 80GB HBM3 at 700 W: printed beside the one-launch design's
+# times as a recorded figure, never as a number of this run.
+PREV_TAKE_BWD_MS = {1: 0.001961, 32: 0.005849}
 # The take backward against the plain backward on the card: a float32 sum
 # of the same terms that autograd's accumulate may take in another order;
 # at most a few dozen terms per slot here, so within 1e-5 of the value.
@@ -225,10 +260,11 @@ TIERED = dict(embedding_update="sparse", embedding_tiering="hot_cold",
               embedding_hot_rows=81_920, steps_per_loop=1, transfer_ahead=2)
 # Tiered parity (20 steps through fit, dropout off): the tier moves where
 # rows live, never their values, and the install legs are bit-identical,
-# so the runs differ only where the fused embedding backward's
-# ``index_add_`` float atomics add a row's cotangents in another order
-# (run to run), which the bf16 tower can carry into a one-ulp rounding
-# flip, as in the sparse parity above. Lazy Adam moves a touched row by
+# so the runs differ only where a fused embedding backward adds a row's
+# cotangents with float atomics (the ``xla`` leg's ``index_add_``, in
+# another order from run to run; the kernel legs add in position order),
+# which the bf16 tower can carry into a one-ulp rounding flip, as in the
+# sparse parity above. Lazy Adam moves a touched row by
 # lr * m / (sqrt(v) + eps): a gradient a few ulps apart moves that step by
 # a few ulps of it, and a bf16 flip moves it by ~1e-3 of lr. The tables are
 # held within lr / 5 = 1e-4 (an H100 run measured 5.4e-9), 40x below the
@@ -241,6 +277,14 @@ INSTALL_H = 81_920
 INSTALL_I = 10_000
 INSTALL_P = 16_384
 INSTALL_ARGS = ("w", "m", "v", "tau", "slots", "wv", "mv", "vv", "tv")
+# The tier's two tables, which share one transaction's slots: fm_w (the 1-D
+# table) and fm_v at the reference width.
+INSTALL_WIDTHS = (1, 32)
+# The previous install design's time per table launch at this shape (one
+# thread per element, one launch per table), as PERF.md records it for an
+# H100 80GB HBM3 at 700 W: printed as a recorded figure, never as a number
+# of this run.
+PREV_INSTALL_MS = {1: 0.002541, 32: 0.004340}
 
 # Serve phase. Embedding tables are scaled up from their glorot init so the
 # FM term moves probabilities well away from 0.5: a wrong kernel then shows
@@ -556,11 +600,62 @@ def take_bound(n: int, d: int, ref_rows, masked: bool):
     return bound_of(nbytes + 4 * d * n, ops)
 
 
+def segments_phase(plans):
+    """The hashed step's position segments, built per table
+    (``position_segments``, as the step did before) and for the four tables at
+    once (``position_segments_tables``, as ``sparse_plan`` does): bit-equal;
+    then the device ms and events of each build."""
+    n = PLAN_N
+    inv = torch.stack([p.inv for p in plans])
+    keep = torch.stack([p.mask > 0 for p in plans])
+    per_table = lambda: [ek.position_segments(  # noqa: E731
+        p.inv, n, keep=p.mask > 0) for p in plans]
+    batched = lambda: ek.position_segments_tables(inv, n, keep)  # noqa: E731
+    for (o1, s1), (o2, s2) in zip(per_table(), batched()):
+        assert torch.equal(o1, o2) and torch.equal(s1, s2)
+    out = {}
+    for turn in range(2):
+        for name, fn in (("per_table", per_table), ("batched", batched)):
+            ms, events = device_profile(fn)
+            call = cuda_ms(fn, iters=100)
+            out.setdefault(name, []).append((ms, events, call))
+            print(f"segments build T={len(plans)} N={n} {name}: "
+                  f"device_ms={ms if ms is None else f'{ms:.6f}'} "
+                  f"device_events={events:g} call_ms={call:.6f} "
+                  f"(cuda_events)")
+    print("segments check: the batched build is bit-equal to the per-table "
+          "one")
+    return {k: v[0] for k, v in out.items()}
+
+
+def take_bwd_oracle(g: torch.Tensor, inv: torch.Tensor, keep, u: int):
+    """numpy ascending-p segment sum: d[u] = sum of g[p] over the kept
+    positions p with inv[p] = u, from 0.0 (``np.add.at`` adds in order)."""
+    gg, iv = g.cpu().numpy(), inv.cpu().numpy()
+    if keep is not None:
+        k = keep.cpu().numpy()
+        gg, iv = gg[k], iv[k]
+    out = np.zeros((u,) + gg.shape[1:], gg.dtype)
+    np.add.at(out, iv, gg)
+    return out
+
+
+def take_bwd_bound(g_cols: int, kept, num_slots, itemsize: int = 4):
+    """Each input and output once: the kept positions' cotangent rows and
+    order entries, every table's starts, and every table's [U_t, D]
+    output; one add per kept element."""
+    nbytes = sum(itemsize * g_cols * k + 4 * k for k in kept)
+    nbytes += sum(4 * (u + 1) + itemsize * g_cols * u for u in num_slots)
+    return bound_of(nbytes, sum(kept) * g_cols) + (nbytes,)
+
+
 def take_tables_phase():
     """The fused forward over the hashed step's four masked tables (one
     plan launch over them), bit-equal to the plain composition at D = 1
-    and 32, gradients through ``TakeRowsSum`` bit-equal to the per-table
-    backward kernel on g * mask; then its times."""
+    and 32; the one-launch backward over the four tables bit-equal to the
+    numpy oracle, to its second launch and to one launch per table, and
+    the gradients through ``TakeRowsSum`` (one backward launch) bit-equal
+    to it; the segments' build per table and batched; then the times."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 32)
     ids, masks = hashed_step_ids(np.random.default_rng(SEED + 33))
@@ -570,8 +665,13 @@ def take_tables_phase():
     n = PLAN_N
     inv = [p.inv for p in plans]
     mk = [p.mask for p in plans]
-    segs = [ek.position_segments(p.inv, n, keep=p.mask > 0) for p in plans]
+    keep = [p.mask > 0 for p in plans]
+    seg_t = segments_phase(plans)
+    segs = ek.position_segments_tables(torch.stack(inv), n,
+                                       torch.stack(keep))
     ref_rows = [int((p.uids < HASHED_ROWS).sum()) + 1 for p in plans]
+    kept = [int(k.sum()) for k in keep]
+    slots = [n] * HASHED_TABLES
     timing = {}
     for d in (1, 32):
         # As gather_rows hands them over: the fill slots read zero.
@@ -582,17 +682,59 @@ def take_tables_phase():
         want = ek.reference_take_sum(rows, inv, mk)
         torch.cuda.synchronize()
         assert torch.equal(out, want), d
+        before = ek.take_bwd_launches
+        bwd = ek._launch_take_bwd_tables(g, segs, slots)
+        again = ek._launch_take_bwd_tables(g, segs, slots)
+        assert ek.take_bwd_launches - before == 2
+        for i in range(HASHED_TABLES):
+            one = ek._launch_take_bwd(g, segs[i], n)
+            torch.cuda.synchronize()
+            assert torch.equal(bwd[i], again[i]), (d, i)
+            assert torch.equal(bwd[i], one), (d, i)
+            assert np.array_equal(bwd[i].cpu().numpy(), take_bwd_oracle(
+                g, inv[i], keep[i], n)), (d, i)
         leaves = [r.clone().requires_grad_() for r in rows]
-        before = ek.take_fwd_launches
+        before = ek.take_fwd_launches, ek.take_bwd_launches
         view = ek.take_rows_sum(leaves, inv, mk, segs)
-        assert ek.take_fwd_launches - before == 1
         grads = torch.autograd.grad(view, leaves, g)
+        assert (ek.take_fwd_launches - before[0],
+                ek.take_bwd_launches - before[1]) == (1, 1)
         for i, gr in enumerate(grads):
-            assert torch.equal(gr, ek._launch_take_bwd(
-                g * mk[i][:, None], segs[i], n)), (d, i)
-        print(f"take check T={HASHED_TABLES} masked D={d}: one launch, "
-              f"bit-equal to the plain composition; gradients bit-equal to "
-              f"the backward kernel on g * mask per table")
+            assert torch.equal(gr, bwd[i]), (d, i)
+        print(f"take check T={HASHED_TABLES} masked D={d}: forward one "
+              f"launch, bit-equal to the plain composition; backward one "
+              f"launch for the {HASHED_TABLES} tables, bit-equal to the "
+              f"numpy ascending-p oracle, to its second launch and to one "
+              f"launch per table; TakeRowsSum gradients (one launch each "
+              f"way) bit-equal")
+
+        # The library's one call for the same backward: one index_add_
+        # over the four tables' outputs end to end, each table's inv offset
+        # by t * N and its masked positions sent to a dropped last row
+        # (built outside the timing). Its atomics may add in another order.
+        joint = torch.cat([torch.where(k, v.long() + i * n, HASHED_TABLES * n)
+                           for i, (v, k) in enumerate(zip(inv, keep))])
+        g_rep = g.repeat(HASHED_TABLES, 1)
+        lib_bwd = lambda: torch.zeros(  # noqa: E731
+            HASHED_TABLES * n + 1, d, device=dev).index_add_(0, joint, g_rep)
+        torch.testing.assert_close(lib_bwd()[:-1], torch.cat(bwd),
+                                   **TAKE_BWD_TOL)
+        bwd_t = timed(lambda: ek._launch_take_bwd_tables(g, segs, slots))
+        bwd_plain = timed(lambda: [ek.reference_take_bwd(
+            g * m[:, None], v, n) for v, m in zip(inv, mk)])
+        bwd_lib = timed(lib_bwd)
+        bb = take_bwd_bound(d, kept, slots)
+        timing[("take_bwd", HASHED_TABLES, d)] = (bwd_t, bwd_plain, bwd_lib,
+                                                  bb[:2])
+        print(f"take_bwd time T={HASHED_TABLES} masked D={d} N=U={n} (one "
+              f"launch, kept positions {kept}): kernel_ms={bwd_t[0]:.6f} "
+              f"plain_ms={bwd_plain[0]:.6f} library_ms(one index_add_ over "
+              f"the tables end to end)={bwd_lib[0]:.6f} ({bwd_t[2]}) "
+              f"kernel_call_ms={bwd_t[1]:.6f} plain_call_ms="
+              f"{bwd_plain[1]:.6f} library_call_ms={bwd_lib[1]:.6f} "
+              f"(cuda_events) bound_ms={bb[0]:.6f} ({bb[1]}: {bb[2]} B); "
+              f"recorded, not this run: {HASHED_TABLES} launches x "
+              f"{PREV_TAKE_BWD_MS[d]:.6f} ms (PERF.md)")
 
         # The library's one call for the same function: a sum bag of T
         # rows per position, the masks as per-sample weights, over the
@@ -612,7 +754,7 @@ def take_tables_phase():
         plain = timed(lambda: ek.reference_take_sum(rows, inv, mk))
         lib = timed(bag)
         bound = take_bound(n, d, ref_rows, masked=True)
-        timing[(HASHED_TABLES, d)] = (fwd, plain, lib, bound)
+        timing[("take_fwd", HASHED_TABLES, d)] = (fwd, plain, lib, bound)
         print(f"take_fwd time T={HASHED_TABLES} masked D={d} N={n} "
               f"(referenced rows {ref_rows}): kernel_ms={fwd[0]:.6f} "
               f"plain_ms={plain[0]:.6f} library_ms(embedding_bag sum with "
@@ -620,7 +762,7 @@ def take_tables_phase():
               f"{lib[0]:.6f} ({fwd[2]}) kernel_call_ms={fwd[1]:.6f} "
               f"plain_call_ms={plain[1]:.6f} library_call_ms={lib[1]:.6f} "
               f"(cuda_events) bound_ms={bound[0]:.6f} ({bound[1]})")
-    return timing
+    return timing, seg_t
 
 
 def take_phase():
@@ -685,11 +827,11 @@ def take_phase():
             0, inv64, gg))
         # What this run's data needs: the forward reads inv, each referenced
         # row once and writes N rows; the backward reads the kept positions
-        # and their cotangent rows and writes U rows.
+        # (order and cotangent rows) and starts, and writes U rows.
         ref_rows = int((plan.uids < HASHED_ROWS).sum()) + 1
         kept = int((mask > 0).sum())
         fb = take_bound(n, d, [ref_rows], masked=False)
-        bb = bound_of(4 * kept + 4 * d * (kept + n), kept * d)
+        bb = take_bwd_bound(d, [kept], [n])[:2]
         timing[("take_fwd", 1, d)] = (fwd, fwd_plain, fwd_lib, fb)
         timing[("take_bwd", 1, d)] = (bwd, bwd_plain, bwd_lib, bb)
         for name, (k, kc, src), (p, pc, _), (lb, lc, _), (bd, by) in (
@@ -702,9 +844,50 @@ def take_phase():
                   f"kernel_call_ms={kc:.6f} plain_call_ms={pc:.6f} "
                   f"library_call_ms={lc:.6f} (cuda_events) bound_ms={bd:.6f} "
                   f"({by})")
-    for (t, d), v in take_tables_phase().items():
-        timing[("take_fwd", t, d)] = v
-    return max_err, timing
+    tables_t, seg_t = take_tables_phase()
+    timing.update(tables_t)
+    return max_err, timing, seg_t
+
+
+def segment_sum_phase():
+    """The position-order segment sum that replaces float atomics on the
+    dense and the monolithic layouts (``ek.segment_sum``: segments, then one
+    take backward launch): one batch's ids over the padded vocabulary at
+    the dense lookups' widths (D = 1, 32) and over the fused leg's rows + 1
+    slots at its width (1 + 1 + 32 columns), bit-equal to the numpy
+    ascending-p oracle and to its second call; then its time (segments
+    build included) beside ``index_add_`` into zeros, the call it
+    replaces."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 50)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    n = PLAN_N
+    ids = torch.from_numpy(rng.integers(0, MONO_ROWS - 51, n)).to(dev)
+    timing = {}
+    for label, d, u in (("dense_fm_w", 1, MONO_ROWS),
+                        ("dense_fm_v", 32, MONO_ROWS),
+                        ("fused_leg", 2 + 32, MONO_ROWS + 1)):
+        g = torch.randn(n, d, device=dev, generator=gen)
+        before = ek.take_bwd_launches
+        a = ek.segment_sum(g, ids, u)
+        b = ek.segment_sum(g, ids, u)
+        assert ek.take_bwd_launches - before == 2
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), label
+        assert np.array_equal(a.cpu().numpy(), take_bwd_oracle(
+            g, ids, None, u)), label
+        lib = lambda: torch.zeros(u, d, device=dev).index_add_(  # noqa: E731
+            0, ids, g)
+        torch.testing.assert_close(lib(), a, **TAKE_BWD_TOL)
+        kern = timed(lambda: ek.segment_sum(g, ids, u), iters=100)
+        lib_t = timed(lib, iters=100)
+        timing[label] = (kern, lib_t)
+        print(f"segment_sum check {label} N={n} U={u} D={d}: bit-equal to "
+              f"the numpy ascending-p oracle and to its second call; time "
+              f"(segments + one launch) device_ms={kern[0]:.6f} call_ms="
+              f"{kern[1]:.6f}, library index_add_ device_ms={lib_t[0]:.6f} "
+              f"call_ms={lib_t[1]:.6f} ({kern[2]})")
+    return timing
 
 
 def install_inputs(h: int, d: int, slots: np.ndarray, rng) -> dict:
@@ -735,65 +918,90 @@ def install_case_slots(kind, h: int, rng) -> np.ndarray:
     return slots
 
 
+def _install_split(ons):
+    """(tables, values) of ``install_rows_tables`` from per-table dicts."""
+    return ([tuple(o[k] for k in INSTALL_ARGS[:4]) for o in ons],
+            [tuple(o[k] for k in INSTALL_ARGS[5:]) for o in ons])
+
+
 def install_phase():
-    """The install kernel vs its plain version on the card and the numpy
-    oracle at D = 1 and 32: one transaction of INSTALL_I installs padded to
+    """The install kernel, one launch for fm_w (D = 1) and fm_v (D = 32)
+    sharing one slots array, vs its plain version per table on the card
+    and the numpy oracle: one transaction of INSTALL_I installs padded to
     INSTALL_P, I = 1, every slot out of range, I = H. Then times of the
-    transaction beside its bound, the plain version's and four
-    ``index_copy_`` calls on the real slots."""
+    two-table transaction (and of each table alone) beside the bound, the
+    plain version's and the ``index_copy_`` calls on the real slots."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 40)
     timing = {}
-    for d in (1, 32):
-        for kind in (INSTALL_I, 1, "out_of_range", "all"):
-            slots = install_case_slots(kind, INSTALL_H, rng)
-            host = install_inputs(INSTALL_H, d, slots, rng)
-            on = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
-            kern = {k: on[k].clone() for k in INSTALL_ARGS[:4]}
-            plain = {k: on[k].clone() for k in INSTALL_ARGS[:4]}
-            ek._launch_install(*(kern.get(k, on[k]) for k in INSTALL_ARGS))
-            ek.reference_install(*(plain.get(k, on[k])
-                                   for k in INSTALL_ARGS))
-            torch.cuda.synchronize()
-            keep = (slots >= 0) & (slots < INSTALL_H)
-            real = slots[keep]
-            untouched = np.ones(INSTALL_H, bool)
-            untouched[real] = False
+    for kind in (INSTALL_I, 1, "out_of_range", "all"):
+        slots = install_case_slots(kind, INSTALL_H, rng)
+        hosts = [install_inputs(INSTALL_H, d, slots, rng)
+                 for d in INSTALL_WIDTHS]
+        ons = [{k: torch.from_numpy(v).to(dev) for k, v in h.items()}
+               for h in hosts]
+        kern = [{**o, **{k: o[k].clone() for k in INSTALL_ARGS[:4]}}
+                for o in ons]
+        plain = [{**o, **{k: o[k].clone() for k in INSTALL_ARGS[:4]}}
+                 for o in ons]
+        before = ek.install_launches
+        tables, values = _install_split(kern)
+        ek._launch_install_tables(tables, ons[0]["slots"], values)
+        assert ek.install_launches - before == 1
+        for pl in plain:
+            ek.reference_install(*(pl[k] for k in INSTALL_ARGS))
+        torch.cuda.synchronize()
+        keep = (slots >= 0) & (slots < INSTALL_H)
+        real = slots[keep]
+        untouched = np.ones(INSTALL_H, bool)
+        untouched[real] = False
+        for d, host, kt, pt in zip(INSTALL_WIDTHS, hosts, kern, plain):
             for key, vkey in zip(INSTALL_ARGS[:4], INSTALL_ARGS[5:]):
-                got = kern[key].cpu().numpy()
+                got = kt[key].cpu().numpy()
                 oracle = host[key].copy()
                 oracle[real] = host[vkey][keep]
                 assert np.array_equal(_bits(got), _bits(oracle)), (kind, d,
                                                                    key)
                 assert np.array_equal(_bits(got),
-                                      _bits(plain[key].cpu().numpy()))
+                                      _bits(pt[key].cpu().numpy()))
                 assert np.array_equal(_bits(got[untouched]),
                                       _bits(host[key][untouched]))
-            print(f"install check I={real.size} P={slots.size} D={d}: "
-                  f"bit-equal to plain and oracle, {int(untouched.sum())} "
-                  f"untouched rows kept, {int((~keep).sum())} out-of-range "
-                  f"slots dropped")
+        print(f"install check I={real.size} P={slots.size} D="
+              f"{'+'.join(map(str, INSTALL_WIDTHS))} in one launch: "
+              f"bit-equal to plain and oracle per table, "
+              f"{int(untouched.sum())} untouched rows kept, "
+              f"{int((~keep).sum())} out-of-range slots dropped")
 
-        slots = install_case_slots(INSTALL_I, INSTALL_H, rng)
-        host = install_inputs(INSTALL_H, d, slots, rng)
-        on = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
-        args = [on[k] for k in INSTALL_ARGS]
-        idx = on["slots"][:INSTALL_I].long()
-        real = [(on[k], on[vk][:INSTALL_I]) for k, vk in zip(
-            INSTALL_ARGS[:4], INSTALL_ARGS[5:])]
-        kern = timed(lambda: ek._launch_install(*args))
-        plain = timed(lambda: ek.reference_install(*args))
+    slots = install_case_slots(INSTALL_I, INSTALL_H, rng)
+    ons = [{k: torch.from_numpy(v).to(dev) for k, v in install_inputs(
+        INSTALL_H, d, slots, rng).items()} for d in INSTALL_WIDTHS]
+    sl = ons[0]["slots"]
+    idx = sl[:INSTALL_I].long()
+    for label, part in (("two", ons), (1, ons[:1]), (32, ons[1:])):
+        tables, values = _install_split(part)
+        real = [(t, x[:INSTALL_I]) for tab, vals in zip(tables, values)
+                for t, x in zip(tab, vals)]
+        kern = timed(lambda: ek._launch_install_tables(tables, sl, values))
+        plain = timed(lambda: [ek.reference_install(*tab, sl, *vals)
+                               for tab, vals in zip(tables, values)])
         lib = timed(lambda: [t.index_copy_(0, idx, x) for t, x in real])
-        nbytes = 4 * INSTALL_P + 2 * INSTALL_I * (3 * 4 * d + 4)
+        widths = [1 if tab[0].dim() == 1 else tab[0].shape[1]
+                  for tab in tables]
+        nbytes = 4 * INSTALL_P + sum(2 * INSTALL_I * (3 * 4 * d + 4)
+                                     for d in widths)
         bound = bound_of(nbytes, 0)
-        timing[d] = (kern, plain, lib, bound)
-        print(f"install time D={d} H={INSTALL_H} I={INSTALL_I} "
-              f"P={INSTALL_P}: kernel_ms={kern[0]:.6f} plain_ms="
-              f"{plain[0]:.6f} library_ms(4x index_copy_ on the real slots)="
+        timing[label] = (kern, plain, lib, bound)
+        print(f"install time D={'+'.join(map(str, widths))} (one launch) "
+              f"H={INSTALL_H} I={INSTALL_I} P={INSTALL_P}: "
+              f"kernel_ms={kern[0]:.6f} plain_ms={plain[0]:.6f} "
+              f"library_ms({len(real)}x index_copy_ on the real slots)="
               f"{lib[0]:.6f} ({kern[2]}) kernel_call_ms={kern[1]:.6f} "
               f"plain_call_ms={plain[1]:.6f} library_call_ms={lib[1]:.6f} "
               f"(cuda_events) bound_ms={bound[0]:.6f} ({bound[1]}: "
-              f"{nbytes} B)")
+              f"{nbytes} B); recorded, not this run: "
+              f"{' + '.join(f'{PREV_INSTALL_MS[d]:.6f}' for d in widths)} ms "
+              f"in {len(widths)} launch{'es' if len(widths) > 1 else ''} "
+              f"(PERF.md)")
     return timing
 
 
@@ -831,12 +1039,15 @@ def train_parity_phase(cfg: Config, dev: torch.device,
             ("sparse_hashed", hashed,
              hashed.replace(use_pallas=False, embedding_kernels="xla"),
              SPARSE_PARITY_LOSS_ATOL)):
-        counts = (ek.plan_launches, ek.take_fwd_launches)
+        counts = (ek.plan_launches, ek.take_fwd_launches,
+                  ek.take_bwd_launches)
         kern = _losses(kern_cfg, dev, batches)
         if name == "sparse_hashed" and dev.type == "cuda":
-            # One plan launch for the four tables, one take per name.
+            # One plan launch for the four tables, one take forward and one
+            # take backward per name.
             assert ek.plan_launches - counts[0] == steps
             assert ek.take_fwd_launches - counts[1] == EMB_PARAMS * steps
+            assert ek.take_bwd_launches - counts[2] == EMB_PARAMS * steps
         plain = _losses(plain_cfg, dev, batches)
         diff = np.abs(kern - plain)
         assert np.all(np.isfinite(kern)), kern
@@ -844,6 +1055,49 @@ def train_parity_phase(cfg: Config, dev: torch.device,
         print(f"train parity {name}: {steps} steps kernel vs plain, max "
               f"|loss diff| {diff.max():.3e} (atol {atol}); loss "
               f"{kern[0]:.5f} -> {kern[-1]:.5f}")
+
+
+def _seeded_run(cfg: Config, dev: torch.device, batches):
+    """Per-step losses and every embedding table after ``train_step`` over
+    ``batches`` from the seeded init (dropout drawn from the state's
+    seeded generator)."""
+    trainer = Trainer(cfg, device=dev)
+    state = trainer.init_state(SEED)
+    losses = []
+    for b in batches:
+        state, m = trainer.train_step(state, trainer.put_batch(b))
+        losses.append(m["loss"])
+    tables = {k: v.detach().clone() for k, v in state.params.items()
+              if k.split(".")[0] in ("fm_w", "fm_v")}
+    return torch.stack(losses), tables
+
+
+def determinism_phase(cfg: Config, dev: torch.device,
+                      steps: int = DETERMINISM_STEPS,
+                      require_equal: bool = True) -> dict:
+    """Each layout whose embedding gradient sums cotangents of repeated
+    ids (dense, sparse monolithic through the fused leg, dense over hashed
+    tables) trained twice for ``steps`` steps from the same seed on the
+    same batches (default dropout, drawn from the seeded generator): the
+    max |difference| of the losses and of every embedding table between
+    the two runs, which must be 0.0."""
+    batches = random_batches(cfg, steps, SEED + 9)
+    out = {}
+    for name, kw in DETERMINISM_LAYOUTS.items():
+        la, ta = _seeded_run(cfg.replace(**kw), dev, batches)
+        lb, tb = _seeded_run(cfg.replace(**kw), dev, batches)
+        dl = float((la - lb).abs().max())
+        dt = max(float((ta[k] - tb[k]).abs().max()) for k in ta)
+        bits = torch.equal(la, lb) and all(torch.equal(ta[k], tb[k])
+                                           for k in ta)
+        out[name] = (dl, dt)
+        print(f"determinism {name}: {steps} steps twice from seed {SEED}, "
+              f"max |loss diff| {dl!r}, max |table diff| {dt!r} over "
+              f"{sorted(ta)}; bit-identical={bits}")
+        assert np.isfinite(float(la[-1])), (name, la)
+        if require_equal:
+            assert bits, (name, dl, dt)
+    return out
 
 
 def _fit_run(cfg: Config, dev: torch.device, batches):
@@ -867,7 +1121,7 @@ def tiered_parity_phase(cfg: Config, dev: torch.device,
     """The hot/cold tier, 20 steps through ``fit`` from one seeded init on
     the same batches, dropout off: against the untiered sparse monolithic
     run, and against the tier's plain install leg (``xla``). Losses and
-    densified tables agree; the kernel run installs twice per plan."""
+    densified tables agree; the kernel run installs once per plan."""
     cfg = cfg.replace(dropout="1.0,1.0,1.0")
     batches = random_batches(cfg, steps, SEED + 8)
     tiered = cfg.replace(**tier)
@@ -876,7 +1130,7 @@ def tiered_parity_phase(cfg: Config, dev: torch.device,
     plans = trainer._tier.stats["plans"]
     assert plans == steps and trainer._tier.stats["installs"] > 0
     if dev.type == "cuda":
-        assert ek.install_launches - before == EMB_PARAMS * plans
+        assert ek.install_launches - before == plans
     print(f"tiered parity: {steps} steps, hit_rate="
           f"{trainer._tier.hit_rate():.4f} evictions="
           f"{trainer._tier.stats['evictions']:.0f} installs="
@@ -1006,6 +1260,12 @@ def train_phase(workdir: str, data: dict, cfg: Config, dev: torch.device,
     assert res["auc"] > 0.5, res
     on = int(dev.type == "cuda")
     emb_steps = steps if hashed else 0
+    # The take backward sums the embedding gradients in position order on
+    # every layout: once per name (the dense lookups, the hashed views), or
+    # once per step for all names (the fused leg of the monolithic table,
+    # tiered or not).
+    fused_leg = cfg.embedding_update == "sparse" and not hashed
+    bwd_per_step = 1 if fused_leg else EMB_PARAMS
     plans = 0
     if tiered:
         # One plan per dispatch, one dispatch per step; every batch misses
@@ -1022,8 +1282,8 @@ def train_phase(workdir: str, data: dict, cfg: Config, dev: torch.device,
             "fused_fm_bwd": on * steps,
             "plan_build": on * emb_steps,
             "take_fwd": on * EMB_PARAMS * emb_steps,
-            "take_bwd": on * HASHED_TABLES * EMB_PARAMS * emb_steps,
-            "install": on * EMB_PARAMS * plans}
+            "take_bwd": on * bwd_per_step * steps,
+            "install": on * plans}
     assert launches == want, (name, launches, want)
 
     _zero_counts()
@@ -1316,11 +1576,13 @@ def main() -> int:
     bwd_err, (bwd_ms, bwd_plain_ms, bwd_bound_ms, bwd_bound_by,
               bwd_source) = kernel_bwd_phase()
     plan_t = plan_phase()
-    take_err, take_t = take_phase()
+    take_err, take_t, seg_t = take_phase()
+    segment_sum_phase()
     install_t = install_phase()
 
     cfg = Config()
     dev = torch.device("cuda")
+    determinism_phase(cfg, dev)
     train_parity_phase(cfg, dev)
     tiered_parity_phase(cfg, dev)
     workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=HERE)
@@ -1341,7 +1603,7 @@ def main() -> int:
 
     hashed = paths["train_sparse_hashed"]
     # The main path's shapes: the hashed step's four-table plan launch, its
-    # four-table take forward and one table's take backward, at D = 32.
+    # four-table take forward and backward, at D = 32.
     (pk, pp, pl, pb, pby, psrc) = plan_t[HASHED_TABLES]
     plan = {
         "ms": pk, "plain_ms": pp, "library_ms": pl,
@@ -1352,9 +1614,9 @@ def main() -> int:
                                "library_ms": v[2], "bound_ms": v[3]}
                       for t, v in plan_t.items() if t != "floor"}}
     take = {}
-    for name, main_t in (("take_fwd", HASHED_TABLES), ("take_bwd", 1)):
+    for name in ("take_fwd", "take_bwd"):
         (k, _, src), (p, _, _), (lb, _, _), (bd, by) = take_t[
-            (name, main_t, 32)]
+            (name, HASHED_TABLES, 32)]
         take[name] = {
             "ms": k, "plain_ms": p, "library_ms": lb, "bound_ms": bd,
             "bound_by": by, "ms_source": src,
@@ -1365,10 +1627,15 @@ def main() -> int:
     take["take_fwd"]["library_call"] = (
         "embedding_bag(mode='sum', per_sample_weights=masks) over the "
         "tables concatenated")
-    (ik, _, isrc), (ip, _, _), (il, _, _), (ib, iby) = install_t[32]
+    take["take_bwd"]["library_call"] = (
+        "one index_add_ over the tables' outputs end to end")
+    take["take_bwd"]["segments_build"] = {
+        k: {"device_ms": v[0], "device_events": v[1], "call_ms": v[2]}
+        for k, v in seg_t.items()}
+    (ik, _, isrc), (ip, _, _), (il, _, _), (ib, iby) = install_t["two"]
     install = {
         "ms": ik, "plain_ms": ip, "library_ms": il,
-        "library_call": "4x index_copy_ on the real slots",
+        "library_call": "8x index_copy_ on the real slots",
         "bound_ms": ib, "bound_by": iby, "ms_source": isrc,
         "by_width": {str(d): {"ms": v[0][0], "plain_ms": v[1][0],
                               "library_ms": v[2][0], "bound_ms": v[3][0]}

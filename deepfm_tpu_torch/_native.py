@@ -58,11 +58,12 @@ def _bind_embedding(lib: ctypes.CDLL) -> None:
                     ctypes.c_int64, ctypes.c_int64, ctypes.c_int, _P]
     fwd.restype = ctypes.c_int
     bwd = lib.dfm_take_bwd
-    bwd.argtypes = [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64,
-                    ctypes.c_int, _P]
+    bwd.argtypes = [_P, ptrs, ptrs, ptrs, ints, ctypes.c_int, ctypes.c_int64,
+                    ctypes.c_int64, ctypes.c_int, _P]
     bwd.restype = ctypes.c_int
     install = lib.dfm_install
-    install.argtypes = [_P] * 9 + [ctypes.c_int64] * 3 + [_P]
+    install.argtypes = [ptrs, ints, ctypes.c_int, _P, ctypes.c_int64,
+                        ctypes.c_int64, _P]
     install.restype = ctypes.c_int
 
 

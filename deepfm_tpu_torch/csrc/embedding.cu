@@ -109,56 +109,99 @@
 // the zero row every masked position reads, one line that stays in cache.
 //
 // ---------------------------------------------------------------------------
-// dfm_take_bwd: replaces `_take_bwd_kernel`. d_rows[u, :] = sum over the
-// positions p with inv[p] = u of g[p, :], SUMMED IN ASCENDING p STARTING
-// FROM 0.0f: the order of the Pallas loop and of XLA's scatter-add, so the
-// result equals the JAX package's gradient bit for bit. bfloat16 cotangents
-// round the running sum to bfloat16 after each add, as the Pallas kernel's
-// `out += g` in g's dtype does. No float atomics: their order changes from
-// run to run.
+// dfm_take_bwd: replaces `_take_bwd_kernel` (pallas_embedding.py:226), for
+// up to 8 tables that share one cotangent g [N, D] in one launch. For
+// table t:
 //
-// Input layout: the positions grouped by slot, ascending within a slot,
-// as order int32 [N] and starts int32 [U+1] (slot u owns
-// order[starts[u] .. starts[u+1])). The caller builds them once per plan
-// with a stable sort of inv (integer bookkeeping, shared by every
-// embedding name), and may leave out positions whose cotangent is always
-// zero (a hashed table's masked positions, all in the fill slot): adding
-// +-0.0 changes no float32 sum. Slots with no position are written as
+//   d_rows_t[u, :] = sum over the positions p with inv_t[p] = u of g[p, :]
+//
+// SUMMED IN ASCENDING p STARTING FROM 0.0f: the order of the Pallas loop
+// and of XLA's scatter-add, so the result equals the JAX package's gradient
+// bit for bit. bfloat16 cotangents round the running sum to bfloat16 after
+// each add, as the Pallas kernel's `out += g` in g's dtype does. Every add
+// is one __fadd_rn; no tree sum, no reduction across lanes, no float
+// atomics (their order changes from run to run).
+//
+// Input layout per table: the positions grouped by slot, ascending within
+// a slot, as order int32 [N] and starts int32 [U_t+1] (slot u owns
+// order[starts[u] .. starts[u+1])). The caller builds every table's with
+// one stable sort (integer bookkeeping, shared by every embedding name),
+// and may leave out positions whose cotangent is always zero (a hashed
+// table's masked positions, all in its fill slot): adding +0.0 to a sum
+// that starts from +0.0 changes no bit. Slots with no position (most of a
+// hashed table's, which has as many slots as positions) are written as
 // zeros.
 //
-// Bound: bytes, the same traffic as the forward (g and d_rows, N D itemsize
-// each, plus inv): 3.10 us at the training shape, D = 32.
+// Bound: bytes, each input and output once: the kept positions' cotangent
+// rows (each position is kept in one table of the hashed layout), order
+// and starts, and sum_t 4 U_t D output bytes. At the hashed step (T = 4,
+// N = U = 39,936, D = 32) ~26 MB, 7.9 us at 3.35 TB/s, 78% of it the
+// output; at D = 1 under 1 MB, so the launch and the chain of dependent
+// loads (starts -> order -> g) set the time.
 //
-// Design: one thread per output element, e = u*D + c, walking its slot's
-// run in order; for D = 32 a warp owns one slot and each of its loads of a
-// cotangent row is one coalesced 128-byte segment.
+// What held the previous design back: one thread per output element, with
+// a 64-bit divide each, every thread re-reading its slot's starts and
+// order entries (D times per slot), and one launch per (table, name): 8 a
+// hashed step, 4 x 0.0058 ms at D = 32 and 4 x 0.0020 at D = 1 (H100 80GB
+// HBM3, 700 W).
+//
+// Design: one launch over every table; a warp takes 32 consecutive slots
+// of one table (tables' warps are laid end to end; the warp finds its
+// table by reading the argument struct at constant indices only), and
+// lane l reads slot s0 + l's starts[s] and starts[s+1] once.
+//   - D = 1 (a row of one chunk): one lane per slot, the warp's 32 slots at
+//     once, four cotangents in flight along a run, plain stores (streaming
+//     stores of 4 bytes a lane were slower on an H100). At D = 1 the
+//     launch is all latency; the kernel below for wider rows would cost it
+//     registers and instructions it does not use.
+//   - Wider rows: a slot's row is summed by a group of G lanes, G the power
+//     of two >= the row's 16-, 8- or 4-byte chunks (8 lanes of float4 at
+//     D = 32, so a warp takes 4 slots a round and 8 rounds). Up to eight
+//     rounds start together: their runs come from the lanes' registers by
+//     shuffle, one lane of each group reads the run's first position and
+//     passes it on, and every lane loads that row's chunk, so the chain of
+//     dependent loads (starts -> order -> g) is paid once for 32 slots,
+//     not once a round. A longer run continues in order: the group reads
+//     its order entries G at a time, one per lane, and each lane keeps four
+//     cotangent chunks in flight before it adds them.
+// The wider rows' empty slots are streamed out as zeros (st.global.cs). The
+// grid is one wave of resident blocks.
 //
 // ---------------------------------------------------------------------------
-// dfm_install: replaces `_install_kernel` (pallas_embedding.py, reached
-// through `install_pallas`). One hot/cold cache transaction, IN PLACE in
-// the hot tables: for every i < P with 0 <= slots[i] < H,
+// dfm_install: replaces `_install_kernel` (pallas_embedding.py:302, reached
+// through `install_pallas`), for up to 8 tables that share one slots
+// array in one launch. One hot/cold cache transaction, IN PLACE in the hot
+// tables: for every table t and every i < P with 0 <= slots[i] < H,
 //
-//   w[slots[i], :] = wv[i, :];  m[slots[i], :] = mv[i, :];
-//   v[slots[i], :] = vv[i, :];  tau[slots[i]]  = tv[i]
+//   w_t[slots[i], :] = wv_t[i, :];  m_t[slots[i], :] = mv_t[i, :];
+//   v_t[slots[i], :] = vv_t[i, :];  tau_t[slots[i]]  = tv_t[i]
 //
-// for w, m, v float32 [H, D] (D = 1 for the 1-D fm_w table), tau int32 [H],
-// slots int32 [P] and the values [P, D] / [P]. Any other slot (the pow-2
-// padding carries H) is dropped. The caller's in-bounds slots are distinct
-// (free-list slots and distinct LRU victims), so the order of the stores
-// cannot matter and the result equals four per-array scatters element for
-// element. Values are copied as raw 32-bit words.
+// for w, m, v float32 [H, D_t] (D_t = 1 for the 1-D fm_w table), tau int32
+// [H], slots int32 [P] and the values [P, D_t] / [P]. Any other slot (the
+// pow-2 padding carries H) is dropped. The caller's in-bounds slots are
+// distinct (free-list slots and distinct LRU victims), so the order of the
+// stores cannot matter and the result equals four per-array scatters per
+// table element for element. Values are copied as raw 32-bit words.
 //
-// Bound: bytes. One read of the slots (4P), one read of the I real value
-// rows and one write of the I installed rows, each 3*4*D + 4 bytes:
-// 4P + 2 I (12 D + 4). At D = 32, I ~ 10k, P = 16,384: ~7.8 MB, 2.3 us at
-// 3.35 TB/s; at D = 1 a few hundred KB, so the launch sets the time.
+// Bound: bytes. One read of the slots (4P), and per table one read of the
+// I real value rows and one write of the I installed rows, each
+// 3*4*D_t + 4 bytes: 4P + sum_t 2 I (12 D_t + 4). At D = 32 and 1, I ~
+// 10k, P = 16,384: ~8.2 MB, 2.45 us at 3.35 TB/s.
 //
-// Design: the Pallas body is a serial loop over the slots that first copies
-// each whole table into a fresh output. Here the tables are written where
-// they lie, one thread per (slot, column), e = i*D + c, grid-stride: each
-// thread reads its slot, skips it when out of range, and copies one word of
-// w, m and v; column 0 also copies tau. For D = 32 a warp moves one
-// contiguous 128-byte row segment of each array.
+// What held the previous design back: one thread per (slot, column) with a
+// 64-bit divide each, the slot read D times, and one launch per table: the
+// D = 1 launch (fm_w) moved a few hundred KB at 5% of its bound.
+//
+// Design: a warp takes one table's rows of 32 consecutive transactions
+// (the tables' warps of one block of transactions are neighbours, so they
+// share its slots line); lane l reads slots[i0 + l] once. A row is copied
+// by a group of G lanes (G the power of two >= its 16-, 8- or 4-byte
+// chunks: 8 lanes at D = 32, one at D = 1), and each lane issues the w, m
+// and v value loads of up to eight rows before the slots arrive (the
+// values' addresses do not depend on them), so only the stores wait: one
+// memory latency per warp, not a chain of them. Lane l copies its own
+// slot's tau. No divides; the tables' pointers ride in the launch's
+// argument struct, read at constant indices.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -172,9 +215,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;              // elementwise blocks
-constexpr int64_t kMaxBlocks = 1 << 20;    // grid-stride beyond this
-constexpr int kMaxTables = 8;              // tables a plan or take launch serves
+constexpr int kThreads = 256;              // take blocks
+constexpr int kMaxTables = 8;              // tables one launch serves
 constexpr int kCluster = 8;                // CTAs per table in the plan build
 constexpr int kPlanThreads = 1024;
 constexpr int kPlanIds = 8;                // ids per thread in flight
@@ -528,69 +570,324 @@ __global__ void __launch_bounds__(kThreads) take_fwd_kernel(TakeArgs a) {
   }
 }
 
-__device__ __forceinline__ float add_in(float acc, float x) { return acc + x; }
-__device__ __forceinline__ __nv_bfloat16 add_in(__nv_bfloat16 acc,
+__device__ __forceinline__ __nv_bfloat16 add_rn(__nv_bfloat16 acc,
                                                 __nv_bfloat16 x) {
-  return __float2bfloat16(__bfloat162float(acc) + __bfloat162float(x));
+  return __float2bfloat16_rn(
+      __fadd_rn(__bfloat162float(acc), __bfloat162float(x)));
 }
 
-template <typename T>  // float or __nv_bfloat16
+template <typename C>
+__device__ __forceinline__ C zero_chunk() {
+  return C{};
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_chunk<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.0f);
+}
+
+template <typename C>
+__device__ __forceinline__ void store_cs(C* p, C x) {
+  __stcs(p, x);
+}
+template <>
+__device__ __forceinline__ void store_cs<__nv_bfloat16>(__nv_bfloat16* p,
+                                                        __nv_bfloat16 x) {
+  *p = x;
+}
+
+// Lanes of a group of `g` (a power of two <= 32) that holds `lane`.
+__device__ __forceinline__ unsigned group_mask(int g, int lane) {
+  return g == 32 ? 0xffffffffu : ((1u << g) - 1u) << (lane & ~(g - 1));
+}
+
+struct TakeBwdArgs {
+  const void* g;                      // [n, chunks] of the chunk type
+  const int32_t* order[kMaxTables];   // [n]
+  const int32_t* starts[kMaxTables];  // [u_t + 1]
+  void* out[kMaxTables];              // [u_t, chunks]
+  int u[kMaxTables];
+  int warp_end[kMaxTables];  // inclusive prefix of ceil(u_t / 32)
+  int warps;   // warp_end of the last table
+  int tables;
+  int chunks;  // chunks of the kernel's chunk type per row
+  int group;   // lanes per slot: the power of two >= chunks, at most 32
+};
+
+constexpr int kBwdBatch = 8;  // slots a group starts at once
+
+// The rest of a run after its first position: the group reads its order
+// entries once, gs at a time (one per lane), and passes each position
+// around; every lane loads four cotangent chunks before it adds them, in
+// order, to `acc`.
+template <typename C>
+__device__ __forceinline__ C take_bwd_walk(C acc, const C* g,
+                                           const int32_t* order, int j,
+                                           int end, int gs, int lg,
+                                           unsigned gmask, int chunks, int c,
+                                           bool active) {
+  for (; j < end; j += gs) {
+    const int m = min(gs, end - j);
+    const int mine = lg < m ? __ldg(order + j + lg) : 0;
+    int i = 0;
+    for (; i + 4 <= m; i += 4) {
+      const int p0 = __shfl_sync(gmask, mine, i, gs);
+      const int p1 = __shfl_sync(gmask, mine, i + 1, gs);
+      const int p2 = __shfl_sync(gmask, mine, i + 2, gs);
+      const int p3 = __shfl_sync(gmask, mine, i + 3, gs);
+      if (active) {
+        const C x0 = __ldg(g + static_cast<int64_t>(p0) * chunks + c);
+        const C x1 = __ldg(g + static_cast<int64_t>(p1) * chunks + c);
+        const C x2 = __ldg(g + static_cast<int64_t>(p2) * chunks + c);
+        const C x3 = __ldg(g + static_cast<int64_t>(p3) * chunks + c);
+        acc = add_rn(add_rn(add_rn(add_rn(acc, x0), x1), x2), x3);
+      }
+    }
+    for (; i < m; ++i) {
+      const int p = __shfl_sync(gmask, mine, i, gs);
+      if (active) {
+        acc = add_rn(acc, __ldg(g + static_cast<int64_t>(p) * chunks + c));
+      }
+    }
+  }
+  return acc;
+}
+
+// Warp w's table among a launch's, read from the argument struct at
+// constant indices only (a dynamic index would load from memory).
+struct BwdTable {
+  const int32_t* order;
+  const int32_t* starts;
+  void* out;
+  int u;
+  int first_warp;
+};
+
+__device__ __forceinline__ BwdTable bwd_table(const TakeBwdArgs& a, int w) {
+  BwdTable b = {a.order[0], a.starts[0], a.out[0], a.u[0], 0};
+#pragma unroll
+  for (int t = 1; t < kMaxTables; ++t) {
+    if (t < a.tables && w >= a.warp_end[t - 1]) {
+      b = {a.order[t], a.starts[t], a.out[t], a.u[t], a.warp_end[t - 1]};
+    }
+  }
+  return b;
+}
+
+// Rows of one chunk (D = 1): one lane per slot, so a warp's 32 slots go at
+// once, and a run is walked with four cotangents in flight.
+template <typename C>
 __global__ void __launch_bounds__(kThreads)
-take_bwd_kernel(const T* __restrict__ g, const int32_t* __restrict__ order,
-                const int32_t* __restrict__ starts, T* __restrict__ out,
-                int64_t u, int64_t d) {
-  const int64_t total = u * d;
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t slot = e / d;
-    const int64_t c = e - slot * d;
-    T acc = static_cast<T>(0.0f);
-    int j = starts[slot];
-    const int end = starts[slot + 1];
-    // Four loads in flight, then four adds in order: the sum order stays
-    // ascending p while a long run does not wait on one load at a time.
+take_bwd_lane_kernel(const __grid_constant__ TakeBwdArgs a) {
+  const C* g = static_cast<const C*>(a.g);
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * (blockDim.x >> 5);
+  for (int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       w < a.warps; w += stride) {
+    const BwdTable b = bwd_table(a, w);
+    const int s = (w - b.first_warp) * 32 + lane;
+    if (s >= b.u) continue;
+    int j = __ldg(b.starts + s);
+    const int end = __ldg(b.starts + s + 1);
+    C acc = zero_chunk<C>();
     for (; j + 4 <= end; j += 4) {
-      const T x0 = g[static_cast<int64_t>(order[j]) * d + c];
-      const T x1 = g[static_cast<int64_t>(order[j + 1]) * d + c];
-      const T x2 = g[static_cast<int64_t>(order[j + 2]) * d + c];
-      const T x3 = g[static_cast<int64_t>(order[j + 3]) * d + c];
-      acc = add_in(add_in(add_in(add_in(acc, x0), x1), x2), x3);
+      const C x0 = __ldg(g + __ldg(b.order + j));
+      const C x1 = __ldg(g + __ldg(b.order + j + 1));
+      const C x2 = __ldg(g + __ldg(b.order + j + 2));
+      const C x3 = __ldg(g + __ldg(b.order + j + 3));
+      acc = add_rn(add_rn(add_rn(add_rn(acc, x0), x1), x2), x3);
     }
-    for (; j < end; ++j) {
-      acc = add_in(acc, g[static_cast<int64_t>(order[j]) * d + c]);
-    }
-    out[e] = acc;
+    for (; j < end; ++j) acc = add_rn(acc, __ldg(g + __ldg(b.order + j)));
+    static_cast<C*>(b.out)[s] = acc;
   }
 }
 
+// Rows of several chunks, a group of a.group lanes per slot. C: the chunk
+// a lane moves (float4, float2, float: float32 lanes; or one
+// __nv_bfloat16). Warp w of the grid-stride loop takes the 32 slots
+// [s0, s0 + 32) of one table (the steps of the header note).
+template <typename C>
 __global__ void __launch_bounds__(kThreads)
-install_kernel(uint32_t* __restrict__ w, uint32_t* __restrict__ m,
-               uint32_t* __restrict__ v, int32_t* __restrict__ tau,
-               const int32_t* __restrict__ slots,
-               const uint32_t* __restrict__ wv, const uint32_t* __restrict__ mv,
-               const uint32_t* __restrict__ vv, const int32_t* __restrict__ tv,
-               int64_t h, int64_t p, int64_t d) {
-  const int64_t total = p * d;
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t i = e / d;
-    const int64_t c = e - i * d;
-    const int64_t s = slots[i];
-    if (s < 0 || s >= h) continue;
-    const int64_t dst = s * d + c;
-    w[dst] = wv[e];
-    m[dst] = mv[e];
-    v[dst] = vv[e];
-    if (c == 0) tau[s] = tv[i];
+take_bwd_kernel(const __grid_constant__ TakeBwdArgs a) {
+  const C* g = static_cast<const C*>(a.g);
+  const int lane = threadIdx.x & 31;
+  const int gs = a.group;
+  const int per_round = 32 / gs;  // slots a warp walks at once
+  const int k = lane / gs;        // this lane's group
+  const int lg = lane - k * gs;   // its lane in the group
+  const unsigned gmask = group_mask(gs, lane);
+  const int chunks = a.chunks;
+  const int stride = gridDim.x * (blockDim.x >> 5);
+  for (int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       w < a.warps; w += stride) {
+    const BwdTable b = bwd_table(a, w);
+    const int u = b.u;
+    const int32_t* starts = b.starts;
+    const int32_t* order = b.order;
+    C* out = static_cast<C*>(b.out);
+    const int s0 = (w - b.first_warp) * 32;
+    int lo = 0, hi = 0;
+    if (s0 + lane < u) {
+      lo = __ldg(starts + s0 + lane);
+      hi = __ldg(starts + s0 + lane + 1);
+    }
+    for (int c0 = 0; c0 < chunks; c0 += gs) {  // one pass while D fits
+      const int c = c0 + lg;
+      const bool active = c < chunks;
+      for (int r0 = 0; r0 < gs; r0 += kBwdBatch) {
+        // Up to eight rounds at once: their runs from registers, then the
+        // first position of every non-empty run (one lane of the group
+        // reads it), then its cotangent chunk, all loads in flight.
+        int beg[kBwdBatch], end[kBwdBatch], head[kBwdBatch];
+        C x[kBwdBatch];
+#pragma unroll
+        for (int r = 0; r < kBwdBatch; ++r) {
+          const int src = ((r0 + r) * per_round + k) & 31;
+          beg[r] = __shfl_sync(0xffffffffu, lo, src);
+          end[r] = __shfl_sync(0xffffffffu, hi, src);
+          if (r0 + r >= gs || s0 + src >= u) end[r] = -1;  // no such slot
+          head[r] = 0;
+          if (lg == 0 && beg[r] < end[r]) head[r] = __ldg(order + beg[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < kBwdBatch; ++r) {
+          x[r] = zero_chunk<C>();
+          if (beg[r] < end[r]) {  // the same for every lane of the group
+            const int p = __shfl_sync(gmask, head[r], 0, gs);
+            if (active) x[r] = __ldg(g + static_cast<int64_t>(p) * chunks + c);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kBwdBatch; ++r) {
+          if (end[r] < 0) continue;
+          const int src = (r0 + r) * per_round + k;
+          // 0.0 + the first row (0.0 + 0.0 for an empty slot), then the
+          // rest of the run: the adds of a walk from 0.0 in ascending p.
+          C acc = add_rn(zero_chunk<C>(), x[r]);
+          acc = take_bwd_walk(acc, g, order, beg[r] + 1, end[r], gs, lg,
+                              gmask, chunks, c, active);
+          if (active) {
+            store_cs(out + static_cast<int64_t>(s0 + src) * chunks + c, acc);
+          }
+        }
+      }
+    }
   }
 }
 
-unsigned blocks_for(int64_t work) {
-  int64_t b = (work + kThreads - 1) / kThreads;
-  if (b > kMaxBlocks) b = kMaxBlocks;
-  return static_cast<unsigned>(b < 1 ? 1 : b);
+struct InstallTable {
+  uint32_t* w;          // [h, d] float32 as raw words
+  uint32_t* m;
+  uint32_t* v;
+  int32_t* tau;         // [h]
+  const uint32_t* wv;   // [p, d]
+  const uint32_t* mv;
+  const uint32_t* vv;
+  const int32_t* tv;    // [p]
+  int chunk;   // bytes a lane moves: 16, 8 or 4
+  int chunks;  // chunks per row
+  int group;   // lanes per slot: the power of two >= chunks, at most 32
+};
+
+struct InstallArgs {
+  InstallTable tab[kMaxTables];
+  const int32_t* slots;  // [p]
+  int tables;
+  int h;
+  int p;
+};
+
+constexpr int kInstallThreads = 128;
+constexpr int kInstallBatch = 8;  // slots whose copies a lane has in flight
+
+// Table `tb`'s rows of the transactions [i0, i0 + 32): lane l reads
+// slots[i0 + l]; every value load is issued before the slots arrive, and
+// only the stores wait for them.
+template <typename C, int kBatch>
+__device__ __forceinline__ void install_rows_of(const InstallTable& tb,
+                                                const int32_t* slots, int i0,
+                                                int lane, int p, int h) {
+  const int gs = tb.group;
+  const int per_round = 32 / gs;
+  const int k = lane / gs;
+  const int lg = lane - k * gs;
+  const int chunks = tb.chunks;
+  const int mine = i0 + lane < p ? __ldg(slots + i0 + lane) : -1;
+  const C* wv = reinterpret_cast<const C*>(tb.wv);
+  const C* mv = reinterpret_cast<const C*>(tb.mv);
+  const C* vv = reinterpret_cast<const C*>(tb.vv);
+  C* w = reinterpret_cast<C*>(tb.w);
+  C* m = reinterpret_cast<C*>(tb.m);
+  C* v = reinterpret_cast<C*>(tb.v);
+  for (int c0 = 0; c0 < chunks; c0 += gs) {  // one pass while D fits
+    const int c = c0 + lg;
+    for (int r0 = 0; r0 < gs; r0 += kBatch) {
+      C x[kBatch][3];
+#pragma unroll
+      for (int r = 0; r < kBatch; ++r) {
+        const int i = i0 + (r0 + r) * per_round + k;
+        if (r0 + r < gs && i < p && c < chunks) {
+          const int64_t from = static_cast<int64_t>(i) * chunks + c;
+          x[r][0] = __ldg(wv + from);
+          x[r][1] = __ldg(mv + from);
+          x[r][2] = __ldg(vv + from);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kBatch; ++r) {
+        if (r0 + r < gs) {  // the same for the whole warp
+          const int src = (r0 + r) * per_round + k;
+          const int s = __shfl_sync(0xffffffffu, mine, src);
+          if (i0 + src < p && s >= 0 && s < h && c < chunks) {
+            const int64_t to = static_cast<int64_t>(s) * chunks + c;
+            w[to] = x[r][0];
+            m[to] = x[r][1];
+            v[to] = x[r][2];
+          }
+        }
+      }
+    }
+  }
+  if (mine >= 0 && mine < h) tb.tau[mine] = __ldg(tb.tv + i0 + lane);
 }
 
+// Warp w of the grid-stride loop copies table t = w % tables of the 32
+// transactions starting at (w / tables) * 32.
+__global__ void __launch_bounds__(kInstallThreads)
+install_kernel(const __grid_constant__ InstallArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int warps = ((a.p + 31) / 32) * a.tables;
+  const int stride = gridDim.x * (blockDim.x >> 5);
+  for (int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       w < warps; w += stride) {
+    const int t = w % a.tables;
+    const int i0 = (w / a.tables) * 32;
+    // The table's arguments, read at constant indices.
+    InstallTable tb = a.tab[0];
+#pragma unroll
+    for (int tt = 1; tt < kMaxTables; ++tt) {
+      if (tt == t) tb = a.tab[tt];
+    }
+    // One lane per row (a 1-D table) copies one row per round.
+    if (tb.group == 1 && tb.chunk == 4) {
+      install_rows_of<uint32_t, 1>(tb, a.slots, i0, lane, a.p, a.h);
+      continue;
+    }
+    switch (tb.chunk) {
+      case 16:
+        install_rows_of<uint4, kInstallBatch>(tb, a.slots, i0, lane, a.p,
+                                              a.h);
+        break;
+      case 8:
+        install_rows_of<uint2, kInstallBatch>(tb, a.slots, i0, lane, a.p,
+                                              a.h);
+        break;
+      default:
+        install_rows_of<uint32_t, kInstallBatch>(tb, a.slots, i0, lane, a.p,
+                                                 a.h);
+        break;
+    }
+  }
+}
 
 // Per-device facts the launches need, read once; and, for the plan build,
 // the dynamic shared memory set on the kernel and how many of its clusters
@@ -626,28 +923,58 @@ dim3 take_block(int chunks) {
   return dim3(bx, kThreads / bx);
 }
 
-// One wave of resident blocks, or fewer when the positions need fewer.
-template <typename C, int kT, int kP>
-cudaError_t launch_take(const TakeArgs& a, cudaStream_t s) {
-  static std::atomic<int> per_sm{0};
+// One wave of resident blocks of `kernel` (`per_sm`: its occupancy, read
+// once), or `need` blocks when fewer do.
+template <typename K>
+cudaError_t wave_blocks(K kernel, int threads, int64_t need,
+                        std::atomic<int>& per_sm, unsigned* blocks) {
   int dev, sms, optin;
   cudaError_t err = device_facts(&dev, &sms, &optin);
   if (err != cudaSuccess) return err;
   int occ = per_sm.load();
   if (occ == 0) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &occ, take_fwd_kernel<C, kT, kP>, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, threads,
+                                                        0);
     if (err != cudaSuccess) return err;
     occ = occ < 1 ? 1 : occ;
     per_sm.store(occ);
   }
+  const int64_t wave = static_cast<int64_t>(occ) * sms;
+  if (need > wave) need = wave;
+  *blocks = static_cast<unsigned>(need < 1 ? 1 : need);
+  return cudaSuccess;
+}
+
+template <typename C, int kT, int kP>
+cudaError_t launch_take(const TakeArgs& a, cudaStream_t s) {
+  static std::atomic<int> per_sm{0};
   const dim3 block = take_block(a.chunks);
   const int64_t group = static_cast<int64_t>(block.y) * kP;
-  int64_t blocks = (a.n + group - 1) / group;
-  const int64_t wave = static_cast<int64_t>(occ) * sms;
-  if (blocks > wave) blocks = wave;
-  take_fwd_kernel<C, kT, kP>
-      <<<static_cast<unsigned>(blocks < 1 ? 1 : blocks), block, 0, s>>>(a);
+  unsigned blocks;
+  cudaError_t err = wave_blocks(take_fwd_kernel<C, kT, kP>, kThreads,
+                                (a.n + group - 1) / group, per_sm, &blocks);
+  if (err != cudaSuccess) return err;
+  take_fwd_kernel<C, kT, kP><<<blocks, block, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename C>
+cudaError_t launch_take_bwd(const TakeBwdArgs& a, cudaStream_t s) {
+  static std::atomic<int> lane_per_sm{0};
+  static std::atomic<int> group_per_sm{0};
+  const bool lane = a.group == 1;
+  const int warps = kThreads / 32;
+  unsigned blocks;
+  cudaError_t err = wave_blocks(
+      lane ? take_bwd_lane_kernel<C> : take_bwd_kernel<C>, kThreads,
+      (a.warps + warps - 1) / warps, lane ? lane_per_sm : group_per_sm,
+      &blocks);
+  if (err != cudaSuccess) return err;
+  if (lane) {
+    take_bwd_lane_kernel<C><<<blocks, kThreads, 0, s>>>(a);
+  } else {
+    take_bwd_kernel<C><<<blocks, kThreads, 0, s>>>(a);
+  }
   return cudaGetLastError();
 }
 
@@ -786,48 +1113,115 @@ extern "C" int dfm_take_fwd(const void* const* rows, const void* const* inv,
   }
 }
 
-// g [n, d] of `dtype`, order int32 [n], starts int32 [u+1] -> out [u, d].
-// Same error return as the plan build.
-extern "C" int dfm_take_bwd(const void* g, const void* order,
-                            const void* starts, void* out, int64_t u,
-                            int64_t d, int dtype, void* stream) {
-  if (u <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = blocks_for(u * d);
-  const int32_t* ord = static_cast<const int32_t*>(order);
-  const int32_t* st = static_cast<const int32_t*>(starts);
-  switch (dtype) {
-    case 0:
-      take_bwd_kernel<float><<<blocks, kThreads, 0, s>>>(
-          static_cast<const float*>(g), ord, st, static_cast<float*>(out), u,
-          d);
-      break;
-    case 1:
-      take_bwd_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(g), ord, st,
-          static_cast<__nv_bfloat16*>(out), u, d);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// g [n, d] of `dtype` (0 = float32, 1 = bfloat16); order, starts, out:
+// host arrays of t device pointers to int32 [n], int32 [u[i]+1] and [u[i],
+// d] of `dtype`; 1 <= t <= 8, u[i] >= 1. The segment sum above for every
+// table, one launch. Same error return as the plan build.
+extern "C" int dfm_take_bwd(const void* g, const void* const* order,
+                            const void* const* starts, void* const* out,
+                            const int64_t* u, int t, int64_t n, int64_t d,
+                            int dtype, void* stream) {
+  if (t < 1 || t > kMaxTables || n < 0 || n >= INT32_MAX || d <= 0 ||
+      (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  const int64_t item = dtype == 0 ? 4 : 2;
+  const int64_t row_bytes = d * item;
+  TakeBwdArgs a = {};
+  uintptr_t addr = reinterpret_cast<uintptr_t>(g);
+  int64_t warps = 0;
+  for (int i = 0; i < t; ++i) {
+    if (u[i] < 1 || u[i] >= INT32_MAX - 32) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    a.order[i] = static_cast<const int32_t*>(order[i]);
+    a.starts[i] = static_cast<const int32_t*>(starts[i]);
+    a.out[i] = out[i];
+    a.u[i] = static_cast<int>(u[i]);
+    warps += (u[i] + 31) / 32;
+    if (warps >= INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    a.warp_end[i] = static_cast<int>(warps);
+    addr |= reinterpret_cast<uintptr_t>(out[i]);
+  }
+  // The widest chunk that divides a row and every base address.
+  int64_t chunk = dtype == 0 ? 16 : item;
+  while (chunk > item && (row_bytes % chunk != 0 || addr % chunk != 0)) {
+    chunk >>= 1;
+  }
+  if (row_bytes / chunk >= INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.g = g;
+  a.warps = static_cast<int>(warps);
+  a.tables = t;
+  a.chunks = static_cast<int>(row_bytes / chunk);
+  a.group = 1;
+  while (a.group < a.chunks && a.group < 32) a.group <<= 1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    return static_cast<int>(launch_take_bwd<__nv_bfloat16>(a, s));
+  }
+  switch (chunk) {
+    case 16: return static_cast<int>(launch_take_bwd<float4>(a, s));
+    case 8: return static_cast<int>(launch_take_bwd<float2>(a, s));
+    default: return static_cast<int>(launch_take_bwd<float>(a, s));
+  }
 }
 
-// w, m, v float32 [h, d], tau int32 [h], slots int32 [p], wv, mv, vv
-// float32 [p, d], tv int32 [p]: the transaction above, in place. Same error
-// return as the plan build; p = 0 launches nothing.
-extern "C" int dfm_install(void* w, void* m, void* v, void* tau,
-                           const void* slots, const void* wv, const void* mv,
-                           const void* vv, const void* tv, int64_t h,
-                           int64_t p, int64_t d, void* stream) {
-  if (h <= 0 || p < 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// ptrs: host array of 8 t device pointers, table i's at [8i, 8i + 8): w, m,
+// v (float32 [h, d[i]]), tau (int32 [h]), wv, mv, vv (float32 [p, d[i]]),
+// tv (int32 [p]); slots int32 [p]; 1 <= t <= 8. The transaction above for
+// every table, in place, one launch. Same error return as the plan build;
+// p = 0 launches nothing.
+extern "C" int dfm_install(const void* const* ptrs, const int64_t* d, int t,
+                           const void* slots, int64_t h, int64_t p,
+                           void* stream) {
+  if (t < 1 || t > kMaxTables || h <= 0 || h >= INT32_MAX || p < 0 ||
+      p >= INT32_MAX - 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (p == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  install_kernel<<<blocks_for(p * d), kThreads, 0, s>>>(
-      static_cast<uint32_t*>(w), static_cast<uint32_t*>(m),
-      static_cast<uint32_t*>(v), static_cast<int32_t*>(tau),
-      static_cast<const int32_t*>(slots), static_cast<const uint32_t*>(wv),
-      static_cast<const uint32_t*>(mv), static_cast<const uint32_t*>(vv),
-      static_cast<const int32_t*>(tv), h, p, d);
+  InstallArgs a = {};
+  for (int i = 0; i < t; ++i) {
+    const void* const* q = ptrs + 8 * i;
+    if (d[i] <= 0 || d[i] >= INT32_MAX / 4) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    InstallTable& tb = a.tab[i];
+    tb.w = static_cast<uint32_t*>(const_cast<void*>(q[0]));
+    tb.m = static_cast<uint32_t*>(const_cast<void*>(q[1]));
+    tb.v = static_cast<uint32_t*>(const_cast<void*>(q[2]));
+    tb.tau = static_cast<int32_t*>(const_cast<void*>(q[3]));
+    tb.wv = static_cast<const uint32_t*>(q[4]);
+    tb.mv = static_cast<const uint32_t*>(q[5]);
+    tb.vv = static_cast<const uint32_t*>(q[6]);
+    tb.tv = static_cast<const int32_t*>(q[7]);
+    uintptr_t addr = 0;
+    for (int j = 0; j < 7; ++j) {
+      if (j != 3) addr |= reinterpret_cast<uintptr_t>(q[j]);
+    }
+    const int64_t row_bytes = 4 * d[i];
+    int64_t chunk = 16;
+    while (chunk > 4 && (row_bytes % chunk != 0 || addr % chunk != 0)) {
+      chunk >>= 1;
+    }
+    tb.chunk = static_cast<int>(chunk);
+    tb.chunks = static_cast<int>(row_bytes / chunk);
+    tb.group = 1;
+    while (tb.group < tb.chunks && tb.group < 32) tb.group <<= 1;
+  }
+  a.slots = static_cast<const int32_t*>(slots);
+  a.tables = t;
+  a.h = static_cast<int>(h);
+  a.p = static_cast<int>(p);
+  static std::atomic<int> per_sm{0};
+  const int warps = kInstallThreads / 32;
+  unsigned blocks;
+  cudaError_t err = wave_blocks(install_kernel, kInstallThreads,
+                                ((p + 31) / 32 * t + warps - 1) / warps,
+                                per_sm, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  install_kernel<<<blocks, kInstallThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,9 +30,9 @@ of ``hot_rows`` rows. The JAX package relies on immutable arrays to keep
 installs for dispatch t+1 away from the already-enqueued dispatch t. Here
 the hot tables are written IN PLACE, and the order comes from the stream:
 the eviction write-back (a blocking device-to-host copy), the install (one
-``embedding_kernels.install_rows`` call per table, the ``dfm_install``
-kernel on the card) and the step are all enqueued on the fit thread's
-current stream. A transaction's values cross to the device in ONE
+``embedding_kernels.install_rows_tables`` call for every table, one
+``dfm_install`` launch on the card) and the step are all enqueued on the
+fit thread's current stream. A transaction's values cross to the device in ONE
 ``non_blocking`` copy out of one pinned buffer from torch's caching host
 allocator, which keeps the buffer until the copy has run.
 
@@ -585,13 +585,14 @@ class TieredEmbeddingRuntime:
             with trace_lib.span("hotcold.stage"):
                 slots, values = self._stage_values(plan, device)
             embed = state.opt_state["embed"]
-            for name in self.names:
-                oe = embed[name][self._key]
-                # ONE launch per (table, transaction): the weight rows and
-                # all three lazy-Adam companions install together.
-                ek.install_rows(state.params[name], oe.m, oe.v, oe.tau,
-                                slots, *values[name],
-                                mode=self.cfg.embedding_kernels)
+            # ONE launch per transaction: every table's weight rows and
+            # all three lazy-Adam companions install together.
+            tables = [(state.params[name], embed[name][self._key].m,
+                       embed[name][self._key].v, embed[name][self._key].tau)
+                      for name in self.names]
+            ek.install_rows_tables(tables, slots,
+                                   [values[name] for name in self.names],
+                                   mode=self.cfg.embedding_kernels)
         with self._cond:
             self.pin_count[plan.group_slots] -= 1
             self._cond.notify_all()

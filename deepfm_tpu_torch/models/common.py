@@ -328,7 +328,7 @@ class EmbeddingSchema:
         for i, b in enumerate(self.buckets):
             bucket = emb_ops.hash_bucket(feat_ids, b, salt=i + 1)
             tab = entry[f"t{i}"]
-            part = tab.index_select(0, bucket.reshape(-1).long()).reshape(
+            part = ek.index_rows(tab, bucket.reshape(-1).long()).reshape(
                 tuple(bucket.shape) + tuple(tab.shape[1:]))
             sel = emb_ops.trailing_dims((table_of == i).to(part.dtype),
                                         part.dim())
@@ -344,24 +344,33 @@ class EmbeddingSchema:
         monolithic fill id. The hashed tables' ids are built stacked,
         ``[T, B, F]``; on the kernel leg one plan launch serves up to
         ``ek.MAX_TABLES`` of them. On the card, when the take leg is the
-        kernel, each entry also carries its position segments (built once
-        here, shared by every embedding name's backward)."""
+        kernel, each entry also carries its position segments, every
+        table's built by one sort here (``ek.position_segments_tables``)
+        and shared by every embedding name's backward."""
+        with_segments = feat_ids.device.type == "cuda" and ek.resolve(
+            self.kernels, "take") == "kernel"
         if not self.hashed:
             rows = self.padded_vocab if num_rows is None else int(num_rows)
             plan = {self.MONO: ek.plan_build(feat_ids, rows,
                                              mode=self.kernels)}
+            if with_segments:
+                e = plan[self.MONO]
+                plan[self.MONO] = e._replace(segments=ek.position_segments(
+                    e.inv, e.uids.shape[0]))
         else:
             table_of = self._table_of(feat_ids)
-            ids = torch.empty((len(self.buckets),) + tuple(feat_ids.shape),
-                              dtype=torch.int32, device=feat_ids.device)
-            masks = []
+            shape = (len(self.buckets),) + tuple(feat_ids.shape)
+            ids = torch.empty(shape, dtype=torch.int32,
+                              device=feat_ids.device)
+            sel = torch.empty(shape, dtype=torch.bool,
+                              device=feat_ids.device)
             for i, b in enumerate(self.buckets):
                 bucket = emb_ops.hash_bucket(feat_ids, b, salt=i + 1)
-                sel = table_of == i
-                torch.where(sel, bucket, torch.full(
+                torch.eq(table_of, i, out=sel[i])
+                torch.where(sel[i], bucket, torch.full(
                     (), b, dtype=torch.int32, device=bucket.device),
                     out=ids[i])
-                masks.append(sel.float())
+            masks = list(sel.float())
             keys = self.table_keys()
             if all(ek.resolve(self.kernels, "plan", num_rows=b) == "kernel"
                    for b in self.buckets):
@@ -374,13 +383,13 @@ class EmbeddingSchema:
                 entries = [ek.plan_build(ids[i], b, mask=masks[i],
                                          mode=self.kernels)
                            for i, b in enumerate(self.buckets)]
+            if with_segments:
+                n = ids[0].numel()
+                inv = torch.stack([e.inv.reshape(-1) for e in entries])
+                entries = [e._replace(segments=s) for e, s in zip(
+                    entries, ek.position_segments_tables(
+                        inv, n, sel.reshape(len(entries), n)))]
             plan = dict(zip(keys, entries))
-        if feat_ids.device.type == "cuda" and ek.resolve(
-                self.kernels, "take") == "kernel":
-            plan = {k: e._replace(segments=ek.position_segments(
-                e.inv, e.uids.shape[0],
-                keep=None if e.mask is None else e.mask > 0))
-                for k, e in plan.items()}
         return plan
 
     def gather_rows(self, entry: Entry, plan: Plan) -> Dict[str, torch.Tensor]:

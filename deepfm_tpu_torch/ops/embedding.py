@@ -11,10 +11,13 @@ process; NaN rows make a bad id visible in that request's output alone.
 
 The gradient matches the VJP of ``jnp.take``: a wrapped id scatters into
 row ``id + V`` and an out-of-range id contributes nothing (its NaN row is
-masked out with ``torch.where``, whose gradient there is zero). The
-scatter is ``index_select``'s backward, an ``index_add_`` that uses atomics
-on CUDA, so the order of its float sums, and with it the last bits of a
-table gradient, can change from run to run on the card.
+masked out with ``torch.where``, whose gradient there is zero, and +0.0
+changes no sum that starts from +0.0). The gather is
+``embedding_kernels.index_rows``, whose backward sums each row's
+cotangents in ascending position from 0.0: ``index_add_`` on the CPU, the
+take backward kernel on the card. ``index_select``'s own backward would
+use float atomics on the card, whose order, and with it the last bits of a
+table gradient, changes from run to run.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     ok = (ids >= -v) & (ids < v)
     safe = torch.where(ok, torch.where(ids < 0, ids + v, ids),
                        torch.zeros((), dtype=ids.dtype, device=ids.device))
-    out = table.index_select(0, safe.reshape(-1))
+    out = embedding_kernels.index_rows(table, safe.reshape(-1))
     out = out.reshape(*ids.shape, *table.shape[1:])
     ok = ok.reshape(*ids.shape, *([1] * (table.dim() - 1)))
     return torch.where(ok, out, torch.full((), float("nan"), dtype=out.dtype,

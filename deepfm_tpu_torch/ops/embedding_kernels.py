@@ -22,10 +22,13 @@ of the TPU kernel's loop and of XLA's scatter-add, so the gradient equals
 the JAX package's bit for bit), while autograd's ``rows[inv]`` backward on
 the card may sum in another order.
 
-The plan build and the take forward serve up to ``MAX_TABLES`` tables in
-one launch: a hashed step builds all its tables' plans with one launch
-(:func:`plan_build_tables`) and views each embedding name's tables, masks
-and table sum with one more (:func:`take_rows_sum`).
+Every kernel serves up to ``MAX_TABLES`` tables in one launch: a hashed
+step builds all its tables' plans with one launch
+(:func:`plan_build_tables`), their position segments with one sort
+(:func:`position_segments_tables`), and views each embedding name's
+tables, masks and table sum with one take forward and one take backward
+(:func:`take_rows_sum`); a hot/cold transaction installs both of its
+tables with one launch (:func:`install_rows_tables`).
 
 Launch counters are plain ints on this module: ``plan_launches``,
 ``take_fwd_launches``, ``take_bwd_launches`` and ``install_launches``, each
@@ -47,7 +50,7 @@ from . import embedding as emb_ops
 #: embedding_kernels values (config-validated).
 MODES = ("auto", "pallas", "xla", "off")
 
-#: Tables one plan-build or take-forward launch serves
+#: Tables one plan-build, take or install launch serves
 #: (``csrc/embedding.cu`` ``kMaxTables``).
 MAX_TABLES = 8
 
@@ -252,6 +255,40 @@ def position_segments(inv: torch.Tensor, num_slots: int,
     return order.to(torch.int32), starts.to(torch.int32)
 
 
+def position_segments_tables(inv: torch.Tensor, num_slots: int,
+                             keep: Optional[torch.Tensor] = None
+                             ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """:func:`position_segments` of T tables at once: ``inv`` int [T, N]
+    (row t is table t's inv), ``keep`` bool [T, N] or None, every table
+    with ``num_slots`` slots. One stable sort over the composite int32 key
+    ``t * (num_slots + 1) + slot`` (a left-out position takes slot
+    ``num_slots``) and one ``searchsorted`` over every table's bounds; each
+    table's (order, starts) are views of the two results, bit-equal to
+    :func:`position_segments` of that table."""
+    t, n = inv.shape
+    stride = num_slots + 1
+    if t * stride >= 2 ** 31:
+        raise ValueError(f"the segments' composite key t * (U + 1) + slot "
+                         f"overflows int32 at T={t}, U={num_slots}")
+    dev = inv.device
+    key = inv.to(torch.int32)
+    if keep is not None:
+        key = torch.where(keep, key, torch.full((), num_slots,
+                                                dtype=torch.int32, device=dev))
+    key = key + torch.arange(0, t * stride, stride, dtype=torch.int32,
+                             device=dev)[:, None]
+    sorted_key, order = torch.sort(key.reshape(-1), stable=True)
+    # Table t's positions hold sorted places [t*N, (t+1)*N): its order is
+    # the sort's indices less t*N, and its starts the places of its bounds
+    # t*stride + [0, num_slots] less its first one's (t*N).
+    order = torch.remainder(order, max(n, 1)).to(torch.int32).reshape(t, n)
+    bounds = torch.arange(t * stride, dtype=torch.int32, device=dev)
+    starts = torch.searchsorted(sorted_key, bounds, side="left",
+                                out_int32=True).reshape(t, stride)
+    starts = starts - starts[:, :1]
+    return [(order[i], starts[i]) for i in range(t)]
+
+
 def reference_take(rows: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     """Plain forward: ``rows[inv]`` for rows [U, D], inv int [N] -> [N, D]."""
     return rows[inv.long()]
@@ -357,34 +394,66 @@ def _launch_take_fwd(rows: Sequence[torch.Tensor],
     return out
 
 
-def _launch_take_bwd(g: torch.Tensor, segments: Tuple[torch.Tensor,
-                                                      torch.Tensor],
-                     num_slots: int) -> torch.Tensor:
-    order, starts = segments
+def _check_take_bwd(g: torch.Tensor,
+                    segments: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                    num_slots: Sequence[int]) -> None:
+    if not 1 <= len(segments) <= MAX_TABLES or len(num_slots) != len(
+            segments):
+        raise ValueError(f"a take backward launch serves 1 to {MAX_TABLES} "
+                         f"tables with one segments pair and slot count "
+                         f"each; got {len(segments)} segments, "
+                         f"{len(num_slots)} slot counts")
     if g.dim() != 2 or g.dtype not in _KERNEL_DTYPES or not g.is_contiguous():
         raise TypeError(f"the CUDA take backward takes a contiguous float32 "
                         f"or bfloat16 cotangent [N,D]; got {tuple(g.shape)} "
                         f"{g.dtype}")
-    if (order.dtype != torch.int32 or starts.dtype != torch.int32
-            or order.shape != g.shape[:1]
-            or starts.shape != (num_slots + 1,)
-            or order.device != g.device or starts.device != g.device):
-        raise ValueError("the CUDA take backward needs int32 segments "
-                         "(order [N], starts [U+1]) on the cotangent's "
-                         "device")
+    for (order, starts), u in zip(segments, num_slots):
+        if (order.dtype != torch.int32 or starts.dtype != torch.int32
+                or order.shape != g.shape[:1] or starts.shape != (u + 1,)
+                or order.device != g.device or starts.device != g.device
+                or not (order.is_contiguous() and starts.is_contiguous())):
+            raise ValueError("the CUDA take backward needs contiguous int32 "
+                             "segments (order [N], starts [U+1]) on the "
+                             "cotangent's device")
+
+
+def _launch_take_bwd_tables(
+        g: torch.Tensor,
+        segments: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+        num_slots: Sequence[int]) -> List[torch.Tensor]:
+    """One ``dfm_take_bwd`` launch for every table that shares the
+    cotangent ``g`` [N, D]: table t's [num_slots[t], D] segment sums over
+    its ``segments[t]`` (order [N], starts [U_t+1])."""
+    num_slots = [int(u) for u in num_slots]
+    _check_take_bwd(g, segments, num_slots)
     d = g.shape[1]
-    out = torch.empty((num_slots, d), dtype=g.dtype, device=g.device)
-    if num_slots == 0 or d == 0:
-        return out
+    outs = [torch.empty((u, d), dtype=g.dtype, device=g.device)
+            for u in num_slots]
+    run = [i for i, u in enumerate(num_slots) if u > 0]
+    if not run or d == 0:
+        return outs
+    t = len(run)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * t)(*(x.data_ptr() for x in ts))
+
     lib = _native.load("embedding")
     with torch.cuda.device(g.device):
-        err = lib.dfm_take_bwd(g.data_ptr(), order.contiguous().data_ptr(),
-                               starts.contiguous().data_ptr(), out.data_ptr(),
-                               num_slots, d, _KERNEL_DTYPES[g.dtype],
-                               _stream(g.device))
+        err = lib.dfm_take_bwd(
+            g.data_ptr(), ptrs(segments[i][0] for i in run),
+            ptrs(segments[i][1] for i in run), ptrs(outs[i] for i in run),
+            (ctypes.c_int64 * t)(*(num_slots[i] for i in run)), t,
+            g.shape[0], d, _KERNEL_DTYPES[g.dtype], _stream(g.device))
     _native.check(err, "take backward")
     _count("take_bwd_launches")
-    return out
+    return outs
+
+
+def _launch_take_bwd(g: torch.Tensor, segments: Tuple[torch.Tensor,
+                                                      torch.Tensor],
+                     num_slots: int) -> torch.Tensor:
+    """One table's take backward through :func:`_launch_take_bwd_tables`."""
+    return _launch_take_bwd_tables(g, [segments], [num_slots])[0]
 
 
 class TakeRowsSum(torch.autograd.Function):
@@ -395,14 +464,15 @@ class TakeRowsSum(torch.autograd.Function):
     mask_t[p], in ascending p. CPU tensors take the plain versions (the
     composition ``reference_take_sum`` and ``reference_take_bwd`` per
     table), CUDA tensors the kernels: one ``dfm_take_fwd`` launch, then one
-    ``dfm_take_bwd`` launch per table.
+    ``dfm_take_bwd`` launch for every table.
 
     ``segments`` (per table, or None) are the plans' position segments.
     A plan's segments leave out the positions whose mask is 0
     (``EmbeddingSchema.sparse_plan`` builds them so), and the mask is 1.0
-    at every other position, so the backward passes g itself there: g *
-    1.0 is g. Without them it builds the segments of every position and
-    passes g * mask_t."""
+    at every other position, so the backward passes g itself there, shared
+    by every table: g * 1.0 is g. A table without them gets the segments
+    of every position; with masks it then needs g * mask_t of its own and a
+    launch of its own."""
 
     @staticmethod
     def forward(ctx, inv, masks, segments, *rows):
@@ -420,19 +490,66 @@ class TakeRowsSum(torch.autograd.Function):
         saved = ctx.saved_tensors
         inv, masks = saved[:t], saved[t:] or None
         g = g.contiguous()
-        cpu = g.device.type == "cpu"
-        grads = []
-        for i, (v, u) in enumerate(zip(inv, ctx.num_slots)):
-            seg = None if ctx.segments is None else ctx.segments[i]
-            g_t = g
-            if masks is not None and (cpu or seg is None):
-                g_t = g * masks[i][:, None]
-            if cpu:
-                grads.append(reference_take_bwd(g_t, v, u))
-            else:
-                grads.append(_launch_take_bwd(
-                    g_t, position_segments(v, u) if seg is None else seg, u))
+        segs = list(ctx.segments or [None] * t)
+        if g.device.type == "cpu":
+            grads = [reference_take_bwd(
+                g if masks is None else g * masks[i][:, None], v, u)
+                for i, (v, u) in enumerate(zip(inv, ctx.num_slots))]
+        elif masks is None or all(s is not None for s in segs):
+            segs = [position_segments(v, u) if s is None else s
+                    for v, u, s in zip(inv, ctx.num_slots, segs)]
+            grads = _launch_take_bwd_tables(g, segs, ctx.num_slots)
+        else:
+            grads = [_launch_take_bwd(g, s, u) if s is not None else
+                     _launch_take_bwd(g * masks[i][:, None],
+                                      position_segments(v, u), u)
+                     for i, (v, u, s) in enumerate(zip(inv, ctx.num_slots,
+                                                       segs))]
         return (None, None, None, *grads)
+
+
+def segment_sum(g: torch.Tensor, ids: torch.Tensor, num_slots: int, *,
+                mode: str = "auto") -> torch.Tensor:
+    """[num_slots, ...]: out[u] = the sum of g[p] over the positions p with
+    ids[p] = u, in ascending p from 0.0, for g [N, ...] and ids int [N] in
+    [0, num_slots). On CUDA tensors the kernel leg builds the position
+    segments and makes one ``dfm_take_bwd`` launch, so the sum no longer
+    depends on the order of float atomics; CPU tensors and the other legs
+    take the plain version, ``index_add_`` into zeros, which on the CPU
+    adds one position after another."""
+    shape = (num_slots,) + tuple(g.shape[1:])
+    if g.device.type == "cuda" and resolve(mode, "take") == "kernel":
+        seg = position_segments(ids, num_slots)
+        return _launch_take_bwd(g.reshape(g.shape[0], -1).contiguous(), seg,
+                                num_slots).reshape(shape)
+    return torch.zeros(shape, dtype=g.dtype, device=g.device).index_add_(
+        0, ids.long(), g)
+
+
+class IndexRows(torch.autograd.Function):
+    """``table.index_select(0, idx)`` whose gradient is
+    :func:`segment_sum`: each row's cotangents summed in ascending
+    position, the same on every run (``index_select``'s own backward is an
+    ``index_add_`` with float atomics on the card)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        return segment_sum(g, idx, ctx.rows), None
+
+
+def index_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table.index_select(0, idx)`` (idx int64 in [0, rows)), through
+    :class:`IndexRows` where a gradient will flow to ``table``."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return IndexRows.apply(table, idx)
+    return table.index_select(0, idx)
 
 
 def take_rows_sum(rows: Sequence[torch.Tensor], inv: Sequence[torch.Tensor],
@@ -509,33 +626,68 @@ def _check_install(w, m, v, tau, slots, wv, mv, vv, tv) -> None:
         raise ValueError("the CUDA install kernel needs contiguous inputs")
 
 
-def _launch_install(w, m, v, tau, slots, wv, mv, vv, tv) -> None:
-    _check_install(w, m, v, tau, slots, wv, mv, vv, tv)
-    h, p = w.shape[0], slots.shape[0]
-    d = 1 if w.dim() == 1 else w.shape[1]
-    if p == 0 or d == 0:
+def _check_install_tables(tables, slots, values) -> None:
+    if not 1 <= len(tables) <= MAX_TABLES or len(values) != len(tables):
+        raise ValueError(f"an install launch serves 1 to {MAX_TABLES} "
+                         f"tables with one values tuple each; got "
+                         f"{len(tables)} tables, {len(values)} values")
+    for tab, vals in zip(tables, values):
+        _check_install(*tab, slots, *vals)
+    if any(tab[0].shape[0] != tables[0][0].shape[0] for tab in tables):
+        raise ValueError(f"install tables sharing slots need one row count; "
+                         f"got {[tab[0].shape[0] for tab in tables]}")
+
+
+def _launch_install_tables(tables, slots, values) -> None:
+    """One ``dfm_install`` launch for every table of the transaction:
+    ``tables`` (w, m, v, tau) and ``values`` (wv, mv, vv, tv) per table,
+    one ``slots`` for all."""
+    _check_install_tables(tables, slots, values)
+    h, p, t = tables[0][0].shape[0], slots.shape[0], len(tables)
+    if p == 0:
+        return
+    ptrs = [x.data_ptr() for tab, vals in zip(tables, values)
+            for x in (*tab, *vals)]
+    widths = [1 if tab[0].dim() == 1 else tab[0].shape[1] for tab in tables]
+    if 0 in widths:
         return
     lib = _native.load("embedding")
-    with torch.cuda.device(w.device):
-        err = lib.dfm_install(*(t.data_ptr() for t in (
-            w, m, v, tau, slots, wv, mv, vv, tv)), h, p, d,
-            _stream(w.device))
+    dev = slots.device
+    with torch.cuda.device(dev):
+        err = lib.dfm_install((ctypes.c_void_p * (8 * t))(*ptrs),
+                              (ctypes.c_int64 * t)(*widths), t,
+                              slots.data_ptr(), h, p, _stream(dev))
     _native.check(err, "cache install")
     _count("install_launches")
 
 
+def install_rows_tables(tables, slots, values, *, mode: str = "auto") -> None:
+    """One cache transaction of 1 to ``MAX_TABLES`` tables that share
+    ``slots`` [P], through the selected leg, in place: for each table, rows
+    ``slots`` of its w, m, v [H(,D_t)] and tau [H] take its wv, mv, vv and
+    tv; slots outside [0, H) are dropped. ``tables``: (w, m, v, tau) per
+    table; ``values``: (wv, mv, vv, tv) per table. The kernel leg makes ONE
+    ``dfm_install`` launch for all of them on CUDA tensors and takes
+    :func:`reference_install` per table on CPU tensors; the ``xla`` and
+    ``off`` legs take their plain versions per table."""
+    tables = [tuple(tab) for tab in tables]
+    values = [tuple(vals) for vals in values]
+    _check_device(slots, "install")
+    leg = resolve(mode, "install")
+    if leg == "kernel" and slots.device.type == "cuda":
+        _launch_install_tables(tables, slots, values)
+        return
+    for (w, m, v, tau), (wv, mv, vv, tv) in zip(tables, values):
+        if leg == "ref":
+            for table, vals in ((w, wv), (m, mv), (v, vv), (tau, tv)):
+                install_array(table, slots, vals)
+        else:
+            reference_install(w, m, v, tau, slots, wv, mv, vv, tv)
+
+
 def install_rows(w, m, v, tau, slots, wv, mv, vv, tv, *,
                  mode: str = "auto") -> None:
-    """One cache transaction through the selected leg, in place: rows
-    ``slots`` of w, m, v [H(,D)] and tau [H] take wv, mv, vv and tv; slots
-    outside [0, H) are dropped. The kernel leg launches ``dfm_install`` on
-    CUDA tensors and takes :func:`reference_install` on CPU tensors."""
-    _check_device(w, "install")
-    leg = resolve(mode, "install")
-    if leg == "kernel" and w.device.type == "cuda":
-        _launch_install(w, m, v, tau, slots, wv, mv, vv, tv)
-    elif leg == "ref":
-        for table, vals in ((w, wv), (m, mv), (v, vv), (tau, tv)):
-            install_array(table, slots, vals)
-    else:
-        reference_install(w, m, v, tau, slots, wv, mv, vv, tv)
+    """One table's cache transaction through
+    :func:`install_rows_tables`."""
+    install_rows_tables([(w, m, v, tau)], slots, [(wv, mv, vv, tv)],
+                        mode=mode)

@@ -303,13 +303,14 @@ class Trainer:
         column 0 counts each row's occurrences (the touch marks: exact
         integers in float32), the other columns sum every name's
         per-position cotangents. An id in [-V, 0) adds to row id + V and any
-        other out-of-range id adds nothing, as the JAX scatter does.
+        other out-of-range id adds nothing, as the JAX scatter does (it
+        goes to an extra row that is dropped).
 
-        ``index_add_`` sums in position order on the CPU, the JAX package's
-        order, but with float atomics on the card, whose order (and so the
-        last bits of a row's gradient) changes from run to run: the port's
-        tests hold this leg to a tolerance on the card, and to the JAX
-        package's band on the CPU."""
+        The sum is ``ek.segment_sum``: each row's cotangents in ascending
+        position from 0.0, the JAX package's order, through one take
+        backward launch on the card (``index_add_`` on the CPU, and on the
+        card under ``--embedding_kernels xla``, where its float atomics
+        may add in another order from run to run)."""
         rows = next(iter(tabs.values())).shape[0]
         flat = ids.reshape(-1).long()
         flat = torch.where(flat < 0, flat + rows, flat)
@@ -322,9 +323,8 @@ class Trainer:
         cols += [g_views[n].reshape(n_pos, -1).float()
                  for n in self._embed_names]
         gcat = torch.cat(cols, dim=1)
-        gext = torch.zeros((rows + 1, gcat.shape[1]), dtype=torch.float32,
-                           device=flat.device)
-        return gext.index_add_(0, flat, gcat)[:rows]
+        return ek.segment_sum(gcat, flat, rows + 1,
+                              mode=self.cfg.embedding_kernels)[:rows]
 
     @torch.no_grad()
     def _fused_apply(self, state: TrainState,

@@ -471,6 +471,12 @@ def test_checkpoint_state_mid_fit_with_plans_queued(untiered):
 
     def ckpt_at_5(s, m):
         if s.step == 5:
+            # The staging thread plans up to two groups ahead on its own
+            # clock; on a loaded host it may not have queued one yet, so
+            # give it time to (it needs nothing from this thread).
+            deadline = time.time() + 30
+            while not tier._pending and time.time() < deadline:
+                time.sleep(0.005)
             seen["queued"] = len(tier._pending)
             seen["state"] = _snapshot(tier.checkpoint_state(s))
 
