@@ -11,8 +11,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    kernel of the port from ``deepfm_tpu_torch/csrc`` with nvcc, in parallel.
 2. Kernel phase: the ``fused_fm`` forward kernel against ``reference_fm``
    (plain PyTorch) on the card, float32 and bfloat16 inputs, at the serving
-   shapes and a few others; then the kernel's time beside its bound and the
-   plain version's time.
+   and training shapes and others that take its 16-byte vector path (K = 8,
+   32, 64; F = 1) or its scalar path (K = 33, 48, and xv misaligned by one
+   element); then the kernel's time at B = 1, 7, 256 and 1,024 beside its
+   bound, the plain version's time and, in turns, the scalar path's (the
+   previous design) at the same shape.
 3. Backward kernel phase: the ``fused_fm`` backward kernel against
    ``reference_fm_bwd``, float32 and bfloat16, at the training shapes and a
    few others, with the gradients' dtypes, and ``torch.autograd.grad``
@@ -41,14 +44,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    numpy ascending-p oracle, to its second launch and to one launch per
    table, and the gradients through ``TakeRowsSum`` (one launch each way)
    bit-equal to it; the four tables' position segments built per table
-   and in one sort, bit-equal, with the device time and events of each.
+   by the plain versions (a sort each, one sort over a composite key) and
+   by the segments kernel in one launch, bit-equal, with the device time
+   and events of each.
    Then times beside the bounds, the plain versions and the library
    calls: ``index_select`` for one table, ``embedding_bag`` (sum, masks as
    per-sample weights, over the tables concatenated) for the four,
    ``index_add_`` for one table's backward and one ``index_add_`` over the
    four tables' outputs end to end for theirs.
-6. Segment-sum phase: ``ek.segment_sum`` (segments, then one take backward
-   launch), which sums the dense lookups' and the monolithic fused leg's
+   Before it, the segments kernel phase: ``dfm_segments`` (the counting
+   sort that orders the take backward's positions, one launch for 1 to 8
+   tables) bit-equal to its plain version on the card and to a numpy
+   stable-argsort oracle on uniform, Zipf, all-one-slot, fill-slot,
+   medium-run, N = 0 and 1, U >> N, U = 0 and 1, out-of-range and
+   T = 1..8 inputs, with and without ``keep``; then its time and device
+   events at the hashed step's, the dense lookups', the fused leg's and
+   the dense hashed lookups' shapes beside its bound, the plain version's
+   and ``torch.sort`` + ``searchsorted``'s.
+6. Segment-sum phase: ``ek.segment_sum`` (one segments launch, then one
+   take backward launch), which sums the dense lookups' and the monolithic
+   fused leg's
    gradients in position order, at their shapes: bit-equal to the numpy
    ascending-p oracle and to its second call; its time beside the
    ``index_add_`` it replaces.
@@ -90,11 +105,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    never on the other layouts, the take backward twice per step on the
    dense and hashed layouts (once per name) and once per step on the
    monolithic and tiered ones (the fused leg, all names at once), the
+   segments kernel once per step on every layout (the dense lookups of
+   both names share one build), the
    install kernel once per tiered plan and never elsewhere; each trained
    artifact then serves. Then the step time at B=1024 of the dense kernel
    and plain paths, of the three untiered layouts (one step, with its
-   device busy time and idle share), and of the tier (per dispatch through
-   ``fit``: plan, apply and step).
+   device busy time and idle share; no sort kernel may run in their
+   steps), and of the tier (per dispatch through ``fit``: plan, apply and
+   step).
 11. Serve phase: DeepFM at the reference width (``Config()`` defaults:
    V=117,581, F=39, K=32, tower 128-64-32, bfloat16 tower) with random
    weights from a seed, exported, published behind ``LATEST`` and served by
@@ -108,9 +126,9 @@ line is ``{"ok": true, "device": {...}}``. Without a CUDA device the script
 exits non-zero and prints no result. Every kernel's launch count is read
 over main-path runs with the counts set to 0 just before each: the FM
 kernels over the dense train task (``launches``), the sparse train tasks
-and serving; the plan and take kernels over the hashed sparse train task
-(the take backward also over the other three); the install kernel over
-the tiered train task.
+and serving; the plan, take and segments kernels over the hashed sparse
+train task (the take backward and segments also over the other three);
+the install kernel over the tiered train task.
 
 Numerics: float32 matmuls run in full float32
 (``torch.backends.cuda.matmul.allow_tf32 = False``) and bfloat16 matmuls
@@ -161,8 +179,16 @@ F32_FLOPS_PER_S = 67e12
 # fused_fm vs reference_fm: both convert to float32 after the load and sum
 # in float32, in another order; the tolerance of tests/test_pallas_fm.py.
 FM_RTOL, FM_ATOL = 1e-4, 1e-3
-FM_CASES = [(b, 39, 32) for b in (1, 7, 256, 1024)] + [(256, 13, 8),
-                                                       (256, 39, 48)]
+# The forward's vector path (16-byte chunks) at the reference width, at
+# K = 8 and 64 (2 and 16 chunks a field in float32, 1 and 8 in bfloat16)
+# and at F = 1; its scalar path at K = 33 and 48 (a field's bytes not a
+# divisor of 512 in 16-byte chunks).
+FM_CASES = [(b, 39, 32) for b in (1, 7, 256, 1024)] + [
+    (256, 13, 8), (256, 39, 48), (7, 39, 33), (257, 39, 33), (3, 1, 64),
+    (257, 39, 64), (257, 1, 8)]
+# xv one element past a 16-byte boundary: the scalar path at the shapes the
+# vector path takes (and so the previous design's time at them).
+FM_MISALIGNED_CASES = [(b, 39, 32) for b in (1, 7, 256, 1024)]
 TIMED_SHAPE = (256, 39, 32)  # one full serving flush (serve_max_batch)
 
 # Backward kernel vs reference_fm_bwd: one float32 sum over F (in another
@@ -342,11 +368,19 @@ def device_profile(fn, iters: int = 50):
     return sum(spans) / 1000.0 / iters, len(spans) / iters
 
 
-def fm_inputs(b, f, k, dtype, seed):
+def fm_inputs(b, f, k, dtype, seed, misaligned: bool = False):
+    """w, vals [B,F] and xv [B,F,K] on the card; ``misaligned`` puts xv one
+    element past the start of its buffer (no 16-byte chunks)."""
     g = np.random.default_rng(seed)
     mk = lambda *s: torch.from_numpy(  # noqa: E731
         g.standard_normal(s, dtype=np.float32)).to("cuda", dtype)
-    return mk(b, f), mk(b, f), mk(b, f, k)
+    xv = mk(b, f, k)
+    if misaligned:
+        buf = torch.empty(xv.numel() + 1, dtype=dtype, device="cuda")
+        buf[1:].copy_(xv.reshape(-1))
+        xv = buf[1:].view(b, f, k)
+        assert xv.is_contiguous() and xv.data_ptr() % 16 != 0
+    return mk(b, f), mk(b, f), xv
 
 
 def fm_bound(b, f, k, itemsize):
@@ -362,9 +396,11 @@ def fm_bound(b, f, k, itemsize):
 
 def kernel_phase():
     max_err = 0.0
+    cases = [(c, False) for c in FM_CASES] + [
+        (c, True) for c in FM_MISALIGNED_CASES]
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (b, f, k) in enumerate(FM_CASES):
-            w, vals, xv = fm_inputs(b, f, k, dtype, SEED + i)
+        for i, ((b, f, k), misaligned) in enumerate(cases):
+            w, vals, xv = fm_inputs(b, f, k, dtype, SEED + i, misaligned)
             got = fused_fm(w, vals, xv)
             want = reference_fm(w, vals, xv)
             torch.cuda.synchronize()
@@ -372,24 +408,33 @@ def kernel_phase():
             torch.testing.assert_close(got, want, rtol=FM_RTOL, atol=FM_ATOL)
             err = float((got - want).abs().max())
             max_err = max(max_err, err)
-            print(f"fused_fm check dtype={str(dtype)[6:]} B={b} F={f} K={k} "
+            print(f"fused_fm check dtype={str(dtype)[6:]} B={b} F={f} K={k}"
+                  f"{' xv misaligned (scalar path)' if misaligned else ''} "
                   f"max_abs_err={err:.3e}")
 
     # Two times per call: the device time of its kernels (torch.profiler),
     # which is what the bound compares with, and the per-call time on the
     # device timeline of back-to-back calls (CUDA events), which includes
-    # the host's launch cost between kernels.
+    # the host's launch cost between kernels. Each shape also through the
+    # scalar path (xv misaligned: the previous design), in turns with the
+    # vector path.
     timing = {}
     for b in (1, 7, 256, 1024):
         f, k = TIMED_SHAPE[1:]
         w, vals, xv = fm_inputs(b, f, k, torch.float32, SEED)
+        _, _, xv_off = fm_inputs(b, f, k, torch.float32, SEED, True)
         kern_call = cuda_ms(lambda: fused_fm(w, vals, xv))
         plain_call = cuda_ms(lambda: reference_fm(w, vals, xv))
         kern = device_profile(lambda: fused_fm(w, vals, xv))[0]
         plain = device_profile(lambda: reference_fm(w, vals, xv))[0]
+        scalar = [device_profile(lambda: fused_fm(w, vals, xv_off))[0],
+                  device_profile(lambda: fused_fm(w, vals, xv))[0],
+                  device_profile(lambda: fused_fm(w, vals, xv_off))[0]]
         source = "profiler"
-        if kern is None or plain is None:
+        if kern is None or plain is None or None in scalar:
             kern, plain, source = kern_call, plain_call, "cuda_events"
+            scalar = [cuda_ms(lambda: fused_fm(w, vals, x))
+                      for x in (xv_off, xv, xv_off)]
         bound, bound_by = fm_bound(b, f, k, 4)
         timing[(b, f, k)] = (kern, plain, bound, bound_by, source)
         print(f"fused_fm time f32 B={b} F={f} K={k}: kernel_ms={kern:.6f} "
@@ -397,10 +442,12 @@ def kernel_phase():
               f"plain_call_ms={plain_call:.6f} (cuda_events) "
               f"bound_ms={bound:.6f} ({bound_by}: HBM "
               f"{HBM_BYTES_PER_S / 1e12} TB/s, f32 "
-              f"{F32_FLOPS_PER_S / 1e12} TFLOP/s)")
+              f"{F32_FLOPS_PER_S / 1e12} TFLOP/s); turns scalar/vector/"
+              f"scalar: {scalar[0]:.6f} {scalar[1]:.6f} {scalar[2]:.6f} "
+              f"({source})")
     print("fused_fm library_ms: none (no single PyTorch call computes the "
           "fused first+second order FM)")
-    return max_err, timing[TIMED_SHAPE]
+    return max_err, timing
 
 
 def bwd_bound(b, f, k, itemsize):
@@ -601,21 +648,28 @@ def take_bound(n: int, d: int, ref_rows, masked: bool):
 
 
 def segments_phase(plans):
-    """The hashed step's position segments, built per table
-    (``position_segments``, as the step did before) and for the four tables at
-    once (``position_segments_tables``, as ``sparse_plan`` does): bit-equal;
+    """The hashed step's position segments, built by the plain versions per
+    table (``reference_position_segments``, a sort each) and for the four
+    tables at once (``reference_position_segments_tables``, one sort over a
+    composite key), and by the segments kernel in one launch
+    (``position_segments_tables``, as ``sparse_plan`` does): bit-equal;
     then the device ms and events of each build."""
     n = PLAN_N
     inv = torch.stack([p.inv for p in plans])
     keep = torch.stack([p.mask > 0 for p in plans])
-    per_table = lambda: [ek.position_segments(  # noqa: E731
+    per_table = lambda: [ek.reference_position_segments(  # noqa: E731
         p.inv, n, keep=p.mask > 0) for p in plans]
-    batched = lambda: ek.position_segments_tables(inv, n, keep)  # noqa: E731
-    for (o1, s1), (o2, s2) in zip(per_table(), batched()):
+    batched = lambda: ek.reference_position_segments_tables(  # noqa: E731
+        inv, n, keep)
+    kernel = lambda: ek.position_segments_tables(inv, n, keep)  # noqa: E731
+    for (o1, s1), (o2, s2), (o3, s3) in zip(per_table(), batched(),
+                                            kernel()):
         assert torch.equal(o1, o2) and torch.equal(s1, s2)
+        assert torch.equal(o1, o3) and torch.equal(s1, s3)
     out = {}
     for turn in range(2):
-        for name, fn in (("per_table", per_table), ("batched", batched)):
+        for name, fn in (("per_table", per_table), ("batched", batched),
+                         ("kernel", kernel)):
             ms, events = device_profile(fn)
             call = cuda_ms(fn, iters=100)
             out.setdefault(name, []).append((ms, events, call))
@@ -623,9 +677,165 @@ def segments_phase(plans):
                   f"device_ms={ms if ms is None else f'{ms:.6f}'} "
                   f"device_events={events:g} call_ms={call:.6f} "
                   f"(cuda_events)")
-    print("segments check: the batched build is bit-equal to the per-table "
-          "one")
+    print("segments check: the plain batched build and the kernel's one "
+          "launch are bit-equal to the plain per-table builds")
     return {k: v[0] for k, v in out.items()}
+
+
+def segments_oracle(inv: np.ndarray, u: int, keep):
+    """numpy oracle of one table's segments: the stable argsort of the keys
+    (inv, or u where left out or outside [0, u)) and the searchsorted
+    starts of the slots 0..u."""
+    ok = (inv >= 0) & (inv < u)
+    if keep is not None:
+        ok &= keep
+    key = np.where(ok, inv, u)
+    order = np.argsort(key, kind="stable").astype(np.int32)
+    starts = np.searchsorted(key[order], np.arange(u + 1), side="left")
+    return order, starts.astype(np.int32)
+
+
+def zipf_ids(rng, shape, u: int) -> np.ndarray:
+    """Zipf (s = 1.1) ids below u, the tail clipped to u - 1: a few hot
+    slots hold thousands of positions, as Criteo's ids do."""
+    return np.minimum(rng.zipf(1.1, shape) - 1, u - 1)
+
+
+def segment_cases(rng):
+    """(label, inv [T, N] numpy int32 or int64, slot counts, keep [T, N]
+    or None): every run length the kernel treats apart (one position, a
+    thread's sort, a block's sort, a long run's compaction), the left-out
+    tail, T = 1..8 tables of unequal slot counts, and the edges."""
+    n = PLAN_N
+    i32 = np.int32
+    fill = rng.integers(0, n, (1, n)).astype(i32)
+    fill[rng.random((1, n)) < 0.75] = n - 1
+    cases = [
+        ("uniform", rng.integers(0, n, (1, n)).astype(i32), [n], None),
+        ("zipf_vocab", zipf_ids(rng, (1, n), MONO_ROWS), [MONO_ROWS], None),
+        ("zipf_hashed_keep", zipf_ids(rng, (4, n), n).astype(i32), [n] * 4,
+         rng.random((4, n)) < 0.25),
+        ("all_one_slot", np.full((1, n), 7, i32), [1000], None),
+        ("fill_slot_no_keep", fill, [n], None),
+        ("medium_runs", rng.integers(0, 200, (1, n)).astype(i32), [200],
+         None),
+        ("n1", np.zeros((1, 1), i32), [HASHED_ROWS], None),
+        ("n1_left_out", np.full((1, 1), 5, i32), [HASHED_ROWS],
+         np.zeros((1, 1), bool)),
+        ("n0", np.zeros((2, 0), i32), [3, 4], None),
+        ("u_much_larger", rng.integers(0, 2_000_000, (1, 1000)),
+         [2_000_000], None),
+        ("u1", np.zeros((1, n), i32), [1], None),
+        ("u0", rng.integers(-3, 3, (1, 100)).astype(i32), [0], None),
+        ("out_of_range", rng.integers(-5, 105, (2, 999)), [100, 50],
+         rng.random((2, 999)) < 0.5),
+        ("batch_4096_keep", rng.integers(0, 4096 * 39, (4, 4096 * 39)
+                                         ).astype(i32), [4096 * 39] * 4,
+         rng.random((4, 4096 * 39)) < 0.25),
+    ]
+    for t in range(1, ek.MAX_TABLES + 1):
+        keep = rng.random((t, n)) < 0.5 if t % 2 else None
+        cases.append((f"tables_{t}", rng.integers(0, 5000, (t, n)).astype(
+            i32), [5000 + 7 * i for i in range(t)], keep))
+    return cases
+
+
+def segments_bound(inv: torch.Tensor, slots, keep):
+    """Each input and output once: inv and keep read, order and every
+    table's starts written; a few integer operations per position."""
+    t, n = inv.shape
+    nbytes = inv.numel() * inv.element_size() + 4 * t * n
+    nbytes += 4 * sum(u + 1 for u in slots)
+    if keep is not None:
+        nbytes += keep.numel()
+    return bound_of(nbytes, 0) + (nbytes,)
+
+
+def segments_kernel_phase():
+    """The segments kernel (``dfm_segments``, one launch for 1 to 8
+    tables) against its plain version on the card and the numpy oracle,
+    bit for bit, on every case of ``segment_cases``; then, at the main
+    path's shapes, its time and device events beside the plain version's,
+    one ``torch.sort`` + ``searchsorted`` over precomputed composite keys
+    (the library yardstick) and the bound. Returns the timings."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 60)
+    for label, inv_np, slots, keep_np in segment_cases(rng):
+        inv = torch.from_numpy(inv_np).to(dev)
+        keep = None if keep_np is None else torch.from_numpy(keep_np).to(dev)
+        before = ek.segments_launches
+        got = ek.position_segments_tables(inv, slots, keep)
+        assert ek.segments_launches - before == 1, label
+        again = ek.position_segments_tables(inv, slots, keep)
+        want = ek.reference_position_segments_tables(inv, slots, keep)
+        torch.cuda.synchronize()
+        longest = 0
+        for i, ((o, st), (o2, st2), (wo, ws)) in enumerate(zip(got, again,
+                                                              want)):
+            assert torch.equal(o, wo) and torch.equal(st, ws), (label, i)
+            assert torch.equal(o, o2) and torch.equal(st, st2), (label, i)
+            oo, os_ = segments_oracle(inv_np[i], slots[i],
+                                      None if keep_np is None else keep_np[i])
+            assert np.array_equal(o.cpu().numpy(), oo), (label, i)
+            assert np.array_equal(st.cpu().numpy(), os_), (label, i)
+            if os_.size:
+                runs = np.diff(np.append(os_, inv_np.shape[1]))
+                longest = max(longest, int(runs.max()))
+        print(f"segments check {label} T={inv.shape[0]} N={inv.shape[1]} "
+              f"U={slots if len(set(slots)) > 1 else slots[0]} "
+              f"{str(inv.dtype)[6:]} keep={keep is not None} longest run "
+              f"{longest}: one launch, bit-equal to the plain version on the "
+              f"card, to its second launch and to the numpy oracle")
+
+    gen = np.random.default_rng(SEED + 61)
+    ids, masks = hashed_step_ids(gen)
+    plans = ek.plan_build_tables(
+        torch.from_numpy(ids).to(dev), [HASHED_ROWS] * HASHED_TABLES,
+        [torch.from_numpy(m).to(dev) for m in masks])
+    vocab = torch.from_numpy(gen.integers(0, MONO_ROWS - 51, (1, PLAN_N))
+                             ).to(dev)
+    shapes = {
+        "hashed": (torch.stack([p.inv for p in plans]), [PLAN_N] * 4,
+                   torch.stack([p.mask > 0 for p in plans])),
+        "vocab": (vocab, [MONO_ROWS], None),
+        "fused_leg": (vocab, [MONO_ROWS + 1], None),
+        "dense_hashed": (torch.from_numpy(gen.integers(
+            0, HASHED_ROWS, (HASHED_TABLES, PLAN_N))).to(dev),
+            [HASHED_ROWS] * HASHED_TABLES, None),
+    }
+    timing = {}
+    for label, (inv, slots, keep) in shapes.items():
+        t, n = inv.shape
+        stride = slots[0] + 1
+        keys = ek._segment_keys(inv, slots[0], keep) + torch.arange(
+            0, t * stride, stride, dtype=torch.int32, device=dev)[:, None]
+        keys = keys.reshape(-1)
+        bounds = torch.arange(t * stride, dtype=torch.int32, device=dev)
+
+        def lib():
+            sk, order = torch.sort(keys, stable=True)
+            return order, torch.searchsorted(sk, bounds, out_int32=True)
+
+        kern_fn = lambda: ek.position_segments_tables(  # noqa: E731
+            inv, slots, keep)
+        plain_fn = lambda: ek.reference_position_segments_tables(  # noqa: E731
+            inv, slots, keep)
+        kern = timed(kern_fn)
+        plain = timed(plain_fn)
+        libt = timed(lib)
+        events = [device_profile(f)[1] for f in (kern_fn, plain_fn, lib)]
+        bound = segments_bound(inv, slots, keep)
+        timing[label] = (kern, plain, libt, bound, events)
+        print(f"segments time {label} T={t} N={n} U={slots[0]} "
+              f"{str(inv.dtype)[6:]} keep={keep is not None}: "
+              f"kernel_ms={kern[0]:.6f} plain_ms={plain[0]:.6f} "
+              f"library_ms(torch.sort + searchsorted)={libt[0]:.6f} "
+              f"({kern[2]}) kernel_call_ms={kern[1]:.6f} plain_call_ms="
+              f"{plain[1]:.6f} library_call_ms={libt[1]:.6f} (cuda_events) "
+              f"device_events kernel/plain/library={events[0]:g}/"
+              f"{events[1]:g}/{events[2]:g} bound_ms={bound[0]:.6f} "
+              f"({bound[1]}: {bound[2]} B)")
+    return timing
 
 
 def take_bwd_oracle(g: torch.Tensor, inv: torch.Tensor, keep, u: int):
@@ -781,12 +991,14 @@ def take_phase():
     mask = (plan.uids.new_tensor(ids) < HASHED_ROWS).float()
     rand_inv = torch.from_numpy(rng.integers(0, n // 4, n).astype(np.int32)
                                 ).to(dev)
+    zipf_inv = torch.from_numpy(zipf_ids(rng, n, n).astype(np.int32)).to(dev)
     max_err, timing = 0.0, {}
     for d in (1, 32):
         rows = torch.randn(n, d, device=dev, generator=gen)
         g = torch.randn(n, d, device=dev, generator=gen)
         for label, inv, gg, keep in (
                 ("random", rand_inv, g, None),
+                ("zipf", zipf_inv, g, None),
                 ("hashed_plan", plan.inv, g * mask[:, None], mask > 0)):
             out = ek._launch_take_fwd([rows], [inv])
             assert torch.equal(out, ek.reference_take(rows, inv)), (label, d)
@@ -802,9 +1014,13 @@ def take_phase():
             oracle = np.zeros((n, d), np.float32)
             np.add.at(oracle, inv.cpu().numpy(), gg.cpu().numpy())
             assert np.array_equal(a.cpu().numpy(), oracle), (label, d)
-            torch.testing.assert_close(a, plain, **TAKE_BWD_TOL)
             err = float((a - plain).abs().max())
-            max_err = max(max_err, err)
+            if label != "zipf":
+                # TAKE_BWD_TOL covers runs of a few dozen terms; a Zipf
+                # slot sums thousands, in another order on the plain side,
+                # so that case is held bit for bit to the oracle above only.
+                torch.testing.assert_close(a, plain, **TAKE_BWD_TOL)
+                max_err = max(max_err, err)
             print(f"take check {label} D={d}: forward bit-equal, backward "
                   f"bit-equal to the CPU oracle and to its second launch, "
                   f"max |kernel - plain on card| {err:.3e}")
@@ -851,8 +1067,9 @@ def take_phase():
 
 def segment_sum_phase():
     """The position-order segment sum that replaces float atomics on the
-    dense and the monolithic layouts (``ek.segment_sum``: segments, then one
-    take backward launch): one batch's ids over the padded vocabulary at
+    dense and the monolithic layouts (``ek.segment_sum``: one segments
+    launch, then one take backward launch): one batch's ids over the padded
+    vocabulary at
     the dense lookups' widths (D = 1, 32) and over the fused leg's rows + 1
     slots at its width (1 + 1 + 32 columns), bit-equal to the numpy
     ascending-p oracle and to its second call; then its time (segments
@@ -868,10 +1085,11 @@ def segment_sum_phase():
                         ("dense_fm_v", 32, MONO_ROWS),
                         ("fused_leg", 2 + 32, MONO_ROWS + 1)):
         g = torch.randn(n, d, device=dev, generator=gen)
-        before = ek.take_bwd_launches
+        before = ek.take_bwd_launches, ek.segments_launches
         a = ek.segment_sum(g, ids, u)
         b = ek.segment_sum(g, ids, u)
-        assert ek.take_bwd_launches - before == 2
+        assert (ek.take_bwd_launches - before[0],
+                ek.segments_launches - before[1]) == (2, 2)
         torch.cuda.synchronize()
         assert torch.equal(a, b), label
         assert np.array_equal(a.cpu().numpy(), take_bwd_oracle(
@@ -884,7 +1102,8 @@ def segment_sum_phase():
         timing[label] = (kern, lib_t)
         print(f"segment_sum check {label} N={n} U={u} D={d}: bit-equal to "
               f"the numpy ascending-p oracle and to its second call; time "
-              f"(segments + one launch) device_ms={kern[0]:.6f} call_ms="
+              f"(segments + take backward launches) device_ms={kern[0]:.6f} "
+              f"call_ms="
               f"{kern[1]:.6f}, library index_add_ device_ms={lib_t[0]:.6f} "
               f"call_ms={lib_t[1]:.6f} ({kern[2]})")
     return timing
@@ -1040,8 +1259,11 @@ def train_parity_phase(cfg: Config, dev: torch.device,
              hashed.replace(use_pallas=False, embedding_kernels="xla"),
              SPARSE_PARITY_LOSS_ATOL)):
         counts = (ek.plan_launches, ek.take_fwd_launches,
-                  ek.take_bwd_launches)
+                  ek.take_bwd_launches, ek.segments_launches)
         kern = _losses(kern_cfg, dev, batches)
+        if dev.type == "cuda":
+            # One segments launch per step (the dense lookups share theirs).
+            assert ek.segments_launches - counts[3] == steps, name
         if name == "sparse_hashed" and dev.type == "cuda":
             # One plan launch for the four tables, one take forward and one
             # take backward per name.
@@ -1209,13 +1431,14 @@ def _counts() -> dict:
             "plan_build": ek.plan_launches,
             "take_fwd": ek.take_fwd_launches,
             "take_bwd": ek.take_bwd_launches,
+            "segments": ek.segments_launches,
             "install": ek.install_launches}
 
 
 def _zero_counts() -> None:
     fused_fm.launches = fused_fm.bwd_launches = 0
     ek.plan_launches = ek.take_fwd_launches = ek.take_bwd_launches = 0
-    ek.install_launches = 0
+    ek.segments_launches = ek.install_launches = 0
 
 
 def train_phase(workdir: str, data: dict, cfg: Config, dev: torch.device,
@@ -1283,6 +1506,10 @@ def train_phase(workdir: str, data: dict, cfg: Config, dev: torch.device,
             "plan_build": on * emb_steps,
             "take_fwd": on * EMB_PARAMS * emb_steps,
             "take_bwd": on * bwd_per_step * steps,
+            # One segments build per step on every layout: the dense
+            # lookups' (both names, every hashed table), the hashed plan's
+            # or the fused leg's.
+            "segments": on * steps,
             "install": on * plans}
     assert launches == want, (name, launches, want)
 
@@ -1324,12 +1551,35 @@ def train_phase(workdir: str, data: dict, cfg: Config, dev: torch.device,
     return launches, res
 
 
-def _step_timing(cfg: Config, name: str, batch, top: bool) -> None:
+def device_kernel_names(fn, iters: int = 3) -> set:
+    """Names of the device events of ``fn`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def _step_timing(cfg: Config, name: str, batch, top: bool,
+                 no_sort: bool = False) -> None:
     dev = torch.device("cuda")
     trainer = Trainer(cfg, device=dev)
     state = trainer.init_state(SEED)
     dev_batch = trainer.put_batch(batch)
     step = lambda: trainer.train_step(state, dev_batch)  # noqa: E731
+    if no_sort:
+        # The position segments come from the segments kernel: no radix
+        # sort (or any other sort) runs in the step.
+        names = device_kernel_names(step)
+        sorts = sorted(n for n in names if "sort" in n.lower())
+        assert names and not sorts, (name, sorts)
+        print(f"train step {name}: no sort among the step's {len(names)} "
+              f"device kernel names")
     call = cuda_ms(step, iters=50, warmup=5)
     busy, events = device_profile(step, iters=10)
     busy_txt = "not measured" if busy is None else f"{busy:.4f}"
@@ -1358,7 +1608,8 @@ def train_step_timing(cfg: Config) -> None:
     for turn in range(2):
         for name, kw in layouts.items():
             _step_timing(cfg.replace(**kw), name, batch,
-                         top=turn == 0 and name != "dense")
+                         top=turn == 0 and name != "dense",
+                         no_sort=turn == 0)
         tiered_dispatch_timing(cfg.replace(**TIERED), top=turn == 0)
 
 
@@ -1571,11 +1822,12 @@ def main() -> int:
     build_s = _native.build()
     print(f"kernel build: {build_s:.2f}s (nvcc {' '.join(_native.NVCC_FLAGS)})")
 
-    fm_err, (kern_ms, plain_ms, bound_ms, bound_by, ms_source) = \
-        kernel_phase()
+    fm_err, fm_t = kernel_phase()
+    kern_ms, plain_ms, bound_ms, bound_by, ms_source = fm_t[TIMED_SHAPE]
     bwd_err, (bwd_ms, bwd_plain_ms, bwd_bound_ms, bwd_bound_by,
               bwd_source) = kernel_bwd_phase()
     plan_t = plan_phase()
+    seg_kernel_t = segments_kernel_phase()
     take_err, take_t, seg_t = take_phase()
     segment_sum_phase()
     install_t = install_phase()
@@ -1632,6 +1884,19 @@ def main() -> int:
     take["take_bwd"]["segments_build"] = {
         k: {"device_ms": v[0], "device_events": v[1], "call_ms": v[2]}
         for k, v in seg_t.items()}
+    # The segments kernel at the hashed step's shape (the main path's
+    # launch), and at the dense and fused-leg shapes.
+    (sk, _, ssrc), (sp, _, _), (sl, _, _), (sb, sby, _), _ = seg_kernel_t[
+        "hashed"]
+    segments = {
+        "ms": sk, "plain_ms": sp, "library_ms": sl,
+        "library_call": "torch.sort(stable=True) + searchsorted over "
+                        "precomputed composite keys",
+        "bound_ms": sb, "bound_by": sby, "ms_source": ssrc,
+        "by_shape": {k: {"ms": v[0][0], "plain_ms": v[1][0],
+                         "library_ms": v[2][0], "bound_ms": v[3][0],
+                         "device_events": v[4]}
+                     for k, v in seg_kernel_t.items()}}
     (ik, _, isrc), (ip, _, _), (il, _, _), (ib, iby) = install_t["two"]
     install = {
         "ms": ik, "plain_ms": ip, "library_ms": il,
@@ -1650,7 +1915,9 @@ def main() -> int:
         "max_abs_err": fm_err,
         "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
-        "ms_source": ms_source}, {
+        "ms_source": ms_source,
+        "by_batch": {str(b): {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2]}
+                     for (b, _, _), v in fm_t.items()}}, {
         "name": "fused_fm_bwd", "route": "cuda",
         "source": "deepfm_tpu_torch/csrc/fused_fm.cu",
         "replaces": "deepfm_tpu/ops/pallas_fm.py:92",
@@ -1678,6 +1945,12 @@ def main() -> int:
         "launches": hashed["take_bwd"],
         "launches_by_path": by_path("take_bwd"),
         "max_abs_err": take_err, **take["take_bwd"]}, {
+        "name": "segments", "route": "cuda",
+        "source": "deepfm_tpu_torch/csrc/embedding.cu",
+        "replaces": "deepfm_tpu/ops/pallas_embedding.py:226",
+        "launches": hashed["segments"],
+        "launches_by_path": by_path("segments"),
+        "max_abs_err": 0.0, **segments}, {
         "name": "install", "route": "cuda",
         "source": "deepfm_tpu_torch/csrc/embedding.cu",
         "replaces": "deepfm_tpu/ops/pallas_embedding.py:302",

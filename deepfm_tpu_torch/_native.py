@@ -65,6 +65,13 @@ def _bind_embedding(lib: ctypes.CDLL) -> None:
     install.argtypes = [ptrs, ints, ctypes.c_int, _P, ctypes.c_int64,
                         ctypes.c_int64, _P]
     install.restype = ctypes.c_int
+    segments = lib.dfm_segments
+    segments.argtypes = [_P, ctypes.c_int, _P, ints, ctypes.c_int,
+                         ctypes.c_int64, _P, _P, _P, ctypes.c_int64, _P]
+    segments.restype = ctypes.c_int
+    scratch = lib.dfm_segments_scratch
+    scratch.argtypes = [ctypes.c_int, ctypes.c_int64]
+    scratch.restype = ctypes.c_int64
 
 
 # Kernel library name -> function that declares its C signatures.

@@ -202,6 +202,66 @@
 // memory latency per warp, not a chain of them. Lane l copies its own
 // slot's tau. No divides; the tables' pointers ride in the launch's
 // argument struct, read at constant indices.
+//
+// ---------------------------------------------------------------------------
+// dfm_segments: the position order of `_take_bwd_kernel`
+// (pallas_embedding.py:226), whose loop adds out[inv[p]] += g[p] for p
+// ascending. dfm_take_bwd sums over a position CSR instead; this kernel
+// builds it, for up to 8 tables in one launch. For table t, inv [N]
+// (int32 or int64, row t of inv [T, N]), its slot count U_t and an
+// optional keep [N] (bool):
+//
+//   key[p]    = inv[p] if keep[p] and 0 <= inv[p] < U_t, else U_t
+//   order_t   = the positions sorted by key, ascending p within a key
+//   starts_t  = [U_t + 1]: where key u's run starts; starts_t[U_t] is the
+//               count of positions whose key is below U_t
+//
+// which is unique: the stable sort by key and a searchsorted of its bounds,
+// bit for bit (the plain version, embedding_kernels.py
+// `reference_position_segments`). order is [T, N]; the tables' starts lie
+// end to end, table t at offset (U_0 + 1) + ... + (U_{t-1} + 1).
+//
+// Bound: bytes, each input and output once: inv (4 or 8 N bytes a table),
+// keep (N), order (4N) and starts (4 (U_t + 1)). At the hashed step (T = 4,
+// N = U = 39,936, keep) ~2.08 MB, 0.62 us at 3.35 TB/s; over the
+// vocabulary (T = 1, N = 39,936 int64 ids, U = 117,632) ~0.95 MB, 0.28 us.
+// A few integer operations per byte: far below the operation rate. Each
+// of the five phases below measured 2-8 us on an H100 80GB HBM3 at 700 W
+// (a grid-wide barrier and one or two dependent memory round trips), 0.019
+// to 0.045 ms a call in all: latency, not bytes, sets the time.
+//
+// What it replaces: a stable radix sort (torch.sort) over a composite key
+// plus a searchsorted: ~20-23 device events and 0.06-0.07 ms a call on an
+// H100 80GB HBM3 at 700 W, more than the take backward that reads it.
+//
+// Design: one cooperative launch (one resident block per SM, grid-wide
+// barriers), five phases; every loop over positions walks the T * N
+// positions of all tables at once, one a thread a pass (the keep and inv
+// loads do not wait for each other; batching four positions a thread, so
+// that fewer warps held more loads, measured slower on an H100):
+//   1. zero the counts (starts doubles as the count array; no memset, no
+//      scratch carried between calls);
+//   2. count each key with integer atomics (exact in any order), one
+//      atomic per group of equal keys in a warp (__match_any_sync); the
+//      left-out key U_t, most of a hashed table's positions, is counted in
+//      shared memory and added once per block;
+//   3. a scan of the counts over every table's slots end to end (block
+//      sums, then each block's carry), leaving each run's END; runs of 2 to
+//      kSegSmall, of up to kSegLong and of more positions are listed (a
+//      long run's entry becomes its START, as -1 - start);
+//   4. every position of a run that is not long takes place --end of its
+//      key (one atomicSub per group of equal keys in a warp), so each run
+//      holds its positions in some order and starts ends at the runs'
+//      starts; meanwhile blocks count each long run's positions in chunks
+//      of 512 or more positions;
+//   5. order restored within each listed run: a thread sorts a run of up to
+//      kSegSmall positions in registers (most runs hold 1-3 and need
+//      nothing), a block sorts a run of up to kSegLong in shared memory
+//      (bitonic), and a long run (a Zipf-hot slot, the left-out tail of a
+//      hashed table) is written by stable compaction, each chunk from its
+//      count's prefix and a block scan of its flags, in parallel over
+//      chunks.
+// Integer work only, so the result is the same on every run.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -221,6 +281,12 @@ constexpr int kCluster = 8;                // CTAs per table in the plan build
 constexpr int kPlanThreads = 1024;
 constexpr int kPlanIds = 8;                // ids per thread in flight
 constexpr int kMaxDevices = 64;
+constexpr int kSegThreads = 512;           // segments blocks
+constexpr int kSegSmall = 16;              // runs a thread sorts itself
+constexpr int kSegLong = 1024;             // runs a block sorts in shared memory
+constexpr int kSegMaxBlocks = 1024;
+constexpr int64_t kSegMaxPositions = 1 << 30;  // T * N, int32 loops
+constexpr int kSegBlocksPerSm = 1;         // at most, of the resident ones
 
 __device__ __forceinline__ int plan_id(int32_t id, int rows) {
   return (id < 0 || id > rows) ? rows : id;
@@ -889,6 +955,327 @@ install_kernel(const __grid_constant__ InstallArgs a) {
   }
 }
 
+struct SegArgs {
+  const void* inv;       // [T, n], int32 or int64 (wide)
+  const uint8_t* keep;   // [T, n] or null
+  int32_t* order;        // [T, n]
+  int32_t* starts;       // the tables' [u_t + 1] end to end, slots in all
+  int* counters;         // runs listed: [0] short, [1] medium, [2] long
+  int* block_sum;        // [gridDim.x]
+  int4* shorts;          // {table, start, length, -}: 2..kSegSmall positions
+  int4* medium;          // {table, start, length, -}: up to kSegLong
+  int4* longs;           // {table, slot, start, length}: longer
+  int* long_count;       // [long runs][chunks]: positions of each chunk
+  int64_t off[kMaxTables];  // table t's starts begin at off[t]
+  int64_t slots;
+  int u[kMaxTables];
+  int tables;
+  int n;
+  int wide;
+  int chunk;             // positions of a long run's chunk
+  int chunks;            // ceil(n / chunk)
+};
+
+// Table t's slot count and starts offset (the struct read at constant
+// indices).
+__device__ __forceinline__ void seg_table(const SegArgs& a, int t, int* u,
+                                          int64_t* off) {
+#pragma unroll
+  for (int j = 0; j < kMaxTables; ++j) {
+    if (j == t) {
+      *u = a.u[j];
+      *off = a.off[j];
+    }
+  }
+}
+
+// The table whose starts hold slot g of the array end to end.
+__device__ __forceinline__ int seg_table_of(const SegArgs& a, int64_t g) {
+  int t = 0;
+#pragma unroll
+  for (int j = 1; j < kMaxTables; ++j) {
+    if (j < a.tables && g >= a.off[j]) t = j;
+  }
+  return t;
+}
+
+// The key of position p of the [T, n] inputs in a table of u slots: its
+// inv, or u when it is left out or its inv lies outside [0, u). The keep
+// and inv loads do not wait for each other.
+__device__ __forceinline__ int seg_key(const SegArgs& a, int64_t p, int u) {
+  const int kept = a.keep != nullptr ? a.keep[p] : 1;
+  const long long v =
+      a.wide ? __ldg(static_cast<const long long*>(a.inv) + p)
+             : static_cast<long long>(
+                   __ldg(static_cast<const int32_t*>(a.inv) + p));
+  return (kept != 0 && v >= 0 && v < u) ? static_cast<int>(v) : u;
+}
+
+// A run's start from its starts entry: a long run's is stored as -1 -
+// start until its compaction writes it back.
+__device__ __forceinline__ int seg_start(int v) { return v >= 0 ? v : -1 - v; }
+
+__device__ __forceinline__ unsigned lanes_below() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+// One cooperative launch of the five phases in the header note. Loops over
+// positions walk whole warps over the T * n positions of every table (the
+// collectives see all 32 lanes), and every block-wide loop is uniform
+// across the block.
+__global__ void __launch_bounds__(kSegThreads) segments_kernel(SegArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ int run[kSegLong];
+  __shared__ int tail[kMaxTables];
+  const int lane = threadIdx.x & 31;
+  const int tid = threadIdx.x;
+  const int nthreads = static_cast<int>(gridDim.x * blockDim.x);
+  const int gtid = static_cast<int>(blockIdx.x * blockDim.x) + tid;
+  const int n = a.n;
+  const int total = a.tables * n;
+  const int64_t slots = a.slots;
+
+  // 1. Zero the counts.
+  for (int64_t g = gtid; g < slots; g += nthreads) a.starts[g] = 0;
+  if (gtid < 3) a.counters[gtid] = 0;
+  if (tid < kMaxTables) tail[tid] = 0;
+  grid.sync();
+
+  // 2. Count each key: one atomic per group of equal keys in a warp (the
+  // keys are matched as slots of the array end to end); table t's left-out
+  // key (matched as -2 - t) in shared memory, added once per block below.
+  for (int b = gtid - lane; b < total; b += nthreads) {
+    const int p = b + lane;
+    int t = 0;
+    long long g = -1;
+    if (p < total) {
+      t = p / n;
+      int u;
+      int64_t off;
+      seg_table(a, t, &u, &off);
+      const int key = seg_key(a, p, u);
+      g = key == u ? -2 - t : off + key;
+    }
+    const unsigned peers =
+        __match_any_sync(0xffffffffu, static_cast<unsigned long long>(g));
+    if (g != -1 && lane == __ffs(peers) - 1) {
+      if (g < 0) {
+        atomicAdd(&tail[t], __popc(peers));
+      } else {
+        atomicAdd(&a.starts[g], __popc(peers));
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < a.tables && tail[tid] > 0) {
+    int u;
+    int64_t off;
+    seg_table(a, tid, &u, &off);
+    atomicAdd(&a.starts[off + u], tail[tid]);
+  }
+  grid.sync();
+
+  // 3. Scan the counts over the slots end to end. Block b scans slots
+  // [lo, hi), whole tiles of the block; its carry is the sum of the blocks
+  // before it. Table t's positions precede slot off[t] t * n times over, so
+  // a table-local place is the global prefix less t * n. Runs of 2 or more
+  // positions are listed by length.
+  const int64_t per =
+      ((slots + gridDim.x - 1) / gridDim.x + blockDim.x - 1) / blockDim.x *
+      blockDim.x;
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) * per;
+  const int64_t hi = lo + per < slots ? lo + per : slots;
+  {
+    int mine = 0;
+    for (int64_t g = lo + tid; g < hi; g += blockDim.x) mine += a.starts[g];
+    int sum;
+    block_exclusive_scan(mine, &sum);
+    if (tid == 0) a.block_sum[blockIdx.x] = sum;
+  }
+  grid.sync();
+  {
+    int before = 0;
+    for (int j = tid; j < static_cast<int>(blockIdx.x); j += blockDim.x) {
+      before += a.block_sum[j];
+    }
+    int carry;
+    block_exclusive_scan(before, &carry);
+    for (int64_t g0 = lo; g0 < hi; g0 += blockDim.x) {
+      const int64_t g = g0 + tid;
+      const int x = g < hi ? a.starts[g] : 0;
+      int tile;
+      const int excl = carry + block_exclusive_scan(x, &tile);
+      carry += tile;
+      int t = 0, start = 0;
+      if (g < hi) {
+        t = seg_table_of(a, g);
+        int u;
+        int64_t off;
+        seg_table(a, t, &u, &off);
+        start = excl - t * n;
+        if (x > kSegLong) {
+          const int r = atomicAdd(&a.counters[2], 1);
+          a.longs[r] = make_int4(t, static_cast<int>(g - off), start, x);
+          a.starts[g] = -1 - start;
+        } else {
+          if (x > kSegSmall) {
+            const int r = atomicAdd(&a.counters[1], 1);
+            a.medium[r] = make_int4(t, start, x, 0);
+          }
+          a.starts[g] = start + x;
+        }
+      }
+      const bool short_run = g < hi && x > 1 && x <= kSegSmall;
+      const unsigned listed = __ballot_sync(0xffffffffu, short_run);
+      if (listed != 0) {
+        int base = 0;
+        if (lane == 0) base = atomicAdd(&a.counters[0], __popc(listed));
+        base = __shfl_sync(0xffffffffu, base, 0);
+        if (short_run) {
+          a.shorts[base + __popc(listed & lanes_below())] =
+              make_int4(t, start, x, 0);
+        }
+      }
+    }
+  }
+  grid.sync();
+
+  // 4. Place every position of a run that is not long at --end of its key;
+  // count each long run's positions per chunk.
+  const int n_long = *static_cast<volatile int*>(&a.counters[2]);
+  const int items = n_long * a.chunks;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int r = it / a.chunks;
+    const int c = it - r * a.chunks;
+    const int4 lr = a.longs[r];
+    int u;
+    int64_t off;
+    seg_table(a, lr.x, &u, &off);
+    const int first = c * a.chunk;
+    const int last = first + a.chunk < n ? first + a.chunk : n;
+    const int64_t row = static_cast<int64_t>(lr.x) * n;
+    int hits = 0;
+    for (int i0 = first; i0 < last; i0 += blockDim.x) {
+      const int i = i0 + tid;
+      hits += __syncthreads_count(i < last && seg_key(a, row + i, u) == lr.y);
+    }
+    if (tid == 0) a.long_count[it] = hits;
+  }
+  for (int b = gtid - lane; b < total; b += nthreads) {
+    const int p = b + lane;
+    int t = 0, i = 0;
+    long long g = -1;
+    if (p < total) {
+      t = p / n;
+      i = p - t * n;
+      int u;
+      int64_t off;
+      seg_table(a, t, &u, &off);
+      g = off + seg_key(a, p, u);
+      // A long run's entry is negative and does not change in this phase.
+      if (a.starts[g] < 0) g = -1;
+    }
+    const unsigned peers =
+        __match_any_sync(0xffffffffu, static_cast<unsigned long long>(g));
+    const int leader = __ffs(peers) - 1;
+    int end = 0;
+    if (g >= 0 && lane == leader) end = atomicSub(&a.starts[g], __popc(peers));
+    end = __shfl_sync(0xffffffffu, end, leader);
+    if (g >= 0) {
+      a.order[static_cast<int64_t>(t) * n + end - 1 -
+              __popc(peers & lanes_below())] = i;
+    }
+  }
+  grid.sync();
+
+  // 5. Order within each run. Long runs: stable compaction of each chunk
+  // from the count of the chunks before it.
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int r = it / a.chunks;
+    const int c = it - r * a.chunks;
+    const int4 lr = a.longs[r];
+    int u;
+    int64_t off;
+    seg_table(a, lr.x, &u, &off);
+    int before = 0;
+    for (int j = tid; j < c; j += blockDim.x) {
+      before += a.long_count[r * a.chunks + j];
+    }
+    int base;
+    block_exclusive_scan(before, &base);
+    base += lr.z;
+    const int64_t row = static_cast<int64_t>(lr.x) * n;
+    const int first = c * a.chunk;
+    const int last = first + a.chunk < n ? first + a.chunk : n;
+    for (int i0 = first; i0 < last; i0 += blockDim.x) {
+      const int i = i0 + tid;
+      const int hit = (i < last && seg_key(a, row + i, u) == lr.y) ? 1 : 0;
+      int tile;
+      const int place = base + block_exclusive_scan(hit, &tile);
+      if (hit) a.order[row + place] = i;
+      base += tile;
+    }
+    if (c == 0 && tid == 0) a.starts[off + lr.y] = lr.z;
+  }
+  // Runs of kSegSmall < length <= kSegLong: one block sorts each in shared
+  // memory (bitonic, padded to a power of two with INT32_MAX).
+  const int n_medium = *static_cast<volatile int*>(&a.counters[1]);
+  for (int r = blockIdx.x; r < n_medium; r += gridDim.x) {
+    const int4 m = a.medium[r];
+    int32_t* o = a.order + static_cast<int64_t>(m.x) * n + m.y;
+    int p2 = 1;
+    while (p2 < m.z) p2 <<= 1;
+    for (int j = tid; j < p2; j += blockDim.x) {
+      run[j] = j < m.z ? o[j] : INT32_MAX;
+    }
+    __syncthreads();
+    for (int k = 2; k <= p2; k <<= 1) {
+      for (int s = k >> 1; s > 0; s >>= 1) {
+        for (int j = tid; j < p2; j += blockDim.x) {
+          const int partner = j ^ s;
+          if (partner > j) {
+            const int x = run[j];
+            const int y = run[partner];
+            if ((x > y) == ((j & k) == 0)) {
+              run[j] = y;
+              run[partner] = x;
+            }
+          }
+        }
+        __syncthreads();
+      }
+    }
+    for (int j = tid; j < m.z; j += blockDim.x) o[j] = run[j];
+    __syncthreads();
+  }
+  // Runs of 2 to kSegSmall positions: a thread loads one into registers
+  // (the loads issued together), sorts it by odd-even transposition and
+  // stores it back.
+  const int n_short = *static_cast<volatile int*>(&a.counters[0]);
+  for (int r = gtid; r < n_short; r += nthreads) {
+    const int4 sr = a.shorts[r];
+    int32_t* o = a.order + static_cast<int64_t>(sr.x) * n + sr.y;
+    int v[kSegSmall];
+#pragma unroll
+    for (int j = 0; j < kSegSmall; ++j) v[j] = j < sr.z ? o[j] : INT32_MAX;
+#pragma unroll
+    for (int round = 0; round < kSegSmall; ++round) {
+#pragma unroll
+      for (int j = round & 1; j + 1 < kSegSmall; j += 2) {
+        const int x = min(v[j], v[j + 1]);
+        v[j + 1] = max(v[j], v[j + 1]);
+        v[j] = x;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kSegSmall; ++j) {
+      if (j < sr.z) o[j] = v[j];
+    }
+  }
+}
+
 // Per-device facts the launches need, read once; and, for the plan build,
 // the dynamic shared memory set on the kernel and how many of its clusters
 // fit on the card at that size.
@@ -1223,5 +1610,102 @@ extern "C" int dfm_install(const void* const* ptrs, const int64_t* d, int t,
   if (err != cudaSuccess) return static_cast<int>(err);
   install_kernel<<<blocks, kInstallThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// Scratch of dfm_segments for t tables of n positions: the counters, the
+// block sums, the three run lists (a listed run holds 2 or more, more than
+// kSegSmall, or more than kSegLong of the t * n positions) and the long
+// runs' chunk counts, at 16-byte boundaries. A long run's chunk is at least
+// 512 positions, and larger where that keeps a table to 256 chunks.
+struct SegScratch {
+  int64_t block_sum, shorts, medium, longs, long_count, bytes;
+  int64_t chunk, chunks;
+};
+
+SegScratch seg_scratch(int t, int64_t n) {
+  SegScratch s;
+  const int64_t positions = t * n;
+  const int64_t max_long = positions / (kSegLong + 1) + 1;
+  s.chunk = ((n + 255) / 256 + 511) / 512 * 512;
+  s.chunk = s.chunk < 512 ? 512 : s.chunk;
+  s.chunks = (n + s.chunk - 1) / s.chunk;
+  s.block_sum = 16;
+  s.shorts = s.block_sum + 4 * kSegMaxBlocks;
+  s.medium = s.shorts + 16 * (positions / 2 + 1);
+  s.longs = s.medium + 16 * (positions / (kSegSmall + 1) + 1);
+  s.long_count = s.longs + 16 * max_long;
+  s.bytes = s.long_count + (4 * max_long * s.chunks + 15) / 16 * 16;
+  return s;
+}
+
+}  // namespace
+
+// Bytes of device scratch dfm_segments needs for t tables of n positions
+// (-1 for arguments it refuses).
+extern "C" int64_t dfm_segments_scratch(int t, int64_t n) {
+  if (t < 1 || t > kMaxTables || n < 0 || t * n > kSegMaxPositions) return -1;
+  return seg_scratch(t, n).bytes;
+}
+
+// inv: [t, n] int32 (wide = 0) or int64 (wide = 1); keep: null or [t, n]
+// bool; u: host array of the t slot counts; order int32 [t, n]; starts
+// int32, the tables' [u[i] + 1] end to end; scratch: dfm_segments_scratch
+// bytes, its content ignored. The position segments above for every table,
+// one cooperative launch. Same error return as the plan build.
+extern "C" int dfm_segments(const void* inv, int wide, const void* keep,
+                            const int64_t* u, int t, int64_t n, void* order,
+                            void* starts, void* scratch, int64_t scratch_bytes,
+                            void* stream) {
+  if (t < 1 || t > kMaxTables || n < 0 || t * n > kSegMaxPositions ||
+      (wide != 0 && wide != 1) || u == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const SegScratch s = seg_scratch(t, n);
+  if (scratch_bytes < s.bytes) return static_cast<int>(cudaErrorInvalidValue);
+  char* base = static_cast<char*>(scratch);
+  SegArgs a = {};
+  a.inv = inv;
+  a.keep = static_cast<const uint8_t*>(keep);
+  a.order = static_cast<int32_t*>(order);
+  a.starts = static_cast<int32_t*>(starts);
+  a.counters = reinterpret_cast<int*>(base);
+  a.block_sum = reinterpret_cast<int*>(base + s.block_sum);
+  a.shorts = reinterpret_cast<int4*>(base + s.shorts);
+  a.medium = reinterpret_cast<int4*>(base + s.medium);
+  a.longs = reinterpret_cast<int4*>(base + s.longs);
+  a.long_count = reinterpret_cast<int*>(base + s.long_count);
+  int64_t slots = 0;
+  for (int i = 0; i < t; ++i) {
+    if (u[i] < 0 || u[i] >= INT32_MAX) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    a.u[i] = static_cast<int>(u[i]);
+    a.off[i] = slots;
+    slots += u[i] + 1;
+  }
+  a.slots = slots;
+  a.tables = t;
+  a.n = static_cast<int>(n);
+  a.wide = wide;
+  a.chunk = static_cast<int>(s.chunk);
+  a.chunks = static_cast<int>(s.chunks);
+  static std::atomic<int> per_sm{0};
+  unsigned blocks;
+  cudaError_t err = wave_blocks(segments_kernel, kSegThreads,
+                                int64_t{kSegMaxBlocks}, per_sm, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev, sms, optin;
+  err = device_facts(&dev, &sms, &optin);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned most = static_cast<unsigned>(sms * kSegBlocksPerSm);
+  if (blocks > most) blocks = most;
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(segments_kernel),
+                                    dim3(blocks), dim3(kSegThreads), params, 0,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -222,6 +222,9 @@ def l2_half_sum(x: torch.Tensor) -> torch.Tensor:
 
 Entry = Union[torch.Tensor, Dict[str, torch.Tensor]]
 Plan = Dict[str, emb_ops.PlanEntry]
+# A batch's dense gather ids: monolithic (with the in-range marks) or the
+# hashed tables' buckets.
+DenseIndex = Union[emb_ops.DenseIds, ek.SharedSegments]
 
 
 class EmbeddingSchema:
@@ -317,19 +320,34 @@ class EmbeddingSchema:
         return emb_ops.hash_table_assign(feat_ids, n)
 
     # -- dense forward --------------------------------------------------
-    def lookup(self, entry: Entry, feat_ids: torch.Tensor) -> torch.Tensor:
-        """[B,F,*trailing] gather (the dense path, eval and serving). The
-        hashed parts are summed in table order t0, t1, ..., as the JAX
-        package sums them."""
+    def dense_index(self, feat_ids: torch.Tensor, entry: Entry) -> DenseIndex:
+        """One batch's gather ids into tables shaped like ``entry``'s,
+        shared by every embedding name's :meth:`lookup` of the batch, so
+        the backward builds their position segments once (one launch for
+        all hashed tables on the card)."""
         if not self.hashed:
-            return emb_ops.lookup(entry, feat_ids)
+            return emb_ops.dense_ids(feat_ids, entry.shape[0])
+        ids = torch.stack([emb_ops.hash_bucket(feat_ids, b, salt=i + 1)
+                           .reshape(-1) for i, b in enumerate(self.buckets)])
+        return ek.SharedSegments(ids.long(), [entry[k].shape[0]
+                                              for k in self.table_keys()])
+
+    def lookup(self, entry: Entry, feat_ids: torch.Tensor,
+               index: Optional[DenseIndex] = None) -> torch.Tensor:
+        """[B,F,*trailing] gather (the dense path, eval and serving), at
+        ``index`` (:meth:`dense_index` of ``feat_ids``, built here when
+        None). The hashed parts are summed in table order t0, t1, ..., as
+        the JAX package sums them."""
+        if index is None:
+            index = self.dense_index(feat_ids, entry)
+        if not self.hashed:
+            return emb_ops.lookup(entry, feat_ids, index)
         table_of = self._table_of(feat_ids)
         out = None
-        for i, b in enumerate(self.buckets):
-            bucket = emb_ops.hash_bucket(feat_ids, b, salt=i + 1)
+        for i in range(len(self.buckets)):
             tab = entry[f"t{i}"]
-            part = ek.index_rows(tab, bucket.reshape(-1).long()).reshape(
-                tuple(bucket.shape) + tuple(tab.shape[1:]))
+            part = index.rows(tab, i).reshape(
+                tuple(feat_ids.shape) + tuple(tab.shape[1:]))
             sel = emb_ops.trailing_dims((table_of == i).to(part.dtype),
                                         part.dim())
             part = part * sel
@@ -345,8 +363,9 @@ class EmbeddingSchema:
         ``[T, B, F]``; on the kernel leg one plan launch serves up to
         ``ek.MAX_TABLES`` of them. On the card, when the take leg is the
         kernel, each entry also carries its position segments, every
-        table's built by one sort here (``ek.position_segments_tables``)
-        and shared by every embedding name's backward."""
+        table's built by one segments launch here
+        (``ek.position_segments_tables``) and shared by every embedding
+        name's backward."""
         with_segments = feat_ids.device.type == "cuda" and ek.resolve(
             self.kernels, "take") == "kernel"
         if not self.hashed:

@@ -80,13 +80,16 @@ class GraphModel(nn.Module):
 
     def _emb_lookup(self, name: str, feat_ids: torch.Tensor,
                     emb_rows: Optional[Dict[str, Dict[str, torch.Tensor]]],
-                    emb_plan: Optional[common.Plan]) -> torch.Tensor:
-        """Dense gather from the full tables, or (sparse update) the view
-        over the batch's pre-gathered rows ``emb_rows[name]``, which are
-        then the gradient leaves."""
+                    emb_plan: Optional[common.Plan],
+                    index: Optional[common.DenseIndex] = None
+                    ) -> torch.Tensor:
+        """Dense gather from the full tables at ``index`` (the batch's ids,
+        shared by every name), or (sparse update) the view over the batch's
+        pre-gathered rows ``emb_rows[name]``, which are then the gradient
+        leaves."""
         if emb_rows is not None:
             return self.emb.lookup_rows(emb_rows[name], emb_plan)
-        return self.emb.lookup(self._entry(name), feat_ids)
+        return self.emb.lookup(self._entry(name), feat_ids, index)
 
     def l2_loss(self, params: Optional[Mapping[str, torch.Tensor]] = None,
                 *, emb_rows: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
@@ -154,8 +157,12 @@ class GraphDeepFM(GraphModel):
                 "a training-mode forward with dropout keep < 1 needs a "
                 "torch.Generator for the dropout masks")
         feat_vals = feat_vals.float()
-        w = self._emb_lookup("fm_w", feat_ids, emb_rows, emb_plan)  # [B,F]
-        v = self._emb_lookup("fm_v", feat_ids, emb_rows, emb_plan)  # [B,F,K]
+        index = None if emb_rows is not None else self.emb.dense_index(
+            feat_ids, self._entry("fm_w"))
+        w = self._emb_lookup("fm_w", feat_ids, emb_rows, emb_plan,
+                             index)  # [B,F]
+        v = self._emb_lookup("fm_v", feat_ids, emb_rows, emb_plan,
+                             index)  # [B,F,K]
         xv = v * feat_vals[..., None]
         y_wv = fm_block(cfg, w, feat_vals, xv)
         deep_in = xv.reshape(xv.shape[0], cfg.field_size * cfg.embedding_size)

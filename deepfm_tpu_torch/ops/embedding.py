@@ -12,12 +12,13 @@ process; NaN rows make a bad id visible in that request's output alone.
 The gradient matches the VJP of ``jnp.take``: a wrapped id scatters into
 row ``id + V`` and an out-of-range id contributes nothing (its NaN row is
 masked out with ``torch.where``, whose gradient there is zero, and +0.0
-changes no sum that starts from +0.0). The gather is
-``embedding_kernels.index_rows``, whose backward sums each row's
+changes no sum that starts from +0.0). The gather goes through
+``embedding_kernels.SharedSegments``, whose backward sums each row's
 cotangents in ascending position from 0.0: ``index_add_`` on the CPU, the
-take backward kernel on the card. ``index_select``'s own backward would
-use float atomics on the card, whose order, and with it the last bits of a
-table gradient, changes from run to run.
+take backward kernel on the card, over position segments built once per
+batch for every name that gathers with the same ids. ``index_select``'s
+own backward would use float atomics on the card, whose order, and with it
+the last bits of a table gradient, changes from run to run.
 """
 
 from __future__ import annotations
@@ -43,18 +44,35 @@ def padded_vocab(feature_size: int, num_shards: int) -> int:
     return ((feature_size + m - 1) // m) * m
 
 
-def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+class DenseIds(NamedTuple):
+    """One batch's ids as the dense lookup reads them from tables of one
+    height V (:func:`dense_ids`)."""
+    ok: torch.Tensor                                # bool, ids-shaped
+    shared: "embedding_kernels.SharedSegments"      # safe ids [1, N]
+
+
+def dense_ids(ids: torch.Tensor, num_rows: int) -> DenseIds:
+    """``ok`` marks the ids in [-V, V); ``shared`` holds them wrapped into
+    [0, V) (any other id reads row 0, masked out after the gather) with
+    their position segments, which are built at most once for every table
+    that gathers with them (fm_w and fm_v of one batch)."""
+    ids = ids.long()
+    ok = (ids >= -num_rows) & (ids < num_rows)
+    safe = torch.where(ok, torch.where(ids < 0, ids + num_rows, ids),
+                       torch.zeros((), dtype=ids.dtype, device=ids.device))
+    return DenseIds(ok, embedding_kernels.SharedSegments(
+        safe.reshape(1, -1), [num_rows]))
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor,
+           dense: Optional[DenseIds] = None) -> torch.Tensor:
     """Gather rows of ``table`` [V, ...] at integer ``ids`` [...].
 
     Returns [..., *table.shape[1:]] with ``jnp.take`` semantics (see the
-    module docstring)."""
-    v = table.shape[0]
-    ids = ids.long()
-    ok = (ids >= -v) & (ids < v)
-    safe = torch.where(ok, torch.where(ids < 0, ids + v, ids),
-                       torch.zeros((), dtype=ids.dtype, device=ids.device))
-    out = embedding_kernels.index_rows(table, safe.reshape(-1))
-    out = out.reshape(*ids.shape, *table.shape[1:])
+    module docstring). ``dense``: :func:`dense_ids` of these ids, shared
+    with the batch's other lookups (built here when None)."""
+    ok, shared = dense_ids(ids, table.shape[0]) if dense is None else dense
+    out = shared.rows(table).reshape(*ids.shape, *table.shape[1:])
     ok = ok.reshape(*ids.shape, *([1] * (table.dim() - 1)))
     return torch.where(ok, out, torch.full((), float("nan"), dtype=out.dtype,
                                            device=out.device))
@@ -154,8 +172,8 @@ class PlanEntry(NamedTuple):
                        grouped by uid slot in ascending position order
                        (masked positions left out), for the take backward
                        kernel; built once per plan on the card
-                       (``embedding_kernels.position_segments``), None
-                       elsewhere.
+                       (``embedding_kernels.position_segments``, the
+                       segments kernel), None elsewhere.
     """
     uids: torch.Tensor
     inv: torch.Tensor

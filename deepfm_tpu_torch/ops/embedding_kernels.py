@@ -24,15 +24,16 @@ the card may sum in another order.
 
 Every kernel serves up to ``MAX_TABLES`` tables in one launch: a hashed
 step builds all its tables' plans with one launch
-(:func:`plan_build_tables`), their position segments with one sort
+(:func:`plan_build_tables`), their position segments with one launch
 (:func:`position_segments_tables`), and views each embedding name's
 tables, masks and table sum with one take forward and one take backward
 (:func:`take_rows_sum`); a hot/cold transaction installs both of its
 tables with one launch (:func:`install_rows_tables`).
 
 Launch counters are plain ints on this module: ``plan_launches``,
-``take_fwd_launches``, ``take_bwd_launches`` and ``install_launches``, each
-raised by one where its wrapper launches its kernel.
+``take_fwd_launches``, ``take_bwd_launches``, ``segments_launches`` and
+``install_launches``, each raised by one where its wrapper launches its
+kernel.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ _count_lock = threading.Lock()
 plan_launches = 0
 take_fwd_launches = 0
 take_bwd_launches = 0
+segments_launches = 0
 install_launches = 0
 
 
@@ -230,63 +232,210 @@ def reference_plan_numpy(ids, num_rows):
 # ---------------------------------------------------------------------------
 
 
-def position_segments(inv: torch.Tensor, num_slots: int,
-                      keep: Optional[torch.Tensor] = None
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(order int32 [N], starts int32 [num_slots+1]): the positions sorted
-    by uid slot, ascending positions within a slot (a stable sort), and
-    where each slot's run starts. Integer bookkeeping for the backward
-    kernel, built once per plan and shared by every embedding name.
+Segments = Tuple[torch.Tensor, torch.Tensor]
 
-    ``keep`` (bool, inv-shaped) leaves the other positions out of every
-    run: for a position whose cotangent is always zero (a hashed table's
-    masked position, whose view the mask multiplies by 0) that changes no
-    sum, as adding +-0.0 to a float32 sum changes none, and it spares the
-    fill slot, which collects every masked position, a serial walk over
-    most of the batch."""
-    flat = inv.reshape(-1).to(torch.int32)
+
+def _segment_keys(inv: torch.Tensor, num_slots: int,
+                  keep: Optional[torch.Tensor]) -> torch.Tensor:
+    """int32 keys: inv where it lies in [0, num_slots) and ``keep`` holds,
+    else ``num_slots`` (the left-out run after every slot's)."""
+    ok = (inv >= 0) & (inv < num_slots)
     if keep is not None:
-        flat = torch.where(keep.reshape(-1), flat, torch.full(
-            (), num_slots, dtype=torch.int32, device=flat.device))
-    sorted_inv, order = torch.sort(flat, stable=True)
+        ok = ok & keep
+    return torch.where(ok, inv, torch.full((), num_slots, dtype=inv.dtype,
+                                           device=inv.device)
+                       ).to(torch.int32)
+
+
+def reference_position_segments(inv: torch.Tensor, num_slots: int,
+                                keep: Optional[torch.Tensor] = None
+                                ) -> Segments:
+    """The segments kernel's plain version: one stable sort of the keys and
+    one ``searchsorted`` of the slots' bounds (see
+    :func:`position_segments`)."""
+    keys = _segment_keys(inv.reshape(-1), num_slots,
+                         None if keep is None else keep.reshape(-1))
+    sorted_keys, order = torch.sort(keys, stable=True)
     bounds = torch.arange(num_slots + 1, dtype=torch.int32,
-                          device=flat.device)
-    starts = torch.searchsorted(sorted_inv, bounds, side="left")
+                          device=keys.device)
+    starts = torch.searchsorted(sorted_keys, bounds, side="left")
     return order.to(torch.int32), starts.to(torch.int32)
 
 
-def position_segments_tables(inv: torch.Tensor, num_slots: int,
-                             keep: Optional[torch.Tensor] = None
-                             ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """:func:`position_segments` of T tables at once: ``inv`` int [T, N]
-    (row t is table t's inv), ``keep`` bool [T, N] or None, every table
-    with ``num_slots`` slots. One stable sort over the composite int32 key
-    ``t * (num_slots + 1) + slot`` (a left-out position takes slot
-    ``num_slots``) and one ``searchsorted`` over every table's bounds; each
-    table's (order, starts) are views of the two results, bit-equal to
-    :func:`position_segments` of that table."""
+def reference_position_segments_tables(
+        inv: torch.Tensor, num_slots, keep: Optional[torch.Tensor] = None
+        ) -> List[Segments]:
+    """:func:`reference_position_segments` of T tables: ``inv`` int [T, N],
+    ``keep`` bool [T, N] or None, ``num_slots`` one count or one per table.
+    Tables of one slot count U take one stable sort over the composite int32
+    key ``t * (U + 1) + key`` and one ``searchsorted`` over every table's
+    bounds (each table's (order, starts) are views of the two results);
+    tables of unequal counts take one build each."""
     t, n = inv.shape
-    stride = num_slots + 1
+    slots = _slot_counts(num_slots, t)
+    if len(set(slots)) > 1:
+        return [reference_position_segments(
+            inv[i], u, None if keep is None else keep[i])
+            for i, u in enumerate(slots)]
+    stride = slots[0] + 1
     if t * stride >= 2 ** 31:
         raise ValueError(f"the segments' composite key t * (U + 1) + slot "
-                         f"overflows int32 at T={t}, U={num_slots}")
+                         f"overflows int32 at T={t}, U={slots[0]}")
     dev = inv.device
-    key = inv.to(torch.int32)
-    if keep is not None:
-        key = torch.where(keep, key, torch.full((), num_slots,
-                                                dtype=torch.int32, device=dev))
+    key = _segment_keys(inv, slots[0], keep)
     key = key + torch.arange(0, t * stride, stride, dtype=torch.int32,
                              device=dev)[:, None]
     sorted_key, order = torch.sort(key.reshape(-1), stable=True)
     # Table t's positions hold sorted places [t*N, (t+1)*N): its order is
     # the sort's indices less t*N, and its starts the places of its bounds
-    # t*stride + [0, num_slots] less its first one's (t*N).
+    # t*stride + [0, U] less its first one's (t*N).
     order = torch.remainder(order, max(n, 1)).to(torch.int32).reshape(t, n)
     bounds = torch.arange(t * stride, dtype=torch.int32, device=dev)
     starts = torch.searchsorted(sorted_key, bounds, side="left",
                                 out_int32=True).reshape(t, stride)
     starts = starts - starts[:, :1]
     return [(order[i], starts[i]) for i in range(t)]
+
+
+def _slot_counts(num_slots, t: int) -> List[int]:
+    if isinstance(num_slots, int):
+        return [int(num_slots)] * t
+    slots = [int(u) for u in num_slots]
+    if len(slots) != t:
+        raise ValueError(f"{len(slots)} slot counts for {t} tables")
+    return slots
+
+
+def _launch_segments(inv: torch.Tensor, slots: List[int],
+                     keep: Optional[torch.Tensor]) -> List[Segments]:
+    """One ``dfm_segments`` launch for 1 to ``MAX_TABLES`` tables: inv
+    int32 or int64 [T, N] (read as it is, no cast copy), keep bool [T, N]
+    or None. order [T, N] and the tables' starts are allocated once; each
+    table's pair are views of them."""
+    t, n = inv.shape
+    if inv.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"the CUDA segments kernel takes int32 or int64 inv, "
+                        f"got {inv.dtype}")
+    if keep is not None and (keep.dtype != torch.bool
+                             or keep.shape != inv.shape
+                             or keep.device != inv.device):
+        raise ValueError(f"segments keep must be bool {tuple(inv.shape)} on "
+                         f"{inv.device}")
+    if any(u < 0 or u >= 2 ** 31 - 1 for u in slots):
+        raise ValueError(f"segments slot counts must lie in [0, 2^31 - 1), "
+                         f"got {slots}")
+    if t * n > 2 ** 30:
+        raise ValueError(f"the segments kernel takes T * N up to 2^30 "
+                         f"positions (int32 loops), got {t * n}")
+    inv = inv.contiguous()
+    keep = None if keep is None else keep.contiguous()
+    dev = inv.device
+    order = torch.empty((t, n), dtype=torch.int32, device=dev)
+    starts = torch.empty(sum(slots) + t, dtype=torch.int32, device=dev)
+    lib = _native.load("embedding")
+    nbytes = lib.dfm_segments_scratch(t, n)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.dfm_segments(
+            inv.data_ptr(), int(inv.dtype == torch.int64),
+            None if keep is None else keep.data_ptr(),
+            (ctypes.c_int64 * t)(*slots), t, n, order.data_ptr(),
+            starts.data_ptr(), scratch.data_ptr(), nbytes, _stream(dev))
+    _native.check(err, "position segments")
+    _count("segments_launches")
+    out, off = [], 0
+    for i, u in enumerate(slots):
+        out.append((order[i], starts[off:off + u + 1]))
+        off += u + 1
+    return out
+
+
+def position_segments(inv: torch.Tensor, num_slots: int,
+                      keep: Optional[torch.Tensor] = None) -> Segments:
+    """(order int32 [N], starts int32 [num_slots+1]): the positions sorted
+    by uid slot, ascending positions within a slot, and where each slot's
+    run starts. Integer bookkeeping for the backward kernel, built once per
+    plan (or per batch of dense lookups) and shared by every embedding
+    name. A CUDA tensor launches the segments kernel (``dfm_segments``,
+    one counting sort) or raises; a CPU tensor takes the plain version,
+    :func:`reference_position_segments`. Both give the same result, which
+    is unique.
+
+    ``keep`` (bool, inv-shaped) leaves the other positions out of every
+    run, as it does an inv outside [0, num_slots): they follow the last
+    slot's run, in ascending position. For a position whose cotangent is
+    always zero (a hashed table's masked position, whose view the mask
+    multiplies by 0) that changes no sum, as adding +-0.0 to a float32 sum
+    changes none, and it spares the fill slot, which collects every masked
+    position, a serial walk over most of the batch."""
+    _check_device(inv, "position segments")
+    if inv.device.type == "cuda":
+        return _launch_segments(
+            inv.reshape(1, -1), [int(num_slots)],
+            None if keep is None else keep.reshape(1, -1))[0]
+    return reference_position_segments(inv, num_slots, keep)
+
+
+def position_segments_tables(inv: torch.Tensor, num_slots,
+                             keep: Optional[torch.Tensor] = None
+                             ) -> List[Segments]:
+    """:func:`position_segments` of T tables at once: ``inv`` int [T, N]
+    (row t is table t's inv), ``keep`` bool [T, N] or None, ``num_slots``
+    one count for every table or one per table. On CUDA tensors one
+    segments launch serves up to ``MAX_TABLES`` tables; CPU tensors take
+    :func:`reference_position_segments_tables`. Each table's (order,
+    starts) equal :func:`position_segments` of that table bit for bit."""
+    _check_device(inv, "position segments")
+    t = inv.shape[0]
+    slots = _slot_counts(num_slots, t)
+    if inv.device.type != "cuda":
+        return reference_position_segments_tables(inv, slots, keep)
+    out = []
+    for s in range(0, t, MAX_TABLES):
+        part = slice(s, s + MAX_TABLES)
+        out += _launch_segments(inv[part], slots[part],
+                                None if keep is None else keep[part])
+    return out
+
+
+class SharedSegments:
+    """One batch's gather ids for T tables, ``ids`` int [T, N] (row t
+    indexes table t, of ``num_slots[t]`` rows), and their position
+    segments, built at the first backward that asks for them (on the card:
+    one :func:`position_segments_tables` call, one segments launch for up
+    to ``MAX_TABLES`` tables) and then shared by every lookup that gathers
+    with these ids: both embedding names of a dense step sort their
+    positions once."""
+
+    def __init__(self, ids: torch.Tensor, num_slots: Sequence[int]):
+        if ids.dim() != 2 or len(num_slots) != ids.shape[0]:
+            raise ValueError(f"shared segments need ids [T, N] and T slot "
+                             f"counts; got {tuple(ids.shape)}, "
+                             f"{len(num_slots)} counts")
+        self.ids = ids
+        self.num_slots = [int(u) for u in num_slots]
+        self._built: Optional[List[Segments]] = None
+        self._lock = threading.Lock()  # backward passes may run on threads
+
+    def segments(self, t: int) -> Segments:
+        """Table t's (order, starts), built with every table's at the first
+        call."""
+        with self._lock:
+            if self._built is None:
+                self._built = position_segments_tables(self.ids,
+                                                       self.num_slots)
+        return self._built[t]
+
+    def rows(self, table: torch.Tensor, t: int = 0) -> torch.Tensor:
+        """``table.index_select(0, ids[t])``, through :class:`IndexRows`
+        where a gradient will flow to ``table``."""
+        if table.shape[0] != self.num_slots[t]:
+            raise ValueError(f"table {t} has {table.shape[0]} rows; these "
+                             f"ids index {self.num_slots[t]}")
+        idx = self.ids[t]
+        if torch.is_grad_enabled() and table.requires_grad:
+            return IndexRows.apply(table, idx, self, t)
+        return table.index_select(0, idx)
 
 
 def reference_take(rows: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
@@ -509,17 +658,20 @@ class TakeRowsSum(torch.autograd.Function):
 
 
 def segment_sum(g: torch.Tensor, ids: torch.Tensor, num_slots: int, *,
-                mode: str = "auto") -> torch.Tensor:
+                mode: str = "auto",
+                segments: Optional[Segments] = None) -> torch.Tensor:
     """[num_slots, ...]: out[u] = the sum of g[p] over the positions p with
     ids[p] = u, in ascending p from 0.0, for g [N, ...] and ids int [N] in
-    [0, num_slots). On CUDA tensors the kernel leg builds the position
-    segments and makes one ``dfm_take_bwd`` launch, so the sum no longer
-    depends on the order of float atomics; CPU tensors and the other legs
-    take the plain version, ``index_add_`` into zeros, which on the CPU
-    adds one position after another."""
+    [0, num_slots). On CUDA tensors the kernel leg makes one
+    ``dfm_take_bwd`` launch over the ids' position segments (``segments``
+    when the caller built them, else one segments launch here), so the sum
+    no longer depends on the order of float atomics; CPU tensors and the
+    other legs take the plain version, ``index_add_`` into zeros, which on
+    the CPU adds one position after another."""
     shape = (num_slots,) + tuple(g.shape[1:])
     if g.device.type == "cuda" and resolve(mode, "take") == "kernel":
-        seg = position_segments(ids, num_slots)
+        seg = position_segments(ids, num_slots) if segments is None \
+            else segments
         return _launch_take_bwd(g.reshape(g.shape[0], -1).contiguous(), seg,
                                 num_slots).reshape(shape)
     return torch.zeros(shape, dtype=g.dtype, device=g.device).index_add_(
@@ -530,26 +682,29 @@ class IndexRows(torch.autograd.Function):
     """``table.index_select(0, idx)`` whose gradient is
     :func:`segment_sum`: each row's cotangents summed in ascending
     position, the same on every run (``index_select``'s own backward is an
-    ``index_add_`` with float atomics on the card)."""
+    ``index_add_`` with float atomics on the card). ``shared`` (a
+    :class:`SharedSegments` whose row ``t`` is ``idx``) supplies the
+    segments on the card, built once for every lookup that shares it."""
 
     @staticmethod
-    def forward(ctx, table, idx):
+    def forward(ctx, table, idx, shared, t):
         ctx.save_for_backward(idx)
         ctx.rows = table.shape[0]
+        ctx.shared, ctx.t = shared, t
         return table.index_select(0, idx)
 
     @staticmethod
     def backward(ctx, g):
         idx, = ctx.saved_tensors
-        return segment_sum(g, idx, ctx.rows), None
+        seg = ctx.shared.segments(ctx.t) if g.device.type == "cuda" else None
+        return segment_sum(g, idx, ctx.rows, segments=seg), None, None, None
 
 
 def index_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table.index_select(0, idx)`` (idx int64 in [0, rows)), through
-    :class:`IndexRows` where a gradient will flow to ``table``."""
-    if torch.is_grad_enabled() and table.requires_grad:
-        return IndexRows.apply(table, idx)
-    return table.index_select(0, idx)
+    :class:`IndexRows` where a gradient will flow to ``table``: one
+    lookup's own :class:`SharedSegments`."""
+    return SharedSegments(idx.reshape(1, -1), [table.shape[0]]).rows(table)
 
 
 def take_rows_sum(rows: Sequence[torch.Tensor], inv: Sequence[torch.Tensor],

@@ -74,6 +74,35 @@ def test_fused_fm_matches_jax(b, f, k, dtype):
         rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("f", [1, 39])
+@pytest.mark.parametrize("k", [8, 33, 64])
+@pytest.mark.parametrize("b", [1, 3, 257])
+def test_fused_fm_vector_and_scalar_path_shapes_match_jax(b, k, f, dtype):
+    """The shapes that pick the CUDA forward's paths (K = 8 and 64 take its
+    16-byte vector path, K = 33 its scalar path; F = 1 leaves most of a
+    row's threads without a chunk; B = 257 ends in a partial block):
+    ``fused_fm`` against the Pallas kernel in interpret mode.
+
+    RTOL and ATOL as above, plus the rounding of float32 sums in another
+    order where they cancel: at F = 39, K = 64 the two halves of y_v reach
+    ~2,500 and cancel to y ~ 1 in some rows, where two sum orders differ by
+    a few ulps of 2,500 (~1e-3), so a row may also differ by 2 eps
+    sqrt(F K) times the magnitude of its terms."""
+    arrays = _inputs(b, f, k, seed=7 * b + 3 * k + f)
+    tw, tvals, txv = (torch.from_numpy(a).to(_TORCH_DT[dtype]) for a in arrays)
+    jw, jvals, jxv = (jnp.asarray(a, _JAX_DT[dtype]) for a in arrays)
+    got = ffm.fused_fm(tw, tvals, txv)
+    assert got.dtype == torch.float32 and got.shape == (b,)
+    want = np.asarray(pallas_fm.fused_fm(jw, jvals, jxv, True))
+    x = txv.double().numpy()
+    terms = (np.abs(tw.double().numpy() * tvals.double().numpy()).sum(1)
+             + 0.5 * (x.sum(1) ** 2).sum(1) + 0.5 * (x * x).sum((1, 2)))
+    rounding = 2 * np.finfo(np.float32).eps * np.sqrt(f * k) * terms
+    assert np.all(np.abs(got.numpy() - want)
+                  <= ATOL + RTOL * np.abs(want) + rounding)
+
+
 @pytest.mark.parametrize("b,f,k", [(8, 5, 4), (64, 39, 32)])
 def test_fm_interaction_matches_jax(b, f, k):
     _, _, xv = _inputs(b, f, k, seed=3)
