@@ -76,6 +76,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    I = 1, every slot out of range and I = H; then times of the two-table
    launch (and of each table alone) beside the bound, the plain version's
    and the ``index_copy_`` calls' on the real slots.
+   Then the accumulation kernel phase: the same kernels at the shapes of
+   an accumulation group (a = 4 microbatches of 1,024: 159,744 positions
+   per table): the merged plan over the hashed step's four tables in one
+   launch (the plan kernel's multi-pass branch), the segments of its inv
+   and of the fused leg's group, the fused take forward and backward over
+   the group at D = 1 and 32 and ``ek.segment_sum`` at the fused leg's
+   group shape, each bit-equal to its plain version and the numpy oracle,
+   then timed beside its bound, its plain version and its library call.
 8. Determinism: the dense, sparse monolithic and dense hashed layouts
    trained twice for 20 steps from the same seed on the same batches;
    losses and every embedding table must be bit-identical between the two
@@ -89,7 +97,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
    FM). Then the hot/cold tier through ``fit`` (81,920 hot rows,
    ``transfer_ahead=2``): tiered against the untiered sparse monolithic
    run, and against the tier with the plain install leg (``xla``); losses
-   and densified tables must agree.
+   and densified tables must agree. Then gradient accumulation (a = 4) on
+   the dense, sparse monolithic and hashed layouts: a = 4 x B = 256
+   against one B = 1,024 step, kernels against the plain legs with the
+   launches of each apply, two same-seed runs bit-identical, and the peak
+   memory of an apply, a B = 1,024 step and a B = 4,096 step. Then the
+   device staging ring through ``fit`` (dense and tiered; ``staging_buffers``
+   1 and 2, ``transfer_ahead`` 0 and 2: bit-identical tables, overlap and
+   host ms per dispatch); ``--on_nonfinite skip`` (a NaN batch skipped,
+   bit-identical to a clean run without it, and the state snapshot's
+   device time); the stall watchdog (an input that stalls, an injected
+   abort, one dump).
 10. Train phases: synthetic TFRecords at the reference width written once
    with the port's ``generate_synthetic_ctr``, then ``tasks.run`` train
    (the ``Config()`` defaults: dropout keep 0.5, Adam, batch 1024; two
@@ -108,11 +126,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
    segments kernel once per step on every layout (the dense lookups of
    both names share one build), the
    install kernel once per tiered plan and never elsewhere; each trained
-   artifact then serves. Then the step time at B=1024 of the dense kernel
+   artifact then serves. Then ``--grad_accum_steps 4 --steps_per_loop 8``
+   on the dense, sparse monolithic and hashed layouts, one epoch each:
+   the embedding kernels launch per apply as predicted, and the final
+   checkpoint's step counts microbatches and its optimizer count applies.
+   Then, on 8 Ki records, ``--on_nonfinite rollback`` replays a NaN batch
+   from the last checkpoint to tables bit-identical to an uninterrupted
+   run, and the CLI in a child process with the preempt-after hook exits
+   42 and, run again, resumes to the same tables. Then the step time at
+   B=1024 of the dense kernel
    and plain paths, of the three untiered layouts (one step, with its
    device busy time and idle share; no sort kernel may run in their
    steps), and of the tier (per dispatch through ``fit``: plan, apply and
-   step).
+   step), and one a = 4 apply against one step per layout.
 11. Serve phase: DeepFM at the reference width (``Config()`` defaults:
    V=117,581, F=39, K=32, tower 128-64-32, bfloat16 tower) with random
    weights from a seed, exported, published behind ``LATEST`` and served by
@@ -128,7 +154,8 @@ over main-path runs with the counts set to 0 just before each: the FM
 kernels over the dense train task (``launches``), the sparse train tasks
 and serving; the plan, take and segments kernels over the hashed sparse
 train task (the take backward and segments also over the other three);
-the install kernel over the tiered train task.
+the install kernel over the tiered train task. ``launches_by_path`` also
+holds the three accumulation train tasks.
 
 Numerics: float32 matmuls run in full float32
 (``torch.backends.cuda.matmul.allow_tf32 = False``) and bfloat16 matmuls
@@ -168,7 +195,12 @@ from deepfm_tpu_torch.ops import fused_fm as ffm  # noqa: E402
 from deepfm_tpu_torch.ops.fused_fm import fused_fm, reference_fm  # noqa: E402
 from deepfm_tpu_torch.serve import ServingEngine  # noqa: E402
 from deepfm_tpu_torch.train import Trainer, tasks  # noqa: E402
+from deepfm_tpu_torch.train import guard as guard_lib  # noqa: E402
+from deepfm_tpu_torch.train.state import StateSnapshot  # noqa: E402
+from deepfm_tpu_torch.utils import checkpoint as ckpt_lib  # noqa: E402
 from deepfm_tpu_torch.utils import export as export_lib  # noqa: E402
+from deepfm_tpu_torch.utils import faults  # noqa: E402
+from deepfm_tpu_torch.utils import preempt as preempt_lib  # noqa: E402
 
 SEED = 0
 
@@ -513,9 +545,10 @@ def kernel_bwd_phase():
 
 def timed(fn, iters: int = 200):
     """(device ms per call from the profiler, or the CUDA-event call time
-    when the profiler records none; call ms; source)."""
-    call = cuda_ms(fn, iters=iters)
-    dev_ms = device_profile(fn)[0]
+    when the profiler records none; call ms; source). ``iters`` below 20
+    (a slow plain version) also cuts the warm-up and profiled calls."""
+    call = cuda_ms(fn, iters=iters, warmup=min(20, iters))
+    dev_ms = device_profile(fn, iters=min(50, iters))[0]
     if dev_ms is None:
         return call, call, "cuda_events"
     return dev_ms, call, "profiler"
@@ -541,13 +574,14 @@ def plan_case_ids(n: int, rows: int, kind, rng) -> np.ndarray:
     return ids
 
 
-def hashed_step_ids(rng, t: int = HASHED_TABLES):
-    """The hashed step's view of one batch: every position reads exactly
-    one of ``t`` tables of HASHED_ROWS rows (drawn uniformly, as the id
-    hash assigns them), and the other tables see their fill id there.
-    Returns (ids int32 [t, N], masks float32 [t, N])."""
-    owner = rng.integers(0, t, PLAN_N)
-    ids = rng.integers(0, HASHED_ROWS, (t, PLAN_N)).astype(np.int32)
+def hashed_step_ids(rng, t: int = HASHED_TABLES, n: int = PLAN_N):
+    """The hashed step's view of one batch (``n`` = B*F positions; an
+    accumulation group's a*B*F): every position reads exactly one of ``t``
+    tables of HASHED_ROWS rows (drawn uniformly, as the id hash assigns
+    them), and the other tables see their fill id there. Returns (ids int32
+    [t, n], masks float32 [t, n])."""
+    owner = rng.integers(0, t, n)
+    ids = rng.integers(0, HASHED_ROWS, (t, n)).astype(np.int32)
     masks = (owner[None, :] == np.arange(t)[:, None])
     ids[~masks] = HASHED_ROWS
     return ids, masks.astype(np.float32)
@@ -654,7 +688,7 @@ def segments_phase(plans):
     composite key), and by the segments kernel in one launch
     (``position_segments_tables``, as ``sparse_plan`` does): bit-equal;
     then the device ms and events of each build."""
-    n = PLAN_N
+    n = plans[0].inv.numel()
     inv = torch.stack([p.inv for p in plans])
     keep = torch.stack([p.mask > 0 for p in plans])
     per_table = lambda: [ek.reference_position_segments(  # noqa: E731
@@ -751,6 +785,74 @@ def segments_bound(inv: torch.Tensor, slots, keep):
     return bound_of(nbytes, 0) + (nbytes,)
 
 
+def _check_segments(label: str, inv_np: np.ndarray, slots, keep_np):
+    """One segments launch over the tables of ``inv_np`` against the plain
+    version on the card, its own second launch and the numpy oracle."""
+    dev = torch.device("cuda")
+    inv = torch.from_numpy(inv_np).to(dev)
+    keep = None if keep_np is None else torch.from_numpy(keep_np).to(dev)
+    before = ek.segments_launches
+    got = ek.position_segments_tables(inv, slots, keep)
+    assert ek.segments_launches - before == 1, label
+    again = ek.position_segments_tables(inv, slots, keep)
+    want = ek.reference_position_segments_tables(inv, slots, keep)
+    torch.cuda.synchronize()
+    longest = 0
+    for i, ((o, st), (o2, st2), (wo, ws)) in enumerate(zip(got, again,
+                                                          want)):
+        assert torch.equal(o, wo) and torch.equal(st, ws), (label, i)
+        assert torch.equal(o, o2) and torch.equal(st, st2), (label, i)
+        oo, os_ = segments_oracle(inv_np[i], slots[i],
+                                  None if keep_np is None else keep_np[i])
+        assert np.array_equal(o.cpu().numpy(), oo), (label, i)
+        assert np.array_equal(st.cpu().numpy(), os_), (label, i)
+        if os_.size:
+            runs = np.diff(np.append(os_, inv_np.shape[1]))
+            longest = max(longest, int(runs.max()))
+    print(f"segments check {label} T={inv.shape[0]} N={inv.shape[1]} "
+          f"U={slots if len(set(slots)) > 1 else slots[0]} "
+          f"{str(inv.dtype)[6:]} keep={keep is not None} longest run "
+          f"{longest}: one launch, bit-equal to the plain version on the "
+          f"card, to its second launch and to the numpy oracle")
+
+
+def segments_time(label: str, inv: torch.Tensor, slots, keep):
+    """The segments kernel's time and device events at one shape beside
+    the plain version's, one ``torch.sort`` + ``searchsorted`` over
+    precomputed composite keys (the library yardstick) and the bound."""
+    dev = inv.device
+    t, n = inv.shape
+    stride = slots[0] + 1
+    keys = ek._segment_keys(inv, slots[0], keep) + torch.arange(
+        0, t * stride, stride, dtype=torch.int32, device=dev)[:, None]
+    keys = keys.reshape(-1)
+    bounds = torch.arange(t * stride, dtype=torch.int32, device=dev)
+
+    def lib():
+        sk, order = torch.sort(keys, stable=True)
+        return order, torch.searchsorted(sk, bounds, out_int32=True)
+
+    kern_fn = lambda: ek.position_segments_tables(  # noqa: E731
+        inv, slots, keep)
+    plain_fn = lambda: ek.reference_position_segments_tables(  # noqa: E731
+        inv, slots, keep)
+    kern = timed(kern_fn)
+    plain = timed(plain_fn)
+    libt = timed(lib)
+    events = [device_profile(f)[1] for f in (kern_fn, plain_fn, lib)]
+    bound = segments_bound(inv, slots, keep)
+    print(f"segments time {label} T={t} N={n} U={slots[0]} "
+          f"{str(inv.dtype)[6:]} keep={keep is not None}: "
+          f"kernel_ms={kern[0]:.6f} plain_ms={plain[0]:.6f} "
+          f"library_ms(torch.sort + searchsorted)={libt[0]:.6f} "
+          f"({kern[2]}) kernel_call_ms={kern[1]:.6f} plain_call_ms="
+          f"{plain[1]:.6f} library_call_ms={libt[1]:.6f} (cuda_events) "
+          f"device_events kernel/plain/library={events[0]:g}/"
+          f"{events[1]:g}/{events[2]:g} bound_ms={bound[0]:.6f} "
+          f"({bound[1]}: {bound[2]} B)")
+    return kern, plain, libt, bound, events
+
+
 def segments_kernel_phase():
     """The segments kernel (``dfm_segments``, one launch for 1 to 8
     tables) against its plain version on the card and the numpy oracle,
@@ -761,31 +863,7 @@ def segments_kernel_phase():
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 60)
     for label, inv_np, slots, keep_np in segment_cases(rng):
-        inv = torch.from_numpy(inv_np).to(dev)
-        keep = None if keep_np is None else torch.from_numpy(keep_np).to(dev)
-        before = ek.segments_launches
-        got = ek.position_segments_tables(inv, slots, keep)
-        assert ek.segments_launches - before == 1, label
-        again = ek.position_segments_tables(inv, slots, keep)
-        want = ek.reference_position_segments_tables(inv, slots, keep)
-        torch.cuda.synchronize()
-        longest = 0
-        for i, ((o, st), (o2, st2), (wo, ws)) in enumerate(zip(got, again,
-                                                              want)):
-            assert torch.equal(o, wo) and torch.equal(st, ws), (label, i)
-            assert torch.equal(o, o2) and torch.equal(st, st2), (label, i)
-            oo, os_ = segments_oracle(inv_np[i], slots[i],
-                                      None if keep_np is None else keep_np[i])
-            assert np.array_equal(o.cpu().numpy(), oo), (label, i)
-            assert np.array_equal(st.cpu().numpy(), os_), (label, i)
-            if os_.size:
-                runs = np.diff(np.append(os_, inv_np.shape[1]))
-                longest = max(longest, int(runs.max()))
-        print(f"segments check {label} T={inv.shape[0]} N={inv.shape[1]} "
-              f"U={slots if len(set(slots)) > 1 else slots[0]} "
-              f"{str(inv.dtype)[6:]} keep={keep is not None} longest run "
-              f"{longest}: one launch, bit-equal to the plain version on the "
-              f"card, to its second launch and to the numpy oracle")
+        _check_segments(label, inv_np, slots, keep_np)
 
     gen = np.random.default_rng(SEED + 61)
     ids, masks = hashed_step_ids(gen)
@@ -803,39 +881,8 @@ def segments_kernel_phase():
             0, HASHED_ROWS, (HASHED_TABLES, PLAN_N))).to(dev),
             [HASHED_ROWS] * HASHED_TABLES, None),
     }
-    timing = {}
-    for label, (inv, slots, keep) in shapes.items():
-        t, n = inv.shape
-        stride = slots[0] + 1
-        keys = ek._segment_keys(inv, slots[0], keep) + torch.arange(
-            0, t * stride, stride, dtype=torch.int32, device=dev)[:, None]
-        keys = keys.reshape(-1)
-        bounds = torch.arange(t * stride, dtype=torch.int32, device=dev)
-
-        def lib():
-            sk, order = torch.sort(keys, stable=True)
-            return order, torch.searchsorted(sk, bounds, out_int32=True)
-
-        kern_fn = lambda: ek.position_segments_tables(  # noqa: E731
-            inv, slots, keep)
-        plain_fn = lambda: ek.reference_position_segments_tables(  # noqa: E731
-            inv, slots, keep)
-        kern = timed(kern_fn)
-        plain = timed(plain_fn)
-        libt = timed(lib)
-        events = [device_profile(f)[1] for f in (kern_fn, plain_fn, lib)]
-        bound = segments_bound(inv, slots, keep)
-        timing[label] = (kern, plain, libt, bound, events)
-        print(f"segments time {label} T={t} N={n} U={slots[0]} "
-              f"{str(inv.dtype)[6:]} keep={keep is not None}: "
-              f"kernel_ms={kern[0]:.6f} plain_ms={plain[0]:.6f} "
-              f"library_ms(torch.sort + searchsorted)={libt[0]:.6f} "
-              f"({kern[2]}) kernel_call_ms={kern[1]:.6f} plain_call_ms="
-              f"{plain[1]:.6f} library_call_ms={libt[1]:.6f} (cuda_events) "
-              f"device_events kernel/plain/library={events[0]:g}/"
-              f"{events[1]:g}/{events[2]:g} bound_ms={bound[0]:.6f} "
-              f"({bound[1]}: {bound[2]} B)")
-    return timing
+    return {label: segments_time(label, inv, slots, keep)
+            for label, (inv, slots, keep) in shapes.items()}
 
 
 def take_bwd_oracle(g: torch.Tensor, inv: torch.Tensor, keep, u: int):
@@ -859,20 +906,21 @@ def take_bwd_bound(g_cols: int, kept, num_slots, itemsize: int = 4):
     return bound_of(nbytes, sum(kept) * g_cols) + (nbytes,)
 
 
-def take_tables_phase():
+def take_tables_phase(n: int = PLAN_N, plain_iters: int = 200):
     """The fused forward over the hashed step's four masked tables (one
-    plan launch over them), bit-equal to the plain composition at D = 1
+    plan launch over them; ``n`` positions: one batch's, or an
+    accumulation group's), bit-equal to the plain composition at D = 1
     and 32; the one-launch backward over the four tables bit-equal to the
     numpy oracle, to its second launch and to one launch per table, and
     the gradients through ``TakeRowsSum`` (one backward launch) bit-equal
-    to it; the segments' build per table and batched; then the times."""
+    to it; the segments' build per table and batched; then the times
+    (``plain_iters`` calls of the slow plain versions)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 32)
-    ids, masks = hashed_step_ids(np.random.default_rng(SEED + 33))
+    ids, masks = hashed_step_ids(np.random.default_rng(SEED + 33), n=n)
     plans = ek.plan_build_tables(
         torch.from_numpy(ids).to(dev), [HASHED_ROWS] * HASHED_TABLES,
         [torch.from_numpy(m).to(dev) for m in masks])
-    n = PLAN_N
     inv = [p.inv for p in plans]
     mk = [p.mask for p in plans]
     keep = [p.mask > 0 for p in plans]
@@ -931,7 +979,8 @@ def take_tables_phase():
                                    **TAKE_BWD_TOL)
         bwd_t = timed(lambda: ek._launch_take_bwd_tables(g, segs, slots))
         bwd_plain = timed(lambda: [ek.reference_take_bwd(
-            g * m[:, None], v, n) for v, m in zip(inv, mk)])
+            g * m[:, None], v, n) for v, m in zip(inv, mk)],
+            iters=plain_iters)
         bwd_lib = timed(lib_bwd)
         bb = take_bwd_bound(d, kept, slots)
         timing[("take_bwd", HASHED_TABLES, d)] = (bwd_t, bwd_plain, bwd_lib,
@@ -942,9 +991,10 @@ def take_tables_phase():
               f"the tables end to end)={bwd_lib[0]:.6f} ({bwd_t[2]}) "
               f"kernel_call_ms={bwd_t[1]:.6f} plain_call_ms="
               f"{bwd_plain[1]:.6f} library_call_ms={bwd_lib[1]:.6f} "
-              f"(cuda_events) bound_ms={bb[0]:.6f} ({bb[1]}: {bb[2]} B); "
-              f"recorded, not this run: {HASHED_TABLES} launches x "
-              f"{PREV_TAKE_BWD_MS[d]:.6f} ms (PERF.md)")
+              f"(cuda_events) bound_ms={bb[0]:.6f} ({bb[1]}: {bb[2]} B)"
+              + (f"; recorded, not this run: {HASHED_TABLES} launches x "
+                 f"{PREV_TAKE_BWD_MS[d]:.6f} ms (PERF.md)" if n == PLAN_N
+                 else ""))
 
         # The library's one call for the same function: a sum bag of T
         # rows per position, the masks as per-sample weights, over the
@@ -961,7 +1011,8 @@ def take_tables_phase():
         # slot's zero row, so any sum order gives the same value.
         torch.testing.assert_close(bag(), want, rtol=1e-6, atol=1e-6)
         fwd = timed(lambda: ek._launch_take_fwd(rows, inv, mk))
-        plain = timed(lambda: ek.reference_take_sum(rows, inv, mk))
+        plain = timed(lambda: ek.reference_take_sum(rows, inv, mk),
+                      iters=plain_iters)
         lib = timed(bag)
         bound = take_bound(n, d, ref_rows, masked=True)
         timing[("take_fwd", HASHED_TABLES, d)] = (fwd, plain, lib, bound)
@@ -1065,25 +1116,26 @@ def take_phase():
     return max_err, timing, seg_t
 
 
-def segment_sum_phase():
+SEGMENT_SUM_CASES = (("dense_fm_w", 1, MONO_ROWS),
+                     ("dense_fm_v", 32, MONO_ROWS),
+                     ("fused_leg", 2 + 32, MONO_ROWS + 1))
+
+
+def segment_sum_phase(n: int = PLAN_N, cases=SEGMENT_SUM_CASES):
     """The position-order segment sum that replaces float atomics on the
     dense and the monolithic layouts (``ek.segment_sum``: one segments
-    launch, then one take backward launch): one batch's ids over the padded
-    vocabulary at
-    the dense lookups' widths (D = 1, 32) and over the fused leg's rows + 1
-    slots at its width (1 + 1 + 32 columns), bit-equal to the numpy
-    ascending-p oracle and to its second call; then its time (segments
-    build included) beside ``index_add_`` into zeros, the call it
-    replaces."""
+    launch, then one take backward launch): ``n`` ids (one batch's, or an
+    accumulation group's) over the padded vocabulary at the dense lookups'
+    widths (D = 1, 32) and over the fused leg's rows + 1 slots at its width
+    (1 + 1 + 32 columns), bit-equal to the numpy ascending-p oracle and to
+    its second call; then its time (segments build included) beside
+    ``index_add_`` into zeros, the call it replaces."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 50)
     gen = torch.Generator(device=dev).manual_seed(SEED + 51)
-    n = PLAN_N
     ids = torch.from_numpy(rng.integers(0, MONO_ROWS - 51, n)).to(dev)
     timing = {}
-    for label, d, u in (("dense_fm_w", 1, MONO_ROWS),
-                        ("dense_fm_v", 32, MONO_ROWS),
-                        ("fused_leg", 2 + 32, MONO_ROWS + 1)):
+    for label, d, u in cases:
         g = torch.randn(n, d, device=dev, generator=gen)
         before = ek.take_bwd_launches, ek.segments_launches
         a = ek.segment_sum(g, ids, u)
@@ -1410,18 +1462,24 @@ def make_train_data(workdir: str, cfg: Config, *, files: int = TRAIN_FILES,
     return {"dir": data, "train": files * per_file, "eval": eval_records}
 
 
-def launch_task(cfg: Config, task: str, dev: torch.device) -> dict:
-    """One task through the CLI entry point, ``python -m
-    deepfm_tpu_torch.launch``, with ``cfg``'s non-default fields as flags;
-    returns its JSON result line."""
+def _launch_argv(cfg: Config, task: str):
+    """The launcher's argv for ``task``: ``cfg``'s non-default fields as
+    flags."""
     default = Config().to_dict()
     argv = ["--task_type", task]
     for k, v in cfg.to_dict().items():
         if k != "task_type" and v != default[k]:
             argv += [f"--{k}", str(v)]
+    return argv
+
+
+def launch_task(cfg: Config, task: str, dev: torch.device) -> dict:
+    """One task through the CLI entry point, ``python -m
+    deepfm_tpu_torch.launch``, with ``cfg``'s non-default fields as flags;
+    returns its JSON result line."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        launch.main(argv, device=dev)
+        launch.main(_launch_argv(cfg, task), device=dev)
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
@@ -1445,8 +1503,11 @@ def train_phase(workdir: str, data: dict, cfg: Config, dev: torch.device,
                 name: str = "dense", epochs: int = TRAIN_EPOCHS):
     """The launcher's tasks on ``dev``: train (with an eval after each
     epoch), eval, export; the trained artifact serves. Returns ({kernel:
-    launches in the train task}, train result). On a CPU device (a
-    rehearsal at a small size) the wrappers launch nothing."""
+    launches in the train task}, train result). Under
+    ``--grad_accum_steps a`` the embedding kernels launch per apply (a
+    steps), and the final checkpoint's ``step`` must count microbatches and
+    its optimizer ``count`` applies. On a CPU device (a rehearsal at a
+    small size) the wrappers launch nothing."""
     run_dir = os.path.join(workdir, name)
     cfg = cfg.replace(data_dir=data["dir"], val_data_dir=data["dir"],
                       model_dir=os.path.join(run_dir, "ckpt"),
@@ -1456,6 +1517,8 @@ def train_phase(workdir: str, data: dict, cfg: Config, dev: torch.device,
     eval_batches = -(-data["eval"] // cfg.batch_size)
     hashed = bool(cfg.embedding_bucket_sizes)
     tiered = cfg.embedding_tiering == "hot_cold"
+    accum = cfg.grad_accum_steps
+    applies = steps // accum  # steps_per_loop is a multiple of accum
 
     loss_log = _LossLog()
     loop_log = logging.getLogger("deepfm_tpu_torch.train.loop")
@@ -1482,13 +1545,17 @@ def train_phase(workdir: str, data: dict, cfg: Config, dev: torch.device,
     assert len(loss_log.losses) >= 6 and last < first, loss_log.losses
     assert res["auc"] > 0.5, res
     on = int(dev.type == "cuda")
-    emb_steps = steps if hashed else 0
+    sparse = cfg.embedding_update == "sparse"
+    # Plans, takes and the sparse segments run once per apply (one per
+    # step without accumulation); the dense lookups once per microbatch.
+    emb_applies = applies if hashed else 0
     # The take backward sums the embedding gradients in position order on
     # every layout: once per name (the dense lookups, the hashed views), or
-    # once per step for all names (the fused leg of the monolithic table,
+    # once per apply for all names (the fused leg of the monolithic table,
     # tiered or not).
-    fused_leg = cfg.embedding_update == "sparse" and not hashed
-    bwd_per_step = 1 if fused_leg else EMB_PARAMS
+    fused_leg = sparse and not hashed
+    take_bwd = (applies if fused_leg else EMB_PARAMS * applies if sparse
+                else EMB_PARAMS * steps)
     plans = 0
     if tiered:
         # One plan per dispatch, one dispatch per step; every batch misses
@@ -1503,15 +1570,28 @@ def train_phase(workdir: str, data: dict, cfg: Config, dev: torch.device,
               f"{res['hotcold_apply_s'] / plans:.6f} (host clock)")
     want = {"fused_fm": on * (steps + epochs * eval_batches),
             "fused_fm_bwd": on * steps,
-            "plan_build": on * emb_steps,
-            "take_fwd": on * EMB_PARAMS * emb_steps,
-            "take_bwd": on * bwd_per_step * steps,
-            # One segments build per step on every layout: the dense
-            # lookups' (both names, every hashed table), the hashed plan's
-            # or the fused leg's.
-            "segments": on * steps,
+            "plan_build": on * emb_applies,
+            "take_fwd": on * EMB_PARAMS * emb_applies,
+            "take_bwd": on * take_bwd,
+            # One segments build per step on every layout (per apply on the
+            # sparse ones): the dense lookups' (both names, every hashed
+            # table), the hashed plan's or the fused leg's.
+            "segments": on * (applies if sparse else steps),
             "install": on * plans}
     assert launches == want, (name, launches, want)
+    if accum > 1:
+        trainer = Trainer(cfg, device=dev)
+        final = ckpt_lib.CheckpointManager(cfg.model_dir).restore(
+            trainer.init_state())
+        opt = final.opt_state
+        counts = (opt["count"], opt["base"]["count"]) if sparse else (
+            opt["count"],)
+        assert final.step == steps and set(counts) == {applies}, (
+            final.step, counts)
+        print(f"train {name}: a={accum} checkpoint step={final.step} "
+              f"(microbatches) optimizer count={counts[0]} (applies); "
+              f"launches per apply: " + " ".join(
+                  f"{k}={v / applies:g}" for k, v in launches.items()))
 
     _zero_counts()
     ev = launch_task(cfg, "eval", dev)
@@ -1809,6 +1889,487 @@ def forward_timing(artifact: str, cfg: Config) -> None:
                   f"idle_share={idle}")
 
 
+# ---------------------------------------------------------------------------
+# Gradient accumulation, the staging ring, the guard and preemption
+# ---------------------------------------------------------------------------
+
+# Gradient accumulation at the reference batch: a = 4 microbatches of
+# 1,024 per apply. The merged plan dedups a*B*F = 159,744 ids per hashed
+# table in one launch (the plan kernel's multi-pass branch), and the takes,
+# the segments and the fused leg's segment sum run over 4x a step's
+# positions.
+ACCUM = 4
+ACCUM_N = ACCUM * PLAN_N
+ACCUM_LAYOUTS = {"dense": {}, **SPARSE_LAYOUTS}
+ACCUM_APPLIES = 5
+# a = 4 x B = 256 against one B = 1,024 step, and kernels against the plain
+# legs at a = 4. In float32 they add the same terms in another order (a
+# microbatch's mean times 1/4 is the big batch's 1/1,024 exactly): the
+# losses within 1e-5 and the norm of the tables' difference within 1e-4 of
+# the norm of their movement from the init (a probe on the card measured
+# 1.3e-6 at most, and max |diff| 4.1e-7). Not element by element: Adam
+# normalizes each element's step, so a gradient near zero that rounds to
+# the other sign moves that element by up to 2 lr per apply. With the
+# reference's bfloat16 tower the tower's weight gradients are GEMM outputs
+# rounded to bf16 once per microbatch, so a = 4 sums four rounded partials
+# where B = 1,024 rounds once, and the trajectories part at the bf16 level
+# (the probe: 4-9% of the movement); there the losses are held as the step
+# parities hold theirs (1e-3) and the table difference is printed.
+ACCUM_F32_LOSS_ATOL = 1e-5
+ACCUM_F32_REL_MOVE = 1e-4
+ACCUM_LOSS_ATOL = 1e-3
+# The launches one apply at a = 4 makes, by layout (the prediction PERF.md
+# states): the FM kernels once per microbatch; the hashed plan, segments
+# and takes once per apply (the merged plan); the fused leg's segments and
+# take backward once per apply (one segment sum over the group); the dense
+# lookups' segments and take backwards per microbatch.
+ACCUM_LAUNCHES_PER_APPLY = {
+    "dense": dict(fused_fm=4, fused_fm_bwd=4, plan_build=0, take_fwd=0,
+                  take_bwd=8, segments=4, install=0),
+    "sparse_monolithic": dict(fused_fm=4, fused_fm_bwd=4, plan_build=0,
+                              take_fwd=0, take_bwd=1, segments=1, install=0),
+    "sparse_hashed": dict(fused_fm=4, fused_fm_bwd=4, plan_build=1,
+                          take_fwd=2, take_bwd=2, segments=1, install=0),
+}
+# Staging through fit: 48 batches at steps_per_loop 8 (dense), 24 at 1
+# (the tier), every slot count and depth, dropout on.
+STAGING_BATCHES = {"dense": 48, "sparse_tiered": 24}
+# The task-level guard and preemption runs: 2 x 4,096 records, batch
+# 1,024, two epochs (16 steps), a checkpoint every 4 steps.
+RUNTIME_FILES, RUNTIME_PER_FILE = 2, 4096
+
+
+def accum_kernels_phase() -> dict:
+    """The kernels at the accumulation group's shapes (a = 4, B = 1,024:
+    N = 159,744 positions per table): the merged plan over the hashed
+    step's four tables in one launch; the segments of that plan's inv
+    (T = 4, keep) and of the fused leg's group (U = 117,633); the fused
+    take forward and backward over the group's positions at D = 1 and 32;
+    ``ek.segment_sum`` at the fused leg's group shape. Each bit-equal to
+    its plain version on the card and to the numpy oracle, then timed
+    beside its bound, its plain version and its library call."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 70)
+    ids, masks = hashed_step_ids(rng, n=ACCUM_N)
+    rows4 = [HASHED_ROWS] * HASHED_TABLES
+    _check_plans("accum_hashed_4_tables", list(ids), rows4)
+    t4 = torch.from_numpy(ids).to(dev)
+    offsets = torch.arange(HASHED_TABLES, device=dev)[:, None] * (
+        HASHED_ROWS + 1)
+    joint = (t4 + offsets).reshape(-1)
+    kern = timed(lambda: ek.plan_build_tables(t4, rows4))
+    plain = timed(lambda: [emb_ops.make_plan_counting(x, HASHED_ROWS)
+                           for x in t4])
+    lib = timed(lambda: torch.unique(joint, sorted=True,
+                                     return_inverse=True))
+    bound = plan_bound(HASHED_TABLES, n=ACCUM_N)
+    print(f"plan time accum T={HASHED_TABLES} N={ACCUM_N} rows={HASHED_ROWS}"
+          f" (one launch, a={ACCUM} x B=1024): kernel_ms={kern[0]:.6f} "
+          f"plain_ms={plain[0]:.6f} library_ms(torch.unique, one call)="
+          f"{lib[0]:.6f} ({kern[2]}) kernel_call_ms={kern[1]:.6f} "
+          f"plain_call_ms={plain[1]:.6f} library_call_ms={lib[1]:.6f} "
+          f"(cuda_events) bound_ms={bound[0]:.6f} ({bound[1]}: {bound[2]} B)")
+    out = {"plan": (kern, plain, lib, bound)}
+
+    plans = ek.plan_build_tables(t4, rows4, [torch.from_numpy(m).to(dev)
+                                             for m in masks])
+    inv = torch.stack([p.inv for p in plans])
+    keep = torch.stack([p.mask > 0 for p in plans])
+    _check_segments("accum_hashed_keep", inv.cpu().numpy(),
+                    [ACCUM_N] * HASHED_TABLES, keep.cpu().numpy())
+    fused_ids = rng.integers(0, MONO_ROWS - 51, (1, ACCUM_N))
+    _check_segments("accum_fused_leg", fused_ids, [MONO_ROWS + 1], None)
+    out["segments"] = {
+        "accum_hashed": segments_time("accum_hashed", inv,
+                                      [ACCUM_N] * HASHED_TABLES, keep),
+        "accum_fused_leg": segments_time(
+            "accum_fused_leg", torch.from_numpy(fused_ids).to(dev),
+            [MONO_ROWS + 1], None)}
+    out["take"], _ = take_tables_phase(n=ACCUM_N, plain_iters=10)
+    out["segment_sum"] = segment_sum_phase(n=ACCUM_N,
+                                           cases=(SEGMENT_SUM_CASES[2],))
+    return out
+
+
+def _accum_losses(cfg: Config, dev: torch.device, groups):
+    """Per-apply losses, the fm_w/fm_v tables and the kernel launches of
+    ``multi_step`` over each group from the seeded init."""
+    trainer = Trainer(cfg, device=dev)
+    state = trainer.init_state(SEED)
+    init = {k: v.detach().clone() for k, v in state.params.items()
+            if k.split(".")[0] in ("fm_w", "fm_v")}
+    before = _counts()
+    losses = []
+    for group in groups:
+        state, m = trainer.multi_step(state, [trainer.put_batch(b)
+                                              for b in group])
+        losses.append(m["loss"])
+    launches = {k: v - before[k] for k, v in _counts().items()}
+    tables = {k: v.detach().clone() for k, v in state.params.items()
+              if k.split(".")[0] in ("fm_w", "fm_v")}
+    tables["init"] = init
+    return torch.stack(losses), tables, launches, state
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in a if k != "init")
+
+
+def _rel_move(a: dict, b: dict) -> float:
+    """||a - b|| over ||b - init||, over every table."""
+    keys = [k for k in a if k != "init"]
+    diff = sum(float(((a[k] - b[k]).double() ** 2).sum()) for k in keys)
+    move = sum(float(((b[k] - b["init"][k]).double() ** 2).sum())
+               for k in keys)
+    return (diff / max(move, 1e-300)) ** 0.5
+
+
+def _peak_mb(cfg: Config, dev: torch.device, groups):
+    """Peak device memory (MB) one dispatch of ``groups[0]`` adds above the
+    state's own (None on a CPU device: not measured)."""
+    if dev.type != "cuda":
+        return None
+    trainer = Trainer(cfg, device=dev)
+    state = trainer.init_state(SEED)
+    dev_group = [trainer.put_batch(b) for b in groups[0]]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    if len(dev_group) == 1:
+        trainer.train_step(state, dev_group[0])
+    else:
+        trainer.multi_step(state, dev_group)
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def accum_parity_phase(cfg: Config, dev: torch.device,
+                       applies: int = ACCUM_APPLIES) -> None:
+    """Accumulation at the reference width, one seeded init, dropout keep
+    1.0, for the dense, sparse monolithic (fused leg) and hashed layouts:
+    a = 4 x B = 256 against one B = 1,024 step per apply, with a float32
+    tower and with the reference's bf16 one; kernels against the plain legs
+    (``embedding_kernels xla``, no fused FM) at a = 4 x B = 1,024 in
+    float32, with the launches of each apply; two same-seed a = 4 runs with
+    dropout on, bit-identical in losses and tables; and the peak device
+    memory of an a = 4 x B = 1,024 apply, one B = 1,024 step and one
+    B = 4,096 step."""
+    cfg = cfg.replace(dropout="1.0,1.0,1.0")
+    mb = cfg.batch_size // ACCUM
+    big = random_batches(cfg, applies, SEED + 16)
+    micro = [{k: v[i * mb:(i + 1) * mb] for k, v in b.items()}
+             for b in big for i in range(ACCUM)]
+    micro_groups = [micro[i * ACCUM:(i + 1) * ACCUM] for i in range(applies)]
+    full = random_batches(cfg, ACCUM * applies, SEED + 17)
+    full_groups = [full[i * ACCUM:(i + 1) * ACCUM] for i in range(applies)]
+    f32 = cfg.replace(compute_dtype="float32")
+    for name, kw in ACCUM_LAYOUTS.items():
+        for c in (f32, cfg):
+            acc = c.replace(grad_accum_steps=ACCUM, **kw)
+            la, ta, _, _ = _accum_losses(acc.replace(batch_size=mb), dev,
+                                         micro_groups)
+            lb, tb, _, _ = _accum_losses(c.replace(**kw), dev,
+                                         [[b] for b in big])
+            dl, rel = float((la - lb).abs().max()), _rel_move(ta, tb)
+            exact = c.compute_dtype == "float32"
+            atol = ACCUM_F32_LOSS_ATOL if exact else ACCUM_LOSS_ATOL
+            assert torch.isfinite(la).all() and dl <= atol, (name, la, lb)
+            assert rel <= ACCUM_F32_REL_MOVE or not exact, (name, rel)
+            print(f"accum parity {name} {c.compute_dtype} tower: {applies} "
+                  f"applies of a={ACCUM} x B={mb} vs one B={cfg.batch_size} "
+                  f"step each: max |loss diff| {dl:.3e} (atol {atol}), table "
+                  f"diff {rel:.3e} of the tables' movement"
+                  + (f" (at most {ACCUM_F32_REL_MOVE})" if exact else "")
+                  + f", max |table diff| {_max_diff(ta, tb):.3e}; loss "
+                  f"{float(la[0]):.5f} -> {float(la[-1]):.5f}")
+
+        acc = f32.replace(grad_accum_steps=ACCUM, **kw)
+        lk, tk, launches, state = _accum_losses(acc, dev, full_groups)
+        per_apply = {k: v / applies for k, v in launches.items()}
+        if dev.type == "cuda":
+            assert per_apply == ACCUM_LAUNCHES_PER_APPLY[name], (name,
+                                                                 per_apply)
+        assert state.step == ACCUM * applies
+        opt = state.opt_state
+        assert opt["count"] == applies, opt["count"]
+        plain = acc.replace(use_pallas=False, embedding_kernels="xla")
+        lp, tp, _, _ = _accum_losses(plain, dev, full_groups)
+        dl, rel = float((lk - lp).abs().max()), _rel_move(tk, tp)
+        assert dl <= ACCUM_F32_LOSS_ATOL and rel <= ACCUM_F32_REL_MOVE, (
+            name, dl, rel)
+        print(f"accum parity {name}: a={ACCUM} x B={cfg.batch_size} kernels "
+              f"vs plain legs, float32 tower, {applies} applies: max |loss "
+              f"diff| {dl:.3e}, table diff {rel:.3e} of the movement, max "
+              f"|table diff| {_max_diff(tk, tp):.3e}; step={state.step} "
+              f"count={opt['count']}; launches per apply {per_apply}")
+
+        drop = cfg.replace(grad_accum_steps=ACCUM, dropout=Config().dropout,
+                           **kw)
+        l1, t1, _, _ = _accum_losses(drop, dev, full_groups)
+        l2, t2, _, _ = _accum_losses(drop, dev, full_groups)
+        bits = torch.equal(l1, l2) and all(torch.equal(t1[k], t2[k])
+                                           for k in t1 if k != "init")
+        print(f"accum determinism {name}: two same-seed runs of {applies} "
+              f"applies (dropout {drop.dropout}): max |loss diff| "
+              f"{float((l1 - l2).abs().max())!r}, max |table diff| "
+              f"{_max_diff(t1, t2)!r}; bit-identical={bits}")
+        assert bits, name
+
+        acc = cfg.replace(grad_accum_steps=ACCUM, **kw)
+        mem = {"a4_B1024_apply": _peak_mb(acc, dev, full_groups),
+               "B1024_step": _peak_mb(cfg.replace(**kw), dev, [[full[0]]]),
+               "B4096_step": _peak_mb(cfg.replace(
+                   batch_size=ACCUM * cfg.batch_size, **kw), dev,
+                                      [[{k: np.concatenate([b[k] for b in
+                                                            full[:4]])
+                                         for k in full[0]}]])}
+        print(f"accum peak memory {name} (max_memory_allocated above the "
+              f"state): " + " ".join(
+                  f"{k}={'not measured' if v is None else f'{v:.1f}MB'}"
+                  for k, v in mem.items()))
+
+
+def accum_step_timing(cfg: Config) -> dict:
+    """One a = 4 apply (``multi_step`` over 4 batches of 1,024) against one
+    B = 1,024 step, in turns, per layout: call ms (CUDA events over
+    back-to-back dispatches), device busy ms and device events per
+    dispatch (torch.profiler)."""
+    dev = torch.device("cuda")
+    batches = random_batches(cfg, ACCUM, SEED + 18)
+    out = {}
+    for turn in range(2):
+        for name, kw in ACCUM_LAYOUTS.items():
+            for label, c, group in (
+                    ("step", cfg.replace(**kw), batches[:1]),
+                    ("apply", cfg.replace(grad_accum_steps=ACCUM, **kw),
+                     batches)):
+                trainer = Trainer(c, device=dev)
+                state = trainer.init_state(SEED)
+                dev_group = [trainer.put_batch(b) for b in group]
+                fn = (lambda t=trainer, st=state, g=dev_group:
+                      t.multi_step(st, g))
+                call = cuda_ms(fn, iters=20, warmup=3)
+                busy, events = device_profile(fn, iters=5)
+                out[(turn, name, label)] = (call, busy, events)
+                busy_txt = "not measured" if busy is None else f"{busy:.4f}"
+                print(f"accum timing {name} {label} ({len(group)} x B="
+                      f"{cfg.batch_size}): call_ms={call:.4f} device_busy_ms="
+                      f"{busy_txt} device_events={events:g} "
+                      f"(turn {turn + 1})")
+    return out
+
+
+def staging_phase(cfg: Config, dev: torch.device,
+                  tier: dict = TIERED) -> dict:
+    """The device staging ring through ``fit``, dense (steps_per_loop 8)
+    and tiered (81,920 hot rows, one batch a dispatch), dropout on:
+    ``staging_buffers`` 1 and 2 and ``transfer_ahead`` 0 and 2 leave the
+    tables bit-identical; each prints the ring's overlap fraction, its
+    transfer and wait seconds and the host ms per dispatch (the fit's wall
+    clock, which ends in a sync, over its dispatches)."""
+    out = {}
+    for name, kw in (("dense", {}), ("sparse_tiered", tier)):
+        base = cfg.replace(**kw)
+        k = base.steps_per_loop
+        batches = random_batches(base, STAGING_BATCHES[name], SEED + 13)
+        warm = Trainer(base, device=dev)
+        warm.fit(warm.init_state(SEED), batches[:2 * k])
+        ref = None
+        for buffers in (1, 2):
+            for depth in (0, 2):
+                c = base.replace(staging_buffers=buffers,
+                                 transfer_ahead=depth)
+                trainer = Trainer(c, device=dev)
+                state = trainer.init_state(SEED)
+                t0 = time.perf_counter()
+                state, res = trainer.fit(state, batches)
+                wall = time.perf_counter() - t0
+                if trainer._tier is not None:
+                    state = trainer._tier.densified(state)
+                tables = {n: state.params[n].detach().clone()
+                          for n in ("fm_w", "fm_v")}
+                if ref is None:
+                    ref = tables
+                same = all(torch.equal(ref[n], tables[n]) for n in ref)
+                dispatches = len(batches) // k
+                out[(name, buffers, depth)] = (
+                    res["staging_overlap_fraction"],
+                    res["staging_transfer_s"], res["staging_wait_s"],
+                    wall / dispatches * 1e3)
+                print(f"staging {name} staging_buffers={buffers} "
+                      f"transfer_ahead={depth}: {len(batches)} batches in "
+                      f"{dispatches} dispatches, overlap_fraction="
+                      f"{res['staging_overlap_fraction']:.4f} transfer_s="
+                      f"{res['staging_transfer_s']:.6f} wait_s="
+                      f"{res['staging_wait_s']:.6f} host_ms_per_dispatch="
+                      f"{wall / dispatches * 1e3:.3f} (host clock); tables "
+                      f"bit-identical to staging_buffers=1 transfer_ahead=0: "
+                      f"{same}")
+                assert same, (name, buffers, depth)
+    return out
+
+
+def guard_phase(cfg: Config, dev: torch.device) -> dict:
+    """``--on_nonfinite skip`` through ``fit``, dense and hashed, dropout
+    on: one NaN-poisoned batch among 8 leaves the tables, the generator and
+    the step bit-identical to a clean run without it; then the device time
+    of the state snapshot a skip-guarded dispatch takes, beside the bytes
+    it copies and their bound (each byte read once and written once)."""
+    out = {}
+    for name, kw in (("dense", {}),
+                     ("sparse_hashed", SPARSE_LAYOUTS["sparse_hashed"])):
+        c = cfg.replace(on_nonfinite="skip", steps_per_loop=1, **kw)
+        clean = random_batches(c, 8, SEED + 14)
+        poison = dict(clean[0])
+        poison["feat_vals"] = np.full_like(poison["feat_vals"], np.nan)
+        runs = []
+        for batches, guard in ((clean, None),
+                               (clean[:3] + [poison] + clean[3:],
+                                guard_lib.NonFiniteGuard.from_config(c))):
+            trainer = Trainer(c, device=dev)
+            state, res = trainer.fit(trainer.init_state(SEED), batches,
+                                     guard=guard)
+            runs.append((state, res, guard))
+        (sc, rc, _), (sg, rg, guard) = runs
+        same = all(torch.equal(sc.params[k], sg.params[k]) for k in sc.params)
+        same = same and torch.equal(sc.rng.get_state(), sg.rng.get_state())
+        assert guard.health.nonfinite_skips == 1 and rg["steps"] == 8
+        assert sg.step == sc.step == 8 and same, name
+        snap = StateSnapshot()
+        snap.take(sg)
+        ms = busy = None
+        if dev.type == "cuda":
+            ms = cuda_ms(lambda: snap.take(sg), iters=50, warmup=5)
+            busy = device_profile(lambda: snap.take(sg), iters=20)[0]
+        nbytes = snap.nbytes
+        bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = (ms, busy, nbytes, bound)
+        print(f"guard skip {name}: one NaN batch of 9 skipped "
+              f"(nonfinite_skips=1), tables, generator and step bit-identical "
+              f"to the clean 8-batch run: {same}; snapshot per dispatch: "
+              f"{nbytes} B, call_ms={ms if ms is None else f'{ms:.6f}'} "
+              f"(cuda_events) device_ms="
+              f"{busy if busy is None else f'{busy:.6f}'} bound_ms="
+              f"{bound:.6f} (bytes, read + write)")
+    return out
+
+
+def watchdog_phase(cfg: Config, dev: torch.device) -> None:
+    """The stall watchdog through ``fit``: an input iterator that stalls
+    after 3 batches trips it once, and the injected abort receives the
+    dump (the default abort would exit the process with code 43)."""
+    c = cfg.replace(dispatch_timeout_s=5.0, steps_per_loop=1)
+    trainer = Trainer(c, device=dev)
+    fired = threading.Event()
+    dumps = []
+    trainer.watchdog_abort = lambda d: (dumps.append(d), fired.set())
+    batches = random_batches(c, 3, SEED + 15)
+
+    def stalling():
+        yield from batches
+        fired.wait(timeout=60.0)
+
+    t0 = time.perf_counter()
+    _, res = trainer.fit(trainer.init_state(SEED), stalling())
+    assert fired.is_set() and len(dumps) == 1, dumps
+    assert res["steps"] == 3 and "no dispatch completed" in dumps[0]
+    assert "step 3" in dumps[0], dumps[0]
+    print(f"watchdog: fired once after {time.perf_counter() - t0:.2f}s "
+          f"(dispatch_timeout_s=5.0) on an input stalled after 3 batches; "
+          f"dump: {dumps[0].splitlines()[0]!r}")
+
+
+def _final_tables(cfg: Config, dev: torch.device):
+    trainer = Trainer(cfg, device=dev)
+    state = ckpt_lib.CheckpointManager(cfg.model_dir).restore(
+        trainer.init_state())
+    return state.step, {k: v.detach().clone() for k, v in
+                        state.params.items()}, state.rng.get_state()
+
+
+def rollback_preempt_phase(workdir: str, cfg: Config, dev: torch.device,
+                           per_file: int = RUNTIME_PER_FILE) -> None:
+    """Task level, on 8 Ki synthetic records (16 steps over two epochs, a
+    checkpoint every 4, dropout on): an uninterrupted run; a run under
+    ``--on_nonfinite rollback`` with a NaN batch (step 7), which restores
+    the step-4 checkpoint and replays to tables bit-identical to the
+    uninterrupted run's; and the CLI (``python -m
+    deepfm_tpu_torch.launch`` in a child process) with the preempt-after
+    hook, which exits 42 after its forced save at step 5 and, run again,
+    resumes to the same tables bit for bit."""
+    data = os.path.join(workdir, "runtime_data")
+    libsvm.generate_synthetic_ctr(
+        data, num_files=RUNTIME_FILES, examples_per_file=per_file,
+        feature_size=cfg.feature_size, field_size=cfg.field_size,
+        seed=SEED + 4)
+    no_eval = os.path.join(workdir, "runtime_no_eval")
+    os.makedirs(no_eval, exist_ok=True)
+    steps = 2 * RUNTIME_FILES * per_file // cfg.batch_size
+    base = cfg.replace(task_type="train", data_dir=data, val_data_dir=no_eval,
+                       num_epochs=2, steps_per_loop=1,
+                       save_checkpoints_steps=4)
+
+    def run_dir(name):
+        return base.replace(model_dir=os.path.join(workdir, "rt_" + name))
+
+    clean = run_dir("clean")
+    res = tasks.run(clean, device=dev)
+    step, want, rng = _final_tables(clean, dev)
+    assert step == res["steps"] == steps
+
+    faults.set_nan_plan([6])
+    rb = run_dir("rollback").replace(on_nonfinite="rollback")
+    res = tasks.run(rb, device=dev)
+    got = _final_tables(rb, dev)
+    same = got[0] == steps and all(torch.equal(want[k], got[1][k])
+                                   for k in want)
+    same = same and torch.equal(rng, got[2])
+    assert res["rollbacks"] == 1 and res["steps"] == steps and same, res
+    print(f"rollback: NaN at step 7 rolled back to the step-4 checkpoint "
+          f"(rollbacks={res['rollbacks']:.0f}) and replayed to step {steps}; "
+          f"tables and generator bit-identical to the uninterrupted run: "
+          f"{same}")
+
+    pre = run_dir("preempted")
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        env = {**os.environ, tasks.PREEMPT_AFTER_ENV: "5"}
+        child = subprocess.run(
+            [sys.executable, "-m", "deepfm_tpu_torch.launch",
+             *_launch_argv(pre, "train")], cwd=HERE, env=env,
+            capture_output=True, text=True, timeout=300)
+        child_rc, stdout = child.returncode, child.stdout
+        assert child_rc == 42, (child_rc, child.stderr[-2000:])
+    else:  # a CPU rehearsal: the launcher in this process
+        os.environ[tasks.PREEMPT_AFTER_ENV] = "5"
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                child_rc = launch.main(_launch_argv(pre, "train"),
+                                       device=dev)
+        finally:
+            del os.environ[tasks.PREEMPT_AFTER_ENV]
+            preempt_lib.get_listener().clear()
+        stdout = buf.getvalue()
+        assert child_rc == 42, child_rc
+    line = json.loads(stdout.strip().splitlines()[-1])
+    assert line == {"task": "train", "preempted": True, "step": 5}, line
+    assert _final_tables(pre, dev)[0] == 5
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = launch.main(_launch_argv(pre, "train"), device=dev)
+    got = _final_tables(pre, dev)
+    same = rc == 0 and got[0] == steps and all(
+        torch.equal(want[k], got[1][k]) for k in want)
+    same = same and torch.equal(rng, got[2])
+    assert same, (rc, got[0])
+    print(f"preempt: CLI child with {tasks.PREEMPT_AFTER_ENV}=5 exited "
+          f"{child_rc} after {time.perf_counter() - t0:.1f}s printing "
+          f"{json.dumps(line)}; resumed through launch.main to step "
+          f"{got[0]}, tables and generator bit-identical to the "
+          f"uninterrupted run: {same}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -1831,12 +2392,17 @@ def main() -> int:
     take_err, take_t, seg_t = take_phase()
     segment_sum_phase()
     install_t = install_phase()
+    accum_t = accum_kernels_phase()
 
     cfg = Config()
     dev = torch.device("cuda")
     determinism_phase(cfg, dev)
     train_parity_phase(cfg, dev)
     tiered_parity_phase(cfg, dev)
+    accum_parity_phase(cfg, dev)
+    staging_phase(cfg, dev)
+    guard_phase(cfg, dev)
+    watchdog_phase(cfg, dev)
     workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=HERE)
     try:
         data = make_train_data(workdir, cfg)
@@ -1844,7 +2410,14 @@ def main() -> int:
         for name, kw in {**SPARSE_LAYOUTS, "sparse_tiered": TIERED}.items():
             paths["train_" + name] = train_phase(
                 workdir, data, cfg.replace(**kw), dev, name=name)[0]
+        for name, kw in ACCUM_LAYOUTS.items():
+            paths["train_accum_" + name] = train_phase(
+                workdir, data, cfg.replace(grad_accum_steps=ACCUM,
+                                           steps_per_loop=8, **kw),
+                dev, name="accum_" + name, epochs=1)[0]
+        rollback_preempt_phase(workdir, cfg, dev)
         train_step_timing(cfg)
+        accum_step_timing(cfg)
         serve_launches, artifact = serve_phase(workdir, cfg, dev)
         forward_timing(artifact, cfg)
     finally:
@@ -1857,6 +2430,7 @@ def main() -> int:
     # The main path's shapes: the hashed step's four-table plan launch, its
     # four-table take forward and backward, at D = 32.
     (pk, pp, pl, pb, pby, psrc) = plan_t[HASHED_TABLES]
+    ak, ap, al, ab = accum_t["plan"]
     plan = {
         "ms": pk, "plain_ms": pp, "library_ms": pl,
         "library_call": "torch.unique over the four tables' ids at once",
@@ -1864,7 +2438,9 @@ def main() -> int:
         "floor_ms": plan_t["floor"],
         "by_tables": {str(t): {"ms": v[0], "plain_ms": v[1],
                                "library_ms": v[2], "bound_ms": v[3]}
-                      for t, v in plan_t.items() if t != "floor"}}
+                      for t, v in plan_t.items() if t != "floor"},
+        "accum_group": {"n": ACCUM_N, "ms": ak[0], "plain_ms": ap[0],
+                        "library_ms": al[0], "bound_ms": ab[0]}}
     take = {}
     for name in ("take_fwd", "take_bwd"):
         (k, _, src), (p, _, _), (lb, _, _), (bd, by) = take_t[
@@ -1876,6 +2452,10 @@ def main() -> int:
                 "ms": v[0][0], "plain_ms": v[1][0], "library_ms": v[2][0],
                 "bound_ms": v[3][0]}
                 for (n, t, d), v in take_t.items() if n == name}}
+        take[name]["by_shape"].update({f"T{t}_D{d}_accum_group": {
+            "ms": v[0][0], "plain_ms": v[1][0], "library_ms": v[2][0],
+            "bound_ms": v[3][0]}
+            for (n, t, d), v in accum_t["take"].items() if n == name})
     take["take_fwd"]["library_call"] = (
         "embedding_bag(mode='sum', per_sample_weights=masks) over the "
         "tables concatenated")
@@ -1884,6 +2464,9 @@ def main() -> int:
     take["take_bwd"]["segments_build"] = {
         k: {"device_ms": v[0], "device_events": v[1], "call_ms": v[2]}
         for k, v in seg_t.items()}
+    (sk_, _, _), (sl_, _, _) = accum_t["segment_sum"]["fused_leg"]
+    take["take_bwd"]["segment_sum_accum_fused_leg"] = {
+        "n": ACCUM_N, "ms": sk_, "library_index_add_ms": sl_}
     # The segments kernel at the hashed step's shape (the main path's
     # launch), and at the dense and fused-leg shapes.
     (sk, _, ssrc), (sp, _, _), (sl, _, _), (sb, sby, _), _ = seg_kernel_t[
@@ -1896,7 +2479,8 @@ def main() -> int:
         "by_shape": {k: {"ms": v[0][0], "plain_ms": v[1][0],
                          "library_ms": v[2][0], "bound_ms": v[3][0],
                          "device_events": v[4]}
-                     for k, v in seg_kernel_t.items()}}
+                     for k, v in {**seg_kernel_t,
+                                  **accum_t["segments"]}.items()}}
     (ik, _, isrc), (ip, _, _), (il, _, _), (ib, iby) = install_t["two"]
     install = {
         "ms": ik, "plain_ms": ip, "library_ms": il,

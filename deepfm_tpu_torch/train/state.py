@@ -13,7 +13,7 @@ never waits for the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -91,3 +91,88 @@ def _copy_into(dst: Any, src: Any, where: str) -> Any:
             dst.copy_(src)
         return dst
     return src
+
+
+def _leaves(tree: Any, path: Tuple = ()) -> List[Tuple[Tuple, Any]]:
+    """(path, leaf) pairs of a state tree in a fixed order: dict keys in
+    insertion order, a NamedTuple's fields in order."""
+    if _is_record(tree):
+        tree = tree._asdict()
+    if isinstance(tree, dict):
+        out = []
+        for k, v in tree.items():
+            out += _leaves(v, path + (k,))
+        return out
+    return [(path, tree)]
+
+
+class StateSnapshot:
+    """A copy of a :class:`TrainState` in preallocated buffers, for the
+    non-finite guard's ``skip``: every tensor of the params, the optimizer
+    state (base optimizer, lazy-Adam m/v/tau), and the model state, copied
+    in one ``_foreach_copy_`` pass on the state's device; the host-side
+    counts (``step``, the optimizers' ``count``) and the dropout generator's
+    state kept beside them. :meth:`restore` copies all of it back into the
+    state's own tensors, in place, so a restored state continues exactly as
+    if the dispatch in between never ran. The buffers are allocated at the
+    first :meth:`take` and reused while the state's layout stays the same.
+    """
+
+    def __init__(self) -> None:
+        self._bufs: List[torch.Tensor] = []
+        self._shapes: List[Tuple] = []
+        self._scalars: List[Tuple[Tuple, Any]] = []
+        self._step = 0
+        self._rng = None
+
+    @staticmethod
+    def _split(state: TrainState):
+        trees = (("params", state.params), ("opt_state", state.opt_state),
+                 ("model_state", state.model_state))
+        tensors, scalars = [], []
+        for name, tree in trees:
+            for path, leaf in _leaves(tree, (name,)):
+                if isinstance(leaf, torch.Tensor):
+                    tensors.append(leaf)
+                else:
+                    scalars.append((path, leaf))
+        return tensors, scalars
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes one :meth:`take` copies."""
+        return sum(b.numel() * b.element_size() for b in self._bufs)
+
+    @torch.no_grad()
+    def take(self, state: TrainState) -> None:
+        tensors, self._scalars = self._split(state)
+        shapes = [(t.shape, t.dtype, t.device) for t in tensors]
+        if shapes != self._shapes:
+            self._bufs = [torch.empty_like(
+                t, memory_format=torch.contiguous_format) for t in tensors]
+            self._shapes = shapes
+        if tensors:
+            torch._foreach_copy_(self._bufs, [t.detach() for t in tensors])
+        self._step = int(state.step)
+        self._rng = state.rng.get_state()
+
+    @torch.no_grad()
+    def restore(self, state: TrainState) -> TrainState:
+        """Copy the snapshot back into ``state`` in place; returns it."""
+        if self._rng is None:
+            raise RuntimeError("restore before any take")
+        tensors, _ = self._split(state)
+        if [(t.shape, t.dtype, t.device) for t in tensors] != self._shapes:
+            raise ValueError("the state's layout changed since the snapshot")
+        if tensors:
+            torch._foreach_copy_([t.detach() for t in tensors], self._bufs)
+        for path, value in self._scalars:
+            tree = state.opt_state if path[0] == "opt_state" else None
+            if tree is None:
+                raise ValueError(f"host value outside opt_state at {path}")
+            for k in path[1:-1]:
+                tree = tree[k]
+            tree[path[-1]] = value
+        state.step = self._step
+        state.rng.set_state(self._rng)
+        return state

@@ -5,7 +5,14 @@ single-process path of ``deepfm_tpu.train.tasks``).
     checkpoint every ``save_checkpoints_steps`` and at the end, resume from
     the latest checkpoint in ``model_dir`` (mid-epoch exact through the
     ``resume_meta.json`` sidecar), ``clear_existing_model``, and a final
-    serving export when ``servable_model_dir`` is set.
+    serving export when ``servable_model_dir`` is set. It polls the
+    process-wide preemption listener once per dispatch: on SIGTERM/SIGINT
+    (or the injectable trigger) it force-saves a checkpoint and the
+    sidecar, then raises ``utils.preempt.Preempted`` (the launcher exits
+    42). Under ``--on_nonfinite rollback`` a :class:`RollbackSignal` from
+    the fit loop restores the latest checkpoint and replays from its
+    recorded offset (one attempt after another, bounded by the guard's
+    ``--max_rollbacks`` budget).
   * ``eval`` — AUC + loss on the eval files.
   * ``infer`` — one probability per line to ``pred.txt``.
   * ``export`` — the servable artifact of the latest checkpoint, through
@@ -33,6 +40,7 @@ import hashlib
 import json
 import logging
 import os
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -43,6 +51,8 @@ from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ..utils import checkpoint as ckpt_lib
 from ..utils import export as export_lib
+from ..utils import faults as faults_lib
+from ..utils import preempt as preempt_lib
 from . import guard as guard_lib
 from .loop import Trainer, check_ported, pad_batch
 from .state import TrainState
@@ -250,9 +260,14 @@ def _files_fingerprint(files: List[str]) -> str:
 
 def _consumption_layout(cfg: Config) -> List:
     """How batches are consumed: a mid-epoch skip is exact only when the
-    resuming run batches and shuffles as the interrupted one did."""
+    resuming run batches and shuffles as the interrupted one did.
+    ``grad_accum_steps`` does not change which batches a step count covers
+    (``state.step`` counts microbatches), but it changes which optimizer
+    trajectory wrote the checkpoint: a resume across the flag replays the
+    epoch rather than splice two accumulation regimes mid-epoch."""
     return ["torch-1", cfg.batch_size, cfg.shuffle_buffer, cfg.seed,
-            int(cfg.drop_remainder), int(cfg.shuffle_files)]
+            int(cfg.drop_remainder), int(cfg.shuffle_files),
+            cfg.grad_accum_steps]
 
 
 def _resume_position(cfg: Config, restored_step: int, files_digest: str,
@@ -292,6 +307,36 @@ def _export(trainer: Trainer, cfg: Config, state: TrainState) -> str:
     return export_lib.export_serving(model, cfg, out, step=int(state.step))
 
 
+#: Fault-injection hooks of the train task, read from the environment:
+#: stop with an error after N steps (after the checkpoint hook ran: a
+#: deterministic crash for the resume path); pull the preemption trigger
+#: after N steps (the graceful path: force-save, then exit 42); or write a
+#: ``.preempt_hold`` sentinel into model_dir after N steps and wait there
+#: (up to 120 s) for a real signal.
+FAULT_AFTER_ENV = "DEEPFM_TPU_TORCH_FAULT_AFTER_STEPS"
+PREEMPT_AFTER_ENV = "DEEPFM_TPU_TORCH_PREEMPT_AFTER_STEPS"
+PREEMPT_HOLD_ENV = "DEEPFM_TPU_TORCH_PREEMPT_HOLD_AFTER_STEPS"
+
+
+def _env_steps(name: str) -> int:
+    raw = os.environ.get(name, "").strip()
+    try:
+        return int(raw) if raw else 0
+    except ValueError:
+        raise ValueError(
+            f"{name} must be an integer step count, got {raw!r}") from None
+
+
+def _maybe_poison(pipeline):
+    """An armed NaN plan (``utils.faults.set_nan_plan``) wraps the pipeline
+    once; the plan is consumed on pickup, so a rollback replay (or the next
+    epoch) trains clean data."""
+    plan = faults_lib.take_nan_plan()
+    if plan is not None:
+        return faults_lib.BatchPoisoner(pipeline, **plan)
+    return pipeline
+
+
 def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
     train_dir, eval_dir = resolve_channel_dirs(cfg)
     tr_files = resolve_files(train_dir, "tr")
@@ -308,69 +353,162 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
             cfg.model_dir, max_to_keep=cfg.keep_checkpoint_max,
             save_interval_steps=cfg.save_checkpoints_steps)
     state = _restore_or_init(trainer, cfg, require=False, mgr=mgr)
+    # One health record and one guard for the whole run (the skip/rollback
+    # budget spans rollback attempts), and the process-wide preemption
+    # listener: a flag set during start-up is honored at the first
+    # dispatch.
     health = guard_lib.TrainHealth()
     guard = guard_lib.NonFiniteGuard.from_config(cfg, health=health)
-
-    restored_step = int(state.step)
+    listener = preempt_lib.get_listener()
     files_digest = _files_fingerprint(tr_files)
-    epoch_base, start_epoch, skip_batches = _resume_position(
-        cfg, restored_step, files_digest, health)
-    if start_epoch or skip_batches:
-        log.info("step-accurate resume: epoch %d (+%d batches already "
-                 "trained), epoch_base=%d", start_epoch, skip_batches,
-                 epoch_base)
-    progress = {"epoch": start_epoch,
-                "epoch_start": restored_step - skip_batches}
-
-    def meta(step: int, completed: bool) -> Dict:
-        return {"step": step, "epoch": progress["epoch"],
-                "steps_into_epoch": step - progress["epoch_start"],
-                "epoch_base": epoch_base, "num_epochs": cfg.num_epochs,
-                "layout": _consumption_layout(cfg), "files": files_digest,
-                "completed": completed}
-
-    last_saved = [-1]
-    hooks = []
-    if mgr is not None:
-        def ckpt_hook(s: TrainState, m) -> None:
-            if mgr.should_save(s.step) and mgr.save(
-                    s.step, _ckpt_state(trainer, s)):
-                last_saved[0] = s.step
-                _write_resume_meta(cfg.model_dir, meta(s.step, False))
-        hooks.append(ckpt_hook)
-
+    fault_after = _env_steps(FAULT_AFTER_ENV)
+    preempt_after = _env_steps(PREEMPT_AFTER_ENV)
+    hold_after = _env_steps(PREEMPT_HOLD_ENV)
     result: Dict[str, float] = {}
-    for epoch in range(start_epoch, cfg.num_epochs):
-        progress["epoch"] = epoch
-        progress["epoch_start"] = state.step - (
-            skip_batches if epoch == start_epoch else 0)
-        pipeline = make_pipeline(
-            cfg, tr_files, epochs=1, shuffle=True,
-            epoch_offset=epoch_base + epoch,
-            skip_batches=skip_batches if epoch == start_epoch else 0)
-        state, fit_m = trainer.fit(state, pipeline, hooks=hooks, guard=guard)
-        if fit_m["steps"]:
-            result["loss"] = fit_m["loss"]
-            result["examples_per_sec"] = fit_m.get("examples_per_sec", 0.0)
-            result["step_ms_p50"] = fit_m.get("step_ms_p50", 0.0)
-            result.update({k: v for k, v in fit_m.items()
-                           if k.startswith("hotcold_")})
-        if (mgr is not None and last_saved[0] == state.step
-                and epoch + 1 < cfg.num_epochs):
-            # A checkpoint landed on this epoch's last step: point the
-            # sidecar at the next epoch instead of a fully trained one.
-            progress["epoch"] = epoch + 1
-            progress["epoch_start"] = state.step
-            _write_resume_meta(cfg.model_dir, meta(state.step, False))
-        if va_files:
-            ev = trainer.evaluate(state, _eval_pipeline(cfg, va_files))
-            log.info("epoch %d/%d: eval auc=%.5f loss=%.5f", epoch + 1,
-                     cfg.num_epochs, ev["auc"], ev["loss"])
-            result.update({"auc": ev["auc"], "eval_loss": ev["loss"],
-                           "eval_examples_per_sec": ev["examples_per_sec"]})
-    if mgr is not None:
-        mgr.save(state.step, _ckpt_state(trainer, state))
-        _write_resume_meta(cfg.model_dir, meta(state.step, True))
+
+    def attempt(state: TrainState) -> TrainState:
+        """One training attempt from ``state``: the resume position, the
+        hooks, the epochs and the final save. A RollbackSignal ends the
+        attempt; the loop below restores the latest checkpoint and starts
+        another, whose resume position replays from that checkpoint's
+        recorded offset."""
+        restored_step = int(state.step)
+        epoch_base, start_epoch, skip_batches = _resume_position(
+            cfg, restored_step, files_digest, health)
+        if start_epoch or skip_batches:
+            log.info("step-accurate resume: epoch %d (+%d batches already "
+                     "trained), epoch_base=%d", start_epoch, skip_batches,
+                     epoch_base)
+        progress = {"epoch": start_epoch,
+                    "epoch_start": restored_step - skip_batches}
+
+        def meta(step: int, completed: bool) -> Dict:
+            return {"step": step, "epoch": progress["epoch"],
+                    "steps_into_epoch": step - progress["epoch_start"],
+                    "epoch_base": epoch_base, "num_epochs": cfg.num_epochs,
+                    "layout": _consumption_layout(cfg),
+                    "files": files_digest, "completed": completed}
+
+        last_saved = [-1]
+        hooks = []
+        if mgr is not None:
+            def ckpt_hook(s: TrainState, m) -> None:
+                if mgr.should_save(s.step) and mgr.save(
+                        s.step, _ckpt_state(trainer, s)):
+                    last_saved[0] = s.step
+                    _write_resume_meta(cfg.model_dir, meta(s.step, False))
+            hooks.append(ckpt_hook)
+
+        if preempt_after:
+            def trigger_hook(s: TrainState, m) -> None:
+                if s.step - restored_step >= preempt_after:
+                    listener.trigger(f"env trigger after "
+                                     f"{s.step - restored_step} steps")
+            hooks.append(trigger_hook)
+
+        if hold_after:
+            held = [False]
+
+            def hold_hook(s: TrainState, m) -> None:
+                if held[0] or s.step - restored_step < hold_after:
+                    return
+                held[0] = True
+                sentinel = os.path.join(cfg.model_dir or ".",
+                                        ".preempt_hold")
+                with open(sentinel, "w", encoding="utf-8") as f:
+                    f.write(str(s.step))
+                deadline = time.time() + 120.0
+                while not listener.triggered():
+                    if time.time() > deadline:
+                        raise RuntimeError(
+                            "preempt hold: no signal arrived within 120s")
+                    time.sleep(0.05)
+            hooks.append(hold_hook)
+
+        def preempt_hook(s: TrainState, m) -> None:
+            # Polled once per dispatch, after the dispatch's checkpoint
+            # hook: the in-flight dispatch has finished.
+            if not listener.triggered():
+                return
+            health.record_preemption()
+            log.warning("preemption (%s): force-saving a checkpoint at step "
+                        "%d, then exiting with code %d",
+                        listener.reason or "signal", s.step,
+                        preempt_lib.EXIT_PREEMPTED)
+            if mgr is not None:
+                # An interval save may have landed on this very step (save
+                # dedups); the sidecar makes the mid-epoch resume exact.
+                mgr.save(s.step, _ckpt_state(trainer, s))
+                _write_resume_meta(cfg.model_dir, meta(s.step, False))
+            raise preempt_lib.Preempted(s.step, listener.reason)
+        hooks.append(preempt_hook)
+
+        if fault_after:
+            def fault_hook(s: TrainState, m) -> None:
+                if s.step - restored_step >= fault_after:
+                    raise RuntimeError(
+                        f"fault injection: simulated crash after "
+                        f"{s.step - restored_step} steps")
+            hooks.append(fault_hook)
+
+        for epoch in range(start_epoch, cfg.num_epochs):
+            progress["epoch"] = epoch
+            progress["epoch_start"] = state.step - (
+                skip_batches if epoch == start_epoch else 0)
+            pipeline = _maybe_poison(make_pipeline(
+                cfg, tr_files, epochs=1, shuffle=True,
+                epoch_offset=epoch_base + epoch,
+                skip_batches=skip_batches if epoch == start_epoch else 0))
+            state, fit_m = trainer.fit(state, pipeline, hooks=hooks,
+                                       guard=guard)
+            if health.consume_dirty():
+                log.info("train health (epoch %d): %s", epoch + 1,
+                         health.summary())
+            if fit_m["steps"]:
+                result["loss"] = fit_m["loss"]
+                result["examples_per_sec"] = fit_m.get("examples_per_sec",
+                                                       0.0)
+                result["step_ms_p50"] = fit_m.get("step_ms_p50", 0.0)
+                result.update({k: v for k, v in fit_m.items()
+                               if k.startswith(("hotcold_", "staging_"))})
+            if (mgr is not None and last_saved[0] == state.step
+                    and epoch + 1 < cfg.num_epochs):
+                # A checkpoint landed on this epoch's last step: point the
+                # sidecar at the next epoch instead of a fully trained one.
+                progress["epoch"] = epoch + 1
+                progress["epoch_start"] = state.step
+                _write_resume_meta(cfg.model_dir, meta(state.step, False))
+            if va_files:
+                ev = trainer.evaluate(state, _eval_pipeline(cfg, va_files))
+                log.info("epoch %d/%d: eval auc=%.5f loss=%.5f", epoch + 1,
+                         cfg.num_epochs, ev["auc"], ev["loss"])
+                result.update({"auc": ev["auc"], "eval_loss": ev["loss"],
+                               "eval_examples_per_sec":
+                                   ev["examples_per_sec"]})
+        if mgr is not None:
+            mgr.save(state.step, _ckpt_state(trainer, state))
+            _write_resume_meta(cfg.model_dir, meta(state.step, True))
+        return state
+
+    while True:
+        try:
+            state = attempt(state)
+            break
+        except guard_lib.RollbackSignal as rs:
+            # The guard's shared budget (max_rollbacks, over skips and
+            # rollbacks) bounds how often a run gets here.
+            if mgr is None or mgr.latest_step() is None:
+                raise guard_lib.NonFiniteError(
+                    f"rollback requested at step {rs.step} but no "
+                    f"checkpoint exists to roll back to (set model_dir or "
+                    f"use on_nonfinite=skip)") from rs
+            health.record_rollback()
+            state = mgr.restore(trainer.init_state())
+            # The save cadence restarts from the restored checkpoint.
+            mgr._last_should_save_step = None
+            log.warning("rolled back: restored checkpoint step %d after a "
+                        "non-finite value at step %d; replaying from the "
+                        "recorded offset", state.step, rs.step)
     if cfg.servable_model_dir:
         _export(trainer, cfg, state)
     result["steps"] = float(state.step)

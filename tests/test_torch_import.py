@@ -58,6 +58,18 @@ def test_every_module_imports_without_jax():
     assert f"imported {len(_modules())}" in res.stdout
 
 
+@pytest.mark.parametrize("module", [
+    "deepfm_tpu_torch.utils.preempt", "deepfm_tpu_torch.utils.faults",
+    "deepfm_tpu_torch.train.guard", "deepfm_tpu_torch.train.state",
+    "deepfm_tpu_torch.train.loop", "deepfm_tpu_torch.train.tasks",
+    "deepfm_tpu_torch.launch"])
+def test_module_list_covers_the_runtime_modules(module):
+    """The fit loop's runtime (the staging ring, the guard and its state
+    snapshot, preemption and its fault seams) is among the modules the
+    first check imports without jax."""
+    assert module in _modules()
+
+
 def _imported_roots(tree):
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):

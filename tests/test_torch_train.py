@@ -400,15 +400,21 @@ def test_loss_spike_detector_counts_and_keeps_going():
     g = guard_lib.NonFiniteGuard(spike_zscore=4.0, spike_warmup=5)
     losses = [0.70, 0.69, 0.71, 0.70, 0.69, 0.70, 0.71, 5.0, 0.70]
     assert [g.observe(x, i) for i, x in enumerate(losses)] == ["ok"] * 9
-    assert g.health.snapshot() == {"loss_spikes": 1, "resume_meta_corrupt": 0}
+    assert g.health.snapshot() == {
+        "preemptions": 0, "nonfinite_skips": 0, "rollbacks": 0,
+        "watchdog_aborts": 0, "loss_spikes": 1, "resume_meta_corrupt": 0}
     with pytest.raises(guard_lib.NonFiniteError, match="non-finite param"):
         g.observe(0.7, 9, params_bad=True)
 
 
 @pytest.mark.parametrize("policy", ["skip", "rollback"])
 def test_unported_guard_policies_raise(policy):
-    with pytest.raises(NotImplementedError, match=f"on_nonfinite {policy}"):
-        guard_lib.NonFiniteGuard(policy)
+    """skip and rollback are ported: they build, check every dispatch and
+    return their verdict; only an unknown policy raises."""
+    g = guard_lib.NonFiniteGuard(policy)
+    assert g.per_dispatch and g.observe(float("nan"), 3) == policy
+    with pytest.raises(ValueError, match="on_nonfinite"):
+        guard_lib.NonFiniteGuard(policy + "x")
 
 
 @pytest.mark.parametrize("flag,value,match", [
@@ -418,9 +424,15 @@ def test_unported_guard_policies_raise(policy):
     ("dispatch_timeout_s", 5.0, "--dispatch_timeout_s"),
 ])
 def test_unported_trainer_flags_raise(flag, value, match):
+    """A mesh other than 1x1 still raises naming its flag; gradient
+    accumulation and the stall watchdog are ported and pass."""
     kw = _kw(**{flag: value})
     if flag == "grad_accum_steps":
         kw["steps_per_loop"] = 2
+    if flag in ("grad_accum_steps", "dispatch_timeout_s"):
+        check_ported(Config(**kw))
+        assert Trainer(Config(**kw), device="cpu").cfg.to_dict()[flag] == value
+        return
     with pytest.raises(NotImplementedError, match=match):
         check_ported(Config(**kw))
 
