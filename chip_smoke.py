@@ -108,8 +108,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
    bit-identical to a clean run without it, and the state snapshot's
    device time); the stall watchdog (an input that stalls, an injected
    abort, one dump).
-10. Train phases: synthetic TFRecords at the reference width written once
-   with the port's ``generate_synthetic_ctr``, then ``tasks.run`` train
+10. Input path and train phases: synthetic TFRecords at the reference
+   width written once with the port's ``generate_synthetic_ctr``. The
+   native TFRecord decoder (g++, built beside the kernels) decodes every
+   train file bit-equal to the Python codec; the host's decode rates
+   (records/s beside the card line and the usable core count): the
+   per-record pipeline, the codec alone, eager ``decode_spans``, the pooled
+   ``iter_superbatches(8)`` at 1 and 4 reader threads, and the pooled
+   path's ns/record per stage (``HostStageStats``); the pooled emission
+   reproduces the JAX package's three goldens on both assembly routes.
+   Then ``tasks.run`` train
    (the ``Config()`` defaults: dropout keep 0.5, Adam, batch 1024; two
    epochs, an eval after each), eval and export, all on the card, four
    times: the dense update, the sparse update on the monolithic table, the
@@ -126,10 +134,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
    segments kernel once per step on every layout (the dense lookups of
    both names share one build), the
    install kernel once per tiered plan and never elsewhere; each trained
-   artifact then serves. Then ``--grad_accum_steps 4 --steps_per_loop 8``
+   artifact then serves. Every train task reads through the pooled native
+   path (``Config()``'s default) and prints its examples/s and step p50
+   beside the per-record path's recorded figures; one dense run with
+   ``--use_native_decoder false`` gives the per-record path in the same
+   process. Then ``--grad_accum_steps 4 --steps_per_loop 8``
    on the dense, sparse monolithic and hashed layouts, one epoch each:
    the embedding kernels launch per apply as predicted, and the final
    checkpoint's step counts microbatches and its optimizer count applies.
+   Then the decoded cache: ``ram`` and ``disk`` emit two epochs equal to
+   the streamed emission, decode once (the second epoch is a hit) with
+   each epoch's host ms, and each trains the dense task with one decode
+   pass per file set. Then the device-resident dataset: ``--decoded_cache
+   ram --device_dataset --shuffle_buffer 65537`` through the launcher on
+   the dense, sparse monolithic and sparse hashed layouts, against the
+   staged run with the same flags less ``--device_dataset``: no fallback
+   warning, bit-identical tables and generator, equal launch counts,
+   examples/s and step p50 of both, the columns' bytes against the
+   budget; then one k-step dispatch of each feed in turns (time, device
+   busy time, idle share, host-to-device copies and data bytes per
+   dispatch). Then bad records: a copy of one train file with one flipped
+   data-CRC byte trains under ``--verify_crc --on_bad_record skip`` with
+   exactly one record dropped and counted, and under ``raise`` fails
+   naming the path and the byte offset; a read fault every 3rd read
+   (``DEEPFM_TPU_READ_FAULT_EVERY``) heals to the clean emission and the
+   clean task's tables.
    Then, on 8 Ki records, ``--on_nonfinite rollback`` replays a NaN batch
    from the last checkpoint to tables bit-identical to an uninterrupted
    run, and the CLI in a child process with the preempt-after hook exits
@@ -155,7 +184,9 @@ kernels over the dense train task (``launches``), the sparse train tasks
 and serving; the plan, take and segments kernels over the hashed sparse
 train task (the take backward and segments also over the other three);
 the install kernel over the tiered train task. ``launches_by_path`` also
-holds the three accumulation train tasks.
+holds the three accumulation train tasks, the per-record dense task, the
+two decoded-cache tasks and the device-resident tasks with their staged
+counterparts.
 
 Numerics: float32 matmuls run in full float32
 (``torch.backends.cuda.matmul.allow_tf32 = False``) and bfloat16 matmuls
@@ -167,16 +198,19 @@ below assumes both.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import logging
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -186,8 +220,11 @@ sys.path.insert(0, HERE)
 
 from deepfm_tpu_torch import _native, launch  # noqa: E402
 from deepfm_tpu_torch.config import Config  # noqa: E402
-from deepfm_tpu_torch.data import libsvm  # noqa: E402
+from deepfm_tpu_torch.data import cache as cache_lib  # noqa: E402
+from deepfm_tpu_torch.data import fileio, libsvm  # noqa: E402
+from deepfm_tpu_torch.data import pipeline as pipe_lib  # noqa: E402
 from deepfm_tpu_torch.models import get_model  # noqa: E402
+from deepfm_tpu_torch.native import loader as tfr_loader  # noqa: E402
 from deepfm_tpu_torch.obs import trace as trace_lib  # noqa: E402
 from deepfm_tpu_torch.ops import embedding as emb_ops  # noqa: E402
 from deepfm_tpu_torch.ops import embedding_kernels as ek  # noqa: E402
@@ -196,11 +233,13 @@ from deepfm_tpu_torch.ops.fused_fm import fused_fm, reference_fm  # noqa: E402
 from deepfm_tpu_torch.serve import ServingEngine  # noqa: E402
 from deepfm_tpu_torch.train import Trainer, tasks  # noqa: E402
 from deepfm_tpu_torch.train import guard as guard_lib  # noqa: E402
+from deepfm_tpu_torch.train import loop as loop_lib  # noqa: E402
 from deepfm_tpu_torch.train.state import StateSnapshot  # noqa: E402
 from deepfm_tpu_torch.utils import checkpoint as ckpt_lib  # noqa: E402
 from deepfm_tpu_torch.utils import export as export_lib  # noqa: E402
 from deepfm_tpu_torch.utils import faults  # noqa: E402
 from deepfm_tpu_torch.utils import preempt as preempt_lib  # noqa: E402
+from deepfm_tpu_torch.utils import profiling as prof_lib  # noqa: E402
 
 SEED = 0
 
@@ -1537,6 +1576,11 @@ def train_phase(workdir: str, data: dict, cfg: Config, dev: torch.device,
           f"step_ms_p50={res.get('step_ms_p50', 0):.3f} (host clock, whole "
           f"input path) final_loss={res['loss']:.5f} auc={res['auc']:.5f} "
           f"eval_loss={res['eval_loss']:.5f} launches={launches}")
+    if name in PER_RECORD_TRAIN:
+        eps, p50 = PER_RECORD_TRAIN[name]
+        print(f"train {name} per-record input path (recorded in PERF.md, "
+              f"H100 80GB HBM3 at 700 W; not this run): examples_per_sec="
+              f"{eps:.1f} step_ms_p50={p50:.3f}")
     print(f"train {name} logged losses: " + " ".join(
         f"{s}:{l:.4f}" for s, l in loss_log.losses))
     assert res["steps"] == steps, res
@@ -2370,6 +2414,426 @@ def rollback_preempt_phase(workdir: str, cfg: Config, dev: torch.device,
           f"uninterrupted run: {same}")
 
 
+# ---------------------------------------------------------------------------
+# The input path: the native decoder, the pooled feed, the decoded cache,
+# the device-resident dataset, bad records and read faults
+# ---------------------------------------------------------------------------
+
+# The per-record input path's train lines (Python decode; examples/s, step
+# p50 ms), as PERF.md records them for an H100 80GB HBM3 at 700 W: printed
+# beside the native path's lines as recorded figures, never as numbers of
+# this run.
+PER_RECORD_TRAIN = {
+    "dense": (28300.9, 53.271), "sparse_monolithic": (25137.7, 64.004),
+    "sparse_hashed": (14552.2, 87.646), "sparse_tiered": (10918.9, 97.636),
+    "accum_dense": (26625.3, 56.082),
+    "accum_sparse_monolithic": (27208.4, 55.959),
+    "accum_sparse_hashed": (25115.9, 58.712)}
+# The pooled emission's goldens (the JAX package's, tests/test_data.py):
+# (k, batch, skip_batches, drop_remainder) over 3 x 500 synthetic records
+# (F=7, seed 5), two epochs, shuffle_buffer 300, seed 9.
+POOLED_GOLDEN = {
+    (8, 64, 0, True): "26fff204f1d9b877c88d8696",
+    (4, 32, 5, False): "5130307b96f68f89dadc8fa5",
+    (1, 64, 0, True): "3d50f093770b87683461989f",
+}
+# Device-resident runs: the shuffle pool must cover the epoch (65,536
+# records, so --shuffle_buffer 65537) for the device gather to replay the
+# staged emission.
+# Bad records: one flipped data-CRC byte in a copy of one train file; the
+# read-fault drill fails every 3rd read.
+BAD_RECORD_INDEX = 100
+READ_FAULT_EVERY = 3
+
+
+def _cores() -> int:
+    return len(os.sched_getaffinity(0))
+
+
+def _train_files(data: dict):
+    return sorted(os.path.join(data["dir"], n) for n in os.listdir(data["dir"])
+                  if n.startswith("tr") and n.endswith(".tfrecords"))
+
+
+def _emission_digest(pipe, k: int):
+    """(digest, records, wall s) of a pipeline's k-group emission."""
+    h = hashlib.sha256()
+    n = 0
+    t0 = time.perf_counter()
+    for rows, m, n_ex in pipe.iter_superbatches(k):
+        h.update(f"{m},{n_ex};".encode())
+        for key in ("feat_ids", "feat_vals", "label"):
+            h.update(np.ascontiguousarray(rows[key]).tobytes())
+        n += n_ex
+    return h.hexdigest()[:24], n, time.perf_counter() - t0
+
+
+def decoder_phase(data: dict, cfg: Config) -> dict:
+    """The native decoder against the Python codec on every train file
+    (labels, ids and values bit-equal), then the host's decode rates: the
+    per-record pipeline, the codec alone, eager ``decode_spans``, the
+    pooled ``iter_superbatches(8)`` at 1 and 4 reader threads, and the
+    pooled path's ns/record by stage."""
+    files = _train_files(data)
+    f = cfg.field_size
+    n = 0
+    t_eager = t_codec = 0.0
+    for path in files:
+        with open(path, "rb") as fh:
+            buf = fh.read()
+        t0 = time.perf_counter()
+        offs, lens = tfr_loader.split_frames(buf)
+        got = tfr_loader.decode_spans(buf, offs, lens, f)
+        t_eager += time.perf_counter() - t0
+        recs = [buf[o:o + ln] for o, ln in zip(offs.tolist(), lens.tolist())]
+        t0 = time.perf_counter()
+        want = pipe_lib.decode_batch_python(recs, f)
+        t_codec += time.perf_counter() - t0
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), path
+        n += len(offs)
+    rates = {"python_codec": n / t_codec, "eager_decode_spans": n / t_eager}
+    kw = dict(field_size=f, batch_size=cfg.batch_size,
+              shuffle_buffer=cfg.shuffle_buffer, seed=SEED)
+    per_record = pipe_lib.CtrPipeline(files, use_native_decoder=False, **kw)
+    t0 = time.perf_counter()
+    got_n = sum(int(b["label"].shape[0]) for b in per_record)
+    rates["per_record_pipeline"] = got_n / (time.perf_counter() - t0)
+    for threads in (1, 4):
+        pooled = pipe_lib.CtrPipeline(files, reader_threads=threads, **kw)
+        _, got_n, wall = _emission_digest(pooled, 8)
+        rates[f"pooled_k8_threads{threads}"] = got_n / wall
+    staged = pipe_lib.CtrPipeline(files, prefetch_batches=0, **kw)
+    staged.stage_stats = prof_lib.HostStageStats()
+    _, got_n, _ = _emission_digest(staged, 8)
+    ns = staged.stage_stats.ns_per_record(got_n)
+    card, cores = card_line(), _cores()
+    print(f"decoder parity: native decode of {len(files)} train files "
+          f"({n} records, F={f}) bit-equal to the Python codec (labels, "
+          f"ids, vals)")
+    for name, r in rates.items():
+        print(f"decode rate {name}: {r:.0f} records/s (host, {cores} usable "
+              f"cores; card {card})")
+    print(f"pooled k=8 host stages (ns/record, prefetch off, "
+          f"{staged.reader_threads} reader threads, {cores} usable cores; "
+          f"card {card}): " + " ".join(f"{k}={v}" for k, v in ns.items()))
+    rates["stage_ns_per_record"] = ns
+    return rates
+
+
+def golden_phase(workdir: str) -> None:
+    """The pooled emission reproduces the JAX package's three goldens, on
+    the fused assemble route and on per-chunk scatter."""
+    d = os.path.join(workdir, "golden")
+    libsvm.generate_synthetic_ctr(d, num_files=3, examples_per_file=500,
+                                  feature_size=1000, field_size=7,
+                                  prefix="tr", seed=5)
+    files = sorted(os.path.join(d, x) for x in os.listdir(d))
+    for (k, bs, skip, drop), want in POOLED_GOLDEN.items():
+        for assembly in (True, False):
+            pipe = pipe_lib.CtrPipeline(
+                files, field_size=7, batch_size=bs, num_epochs=2,
+                shuffle=True, shuffle_files=True, shuffle_buffer=300,
+                drop_remainder=drop, seed=9, skip_batches=skip,
+                native_assembly=assembly)
+            h = hashlib.sha256()
+            for rows, m, n_ex in pipe.iter_superbatches(k):
+                h.update(str(m).encode())
+                h.update(str(n_ex).encode())
+                h.update(rows["feat_ids"].tobytes())
+                h.update(rows["feat_vals"].tobytes())
+                h.update(rows["label"].tobytes())
+            got = h.hexdigest()[:24]
+            assert got == want, ((k, bs, skip, drop), assembly, got)
+    print(f"pooled emission goldens: {len(POOLED_GOLDEN)} of "
+          f"{len(POOLED_GOLDEN)} reproduced on both assembly routes")
+
+
+@contextlib.contextmanager
+def _counting_cache_builds():
+    """Count ``CtrPipeline._build_cache_columns`` calls (decode passes)."""
+    real = pipe_lib.CtrPipeline._build_cache_columns
+    calls = []
+
+    def counting(self):
+        calls.append(1)
+        return real(self)
+
+    pipe_lib.CtrPipeline._build_cache_columns = counting
+    try:
+        yield calls
+    finally:
+        pipe_lib.CtrPipeline._build_cache_columns = real
+
+
+def cache_phase(workdir: str, data: dict, cfg: Config,
+                dev: torch.device) -> dict:
+    """``--decoded_cache ram`` and ``disk``: two epochs' emissions equal
+    the streamed ones, the first epoch decodes once and the second is a
+    hit (no decode), each epoch's host ms; then the dense train task with
+    each mode, two epochs (one decode pass in the whole task)."""
+    files = _train_files(data)
+    k = cfg.steps_per_loop
+    streamed = {}
+    for e in (0, 1):
+        pipe = tasks.make_pipeline(cfg, files, epoch_offset=e)
+        streamed[e] = _emission_digest(pipe, k)
+    paths = {}
+    for mode in ("ram", "disk"):
+        c = cfg.replace(decoded_cache=mode, decoded_cache_dir=os.path.join(
+            workdir, "cache_probe") if mode == "disk" else "")
+        cache_lib.clear_ram_cache()
+        ms = []
+        with _counting_cache_builds() as builds:
+            for e in (0, 1):
+                digest, n, wall = _emission_digest(
+                    tasks.make_pipeline(c, files, epoch_offset=e), k)
+                assert digest == streamed[e][0] and n == streamed[e][1], (
+                    mode, e)
+                ms.append(wall * 1e3)
+                assert len(builds) == 1, (mode, e, len(builds))
+        print(f"decoded cache {mode}: emission of epochs 1 and 2 equal to "
+              f"the streamed emission; epoch 1 decoded once "
+              f"(host_ms={ms[0]:.1f}), epoch 2 a hit with no decode "
+              f"(host_ms={ms[1]:.1f}); streamed host_ms per epoch "
+              f"{streamed[0][2] * 1e3:.1f}, {streamed[1][2] * 1e3:.1f} "
+              f"(host clock, {_cores()} usable cores)")
+        cache_lib.clear_ram_cache()
+        with _counting_cache_builds() as builds:
+            launches, _ = train_phase(workdir, data, c.replace(
+                decoded_cache_dir=""), dev, name=f"cache_{mode}")
+        # One decode pass per file set in the whole run (train, eval and
+        # infer files): every later epoch and task is a hit.
+        assert len(builds) == 3, (mode, len(builds))
+        paths[f"train_cache_{mode}"] = launches
+    cache_lib.clear_ram_cache()
+    return paths
+
+
+def _profile_dispatch(fn, iters: int = 5):
+    """(device ms, device events, host->device copies) per call of ``fn``
+    from torch.profiler; (None, 0, 0) without device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [e.time_range.elapsed_us() for e in cuda]
+    htod = sum(1 for e in cuda if "htod" in e.name.lower())
+    if not spans or sum(spans) <= 0:
+        return None, 0, htod / iters
+    return sum(spans) / 1000.0 / iters, len(spans) / iters, htod / iters
+
+
+def dd_dispatch_timing(cfg: Config, files) -> dict:
+    """One dispatch (k steps) fed from the device-resident columns and one
+    fed through the staging ring, in turns: time, device busy time, idle
+    share, host->device copies per dispatch (profiler) and data bytes each
+    feed moves to the card per dispatch."""
+    dev = torch.device("cuda")
+    k, bs = cfg.steps_per_loop, cfg.batch_size
+    out = {}
+    for turn in range(2):
+        for feed in ("device_resident", "staged"):
+            trainer = Trainer(cfg, device=dev)
+            state = trainer.init_state(SEED)
+            pipe = tasks.make_pipeline(cfg, files)
+            if feed == "device_resident":
+                cols = trainer._dd_upload(pipe)
+                idx = torch.from_numpy(pipe.device_epoch_indices(0, k)).to(dev)
+
+                def dispatch():
+                    trainer.multi_step(state, trainer._dd_batches(
+                        cols, idx, 0, k, bs))
+                nbytes = 0
+            else:
+                rows, m, _ = next(iter(pipe.iter_superbatches(k)))
+                assert m == k
+                ring = loop_lib._StagingRing(2, dev)
+
+                def dispatch():
+                    group, ready = ring.stage_rows(rows, k)
+                    ring.wait(ready)
+                    trainer.multi_step(state, group)
+                    ring.retire()
+                nbytes = sum(v.nbytes for v in rows.values())
+            call = cuda_ms(dispatch, iters=5, warmup=1)
+            busy, events, htod = _profile_dispatch(dispatch, iters=2)
+            if feed == "staged":
+                ring.close()
+            idle = ("not measured" if busy is None
+                    else f"{max(0.0, 1 - busy / call):.3f}")
+            busy_txt = "not measured" if busy is None else f"{busy:.4f}"
+            print(f"dispatch {cfg.embedding_update}/{feed} k={k} B={bs}: "
+                  f"ms={call:.4f} (cuda_events) device_busy_ms={busy_txt} "
+                  f"device_events={events:g} idle_share={idle} "
+                  f"htod_copies={htod:g} data_bytes_to_card={nbytes}")
+            out[(feed, turn)] = (call, busy, htod, nbytes)
+    return out
+
+
+def dd_phase(workdir: str, data: dict, cfg: Config,
+             dev: torch.device) -> dict:
+    """``--decoded_cache ram --device_dataset --shuffle_buffer 65537``
+    through the launcher on the dense, sparse monolithic and sparse hashed
+    layouts (one epoch): no fallback warning, final tables and generator
+    bit-identical to the staged run with the same flags less
+    ``--device_dataset``, and equal launch counts; examples/s and step p50
+    beside the staged run's, the columns' bytes on the card against the
+    budget; then one dispatch's idle share and host->device copies."""
+    files = _train_files(data)
+    no_eval = os.path.join(workdir, "dd_no_eval")
+    os.makedirs(no_eval, exist_ok=True)
+    pool = data["train"] + 1
+    # A decoded record on the card: a float32 label, F int32 ids and F
+    # float32 values, and its int32 slot of the epoch's index.
+    record_bytes = 4 + 8 * cfg.field_size + 4
+    budget = int(Trainer(cfg, device=dev)._device_memory_bytes()
+                 * cfg.device_dataset_hbm_fraction)
+    paths = {}
+    for name, kw in {"dense": {}, **SPARSE_LAYOUTS}.items():
+        base = cfg.replace(decoded_cache="ram", shuffle_buffer=pool,
+                           num_epochs=1, data_dir=data["dir"],
+                           val_data_dir=no_eval, servable_model_dir="", **kw)
+        runs = {}
+        for dd in (False, True):
+            c = base.replace(device_dataset=dd, model_dir=os.path.join(
+                workdir, f"dd_{name}_{int(dd)}"))
+            cache_lib.clear_ram_cache()
+            _zero_counts()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res = launch_task(c, "train", dev)
+            fell = [str(w.message) for w in caught
+                    if "fell back" in str(w.message)]
+            assert not fell, fell
+            launches = _counts()
+            runs[dd] = (res, launches, _final_tables(c, dev))
+        (rs, ls, (ss, ts, gs)), (rd, ld, (sd, td, gd)) = runs[False], runs[True]
+        same = ss == sd and all(torch.equal(ts[k], td[k]) for k in ts)
+        same = same and torch.equal(gs, gd)
+        assert same and ls == ld, (name, ls, ld)
+        assert rd["steps"] == data["train"] // cfg.batch_size, rd
+        cols_bytes = record_bytes * data["train"]
+        assert cols_bytes <= budget
+        print(f"device_dataset {name}: no fallback; tables and generator "
+              f"bit-identical to the staged run: {same}; launches equal "
+              f"{ld}; examples_per_sec={rd['examples_per_sec']:.1f} "
+              f"step_ms_p50={rd['step_ms_p50']:.3f} against staged "
+              f"examples_per_sec={rs['examples_per_sec']:.1f} "
+              f"step_ms_p50={rs['step_ms_p50']:.3f} (host clock); columns "
+              f"on the card {cols_bytes} B of a {budget} B budget "
+              f"(device_dataset_hbm_fraction="
+              f"{cfg.device_dataset_hbm_fraction})")
+        paths[f"dd_{name}"] = ld
+        paths[f"dd_staged_{name}"] = ls
+    cache_lib.clear_ram_cache()
+    if dev.type == "cuda":
+        for name, kw in {"dense": {}, **SPARSE_LAYOUTS}.items():
+            dd_dispatch_timing(cfg.replace(decoded_cache="ram",
+                                           shuffle_buffer=pool, **kw), files)
+    return paths
+
+
+def _data_crc_offset(path: str, index: int) -> tuple:
+    """(frame start, data-CRC offset) of record ``index`` of a TFRecord."""
+    with open(path, "rb") as fh:
+        buf = fh.read()
+    pos = 0
+    for _ in range(index):
+        (length,) = struct.unpack_from("<Q", buf, pos)
+        pos += 16 + length
+    (length,) = struct.unpack_from("<Q", buf, pos)
+    return pos, pos + 12 + length
+
+
+def bad_records_phase(workdir: str, data: dict, cfg: Config,
+                      dev: torch.device) -> None:
+    """A copy of one train file with one flipped data-CRC byte: under
+    ``--verify_crc --on_bad_record skip`` exactly one record is dropped,
+    DataHealth counts 1 and the task completes; under ``raise`` the error
+    names the path and the byte offset. Then a transient read fault every
+    3rd read (``DEEPFM_TPU_READ_FAULT_EVERY``) heals to the clean run's
+    emission and, through the train task, to its tables."""
+    src = _train_files(data)[0]
+    with open(src, "rb") as fh:
+        n_file = len(tfr_loader.split_frames(fh.read())[0])
+    no_eval = os.path.join(workdir, "bad_no_eval")
+    os.makedirs(no_eval, exist_ok=True)
+    clean_dir = os.path.join(workdir, "clean_one")
+    bad_dir = os.path.join(workdir, "bad_one")
+    for d in (clean_dir, bad_dir):
+        os.makedirs(d, exist_ok=True)
+        shutil.copy(src, os.path.join(d, "tr_0000.tfrecords"))
+    bad = os.path.join(bad_dir, "tr_0000.tfrecords")
+    frame, crc = _data_crc_offset(bad, BAD_RECORD_INDEX)
+    with open(bad, "r+b") as fh:
+        fh.seek(crc)
+        b = fh.read(1)
+        fh.seek(crc)
+        fh.write(bytes([b[0] ^ 0xFF]))
+    base = cfg.replace(task_type="train", num_epochs=1, val_data_dir=no_eval,
+                       servable_model_dir="", verify_crc=True,
+                       steps_per_loop=1)
+    skip = base.replace(data_dir=bad_dir, on_bad_record="skip",
+                        model_dir=os.path.join(workdir, "bad_skip"))
+    pipe = tasks.make_pipeline(skip, [bad], drop_remainder=False)
+    rows = sum(int(r["label"].shape[0]) for r in pipe)
+    assert rows == n_file - 1 and pipe.health.bad_records == 1, (
+        rows, pipe.health.snapshot())
+    res = tasks.run(skip, device=dev)
+    assert res["bad_records"] == 1 and res["steps"] == (
+        (n_file - 1) // cfg.batch_size), res
+    try:
+        tasks.run(skip.replace(on_bad_record="raise", model_dir=os.path.join(
+            workdir, "bad_raise")), device=dev)
+        raise AssertionError("a corrupt record trained under raise")
+    except IOError as exc:
+        msg = str(exc)
+    assert bad in msg and f"at byte {frame}" in msg, msg
+    print(f"bad records: one flipped data-CRC byte (record "
+          f"{BAD_RECORD_INDEX}) skipped under --verify_crc --on_bad_record "
+          f"skip: {rows} of {n_file} records, bad_records="
+          f"{res['bad_records']:.0f}, task completed {res['steps']:.0f} "
+          f"steps; under raise: {msg!r}")
+
+    clean = base.replace(data_dir=clean_dir,
+                         model_dir=os.path.join(workdir, "fault_clean"))
+    clean_files = [os.path.join(clean_dir, "tr_0000.tfrecords")]
+    want = _emission_digest(tasks.make_pipeline(clean, clean_files), 8)[0]
+    tasks.run(clean, device=dev)
+    chunk = pipe_lib._NATIVE_CHUNK_BYTES
+    # Reads of a quarter file: each pass reads the file in 4 + 1 calls.
+    pipe_lib._NATIVE_CHUNK_BYTES = max(4096, os.path.getsize(src) // 4)
+    os.environ[faults.READ_FAULT_ENV] = str(READ_FAULT_EVERY)
+    try:
+        fs = faults.install_env_faults()
+        pipe = tasks.make_pipeline(clean, clean_files)
+        got = _emission_digest(pipe, 8)[0]
+        retries = pipe.health.read_retries
+        assert got == want and retries == fs.injected_read_faults > 0, (
+            got, want, retries, fs.injected_read_faults)
+        flaky = clean.replace(model_dir=os.path.join(workdir, "fault_flaky"))
+        res = tasks.run(flaky, device=dev)
+    finally:
+        del os.environ[faults.READ_FAULT_ENV]
+        fileio.set_fault_injector(None)
+        pipe_lib._NATIVE_CHUNK_BYTES = chunk
+    a, b = _final_tables(clean, dev), _final_tables(flaky, dev)
+    same = a[0] == b[0] and all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+    assert same and res["read_retries"] > 0, res
+    print(f"read faults: every {READ_FAULT_EVERY}rd read failed once "
+          f"({faults.READ_FAULT_ENV}); the emission healed to the clean "
+          f"run's ({retries} retries counted, {retries} injected) and the "
+          f"train task healed to the clean task's tables "
+          f"(read_retries={res['read_retries']:.0f}): {same}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -2380,8 +2844,24 @@ def main() -> int:
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+    # The native decoder (g++) builds beside the kernels (nvcc).
+    decoder = {}
+
+    def build_decoder():
+        try:
+            decoder["s"] = tfr_loader.build()
+        except Exception as exc:  # noqa: BLE001 (re-raised below)
+            decoder["error"] = exc
+
+    builder = threading.Thread(target=build_decoder)
+    builder.start()
     build_s = _native.build()
+    builder.join()
+    if "error" in decoder:
+        raise decoder["error"]
     print(f"kernel build: {build_s:.2f}s (nvcc {' '.join(_native.NVCC_FLAGS)})")
+    print(f"decoder build: {decoder['s']:.2f}s (g++ "
+          f"{' '.join(tfr_loader.GXX_FLAGS)}), in parallel with the kernels")
 
     fm_err, fm_t = kernel_phase()
     kern_ms, plain_ms, bound_ms, bound_by, ms_source = fm_t[TIMED_SHAPE]
@@ -2406,10 +2886,18 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=HERE)
     try:
         data = make_train_data(workdir, cfg)
+        decoder_phase(data, cfg)
+        golden_phase(workdir)
         paths = {"train": train_phase(workdir, data, cfg, dev)[0]}
+        paths["train_per_record"] = train_phase(
+            workdir, data, cfg.replace(use_native_decoder=False), dev,
+            name="dense_per_record")[0]
         for name, kw in {**SPARSE_LAYOUTS, "sparse_tiered": TIERED}.items():
             paths["train_" + name] = train_phase(
                 workdir, data, cfg.replace(**kw), dev, name=name)[0]
+        paths.update(cache_phase(workdir, data, cfg, dev))
+        paths.update(dd_phase(workdir, data, cfg, dev))
+        bad_records_phase(workdir, data, cfg, dev)
         for name, kw in ACCUM_LAYOUTS.items():
             paths["train_accum_" + name] = train_phase(
                 workdir, data, cfg.replace(grad_accum_steps=ACCUM,

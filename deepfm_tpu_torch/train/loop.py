@@ -26,7 +26,10 @@ host only at the ``log_steps`` cadence, so the host stays ahead of the
 card. Host batches reach the card through the device staging ring
 (``_StagingRing``, ``--staging_buffers`` slots of preallocated pinned and
 device memory, copied on a stream of their own) from a staging thread
-``--transfer_ahead`` groups ahead (inline at 0). Under ``--on_nonfinite
+``--transfer_ahead`` groups ahead (inline at 0). A source with
+``iter_superbatches`` (the pooled ``CtrPipeline``) is staged as its
+contiguous k-batch emissions, so the dispatch grouping is the pipeline's,
+short groups at pool boundaries included. Under ``--on_nonfinite
 skip|rollback`` every dispatch is checked (``NonFiniteGuard``): a skip
 restores the state snapshot taken before the dispatch, a rollback raises
 ``RollbackSignal`` for the task driver. ``--dispatch_timeout_s`` starts
@@ -41,8 +44,14 @@ remapped group through the same ring, applies the group's cache
 transaction on the fit thread just before its dispatch, and
 ``evaluate``/``predict`` run on the densified full tables.
 
-Not ported yet, each raising ``NotImplementedError`` naming its flag: the
-device-resident dataset and a mesh other than 1x1.
+``fit_device_resident`` (``--device_dataset``) uploads the decoded epoch's
+columns to the card once per cache fingerprint; each dispatch slices its
+rows' indices at a cursor and gathers the batches on the card, then runs
+the same steps as ``fit`` over the same batch order, so the two are
+bit-identical.
+
+Not ported yet, raising ``NotImplementedError`` naming its flag: a mesh
+other than 1x1.
 """
 
 from __future__ import annotations
@@ -117,7 +126,6 @@ def check_ported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a Trainer option that the port has
     not reached yet, naming its flag."""
     unported = [
-        (cfg.device_dataset, "--device_dataset (the device-resident dataset)"),
         (cfg.mesh_data > 1 or cfg.mesh_model > 1,
          f"--mesh_data {cfg.mesh_data} --mesh_model {cfg.mesh_model} (a mesh "
          "other than 1x1)"),
@@ -228,8 +236,22 @@ class _StagingRing:
         """Transfer one dispatch group into the next slot: (device batches,
         copy event or None). The batches are views of the slot."""
         slot = self._staged % self.n_slots
-        return self.put(lambda: self._fill(slot, group),
+        bounds = [0]
+        for b in group:
+            bounds.append(bounds[-1] + int(b["label"].shape[0]))
+        return self.put(lambda: self._fill(slot, group, bounds),
                         _staged_records((group,)))
+
+    def stage_rows(self, rows: Batch, m: int):
+        """Transfer one contiguous emission of ``m`` equal batches (a
+        superbatch's ``[m * B, ...]`` rows) into the next slot with one copy
+        per column: (m device batches, copy event or None)."""
+        slot = self._staged % self.n_slots
+        n = int(rows["label"].shape[0])
+        bs = n // m
+        bounds = [i * bs for i in range(m)] + [n]
+        return self.put(lambda: self._fill(slot, [rows], bounds),
+                        _staged_records((rows,)))
 
     def _alloc(self, group: List[Batch]) -> Dict[str, Tuple]:
         rows = sum(int(b["label"].shape[0]) for b in group)
@@ -258,18 +280,20 @@ class _StagingRing:
                 return False
         return True
 
-    def _fill(self, slot: int, group: List[Batch]):
+    def _fill(self, slot: int, parts: List[Batch], bounds: List[int]):
+        """Copy ``parts`` (host row blocks) end to end into the slot and
+        cut the device copy into batches at ``bounds``."""
         ctx = (torch.cuda.device(self.device) if self._cuda
                else contextlib.nullcontext())
         with ctx:
-            if not self._fits(self._slots[slot], group):
-                self._slots[slot] = self._alloc(group)
+            if not self._fits(self._slots[slot], parts):
+                self._slots[slot] = self._alloc(parts)
             cols = self._slots[slot]
             offs = [0]
-            for b in group:
+            for b in parts:
                 offs.append(offs[-1] + int(b["label"].shape[0]))
             for key, (host, _) in cols.items():
-                for b, o0, o1 in zip(group, offs[:-1], offs[1:]):
+                for b, o0, o1 in zip(parts, offs[:-1], offs[1:]):
                     host[o0:o1].copy_(torch.from_numpy(
                         np.ascontiguousarray(b[key])))
             ready = None
@@ -282,7 +306,7 @@ class _StagingRing:
                     ready.record(self._copy)
                 ready.synchronize()
         dev_batches = [{key: dev[o0:o1] for key, (_, dev) in cols.items()}
-                       for o0, o1 in zip(offs[:-1], offs[1:])]
+                       for o0, o1 in zip(bounds[:-1], bounds[1:])]
         return dev_batches, ready
 
     def wait(self, ready) -> None:
@@ -349,6 +373,8 @@ class Trainer:
         self._ring: Optional[_StagingRing] = None
         # The stall watchdog's abort hook (None: os._exit(EXIT_WATCHDOG)).
         self.watchdog_abort: Optional[Callable[[str], None]] = None
+        # The device-resident dataset: (cache fingerprint, device columns).
+        self._dd_cols: Optional[Tuple[str, Dict[str, torch.Tensor]]] = None
 
     # ------------------------------------------------------------------
     # State
@@ -946,6 +972,8 @@ class Trainer:
                     eps = examples_since_log / max(time.time() - t0, 1e-9)
                     log.info("step=%d loss=%.5f examples/sec=%.0f",
                              state.step, loss, eps)
+                    if src_health is not None and src_health.consume_dirty():
+                        log.info("data health: %s", src_health.summary())
                     if on_log is not None:
                         on_log(state.step, loss, eps)
                     t0 = time.time()
@@ -990,12 +1018,21 @@ class Trainer:
                depth: int) -> Iterator[Tuple[List[Dict[str, torch.Tensor]],
                                              Any, int]]:
         """(device group, copy event, examples) per dispatch, in dispatch
-        order: the groups of ``_groups``, each moved to the device through
-        the active fit's staging ring, ``depth`` groups ahead on a staging
-        thread (inline when ``depth`` is 0)."""
+        order, each moved to the device through the active fit's staging
+        ring, ``depth`` groups ahead on a staging thread (inline when
+        ``depth`` is 0). A source with ``iter_superbatches`` gives the
+        groups itself, each one contiguous block of rows (m <= k batches,
+        the short groups at its pool boundaries included); any other source
+        is grouped by ``_groups``."""
         ring = self._ring
+        sb_iter = getattr(batches, "iter_superbatches", None)
 
         def gen():
+            if sb_iter is not None and k > 1:
+                for rows, m, n_ex in sb_iter(k):
+                    dev, ready = ring.stage_rows(rows, m)
+                    yield dev, ready, n_ex
+                return
             for group in _groups(batches, k):
                 n_ex = sum(int(b["label"].shape[0]) for b in group)
                 dev, ready = ring.stage(group)
@@ -1026,6 +1063,199 @@ class Trainer:
         if depth <= 0:
             return gen()
         return pipe_lib.prefetch(gen(), depth)
+
+    # ------------------------------------------------------------------
+    # Device-resident dataset
+    # ------------------------------------------------------------------
+    def _device_memory_bytes(self) -> int:
+        """The card's memory, or 16 GiB on the CPU (as the JAX package
+        assumes where the backend reports none), so the budget check runs
+        the same way there."""
+        if self.device.type == "cuda":
+            return int(torch.cuda.get_device_properties(
+                self.device).total_memory)
+        return 16 << 30
+
+    def device_dataset_ineligible(self, pipe) -> Optional[str]:
+        """None when ``fit_device_resident`` reproduces the staged run of
+        ``pipe``, else the reason it cannot (the caller warns and stages)."""
+        cfg = self.cfg
+        if getattr(pipe, "decoded_cache", "off") == "off":
+            return "pipeline has no decoded cache (device upload reads the "\
+                   "cached columns)"
+        if getattr(pipe, "skip_batches", 0):
+            return "resume skip_batches offset pending (staged path owns "\
+                   "the trained-prefix drop)"
+        try:
+            cols = pipe.decoded_epoch_columns()
+        except Exception as exc:  # noqa: BLE001 (the staged path raises it)
+            return f"decoded cache unavailable ({exc})"
+        n = cols.num_records
+        if n == 0:
+            return "empty dataset"
+        k = max(cfg.steps_per_loop, 1)
+        if pipe.shuffle and n >= max(pipe.shuffle_buffer,
+                                     k * pipe.batch_size):
+            return (f"shuffle pool smaller than the epoch ({n} records): "
+                    "pool drain order depends on chunk arrival and cannot "
+                    "be reproduced as a device gather")
+        need = cols.nbytes() + n * 4  # the columns and the epoch's index
+        budget = int(self._device_memory_bytes()
+                     * cfg.device_dataset_hbm_fraction)
+        if need > budget:
+            return (f"decoded epoch needs ~{need / 2**20:.1f} MiB on the "
+                    f"device, over the {budget / 2**20:.1f} MiB budget "
+                    f"(device_dataset_hbm_fraction="
+                    f"{cfg.device_dataset_hbm_fraction})")
+        return None
+
+    def _dd_upload(self, pipe) -> Dict[str, torch.Tensor]:
+        """Upload the cached columns once per fingerprint; later epochs and
+        later fits over the same data reuse the device copy. The label
+        column goes up as [n, 1], the staged batches' layout."""
+        fp = pipe.decoded_cache_fingerprint()
+        if self._dd_cols is not None and self._dd_cols[0] == fp:
+            return self._dd_cols[1]
+        self._dd_cols = None  # free the previous dataset first
+        cols = pipe.decoded_epoch_columns()
+        host = {"label": np.ascontiguousarray(cols.labels, np.float32
+                                              ).reshape(-1, 1),
+                "feat_ids": np.ascontiguousarray(cols.ids, np.int32),
+                "feat_vals": np.ascontiguousarray(cols.vals, np.float32)}
+        dev = {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+        self._dd_cols = (fp, dev)
+        return dev
+
+    def _dd_batches(self, cols: Dict[str, torch.Tensor], idx: torch.Tensor,
+                    start: int, m: int, bsz: int
+                    ) -> List[Dict[str, torch.Tensor]]:
+        """The dispatch's ``m`` batches of ``bsz`` rows: the indices at the
+        cursor, one gather per column on the device, cut into batches."""
+        sel = idx[start:start + m * bsz]
+        rows = {k: torch.index_select(v, 0, sel) for k, v in cols.items()}
+        return [{k: v[i * bsz:(i + 1) * bsz] for k, v in rows.items()}
+                for i in range(m)]
+
+    def fit_device_resident(
+            self, state: TrainState, pipe, *,
+            hooks: Optional[List[Callable]] = None,
+            max_steps: Optional[int] = None,
+            on_log: Optional[Callable[[int, float, float], None]] = None,
+            guard: Optional[guard_lib.NonFiniteGuard] = None
+    ) -> Tuple[TrainState, Dict[str, float]]:
+        """Train with the whole decoded dataset on the device.
+
+        Callers clear :meth:`device_dataset_ineligible` first. ``fit``'s
+        contract: the pooled pipeline's dispatch grouping (k-step groups,
+        then single batches, then the short remainder unless
+        ``drop_remainder``), its hooks, log and meter cadence, its guard
+        (a skipped dispatch's rows are consumed all the same) and its
+        return dict. Each epoch uploads its row order (4 bytes a record);
+        each dispatch sends nothing but its cursor."""
+        cfg = self.cfg
+        k = max(cfg.steps_per_loop, 1)
+        bs = pipe.batch_size
+        n = pipe.decoded_epoch_columns().num_records
+        dev_cols = self._dd_upload(pipe)
+        remaining = max_steps
+        meter = prof_lib.ThroughputMeter()
+        last_loss = float("nan")
+        t0 = time.time()
+        examples_since_log = 0
+        n_steps = 0
+        m: Dict[str, Any] = {}
+        health = getattr(pipe, "health", None)
+        guard_active = guard is not None and guard.per_dispatch
+        snapshot = StateSnapshot() if guard_active else None
+        watchdog = self._make_watchdog(guard, health)
+        try:
+            for e in range(pipe.num_epochs):
+                if remaining is not None and remaining <= 0:
+                    break
+                epoch = e + getattr(pipe, "epoch_offset", 0)
+                idx = torch.from_numpy(pipe.device_epoch_indices(epoch, k)
+                                       ).to(self.device)
+                # The pooled pipeline's emission for one epoch, as sizes.
+                n_batches = n // bs
+                r = n - n_batches * bs
+                sizes = [bs] * n_batches
+                if r and not pipe.drop_remainder:
+                    sizes.append(r)
+                if remaining is not None:
+                    sizes = sizes[:remaining]
+                    remaining -= len(sizes)
+                start = 0
+                i = 0
+                while i < len(sizes):
+                    if (sizes[i] == bs and i + k <= len(sizes)
+                            and sizes[i + k - 1] == bs):
+                        mm, bsz = k, bs
+                    else:
+                        mm, bsz = 1, sizes[i]
+                    if guard_active:
+                        snapshot.take(state)
+                        prev_m = m
+                    with trace_lib.span("train.dispatch", steps=mm,
+                                        examples=mm * bsz):
+                        group = self._dd_batches(dev_cols, idx, start, mm,
+                                                 bsz)
+                        if mm == 1:
+                            state, m = self.train_step(state, group[0])
+                        else:
+                            state, m = self.multi_step(state, group)
+                    # The rows are consumed whether or not the update
+                    # survives the guard.
+                    start += mm * bsz
+                    i += mm
+                    if guard_active:
+                        verdict = self._guard_verdict(guard, state, m)
+                        if verdict == "skip":
+                            state, m = snapshot.restore(state), prev_m
+                            if watchdog is not None:
+                                watchdog.beat(n_steps)
+                            continue
+                        if verdict == "rollback":
+                            raise guard_lib.RollbackSignal(int(state.step))
+                    prev_steps = n_steps
+                    n_steps += mm
+                    examples_since_log += mm * bsz
+                    meter.update(mm * bsz, mm)
+                    if watchdog is not None:
+                        watchdog.beat(n_steps)
+                    if cfg.log_steps and (n_steps // cfg.log_steps
+                                          > prev_steps // cfg.log_steps):
+                        loss = float(m["loss"])
+                        last_loss = loss
+                        if guard is not None and not guard_active:
+                            guard.observe(loss, state.step, params_bad=(
+                                guard.params_nonfinite(state.params)
+                                if math.isfinite(loss) else False))
+                        eps = examples_since_log / max(time.time() - t0,
+                                                       1e-9)
+                        log.info("step=%d loss=%.5f examples/sec=%.0f",
+                                 state.step, loss, eps)
+                        if health is not None and health.consume_dirty():
+                            log.info("data health: %s", health.summary())
+                        if on_log is not None:
+                            on_log(state.step, loss, eps)
+                        t0 = time.time()
+                        examples_since_log = 0
+                    if hooks:
+                        m = {**m, "steps_done": mm}
+                        for hook in hooks:
+                            hook(state, m)
+        finally:
+            if watchdog is not None:
+                watchdog.stop()
+        if n_steps:
+            self._sync()
+            meter.record_drain()
+            if math.isnan(last_loss):
+                last_loss = float(m["loss"])
+        out = {"loss": last_loss, "steps": float(n_steps)}
+        out.update({k_: v for k_, v in meter.summary().items()
+                    if k_ != "steps"})
+        return state, out
 
     # ------------------------------------------------------------------
     # Eval / predict

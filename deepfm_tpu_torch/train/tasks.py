@@ -25,6 +25,17 @@ Files resolve as in the JAX package: ``tr*`` / ``va*`` / ``te*`` +
 the CPU. Modes the port has not reached raise ``NotImplementedError``
 naming their flag (see ``check_task_ported``).
 
+Every pipeline takes the input flags: the native decoder and its pooled
+emission (``--use_native_decoder``, ``--native_assembly``,
+``--reader_threads``), the decoded-epoch cache (``--decoded_cache``,
+``--decoded_cache_dir``, default ``<model_dir>/decoded_cache``), the
+bad-record policy (``--on_bad_record``, ``--max_bad_records``) and read
+retries (``--io_retries``, ``--io_retry_backoff_secs``,
+``--io_retry_deadline_secs``). ``--device_dataset`` trains each epoch
+through ``Trainer.fit_device_resident`` when the run qualifies, and warns
+and stages when it does not. The train result carries the run's
+``read_retries`` and ``bad_records``.
+
 Under hot/cold tiering (``--embedding_tiering hot_cold``) every checkpoint
 is written DENSIFIED (``TieredEmbeddingRuntime.checkpoint_state``: full
 tables and full-shape lazy-Adam slots), so it restores bit-exactly into an
@@ -41,11 +52,14 @@ import json
 import logging
 import os
 import time
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..config import Config
+from ..data import cache as cache_lib
+from ..data import fileio
 from ..data import pipeline as pipe_lib
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
@@ -53,6 +67,7 @@ from ..utils import checkpoint as ckpt_lib
 from ..utils import export as export_lib
 from ..utils import faults as faults_lib
 from ..utils import preempt as preempt_lib
+from ..utils import retry as retry_lib
 from . import guard as guard_lib
 from .loop import Trainer, check_ported, pad_batch
 from .state import TrainState
@@ -74,10 +89,7 @@ def check_task_ported(cfg: Config) -> None:
         (cfg.profile_dir, "--profile_dir (the profiler trace window)"),
         (cfg.eval_start_delay_secs > 0 or cfg.eval_throttle_secs > 0,
          "--eval_start_delay_secs/--eval_throttle_secs (throttled eval)"),
-        (cfg.decoded_cache != "off", "--decoded_cache (the decoded cache)"),
         (cfg.input_workers > 0, "--input_workers (the input service)"),
-        (cfg.on_bad_record != "raise",
-         f"--on_bad_record {cfg.on_bad_record} (bad-record skipping)"),
         (cfg.enable_data_multi_path,
          "--enable_data_multi_path (multi-path channels)"),
         (cfg.num_processes > 1, "--num_processes > 1 (multi-process runs)"),
@@ -120,6 +132,25 @@ def resolve_channel_dirs(cfg: Config) -> Tuple[str, str]:
     return path(train_names[0]), eval_dir
 
 
+def _fault_tolerance_kwargs(cfg: Config) -> Dict:
+    """Bad-record policy and I/O retry knobs of every pipeline build."""
+    return dict(on_bad_record=cfg.on_bad_record,
+                max_bad_records=cfg.max_bad_records,
+                retry_policy=retry_lib.policy_from_config(cfg))
+
+
+def _decoded_cache_dir(cfg: Config) -> str:
+    """Disk-cache location: the flag, else ``<model_dir>/decoded_cache``."""
+    if cfg.decoded_cache != "disk":
+        return ""
+    if cfg.decoded_cache_dir:
+        return cfg.decoded_cache_dir
+    if cfg.model_dir:
+        return os.path.join(cfg.model_dir, "decoded_cache")
+    raise ValueError("--decoded_cache disk needs --decoded_cache_dir "
+                     "or --model_dir")
+
+
 def make_pipeline(cfg: Config, files: List[str], *, epochs: int = 1,
                   shuffle: bool = True, drop_remainder: Optional[bool] = None,
                   epoch_offset: int = 0,
@@ -133,8 +164,12 @@ def make_pipeline(cfg: Config, files: List[str], *, epochs: int = 1,
                         else drop_remainder),
         seed=cfg.seed, prefetch_batches=cfg.prefetch_batches,
         use_native_decoder=cfg.use_native_decoder,
-        verify_crc=cfg.verify_crc, epoch_offset=epoch_offset,
-        skip_batches=skip_batches)
+        native_assembly=cfg.native_assembly,
+        reader_threads=cfg.reader_threads, verify_crc=cfg.verify_crc,
+        epoch_offset=epoch_offset, skip_batches=skip_batches,
+        decoded_cache=cfg.decoded_cache,
+        decoded_cache_dir=_decoded_cache_dir(cfg),
+        **_fault_tolerance_kwargs(cfg))
 
 
 def _eval_pipeline(cfg: Config, va_files: List[str]) -> pipe_lib.CtrPipeline:
@@ -195,6 +230,10 @@ def run(cfg: Config, device="cuda") -> Dict[str, float]:
     """Entry point: dispatch on ``cfg.task_type``; returns result metrics.
     ``device`` defaults to the card; pass ``"cpu"`` to run on the CPU."""
     check_task_ported(cfg)
+    # The --io_retry_* policy for every fileio op, and the read faults of
+    # DEEPFM_TPU_READ_FAULT_EVERY (a drill's seam) when it is set.
+    fileio.set_retry_policy(retry_lib.policy_from_config(cfg))
+    faults_lib.install_env_faults()
     obs_dir = cfg.trace_dir or cfg.model_dir or "."
     obs_trace.configure(cfg.trace, capacity=cfg.trace_buffer,
                         trace_dir=obs_dir)
@@ -260,14 +299,18 @@ def _files_fingerprint(files: List[str]) -> str:
 
 def _consumption_layout(cfg: Config) -> List:
     """How batches are consumed: a mid-epoch skip is exact only when the
-    resuming run batches and shuffles as the interrupted one did.
-    ``grad_accum_steps`` does not change which batches a step count covers
-    (``state.step`` counts microbatches), but it changes which optimizer
-    trajectory wrote the checkpoint: a resume across the flag replays the
-    epoch rather than splice two accumulation regimes mid-epoch."""
-    return ["torch-1", cfg.batch_size, cfg.shuffle_buffer, cfg.seed,
+    resuming run emits and groups batches as the interrupted one did. The
+    dispatch group size, the decode path (pooled native or per record), the
+    decoded cache and the assembly route all change the pooled emission
+    order. ``grad_accum_steps`` does not change which batches a step count
+    covers (``state.step`` counts microbatches), but it changes which
+    optimizer trajectory wrote the checkpoint: a resume across any of these
+    replays the epoch rather than skip along another stream."""
+    return ["torch-2", cfg.steps_per_loop, int(cfg.use_native_decoder),
+            cfg.batch_size, cfg.shuffle_buffer, cfg.seed,
             int(cfg.drop_remainder), int(cfg.shuffle_files),
-            cfg.grad_accum_steps]
+            cache_lib.MODES.index(cfg.decoded_cache),
+            int(cfg.native_assembly), cfg.grad_accum_steps]
 
 
 def _resume_position(cfg: Config, restored_step: int, files_digest: str,
@@ -337,6 +380,22 @@ def _maybe_poison(pipeline):
     return pipeline
 
 
+def _fit_epoch(trainer: Trainer, cfg: Config, state: TrainState, pipeline,
+               hooks, guard) -> Tuple[TrainState, Dict[str, float]]:
+    """One epoch: device-resident when ``--device_dataset`` is set and the
+    run qualifies, else the staged pipeline. A fallback warns with the
+    reason, so a run expected on the device learns why it staged."""
+    if cfg.device_dataset:
+        reason = trainer.device_dataset_ineligible(pipeline)
+        if reason is None:
+            return trainer.fit_device_resident(state, pipeline, hooks=hooks,
+                                               guard=guard)
+        warnings.warn(
+            f"--device_dataset fell back to the staged input path: {reason}",
+            RuntimeWarning, stacklevel=2)
+    return trainer.fit(state, pipeline, hooks=hooks, guard=guard)
+
+
 def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
     train_dir, eval_dir = resolve_channel_dirs(cfg)
     tr_files = resolve_files(train_dir, "tr")
@@ -365,6 +424,17 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
     preempt_after = _env_steps(PREEMPT_AFTER_ENV)
     hold_after = _env_steps(PREEMPT_HOLD_ENV)
     result: Dict[str, float] = {}
+    # Every pipeline (train and eval) owns a DataHealth; their counts fold
+    # into one total for the run.
+    health_totals: Dict[str, int] = {}
+
+    def log_health(pipeline, where: str) -> None:
+        data_health = getattr(pipeline, "health", None)
+        if data_health is None:
+            return
+        if data_health.total_events:
+            log.info("data health (%s): %s", where, data_health.summary())
+        data_health.merge_into(health_totals)
 
     def attempt(state: TrainState) -> TrainState:
         """One training attempt from ``state``: the resume position, the
@@ -459,8 +529,9 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
                 cfg, tr_files, epochs=1, shuffle=True,
                 epoch_offset=epoch_base + epoch,
                 skip_batches=skip_batches if epoch == start_epoch else 0))
-            state, fit_m = trainer.fit(state, pipeline, hooks=hooks,
-                                       guard=guard)
+            state, fit_m = _fit_epoch(trainer, cfg, state, pipeline, hooks,
+                                      guard)
+            log_health(pipeline, f"epoch {epoch + 1} end")
             if health.consume_dirty():
                 log.info("train health (epoch %d): %s", epoch + 1,
                          health.summary())
@@ -479,7 +550,9 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
                 progress["epoch_start"] = state.step
                 _write_resume_meta(cfg.model_dir, meta(state.step, False))
             if va_files:
-                ev = trainer.evaluate(state, _eval_pipeline(cfg, va_files))
+                eval_pipe = _eval_pipeline(cfg, va_files)
+                ev = trainer.evaluate(state, eval_pipe)
+                log_health(eval_pipe, f"epoch {epoch + 1} eval")
                 log.info("epoch %d/%d: eval auc=%.5f loss=%.5f", epoch + 1,
                          cfg.num_epochs, ev["auc"], ev["loss"])
                 result.update({"auc": ev["auc"], "eval_loss": ev["loss"],
@@ -512,6 +585,8 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
     if cfg.servable_model_dir:
         _export(trainer, cfg, state)
     result["steps"] = float(state.step)
+    result["read_retries"] = float(health_totals.get("read_retries", 0))
+    result["bad_records"] = float(health_totals.get("bad_records", 0))
     result.update({k: float(v) for k, v in health.snapshot().items()})
     return result
 

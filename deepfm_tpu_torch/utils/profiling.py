@@ -1,10 +1,50 @@
-"""Step-time and throughput meter (the ``ThroughputMeter`` of
+"""Step-time and throughput meter and the host input path's per-stage
+timer (the ``ThroughputMeter`` and ``HostStageStats`` of
 ``deepfm_tpu.utils.profiling``)."""
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Dict, List
+from typing import Dict, Iterator, List, Optional
+
+from ..obs import metrics as metrics_lib
+
+
+class HostStageStats:
+    """Per-stage wall-time accumulator for the host input path.
+
+    The pipeline brackets each stage of its hot loop with ``stage(name)``
+    (``read``: stream bytes in; ``frame``: split TFRecord frames;
+    ``decode_assemble``: proto decode scattered into the transfer-layout
+    pool; ``emit``: slice batches off the pool) when a collector is
+    attached as ``CtrPipeline.stage_stats``; detached (the default) every
+    site is a no-op. Every stage runs on the pipeline generator's thread
+    (a decode fanned out to reader threads is measured as the generator's
+    wait), so the stages add up to most of the observed ns/record and the
+    rest is Python glue.
+    """
+
+    def __init__(self) -> None:
+        self.ns: Dict[str, int] = {}
+        self.records = 0  # the caller sets the denominator
+        metrics_lib.auto_register("host_stage", self)
+
+    @contextlib.contextmanager
+    def stage(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter_ns()
+        try:
+            yield
+        finally:
+            self.ns[name] = self.ns.get(name, 0) + (
+                time.perf_counter_ns() - t0)
+
+    def ns_per_record(self, records: Optional[int] = None
+                      ) -> Dict[str, float]:
+        """Per-stage ns/record; pass ``records`` or preset ``.records``."""
+        n = max(int(records if records is not None else self.records), 1)
+        return {name: round(total / n, 1)
+                for name, total in sorted(self.ns.items())}
 
 
 class ThroughputMeter:

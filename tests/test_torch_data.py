@@ -88,7 +88,7 @@ def test_convert_libsvm_matches_jax(tmp_path):
 
 def _both(files, **kw):
     common = dict(field_size=GEN["field_size"], seed=7, **kw)
-    port = pipeline.CtrPipeline(files, **common)
+    port = pipeline.CtrPipeline(files, use_native_decoder=False, **common)
     jax_side = jax_pipeline.CtrPipeline(files, use_native_decoder=False,
                                         **common)
     return list(port), list(jax_side)

@@ -62,12 +62,50 @@ def test_every_module_imports_without_jax():
     "deepfm_tpu_torch.utils.preempt", "deepfm_tpu_torch.utils.faults",
     "deepfm_tpu_torch.train.guard", "deepfm_tpu_torch.train.state",
     "deepfm_tpu_torch.train.loop", "deepfm_tpu_torch.train.tasks",
-    "deepfm_tpu_torch.launch"])
+    "deepfm_tpu_torch.launch", "deepfm_tpu_torch.native.loader",
+    "deepfm_tpu_torch.data.health", "deepfm_tpu_torch.data.cache",
+    "deepfm_tpu_torch.data.fileio", "deepfm_tpu_torch.utils.retry",
+    "deepfm_tpu_torch.utils.profiling", "deepfm_tpu_torch.data.pipeline"])
 def test_module_list_covers_the_runtime_modules(module):
     """The fit loop's runtime (the staging ring, the guard and its state
-    snapshot, preemption and its fault seams) is among the modules the
-    first check imports without jax."""
+    snapshot, preemption and its fault seams) and the input path (the
+    native decoder's loader, data health, the decoded cache, file I/O and
+    read retries) are among the modules the first check imports without
+    jax."""
     assert module in _modules()
+
+
+def test_input_path_loads_nothing_from_the_jax_package(tmp_path):
+    """Build the decoder and run the pooled pipeline, the decoded cache and
+    the retrying reader in a fresh interpreter where jax is unimportable:
+    no module and no C++ source or library comes from ``deepfm_tpu/``."""
+    script = "\n".join([
+        "import sys",
+        *[f"sys.modules[{name!r}] = None" for name in sorted(FORBIDDEN)],
+        "from deepfm_tpu_torch.data import libsvm, pipeline",
+        "from deepfm_tpu_torch.native import loader",
+        f"files = libsvm.generate_synthetic_ctr({str(tmp_path)!r}, "
+        "num_files=2, examples_per_file=50, feature_size=100, "
+        "field_size=4, seed=1)",
+        "p = pipeline.CtrPipeline(files, field_size=4, batch_size=8, "
+        "decoded_cache='ram')",
+        "n = sum(len(b['label']) for b in p)",
+        "print('records', n)",
+        "print('source', loader.SOURCE)",
+        "print('library', loader._lib._name)",
+        "print('modules', sorted({getattr(m, '__file__', None) or '' "
+        "for m in list(sys.modules.values()) if m is not None}))",
+    ])
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    out = dict(line.split(" ", 1) for line in res.stdout.splitlines())
+    assert out["records"] == "96"
+    jax_pkg = os.path.join(ROOT, "deepfm_tpu") + os.sep
+    assert out["source"].startswith(os.path.join(PKG, "native") + os.sep)
+    assert out["library"].startswith(os.path.join(PKG, "_build") + os.sep)
+    assert jax_pkg not in out["modules"]
 
 
 def _imported_roots(tree):

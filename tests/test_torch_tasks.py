@@ -6,15 +6,19 @@ port's serving loader, and the modes that are not ported yet.
 
 import json
 import os
+import warnings
 
 import numpy as np
 import pytest
 import torch
 
+from deepfm_tpu.config import Config as JaxConfig
+from deepfm_tpu.train import tasks as jax_tasks
 from deepfm_tpu_torch import launch
 from deepfm_tpu_torch.config import Config
 from deepfm_tpu_torch.data import libsvm
 from deepfm_tpu_torch.train import Trainer, tasks
+from deepfm_tpu_torch.train import guard as guard_lib
 from deepfm_tpu_torch.utils import checkpoint as ckpt_lib
 from deepfm_tpu_torch.utils import export as export_lib
 
@@ -119,6 +123,88 @@ def test_resume_mid_epoch_matches_uninterrupted_run(data_dir, tmp_path):
     assert a.opt_state["count"] == b.opt_state["count"]
 
 
+# The layout of the per-record path's port ("torch-1"): a sidecar written
+# under it names none of the flags that order the pooled emission.
+TORCH1_LAYOUT = ["torch-1", 32, 200, 42, 1, 1, 1]
+
+
+def _sidecar(model_dir, layout):
+    meta = {"step": 8, "epoch": 0, "steps_into_epoch": 8, "epoch_base": 0,
+            "num_epochs": 2, "files": "digest", "completed": False,
+            "layout": layout}
+    os.makedirs(model_dir, exist_ok=True)
+    tasks._write_resume_meta(model_dir, meta)
+
+
+@pytest.mark.parametrize("case", ["torch1_sidecar", "steps_per_loop",
+                                  "use_native_decoder", "decoded_cache",
+                                  "native_assembly", "same"])
+def test_resume_across_the_emission_layout_replays_the_epoch(data_dir,
+                                                             tmp_path, case):
+    """The layout names what orders the pooled emission, as the JAX
+    package's does: a resume across any of it (or from a sidecar of the
+    older per-record layout) replays the epoch instead of skipping along
+    another stream; the same layout resumes mid-epoch."""
+    cfg = _cfg(data_dir, str(tmp_path))
+    writer = {"torch1_sidecar": cfg, "same": cfg,
+              "steps_per_loop": cfg.replace(steps_per_loop=2),
+              "use_native_decoder": cfg.replace(use_native_decoder=False),
+              "decoded_cache": cfg.replace(decoded_cache="ram"),
+              "native_assembly": cfg.replace(native_assembly=False)}[case]
+    layout = (TORCH1_LAYOUT if case == "torch1_sidecar"
+              else tasks._consumption_layout(writer))
+    assert layout[-1] == cfg.grad_accum_steps
+    _sidecar(cfg.model_dir, layout)
+    want = (0, 0, 8) if case == "same" else (1, 0, 0)
+    assert tasks._resume_position(cfg, 8, "digest",
+                                  guard_lib.TrainHealth()) == want
+
+
+def test_layout_orders_as_jax():
+    """The same fields in the JAX package's order (less its process count
+    and online mode), under the port's own tag."""
+    kw = dict(steps_per_loop=4, use_native_decoder=False, batch_size=64,
+              shuffle_buffer=123, seed=5, drop_remainder=False,
+              shuffle_files=False, decoded_cache="disk",
+              native_assembly=False, grad_accum_steps=2)
+    got = tasks._consumption_layout(Config(**kw))
+    want = jax_tasks._consumption_layout(JaxConfig(**kw))
+    assert got[0] == "torch-2"
+    assert got[1:] == [want[2], *want[3:11], want[12]]
+
+
+def test_pooled_resume_mid_epoch_matches_uninterrupted_run(data_dir,
+                                                          tmp_path):
+    """A pooled run (2-step dispatches, cached columns, per-chunk scatter)
+    cut after its step-6 checkpoint resumes there, skips the 6 batches it
+    trained inside the pooled stream and ends bit-identical to the run that
+    was never cut."""
+    kw = dict(num_epochs=1, save_checkpoints_steps=2, keep_checkpoint_max=20,
+              servable_model_dir="", steps_per_loop=2, decoded_cache="ram",
+              native_assembly=False)
+    full = _cfg(data_dir, str(tmp_path / "full"), **kw)
+    tasks.run(full, device="cpu")
+    cut = _cfg(data_dir, str(tmp_path / "cut"), **kw)
+    tasks.run(cut, device="cpu")
+    mgr = ckpt_lib.CheckpointManager(cut.model_dir)
+    for s in mgr.all_steps():
+        if s > 6:
+            os.remove(os.path.join(cut.model_dir, f"ckpt-{s}.pt"))
+    meta_path = os.path.join(cut.model_dir, "resume_meta.json")
+    meta = json.load(open(meta_path))
+    assert meta["layout"] == tasks._consumption_layout(cut)
+    meta.update(step=6, steps_into_epoch=6, completed=False)
+    json.dump(meta, open(meta_path, "w"))
+    res = tasks.run(cut, device="cpu")
+    assert res["steps"] == 600 // 32
+    t = Trainer(full, device="cpu")
+    a = ckpt_lib.CheckpointManager(full.model_dir).restore(t.init_state())
+    b = ckpt_lib.CheckpointManager(cut.model_dir).restore(t.init_state())
+    assert a.step == b.step == 600 // 32
+    for k in a.params:
+        assert torch.equal(a.params[k], b.params[k]), k
+
+
 def test_completed_run_resumes_for_more_epochs(data_dir, tmp_path):
     cfg = _cfg(data_dir, str(tmp_path), num_epochs=1, servable_model_dir="")
     first = tasks.run(cfg, device="cpu")
@@ -163,23 +249,30 @@ def test_eval_infer_export_need_a_checkpoint(data_dir, tmp_path):
     ("publish_every_steps", 10), ("tensorboard_dir", "tb"),
     ("profile_dir", "prof"), ("mesh_model", 2), ("decoded_cache", "ram"),
     ("eval_throttle_secs", 5), ("grad_accum_steps", 2),
+    ("on_bad_record", "skip"), ("input_workers", 2),
 ])
 def test_unported_modes_raise_naming_their_flag(data_dir, tmp_path, flag,
                                                 value):
-    """Each mode the port has not reached raises naming its flag; gradient
-    accumulation is ported, and its train task runs."""
+    """Each mode the port has not reached raises naming its flag. Gradient
+    accumulation, the decoded cache, the device-resident dataset (with a
+    pool that covers the epoch, so it does not fall back) and bad-record
+    skipping are ported, and their train tasks run."""
     kw = {flag: value}
     named = flag
     if flag == "device_dataset":
-        kw["decoded_cache"] = "ram"
+        kw.update(decoded_cache="ram", shuffle_buffer=601)
     if flag == "grad_accum_steps":  # must divide steps_per_loop
         kw["steps_per_loop"] = 2
     if flag == "online_mode":
         kw.update(pipe_mode=1, num_epochs=1)
-    if flag == "grad_accum_steps":
-        res = tasks.run(_cfg(data_dir, str(tmp_path), num_epochs=1, **kw),
-                        device="cpu")
+    if flag in ("grad_accum_steps", "decoded_cache", "device_dataset",
+                "on_bad_record"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            res = tasks.run(_cfg(data_dir, str(tmp_path), num_epochs=1, **kw),
+                            device="cpu")
         assert res["steps"] == 600 // 32 and np.isfinite(res["loss"])
+        assert res["bad_records"] == 0 and res["read_retries"] == 0
         return
     with pytest.raises(NotImplementedError,
                        match=f"--{named}.* not yet ported"):

@@ -422,14 +422,18 @@ def test_unported_guard_policies_raise(policy):
     ("grad_accum_steps", 2, "--grad_accum_steps"),
     ("mesh_data", 2, "--mesh_data"),
     ("dispatch_timeout_s", 5.0, "--dispatch_timeout_s"),
+    ("device_dataset", True, "--device_dataset"),
 ])
 def test_unported_trainer_flags_raise(flag, value, match):
     """A mesh other than 1x1 still raises naming its flag; gradient
-    accumulation and the stall watchdog are ported and pass."""
+    accumulation, the stall watchdog and the device-resident dataset are
+    ported and pass."""
     kw = _kw(**{flag: value})
     if flag == "grad_accum_steps":
         kw["steps_per_loop"] = 2
-    if flag in ("grad_accum_steps", "dispatch_timeout_s"):
+    if flag == "device_dataset":
+        kw["decoded_cache"] = "ram"
+    if flag in ("grad_accum_steps", "dispatch_timeout_s", "device_dataset"):
         check_ported(Config(**kw))
         assert Trainer(Config(**kw), device="cpu").cfg.to_dict()[flag] == value
         return
