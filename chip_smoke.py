@@ -159,6 +159,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
    naming the path and the byte offset; a read fault every 3rd read
    (``DEEPFM_TPU_READ_FAULT_EVERY``) heals to the clean emission and the
    clean task's tables.
+   Then the online trainer and its neighbours (exact launch counts on
+   each): a dense ``--pipe_mode 1`` task, two epochs in one stream, its
+   rate beside the file-mode task's; the dense task with
+   ``--input_workers 2`` against in-process decode, and once more with
+   every worker crashing after two slabs under ``respawn``, all three with
+   bit-identical tables; the online trainer (``--online_mode
+   --publish_every_steps 8``) on the train files cut into 16 shards of
+   4,096 records that arrive during the run (temp name, then rename),
+   while ``ServingEngine.serve_latest`` serves its versions on the same
+   card to 6 client threads: exactly 64 steps, no staging dir left,
+   ``LATEST`` on the newest version, every version loads, at least two
+   hot swaps, the final answer bit-equal to the final artifact's at one
+   bucket, publish latency and staleness, and the serving tail during
+   training beside the same server's with no training; an online run
+   preempted in process (``DEEPFM_TPU_TORCH_PREEMPT_AFTER_STEPS``) with
+   half its shards still to come, resumed after they arrive to tables
+   bit-identical to a clean online run, and an online run on the hashed
+   layout; a task with ``--profile_dir`` whose ``torch.profiler`` trace
+   holds the port's kernels (and whether ``--tensorboard_dir`` wrote).
    Then, on 8 Ki records, ``--on_nonfinite rollback`` replays a NaN batch
    from the last checkpoint to tables bit-identical to an uninterrupted
    run, and the CLI in a child process with the preempt-after hook exits
@@ -185,8 +204,11 @@ and serving; the plan, take and segments kernels over the hashed sparse
 train task (the take backward and segments also over the other three);
 the install kernel over the tiered train task. ``launches_by_path`` also
 holds the three accumulation train tasks, the per-record dense task, the
-two decoded-cache tasks and the device-resident tasks with their staged
-counterparts.
+two decoded-cache tasks, the device-resident tasks with their staged
+counterparts, the pipe-mode task (``train_pipe``), the input-service task
+(``train_input_workers``), the online trainer's training and serving
+(``train_online``, ``serve_online``) and the hashed online run
+(``train_online_hashed``).
 
 Numerics: float32 matmuls run in full float32
 (``torch.backends.cuda.matmul.allow_tf32 = False``) and bfloat16 matmuls
@@ -2834,6 +2856,455 @@ def bad_records_phase(workdir: str, data: dict, cfg: Config,
           f"(read_retries={res['read_retries']:.0f}): {same}")
 
 
+# ---------------------------------------------------------------------------
+# The online trainer, pipe mode, the input service and the profiler window
+# ---------------------------------------------------------------------------
+
+# Train-while-serve: 16 shards of 4,096 records (the dense train files cut
+# in two), 4 present at the start and one more every ONLINE_ARRIVAL_S; a
+# version published every 8 steps; 6 client threads on the same card.
+ONLINE_PER_SHARD, ONLINE_AT_START = 4096, 4
+ONLINE_ARRIVAL_S = 0.3
+ONLINE_PUBLISH_EVERY = 8
+ONLINE_CLIENTS = 6
+ONLINE_BASELINE_S = 3.0
+# The online preempt/resume runs: two train files cut into 8 shards of
+# 2,048 records, the back half hidden until after the preemption at step 5.
+RESUME_PER_SHARD, RESUME_PREEMPT_AFTER = 2048, 5
+INPUT_WORKERS = 2
+PROFILE_STEPS = 8
+# Names of the port's CUDA kernels in a torch.profiler trace.
+PROFILED_KERNELS = ("fm_fwd", "fm_bwd_kernel", "segments_kernel",
+                    "take_bwd")
+
+
+def split_shards(files, out_dir: str, per_shard: int):
+    """Cut TFRecord files into shards of ``per_shard`` whole frames each
+    (byte ranges of the originals; the records and their order are
+    unchanged). Returns the shard paths, in order."""
+    os.makedirs(out_dir, exist_ok=True)
+    out = []
+    for path in sorted(files):
+        with open(path, "rb") as f:
+            buf = f.read()
+        offsets, lengths = tfr_loader.split_frames(buf, verify_crc=False)
+        starts = [int(o) - 12 for o in offsets[::per_shard]] + [len(buf)]
+        for i in range(len(starts) - 1):
+            name = os.path.basename(path)[:-len(".tfrecords")]
+            dst = os.path.join(out_dir, f"{name}_{i:02d}.tfrecords")
+            with open(dst, "wb") as f:
+                f.write(buf[starts[i]:starts[i + 1]])
+            out.append(dst)
+    return out
+
+
+def _publish_checks(pdir: str, versions, final: int, cfg: Config,
+                    dev) -> None:
+    """No staging dir left; LATEST names the newest version; every version
+    loads and answers finite probabilities."""
+    names = os.listdir(pdir)
+    assert not [n for n in names if n.startswith(".staging-")], names
+    latest = export_lib.read_latest(pdir)
+    assert latest is not None and os.path.basename(latest) == str(final), (
+        latest, final)
+    assert versions and versions[-1] == final, versions
+    assert sorted(int(n) for n in names if n.isdigit()) == sorted(versions)
+    probe = (np.zeros((2, cfg.field_size), np.int32),
+             np.ones((2, cfg.field_size), np.float32))
+    for v in versions:
+        probs = export_lib.load_serving(os.path.join(pdir, str(v)),
+                                        device=dev)(*probe)
+        assert probs.shape == (2,) and np.all(np.isfinite(probs)), v
+    hist = [e["version"] for e in export_lib.pointer_history(pdir)]
+    assert hist == [str(v) for v in versions], (hist, versions)
+
+
+class _Clients:
+    """Client threads submitting requests of 1-256 rows until stopped;
+    records each response's latency."""
+
+    def __init__(self, engine, cfg: Config, n: int, seed: int):
+        self.engine, self.cfg = engine, cfg
+        self.stop = threading.Event()
+        self.lat: list = []
+        self.errors: list = []
+        self.rows = 0
+        self._lock = threading.Lock()
+        self._threads = [threading.Thread(target=self._run,
+                                          args=(seed + c,), daemon=True)
+                         for c in range(n)]
+
+    def _run(self, seed: int) -> None:
+        rng = np.random.default_rng(seed)
+        cfg = self.cfg
+        try:
+            while not self.stop.is_set():
+                n = int(rng.integers(1, cfg.serve_max_batch + 1))
+                ids = rng.integers(0, cfg.feature_size,
+                                   (n, cfg.field_size)).astype(np.int32)
+                vals = rng.random((n, cfg.field_size), dtype=np.float32)
+                fut = self.engine.submit(ids, vals)
+                probs = fut.result(timeout=120)
+                assert probs.shape == (n,) and np.all(np.isfinite(probs))
+                with self._lock:
+                    self.lat.append(fut.latency_ms)
+                    self.rows += n
+        except BaseException as e:  # re-raised on the main thread
+            self.errors.append(e)
+
+    def start(self) -> "_Clients":
+        self.t0 = time.perf_counter()
+        for t in self._threads:
+            t.start()
+        return self
+
+    def finish(self) -> dict:
+        self.stop.set()
+        for t in self._threads:
+            t.join(timeout=120)
+        wall = time.perf_counter() - self.t0
+        if self.errors:
+            raise self.errors[0]
+        lat = np.asarray(self.lat)
+        return {"requests": len(lat), "rows": self.rows, "wall_s": wall,
+                "rps": len(lat) / wall,
+                "p50_ms": float(np.percentile(lat, 50)),
+                "p99_ms": float(np.percentile(lat, 99))}
+
+
+def _no_eval_dir(workdir: str) -> str:
+    """An empty eval directory (an empty one would fall back to the train
+    directory's files)."""
+    d = os.path.join(workdir, "no_eval")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def online_phase(workdir: str, data: dict, cfg: Config, dev: torch.device,
+                 per_shard: int = ONLINE_PER_SHARD,
+                 arrival_s: float = ONLINE_ARRIVAL_S,
+                 idle_s: float = 3.0):
+    """The online trainer on the dense layout while ``serve_latest`` serves
+    its versions on the same card: shards arrive in a directory during the
+    run (temp name, then rename), a version is published every 8 steps,
+    and client threads send requests the whole time. Checks the steps, the
+    publish directory, the swaps, the final answer against the final
+    version's artifact bit for bit, and the exact kernel launches of the
+    training and the serving. Returns (train launches, serve launches)."""
+    src = os.path.join(workdir, "online_src")
+    shards = split_shards(_train_files(data), src, per_shard)
+    assert len(shards) * per_shard == data["train"], len(shards)
+    live = os.path.join(workdir, "online_data")
+    os.makedirs(live)
+    pdir = os.path.join(workdir, "online_publish")
+    run = cfg.replace(task_type="train", data_dir=live,
+                      val_data_dir=_no_eval_dir(workdir),
+                      model_dir=os.path.join(workdir, "online_ckpt"),
+                      pipe_mode=1, online_mode=True, num_epochs=1,
+                      publish_every_steps=ONLINE_PUBLISH_EVERY,
+                      publish_dir=pdir, stream_poll_secs=0.1,
+                      stream_idle_timeout_secs=idle_s)
+    steps = data["train"] // cfg.batch_size
+
+    def arrive(path: str) -> None:
+        tmp = os.path.join(live, "." + os.path.basename(path) + ".tmp")
+        shutil.copy(path, tmp)
+        os.replace(tmp, os.path.join(live, os.path.basename(path)))
+
+    for path in shards[:ONLINE_AT_START]:
+        arrive(path)
+    errors: list = []
+    box: dict = {}
+    stop = threading.Event()
+
+    def writer() -> None:
+        try:
+            for path in shards[ONLINE_AT_START:]:
+                if stop.wait(arrival_s):
+                    return
+                arrive(path)
+        except BaseException as e:  # re-raised on the main thread
+            errors.append(e)
+
+    buckets = export_lib.serving_buckets(cfg.serve_max_batch)
+    loader = (lambda path: export_lib.load_serving(path, buckets=buckets,
+                                                   device=dev))
+
+    def server() -> None:
+        try:
+            while export_lib.read_latest(pdir) is None:
+                if stop.wait(0.02):
+                    return
+            engine = ServingEngine.serve_latest(
+                pdir, poll_secs=0.1, max_batch=cfg.serve_max_batch,
+                max_delay_ms=cfg.serve_max_delay_ms,
+                inflight=cfg.serve_inflight, buckets=buckets,
+                watcher_kw={"loader": loader})
+            box["engine"] = engine
+            box["clients"] = _Clients(engine, cfg, ONLINE_CLIENTS,
+                                      SEED + 50).start()
+        except BaseException as e:  # re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=writer, daemon=True),
+               threading.Thread(target=server, daemon=True)]
+    _zero_counts()
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    try:
+        res = tasks.run(run, device=dev)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    engine, clients = box["engine"], box["clients"]
+    try:
+        watcher = engine.watcher
+        final = int(res["steps"])
+        final_path = os.path.join(pdir, str(final))
+        deadline = time.time() + 60
+        while watcher.current_path != final_path:
+            assert time.time() < deadline, (watcher.current_path, final_path)
+            time.sleep(0.05)
+        during = clients.finish()
+        time.sleep(0.2)  # the last flush's stats land after its futures
+        launches = _counts()
+        flushes, warmed = engine.stats.flushes, watcher.prewarmed_buckets
+        swaps = watcher.swap_count - 1  # the first load is not a swap
+        serve_launches = flushes + warmed
+        # The bit-for-bit check: one request alone in its flush, against
+        # the final version's artifact loaded on its own, at one bucket.
+        rng = np.random.default_rng(SEED + 60)
+        n = 37
+        ids = rng.integers(0, cfg.feature_size,
+                           (n, cfg.field_size)).astype(np.int32)
+        vals = rng.random((n, cfg.field_size), dtype=np.float32)
+        served = engine.submit(ids, vals).result(timeout=60)
+        want = export_lib.load_serving(final_path, buckets=buckets,
+                                       device=dev)(ids, vals)
+        bit_equal = bool(np.array_equal(served, want))
+        assert bit_equal, float(np.abs(served - want).max())
+        # The same server with no training on the card.
+        idle = _Clients(engine, cfg, ONLINE_CLIENTS, SEED + 70).start()
+        time.sleep(ONLINE_BASELINE_S)
+        alone = idle.finish()
+    finally:
+        engine.close(timeout=60)
+    assert res["steps"] == steps, res
+    versions = res["published_versions"]
+    _publish_checks(pdir, versions, final, cfg, dev)
+    assert res["publish_failures"] == 0, res
+    assert swaps >= 2, swaps
+    on = int(dev.type == "cuda")
+    train = {"fused_fm": on * steps, "fused_fm_bwd": on * steps,
+             "plan_build": 0, "take_fwd": 0,
+             "take_bwd": on * EMB_PARAMS * steps, "segments": on * steps,
+             "install": 0}
+    assert launches == {**train, "fused_fm": train["fused_fm"]
+                        + on * serve_launches}, (launches, serve_launches)
+    lat = res["publish_latencies_s"]
+    print(f"online train-while-serve (dense, {len(shards)} shards x "
+          f"{per_shard}, {ONLINE_AT_START} at start, one every "
+          f"{arrival_s}s): steps={res['steps']:.0f} wall_s={wall:.2f} "
+          f"examples_per_sec={res['examples_per_sec']:.1f} (fit's rate, "
+          f"waits for arrivals included) published={versions} "
+          f"skipped_busy={res['publish_skipped_inflight']} "
+          f"publish_latency_p50_s={np.percentile(lat, 50):.4f} "
+          f"publish_latency_max_s={max(lat):.4f} staleness_steps_max="
+          f"{res['publish_staleness_steps_max']} swaps={swaps} "
+          f"prewarmed_buckets={warmed}")
+    print(f"online serve during training: requests={during['requests']} "
+          f"rows={during['rows']} clients={ONLINE_CLIENTS} "
+          f"rps={during['rps']:.1f} p50_ms={during['p50_ms']:.3f} "
+          f"p99_ms={during['p99_ms']:.3f} flushes={flushes}; same server "
+          f"with no training for {ONLINE_BASELINE_S}s: requests="
+          f"{alone['requests']} rps={alone['rps']:.1f} p50_ms="
+          f"{alone['p50_ms']:.3f} p99_ms={alone['p99_ms']:.3f}; final "
+          f"answer bit-equal to load_serving({final}): {bit_equal}; "
+          f"launches train={train} serve fused_fm={serve_launches}")
+    return train, on * serve_launches
+
+
+def _online_run(workdir: str, name: str, live: str, cfg: Config) -> Config:
+    return cfg.replace(task_type="train", data_dir=live,
+                       val_data_dir=_no_eval_dir(workdir),
+                       model_dir=os.path.join(workdir, name), pipe_mode=1,
+                       online_mode=True, num_epochs=1, publish_every_steps=4,
+                       stream_poll_secs=0.05, stream_idle_timeout_secs=0.5)
+
+
+def online_resume_phase(workdir: str, data: dict, cfg: Config,
+                        dev: torch.device,
+                        per_shard: int = RESUME_PER_SHARD) -> dict:
+    """The online trainer preempted in process
+    (``DEEPFM_TPU_TORCH_PREEMPT_AFTER_STEPS``) with half the shards not yet
+    arrived, then resumed after they arrive: tables bit-identical to a
+    clean online run over the final shard set. Then one online run on the
+    hashed layout, so the plan and take kernels run on an online path.
+    Returns the hashed run's launches."""
+    src = os.path.join(workdir, "resume_src")
+    shards = split_shards(_train_files(data)[:2], src, per_shard)
+    steps = len(shards) * per_shard // cfg.batch_size
+    half = len(shards) // 2
+    live = os.path.join(workdir, "resume_data")
+    clean_dir = os.path.join(workdir, "resume_clean_data")
+    os.makedirs(live)
+    os.makedirs(clean_dir)
+    for path in shards:
+        shutil.copy(path, clean_dir)
+    for path in shards[:half]:
+        shutil.copy(path, live)
+    cut = _online_run(workdir, "resume_cut", live, cfg)
+    os.environ[tasks.PREEMPT_AFTER_ENV] = str(RESUME_PREEMPT_AFTER)
+    try:
+        tasks.run(cut, device=dev)
+        raise AssertionError("the preempted online run did not stop")
+    except preempt_lib.Preempted as p:
+        cut_step = p.step
+    finally:
+        del os.environ[tasks.PREEMPT_AFTER_ENV]
+        preempt_lib.get_listener().clear()
+    for path in shards[half:]:
+        shutil.copy(path, live)
+    res = tasks.run(cut, device=dev)
+    clean = _online_run(workdir, "resume_clean", clean_dir, cfg)
+    tasks.run(clean, device=dev)
+    a, b = _final_tables(cut, dev), _final_tables(clean, dev)
+    same = (a[0] == b[0] == steps == res["steps"]
+            and all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+            and torch.equal(a[2], b[2]))
+    assert same, (a[0], b[0], res["steps"])
+    print(f"online preempt/resume: preempted at step {cut_step} with "
+          f"{half} of {len(shards)} shards arrived, resumed "
+          f"to step {a[0]} after the rest arrived; tables and generator "
+          f"bit-identical to a clean online run over the final shards: "
+          f"{same}")
+
+    hashed = _online_run(workdir, "resume_hashed", clean_dir,
+                         cfg.replace(**SPARSE_LAYOUTS["sparse_hashed"]))
+    _zero_counts()
+    res = tasks.run(hashed, device=dev)
+    launches = _counts()
+    on = int(dev.type == "cuda")
+    want = {"fused_fm": on * steps, "fused_fm_bwd": on * steps,
+            "plan_build": on * steps,
+            "take_fwd": on * EMB_PARAMS * steps,
+            "take_bwd": on * EMB_PARAMS * steps, "segments": on * steps,
+            "install": 0}
+    assert res["steps"] == steps and launches == want, (res, launches)
+    print(f"online hashed: steps={res['steps']:.0f} published="
+          f"{res['published_versions']} launches={launches}")
+    return launches
+
+
+def pipe_phase(workdir: str, data: dict, cfg: Config, dev: torch.device,
+               file_eps: float) -> dict:
+    """A dense ``--pipe_mode 1`` task, two epochs over the train files
+    replayed by the producer, one eval at the end: steps and exact
+    launches, and its rate beside the file-mode dense task's."""
+    run = cfg.replace(task_type="train", data_dir=data["dir"],
+                      val_data_dir=data["dir"], pipe_mode=1,
+                      num_epochs=TRAIN_EPOCHS,
+                      model_dir=os.path.join(workdir, "pipe_ckpt"))
+    steps = TRAIN_EPOCHS * (data["train"] // cfg.batch_size)
+    eval_batches = -(-data["eval"] // cfg.batch_size)
+    _zero_counts()
+    res = tasks.run(run, device=dev)
+    launches = _counts()
+    on = int(dev.type == "cuda")
+    want = {"fused_fm": on * (steps + eval_batches),
+            "fused_fm_bwd": on * steps, "plan_build": 0, "take_fwd": 0,
+            "take_bwd": on * EMB_PARAMS * steps, "segments": on * steps,
+            "install": 0}
+    assert res["steps"] == steps and launches == want, (res, launches)
+    assert res["auc"] > 0.5, res
+    print(f"train pipe_mode (dense, {TRAIN_EPOCHS} epochs in one stream): "
+          f"steps={res['steps']:.0f} examples_per_sec="
+          f"{res['examples_per_sec']:.1f} (file mode, the dense task "
+          f"above: {file_eps:.1f}) auc={res['auc']:.5f} launches={launches}")
+    return launches
+
+
+def input_service_phase(workdir: str, data: dict, cfg: Config,
+                        dev: torch.device) -> dict:
+    """A dense task with ``--input_workers 2`` against ``--input_workers
+    0`` on the same files (one epoch, no eval): tables bit-identical,
+    launches equal, the rates of both; then a run whose input workers each
+    crash (``os._exit``) after two slabs under the ``respawn`` policy, also
+    bit-identical."""
+    base = cfg.replace(task_type="train", data_dir=data["dir"],
+                       val_data_dir=_no_eval_dir(workdir), num_epochs=1)
+    steps = data["train"] // cfg.batch_size
+    runs = {}
+    orig = tasks.make_pipeline
+
+    def crashing(*a, **k):
+        pipe = orig(*a, **k)
+        pipe.input_worker_death = "respawn"
+        pipe.input_worker_fault_die_after = 2
+        return pipe
+
+    for name, workers, make in (("inproc", 0, orig),
+                                ("workers", INPUT_WORKERS, orig),
+                                ("respawn", INPUT_WORKERS, crashing)):
+        run = base.replace(input_workers=workers,
+                           model_dir=os.path.join(workdir, "svc_" + name))
+        _zero_counts()
+        tasks.make_pipeline = make
+        try:
+            res = tasks.run(run, device=dev)
+        finally:
+            tasks.make_pipeline = orig
+        runs[name] = (res, _counts(), _final_tables(run, dev))
+        assert res["steps"] == steps, res
+    ref = runs["inproc"]
+    for name in ("workers", "respawn"):
+        res, launches, tables = runs[name]
+        same = (tables[0] == ref[2][0]
+                and all(torch.equal(tables[1][k], ref[2][1][k])
+                        for k in tables[1]))
+        assert same and launches == ref[1], (name, launches, ref[1])
+    print(f"input service: examples_per_sec in-process="
+          f"{ref[0]['examples_per_sec']:.1f} input_workers={INPUT_WORKERS}: "
+          f"{runs['workers'][0]['examples_per_sec']:.1f} with a worker "
+          f"crash per worker under respawn: "
+          f"{runs['respawn'][0]['examples_per_sec']:.1f}; tables "
+          f"bit-identical and launches equal ({ref[1]}) on all three")
+    return runs["workers"][1]
+
+
+def profiler_phase(workdir: str, data: dict, cfg: Config,
+                   dev: torch.device) -> None:
+    """A short dense task with ``--profile_dir`` (and ``--tensorboard_dir``):
+    the Chrome trace of its step window holds the port's CUDA kernels."""
+    prof = os.path.join(workdir, "profile")
+    tb = os.path.join(workdir, "tb")
+    run = cfg.replace(task_type="train", data_dir=data["dir"],
+                      val_data_dir=data["dir"], num_epochs=1,
+                      profile_dir=prof, profile_steps=PROFILE_STEPS,
+                      tensorboard_dir=tb, log_steps=16,
+                      model_dir=os.path.join(workdir, "prof_ckpt"))
+    tasks.run(run, device=dev)
+    traces = [f for f in os.listdir(prof) if f.endswith(".json")]
+    assert len(traces) == 1, traces
+    with open(os.path.join(prof, traces[0]), encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    found = {k: sum(k in n for n in kernels) for k in PROFILED_KERNELS}
+    if dev.type == "cuda":
+        assert all(found.values()), (found, sorted(kernels)[:40])
+    tb_files = (os.listdir(tb) if os.path.isdir(tb) else [])
+    print(f"profiler: {traces[0]} holds {len(events)} events, "
+          f"{len(kernels)} distinct kernels; the port's: {found}; "
+          f"TensorBoard summaries: "
+          f"{'written' if tb_files else 'disabled (tensorboard not importable)'}"
+          f" ({len(tb_files)} event files)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -2888,7 +3359,8 @@ def main() -> int:
         data = make_train_data(workdir, cfg)
         decoder_phase(data, cfg)
         golden_phase(workdir)
-        paths = {"train": train_phase(workdir, data, cfg, dev)[0]}
+        paths = {}
+        paths["train"], dense_res = train_phase(workdir, data, cfg, dev)
         paths["train_per_record"] = train_phase(
             workdir, data, cfg.replace(use_native_decoder=False), dev,
             name="dense_per_record")[0]
@@ -2898,6 +3370,17 @@ def main() -> int:
         paths.update(cache_phase(workdir, data, cfg, dev))
         paths.update(dd_phase(workdir, data, cfg, dev))
         bad_records_phase(workdir, data, cfg, dev)
+        paths["train_pipe"] = pipe_phase(workdir, data, cfg, dev,
+                                         dense_res["examples_per_sec"])
+        paths["train_input_workers"] = input_service_phase(workdir, data,
+                                                           cfg, dev)
+        paths["train_online"], serve_online = online_phase(workdir, data,
+                                                           cfg, dev)
+        paths["serve_online"] = {**{k: 0 for k in paths["train_online"]},
+                                 "fused_fm": serve_online}
+        paths["train_online_hashed"] = online_resume_phase(workdir, data,
+                                                           cfg, dev)
+        profiler_phase(workdir, data, cfg, dev)
         for name, kw in ACCUM_LAYOUTS.items():
             paths["train_accum_" + name] = train_phase(
                 workdir, data, cfg.replace(grad_accum_steps=ACCUM,

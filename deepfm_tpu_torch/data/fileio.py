@@ -14,9 +14,12 @@ raises ``NotImplementedError``.
 
 from __future__ import annotations
 
+import glob as _glob
 import io
 import os
-from typing import BinaryIO, Callable, Optional
+import shutil
+import threading
+from typing import BinaryIO, Callable, List, Optional
 
 from ..utils import retry as _retry
 
@@ -83,6 +86,80 @@ def size(path: str) -> int:
             _injector.on_op("size", path)
         return os.path.getsize(path)
     return _retry_policy.call(_size_op, op_name=f"size({path})")
+
+
+def _metadata_op(name: str, path: str, fn: Callable[[], object]):
+    """``fn`` under the retry policy, with the fault injector's hook."""
+    _local(path)
+
+    def _op():
+        if _injector is not None:
+            _injector.on_op(name, path)
+        return fn()
+    return _retry_policy.call(_op, op_name=f"{name}({path})")
+
+
+def glob(pattern: str) -> List[str]:
+    """Sorted matches of a local glob pattern."""
+    return _metadata_op("glob", pattern,
+                        lambda: sorted(_glob.glob(pattern)))
+
+
+def isdir(path: str) -> bool:
+    return _metadata_op("isdir", path, lambda: os.path.isdir(path))
+
+
+def exists(path: str) -> bool:
+    return _metadata_op("exists", path, lambda: os.path.exists(path))
+
+
+def makedirs(path: str) -> None:
+    os.makedirs(_local(path), exist_ok=True)
+
+
+def rmtree(path: str) -> None:
+    shutil.rmtree(_local(path))
+
+
+def replace(src: str, dst: str) -> None:
+    """Atomically move ``src`` over ``dst`` (file or directory): readers see
+    the old artifact or the complete new one, never a partial state."""
+    os.replace(_local(src), _local(dst))
+
+
+def fsync_dir(path: str) -> None:
+    """fsync a directory so a just-completed rename survives a crash."""
+    try:
+        fd = os.open(_local(path), os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def write_atomic(path: str, data) -> None:
+    """Write ``data`` (str or bytes) so readers see the old content or the
+    new, never a torn file: a same-directory temp file, flushed and
+    fsynced, renamed over ``path``, then the directory fsynced. Every
+    pointer and sidecar of the online path (``LATEST``, the stream's
+    high-water mark) is written so."""
+    if isinstance(data, str):
+        data = data.encode("utf-8")
+    d = os.path.dirname(_local(path)) or "."
+    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
+    fsync_dir(d)
 
 
 class ResilientStream(io.RawIOBase):

@@ -24,7 +24,14 @@ or a counted skip), transient read errors heal through
 ``fileio.ResilientStream``, and ``decoded_cache`` (``ram`` | ``disk``)
 serves later epochs from decoded columns (``data.cache``), which the
 device-resident fit uploads once. ``skip_batches`` (step-accurate resume)
-is applied inside each emission path.
+is applied inside each emission path. ``input_workers`` moves the pooled
+path's frame+decode into spawned worker processes (``data.workers``) with
+the same emission; a service that cannot start raises.
+
+Pipe mode: :class:`StreamingCtrPipeline` decodes batches in stream order
+from one sequential byte source, a :class:`ChainedFileStream` (the files
+replayed once per epoch by the producer) or the online trainer's
+``data.stream.UnboundedFileStream``.
 
 Batches are ``{"feat_ids": int32[B,F], "feat_vals": f32[B,F],
 "label": f32[B,1]}``.
@@ -278,7 +285,11 @@ class CtrPipeline:
                  verify_crc: bool = False, epoch_offset: int = 0,
                  skip_batches: int = 0, on_bad_record: str = "raise",
                  max_bad_records: int = 0, retry_policy=None,
-                 decoded_cache: str = "off", decoded_cache_dir: str = ""):
+                 decoded_cache: str = "off", decoded_cache_dir: str = "",
+                 input_workers: int = 0,
+                 input_worker_slab_records: Optional[int] = None,
+                 input_worker_death: str = "raise",
+                 stall_timeout_s: float = 0.0):
         self._files = tuple(files)
         self.field_size = field_size
         self.batch_size = batch_size
@@ -317,6 +328,19 @@ class CtrPipeline:
         self.decoded_cache = decoded_cache
         self.decoded_cache_dir = decoded_cache_dir
         self._cache_cols = None  # built or loaded lazily, reused by epochs
+        # The multi-process input service (data.workers): decode worker
+        # processes fill shared-memory slabs that the pool reads without a
+        # copy. It serves the pooled native path; cached columns need no
+        # decode and the per-record path has no chunks, so either keeps the
+        # in-process decode (a choice of configuration, not a fallback).
+        self.input_workers = max(0, int(input_workers))
+        self.input_worker_slab_records = input_worker_slab_records
+        self.input_worker_death = input_worker_death
+        # A worker's one-shot crash after N messages (a drill's seam).
+        self.input_worker_fault_die_after: Optional[int] = None
+        # Ring reads raise InputStallError after this long without a
+        # message from a live worker (0: wait forever).
+        self.stall_timeout_s = float(stall_timeout_s)
         if self._use_native:
             _native_loader()  # build now: a failed build raises here
 
@@ -462,6 +486,30 @@ class CtrPipeline:
             self.seed * 1_000_003 + epoch).permutation(n)
         return arrival[np.argsort(perm)].astype(np.int32)
 
+    def _make_input_service(self, epoch: int):
+        """Start the decode-worker fleet for one epoch. A service that
+        cannot start (no spawn, no POSIX shared memory) raises, naming
+        ``--input_workers``: the run never switches to in-process decode
+        unasked."""
+        from . import workers  # noqa: PLC0415 (spawns processes)
+        try:
+            return workers.ShmInputService(
+                self._epoch_files(epoch), field_size=self.field_size,
+                num_workers=self.input_workers,
+                slab_records=self.input_worker_slab_records,
+                verify_crc=self.verify_crc,
+                on_bad_record=self._bad_policy.on_bad,
+                max_bad_records=self._bad_policy.max_bad,
+                retry_policy=self._retry_policy, health=self.health,
+                on_worker_death=self.input_worker_death,
+                fault_die_after=self.input_worker_fault_die_after,
+                stall_timeout_s=self.stall_timeout_s).start()
+        except Exception as exc:
+            raise RuntimeError(
+                f"--input_workers {self.input_workers}: the input service "
+                f"could not start ({exc!r}); set --input_workers 0 to decode "
+                "in process") from exc
+
     def _iter_framed_span_chunks(self, epoch: int, loader
                                  ) -> Iterator[Tuple[bytes, np.ndarray,
                                                      np.ndarray]]:
@@ -550,7 +598,9 @@ class CtrPipeline:
         # drain straight into its permuted row (one pass, not decode then
         # scatter). The permutation, arrival order and rng stream are the
         # eager path's, so the emission is the same.
-        fused = self.shuffle and loader is not None
+        use_shm = (cached_cols is None and self.input_workers > 0
+                   and loader is not None)
+        fused = not use_shm and self.shuffle and loader is not None
         drain_pool = _DrainPool(self.reader_threads)
         stats = self.stage_stats
         try:
@@ -562,8 +612,10 @@ class CtrPipeline:
                 pend: "collections.deque" = collections.deque()
                 raw: List[Tuple[bytes, np.ndarray, np.ndarray]] = []
                 n_pend = 0
+                service = self._make_input_service(epoch) if use_shm else None
 
-                def drain(final: bool) -> Iterator[Tuple[Batch, int, int]]:
+                def drain(final: bool, service=service
+                          ) -> Iterator[Tuple[Batch, int, int]]:
                     nonlocal pend, raw, n_pend
                     if self.shuffle and n_pend > 0 and (pend or raw):
                         # Row j of the arrival order lands at perm[j] of one
@@ -592,6 +644,10 @@ class CtrPipeline:
                                     vals, drain_pool)
                         pend = collections.deque([(labels, ids, vals)])
                         raw = []
+                        if service is not None:
+                            # Every held slab view is scattered into the
+                            # fresh pool: hand the slots back to the workers.
+                            service.release_consumed()
                     while n_pend >= sb:
                         with _timed(stats, "emit"):
                             rows = self._assemble_batch(pend, sb)
@@ -616,6 +672,17 @@ class CtrPipeline:
                         n_pend += len(chunk[0])
                         if n_pend >= pool_target:
                             yield from drain(final=False)
+                elif service is not None:
+                    with service:
+                        # Without shuffle nothing scatters, so batch slices
+                        # would keep slab views alive: copy out instead.
+                        for chunk in service.chunks(copy=not self.shuffle):
+                            pend.append(chunk)
+                            n_pend += len(chunk[0])
+                            if n_pend >= pool_target:
+                                yield from drain(final=False)
+                        yield from drain(final=True)
+                    continue
                 elif fused:
                     for span in self._iter_framed_span_chunks(epoch, loader):
                         raw.append(span)
@@ -762,6 +829,197 @@ class CtrPipeline:
     def count_examples(self) -> int:
         """One full pass counting records."""
         return sum(1 for _ in self._iter_raw_records(epoch=0))
+
+
+class ChainedFileStream:
+    """Sequential ``read(n)``-only view over a list of files, replayed
+    ``num_epochs`` times: the producer side of pipe mode. SageMaker's
+    Pipe-mode FIFO replays the channel once per epoch and cannot be
+    reopened, so the epochs live with the producer and the consumer
+    (:class:`StreamingCtrPipeline`) sees one continuous byte stream. With
+    ``shuffle_each_epoch`` each epoch's file order is a seeded reshuffle
+    (``default_rng(seed + epoch)``, the epoch continuing across resumed
+    invocations through ``epoch_offset``)."""
+
+    def __init__(self, files: Sequence[str], *, num_epochs: int = 1,
+                 shuffle_each_epoch: bool = False, seed: int = 42,
+                 epoch_offset: int = 0, retry_policy=None,
+                 health: Optional[DataHealth] = None):
+        if not files:
+            raise ValueError("ChainedFileStream needs at least one file")
+        self._files: List[str] = []
+        for e in range(num_epochs):
+            fs = list(files)
+            if shuffle_each_epoch:
+                np.random.default_rng(seed + e + epoch_offset).shuffle(fs)
+            self._files.extend(fs)
+        self._idx = 0
+        self._fh: Optional[BinaryIO] = None
+        self._retry_policy = retry_policy
+        self._health = health
+
+    def _open_next(self, path: str) -> BinaryIO:
+        # A transient fault heals inside the producer, per file, so the
+        # consumer's single-pass stream never breaks.
+        on_retry = None
+        if self._health is not None:
+            health = self._health
+            on_retry = lambda exc, n, p=path: health.record_retry(p)  # noqa: E731
+        return fileio.open_resilient(path, policy=self._retry_policy,
+                                     on_retry=on_retry)
+
+    def read(self, n: int = -1) -> bytes:
+        if n is None or n < 0:
+            raise ValueError("ChainedFileStream only supports bounded reads")
+        out = bytearray()
+        while len(out) < n:
+            if self._fh is None:
+                if self._idx >= len(self._files):
+                    break
+                self._fh = self._open_next(self._files[self._idx])
+                self._idx += 1
+            chunk = self._fh.read(n - len(out))
+            if not chunk:
+                self._fh.close()
+                self._fh = None
+                continue
+            out += chunk
+        return bytes(out)
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+
+
+class StreamingCtrPipeline:
+    """Pipe mode: batches decoded from one sequential byte stream (a
+    :class:`ChainedFileStream`, or the online trainer's
+    ``stream.UnboundedFileStream``), in stream order, without shuffle.
+
+    Single pass, as a FIFO: more epochs are the producer's business. With
+    the native decoder the stream is framed in ~64 MB reads with a carried
+    tail (``_iter_framed_stream``) and decoded chunk by chunk; without it,
+    record by record through the Python codec, the same batches.
+    ``iter_superbatches(k)`` emits k batches at a time as one contiguous
+    block (the staging ring's ``stage_rows`` path); the batch sequence is
+    the same for every k, so a resume's ``skip_batches`` lines up across
+    both feeds. Corrupt frames go through the bad-record policy, counted in
+    ``health`` (shared with the producer's read retries)."""
+
+    def __init__(self, stream: BinaryIO, *, field_size: int,
+                 batch_size: int, drop_remainder: bool = True,
+                 prefetch_batches: int = 4, use_native_decoder: bool = True,
+                 verify_crc: bool = False, skip_batches: int = 0,
+                 on_bad_record: str = "raise", max_bad_records: int = 0,
+                 stream_label: str = "<stream>",
+                 health: Optional[DataHealth] = None):
+        self.stream = stream
+        self.field_size = field_size
+        self.batch_size = batch_size
+        self.drop_remainder = drop_remainder
+        self.prefetch_batches = prefetch_batches
+        self._use_native = bool(use_native_decoder)
+        self.verify_crc = verify_crc
+        self.skip_batches = skip_batches  # resume: drop the trained prefix
+        self._consumed = False
+        self.health = health if health is not None else DataHealth()
+        self._stream_label = stream_label
+        self._bad_policy = BadRecordPolicy(on_bad_record, max_bad_records,
+                                           self.health)
+        if self._use_native:
+            _native_loader()  # build now: a failed build raises here
+
+    def _take(self) -> None:
+        if self._consumed:
+            raise RuntimeError(
+                "StreamingCtrPipeline is single-pass (Pipe-mode FIFO "
+                "semantics); create a new stream for another epoch")
+        self._consumed = True
+
+    def _iter_records(self) -> Iterator[bytes]:
+        return tfrecord.iter_records_from_stream(
+            self.stream, verify_crc=self.verify_crc,
+            path=self._stream_label, policy=self._bad_policy)
+
+    def _iter_vectorized_grouped(self, loader, k: int
+                                 ) -> Iterator[Tuple[Batch, int, int]]:
+        """Native path: chunked framing and vectorized decode straight off
+        the stream, emitted as ``(rows, m, n_ex)`` groups of up to ``k``
+        batches. No shuffle: the batch sequence is stream order for every
+        k, only the grouping differs."""
+        bs = self.batch_size
+        sb = bs * max(k, 1)
+        pend: "collections.deque" = collections.deque()
+        n_pend = 0
+        for buf, offsets, lengths in _iter_framed_stream(
+                self.stream, loader, self.verify_crc,
+                path=self._stream_label, policy=self._bad_policy):
+            if len(offsets) == 0:
+                continue
+            pend.append(loader.decode_spans(buf, offsets, lengths,
+                                            self.field_size))
+            n_pend += len(offsets)
+            while n_pend >= sb:
+                yield CtrPipeline._assemble_batch(pend, sb), k, sb
+                n_pend -= sb
+        while n_pend >= bs:
+            yield CtrPipeline._assemble_batch(pend, bs), 1, bs
+            n_pend -= bs
+        if n_pend and not self.drop_remainder:
+            yield CtrPipeline._assemble_batch(pend, n_pend), 1, n_pend
+
+    def _batch_from_records(self, records: List[bytes]) -> Batch:
+        labels, ids, vals = decode_batch_python(records, self.field_size)
+        return {
+            "feat_ids": np.ascontiguousarray(ids, np.int32),
+            "feat_vals": np.ascontiguousarray(vals, np.float32),
+            "label": labels.reshape(-1, 1).astype(np.float32),
+        }
+
+    def _iter_record_batches(self) -> Iterator[Batch]:
+        """Per-record path: Python framing and the codec."""
+        pending: List[bytes] = []
+        for rec in self._iter_records():
+            pending.append(rec)
+            if len(pending) == self.batch_size:
+                yield self._batch_from_records(pending)
+                pending = []
+        if pending and not self.drop_remainder:
+            yield self._batch_from_records(pending)
+
+    def _iter_sync(self) -> Iterator[Batch]:
+        self._take()
+        if self._use_native:
+            src = (rows for rows, _, _ in self._iter_vectorized_grouped(
+                _native_loader(), 1))
+        else:
+            src = self._iter_record_batches()
+        skip = self.skip_batches
+        for b in src:
+            if skip:
+                skip -= 1
+                continue
+            yield b
+
+    def __iter__(self) -> Iterator[Batch]:
+        if self.prefetch_batches <= 0:
+            return self._iter_sync()
+        return prefetch(self._iter_sync(), self.prefetch_batches)
+
+    def iter_superbatches(self, k: int) -> Iterator[Tuple[Batch, int, int]]:
+        """The k-batch feed of the fit loop's dispatch (same contract as
+        ``CtrPipeline.iter_superbatches``), single-pass like every read of
+        the stream."""
+        if not self._use_native or k <= 1:
+            yield from _group_plain_batches(iter(self), k, self.batch_size)
+            return
+        self._take()
+        src = _trim_skip(self._iter_vectorized_grouped(_native_loader(), k),
+                         self.skip_batches, self.batch_size)
+        if self.prefetch_batches > 0:
+            src = prefetch(src, max(1, self.prefetch_batches // k))
+        yield from src
 
 
 def prefetch(it: Iterator, depth: int) -> Iterator:

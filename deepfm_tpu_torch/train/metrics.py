@@ -8,12 +8,14 @@ float32 (exact below 2**24 per bin), so they equal the JAX package's on
 the same probabilities whatever the order of the sums.
 
 Everything stays on the device of the inputs; only ``float()`` of a result
-reads it back. The windowed online AUC is not ported yet.
+reads it back. :class:`WindowedAuc` is the online trainer's sliding-window
+AUC over host arrays; the multi-task ``WindowedAucDict`` is not ported.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import collections
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +85,65 @@ def mean_init(*, device=None) -> MeanState:
 
 def mean_compute(state: MeanState) -> torch.Tensor:
     return state.total / torch.clamp(state.count, min=1.0)
+
+
+class WindowedAuc:
+    """Sliding-window streaming AUC for the online trainer: "AUC over the
+    last ``window_steps`` steps of traffic" rather than a batch job's one
+    pass. Each :meth:`update` bins one eval slice into float64 pos/neg
+    histograms (host numpy: eval slices arrive as host arrays off the
+    predict path) tagged with its training step; slices more than
+    ``window_steps`` old are evicted. :meth:`compute` is
+    :func:`auc_compute` over the window's histograms in float32."""
+
+    def __init__(self, window_steps: int, num_bins: int = 200):
+        if window_steps <= 0:
+            raise ValueError(f"window_steps must be > 0, got {window_steps}")
+        self.window_steps = int(window_steps)
+        self.num_bins = int(num_bins)
+        self._slices: "collections.deque" = collections.deque()
+        self._pos = np.zeros((self.num_bins,), np.float64)
+        self._neg = np.zeros((self.num_bins,), np.float64)
+        self.examples = 0  # examples inside the window
+
+    def _hist(self, probs, labels) -> Tuple[np.ndarray, np.ndarray]:
+        probs = np.asarray(probs, dtype=np.float64).reshape(-1)
+        labels = np.asarray(labels, dtype=np.float64).reshape(-1)
+        bins = np.clip((probs * self.num_bins).astype(np.int64),
+                       0, self.num_bins - 1)
+        pos = np.bincount(bins, weights=labels, minlength=self.num_bins)
+        neg = np.bincount(bins, weights=1.0 - labels,
+                          minlength=self.num_bins)
+        return pos, neg
+
+    def update(self, step: int, probs, labels) -> None:
+        """Fold one eval slice, taken at training ``step``, into the window."""
+        pos, neg = self._hist(probs, labels)
+        self._slices.append((int(step), pos, neg))
+        self._pos += pos
+        self._neg += neg
+        self.examples += int(pos.sum() + neg.sum())
+        self.evict(int(step))
+
+    def evict(self, current_step: int) -> None:
+        """Drop slices taken ``window_steps`` or more before the step."""
+        floor = int(current_step) - self.window_steps
+        while self._slices and self._slices[0][0] <= floor:
+            _, pos, neg = self._slices.popleft()
+            self._pos -= pos
+            self._neg -= neg
+            self.examples -= int(pos.sum() + neg.sum())
+
+    def histograms(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The window's (pos, neg) histograms."""
+        return self._pos.copy(), self._neg.copy()
+
+    def compute(self) -> float:
+        """The windowed AUC; NaN while the window is empty or lacks a
+        class, as the batch path."""
+        return float(auc_compute(AucState(
+            pos=torch.as_tensor(self._pos, dtype=torch.float32),
+            neg=torch.as_tensor(self._neg, dtype=torch.float32))))
 
 
 def auc_numpy_reference(probs, labels) -> float:

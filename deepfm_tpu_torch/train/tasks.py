@@ -1,18 +1,37 @@
 """Tasks: train / eval / infer / export on one device (port of the
 single-process path of ``deepfm_tpu.train.tasks``).
 
-  * ``train`` — per-epoch train loop with an eval after each epoch, a
-    checkpoint every ``save_checkpoints_steps`` and at the end, resume from
-    the latest checkpoint in ``model_dir`` (mid-epoch exact through the
-    ``resume_meta.json`` sidecar), ``clear_existing_model``, and a final
-    serving export when ``servable_model_dir`` is set. It polls the
-    process-wide preemption listener once per dispatch: on SIGTERM/SIGINT
-    (or the injectable trigger) it force-saves a checkpoint and the
-    sidecar, then raises ``utils.preempt.Preempted`` (the launcher exits
-    42). Under ``--on_nonfinite rollback`` a :class:`RollbackSignal` from
-    the fit loop restores the latest checkpoint and replays from its
-    recorded offset (one attempt after another, bounded by the guard's
-    ``--max_rollbacks`` budget).
+  * ``train`` — per-epoch train loop with an eval after each epoch (or,
+    with ``--eval_start_delay_secs``/``--eval_throttle_secs``, throttled
+    mid-train evals and a final one), a checkpoint every
+    ``save_checkpoints_steps`` (asynchronous: ``utils.checkpoint``) and a
+    forced one at the end, resume from the latest checkpoint in
+    ``model_dir`` (mid-epoch exact through the ``resume_meta.json``
+    sidecar, written only once its checkpoint is durable),
+    ``clear_existing_model``, and a final serving export when
+    ``servable_model_dir`` is set. It polls the process-wide preemption
+    listener once per dispatch: on SIGTERM/SIGINT (or the injectable
+    trigger) it force-saves a checkpoint and the sidecar, then raises
+    ``utils.preempt.Preempted`` (the launcher exits 42). Under
+    ``--on_nonfinite rollback`` a :class:`RollbackSignal` from the fit loop
+    restores the latest checkpoint and replays from its recorded offset
+    (one attempt after another, bounded by the guard's ``--max_rollbacks``
+    budget).
+  * Pipe mode (``--pipe_mode 1``) trains one ``fit`` over one single-pass
+    stream (``make_streaming_pipeline``), the epochs replayed by the
+    producer; the resume position is steps into the stream.
+  * Online mode (``--online_mode``, with pipe mode) tails a directory that
+    keeps receiving shards (``make_online_pipeline``, ``data.stream``) and
+    ends on preemption or after ``--stream_idle_timeout_secs`` without new
+    data. With ``--publish_every_steps``/``--publish_every_secs`` a
+    :class:`~.publish.Publisher` publishes servable versions into
+    ``--publish_dir`` (default ``<model_dir>/publish``) for
+    ``ServingEngine.serve_latest`` to hot-swap, drains before exit 42 and
+    forces a final publish at the terminal step;
+    ``--online_eval_window_steps`` reports a sliding-window AUC.
+  * ``--tensorboard_dir`` writes scalar summaries (``obs.tensorboard``);
+    ``--profile_dir`` traces a window of ``--profile_steps`` steps with
+    ``torch.profiler`` (``utils.profiling.StepWindowTracer``).
   * ``eval`` — AUC + loss on the eval files.
   * ``infer`` — one probability per line to ``pred.txt``.
   * ``export`` — the servable artifact of the latest checkpoint, through
@@ -23,7 +42,8 @@ Files resolve as in the JAX package: ``tr*`` / ``va*`` / ``te*`` +
 
 ``run(cfg, device="cuda")`` runs on the card unless the caller asks for
 the CPU. Modes the port has not reached raise ``NotImplementedError``
-naming their flag (see ``check_task_ported``).
+naming their flag (see ``check_task_ported``): more than one process, the
+multi-path channels and a mesh.
 
 Every pipeline takes the input flags: the native decoder and its pooled
 emission (``--use_native_decoder``, ``--native_assembly``,
@@ -31,9 +51,10 @@ emission (``--use_native_decoder``, ``--native_assembly``,
 ``--decoded_cache_dir``, default ``<model_dir>/decoded_cache``), the
 bad-record policy (``--on_bad_record``, ``--max_bad_records``) and read
 retries (``--io_retries``, ``--io_retry_backoff_secs``,
-``--io_retry_deadline_secs``). ``--device_dataset`` trains each epoch
-through ``Trainer.fit_device_resident`` when the run qualifies, and warns
-and stages when it does not. The train result carries the run's
+``--io_retry_deadline_secs``) and the input service (``--input_workers``:
+decode worker processes, ``data.workers``). ``--device_dataset`` trains
+each epoch through ``Trainer.fit_device_resident`` when the run
+qualifies, and warns and stages when it does not. The train result carries the run's
 ``read_retries`` and ``bad_records``.
 
 Under hot/cold tiering (``--embedding_tiering hot_cold``) every checkpoint
@@ -61,14 +82,19 @@ from ..config import Config
 from ..data import cache as cache_lib
 from ..data import fileio
 from ..data import pipeline as pipe_lib
+from ..data import stream as stream_lib
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
+from ..obs.tensorboard import TensorBoardWriter
 from ..utils import checkpoint as ckpt_lib
 from ..utils import export as export_lib
 from ..utils import faults as faults_lib
 from ..utils import preempt as preempt_lib
+from ..utils import profiling as prof_lib
 from ..utils import retry as retry_lib
 from . import guard as guard_lib
+from . import metrics as metrics_lib
+from . import publish as publish_lib
 from .loop import Trainer, check_ported, pad_batch
 from .state import TrainState
 
@@ -80,16 +106,6 @@ def check_task_ported(cfg: Config) -> None:
     reached yet, naming its flag."""
     check_ported(cfg)
     unported = [
-        (cfg.online_mode, "--online_mode (the online trainer)"),
-        (cfg.pipe_mode, "--pipe_mode (the streaming pipeline)"),
-        (cfg.publish_every_steps or cfg.publish_every_secs or cfg.publish_dir,
-         "--publish_every_steps/--publish_every_secs/--publish_dir "
-         "(online publishing)"),
-        (cfg.tensorboard_dir, "--tensorboard_dir (TensorBoard summaries)"),
-        (cfg.profile_dir, "--profile_dir (the profiler trace window)"),
-        (cfg.eval_start_delay_secs > 0 or cfg.eval_throttle_secs > 0,
-         "--eval_start_delay_secs/--eval_throttle_secs (throttled eval)"),
-        (cfg.input_workers > 0, "--input_workers (the input service)"),
         (cfg.enable_data_multi_path,
          "--enable_data_multi_path (multi-path channels)"),
         (cfg.num_processes > 1, "--num_processes > 1 (multi-process runs)"),
@@ -169,6 +185,8 @@ def make_pipeline(cfg: Config, files: List[str], *, epochs: int = 1,
         epoch_offset=epoch_offset, skip_batches=skip_batches,
         decoded_cache=cfg.decoded_cache,
         decoded_cache_dir=_decoded_cache_dir(cfg),
+        input_workers=cfg.input_workers,
+        stall_timeout_s=cfg.dispatch_timeout_s,
         **_fault_tolerance_kwargs(cfg))
 
 
@@ -176,6 +194,66 @@ def _eval_pipeline(cfg: Config, va_files: List[str]) -> pipe_lib.CtrPipeline:
     """Eval reads every record: no shuffle, keep the tail batch (the eval
     step pads it with zero-weight rows)."""
     return make_pipeline(cfg, va_files, shuffle=False, drop_remainder=False)
+
+
+def make_streaming_pipeline(cfg: Config, files: List[str], *, epochs: int = 1,
+                            skip_batches: int = 0, epoch_offset: int = 0
+                            ) -> pipe_lib.StreamingCtrPipeline:
+    """Pipe mode (``--pipe_mode 1``): one sequential single-pass stream over
+    the files, the epochs replayed by the producer (the Pipe-mode FIFO
+    shape). One DataHealth is shared by the producer (read retries, per
+    file) and the consumer (bad records)."""
+    health = pipe_lib.DataHealth()
+    stream = pipe_lib.ChainedFileStream(
+        sorted(files), num_epochs=epochs,
+        shuffle_each_epoch=cfg.shuffle_files, seed=cfg.seed,
+        epoch_offset=epoch_offset,
+        retry_policy=retry_lib.policy_from_config(cfg), health=health)
+    return pipe_lib.StreamingCtrPipeline(
+        stream, field_size=cfg.field_size, batch_size=cfg.batch_size,
+        drop_remainder=cfg.drop_remainder,
+        prefetch_batches=cfg.prefetch_batches,
+        use_native_decoder=cfg.use_native_decoder,
+        skip_batches=skip_batches, verify_crc=cfg.verify_crc,
+        on_bad_record=cfg.on_bad_record,
+        max_bad_records=cfg.max_bad_records, health=health)
+
+
+# The online stream's high-water-mark sidecar, beside the checkpoints it
+# stays consistent with.
+_STREAM_SIDECAR = "stream_manifest.json"
+
+# Files digest of online mode: the live listing grows by design, so the
+# resume gate cannot fingerprint what will be read (the stream's sidecar
+# says that); a constant keeps the gate from refusing a replayable skip.
+_ONLINE_FILES_DIGEST = "online-stream-v1"
+
+
+def make_online_pipeline(cfg: Config, train_dir: str, *, skip_batches: int = 0
+                         ) -> Tuple[pipe_lib.StreamingCtrPipeline,
+                                    stream_lib.UnboundedFileStream]:
+    """``--online_mode``: the watcher tails ``tr*.tfrecords`` under
+    ``train_dir`` (``data.stream``: admission, healing, the sidecar) and
+    the streaming consumer decodes it. Returns (pipeline, stream): the
+    stream handle lets the preemption path wake a blocked poll."""
+    health = pipe_lib.DataHealth()
+    sidecar = (os.path.join(cfg.model_dir, _STREAM_SIDECAR)
+               if cfg.model_dir else "")
+    stream = stream_lib.UnboundedFileStream(
+        train_dir, pattern="tr*.tfrecords", sidecar_path=sidecar,
+        poll_secs=cfg.stream_poll_secs,
+        idle_timeout_secs=cfg.stream_idle_timeout_secs,
+        retry_policy=retry_lib.policy_from_config(cfg), health=health)
+    pipeline = pipe_lib.StreamingCtrPipeline(
+        stream, field_size=cfg.field_size, batch_size=cfg.batch_size,
+        drop_remainder=cfg.drop_remainder,
+        prefetch_batches=cfg.prefetch_batches,
+        use_native_decoder=cfg.use_native_decoder,
+        skip_batches=skip_batches, verify_crc=cfg.verify_crc,
+        on_bad_record=cfg.on_bad_record,
+        max_bad_records=cfg.max_bad_records,
+        stream_label=f"<online:{train_dir}>", health=health)
+    return pipeline, stream
 
 
 def _restore_or_init(trainer: Trainer, cfg: Config, require: bool,
@@ -266,8 +344,8 @@ _RESUME_META = "resume_meta.json"
 
 
 def _write_resume_meta(model_dir: str, meta: Dict) -> None:
-    export_lib.write_atomic(os.path.join(model_dir, _RESUME_META),
-                            json.dumps(meta))
+    fileio.write_atomic(os.path.join(model_dir, _RESUME_META),
+                        json.dumps(meta))
 
 
 def _read_resume_meta(model_dir: str,
@@ -302,7 +380,7 @@ def _consumption_layout(cfg: Config) -> List:
     resuming run emits and groups batches as the interrupted one did. The
     dispatch group size, the decode path (pooled native or per record), the
     decoded cache and the assembly route all change the pooled emission
-    order. ``grad_accum_steps`` does not change which batches a step count
+    order, and online mode swaps the producer for the unbounded stream. ``grad_accum_steps`` does not change which batches a step count
     covers (``state.step`` counts microbatches), but it changes which
     optimizer trajectory wrote the checkpoint: a resume across any of these
     replays the epoch rather than skip along another stream."""
@@ -310,28 +388,37 @@ def _consumption_layout(cfg: Config) -> List:
             cfg.batch_size, cfg.shuffle_buffer, cfg.seed,
             int(cfg.drop_remainder), int(cfg.shuffle_files),
             cache_lib.MODES.index(cfg.decoded_cache),
-            int(cfg.native_assembly), cfg.grad_accum_steps]
+            int(cfg.native_assembly), int(cfg.online_mode),
+            cfg.grad_accum_steps]
 
 
 def _resume_position(cfg: Config, restored_step: int, files_digest: str,
                      health: guard_lib.TrainHealth) -> Tuple[int, int, int]:
     """(epoch_base, start_epoch, skip_batches) for this invocation.
 
-    The sidecar applies only when its ``step`` is the restored checkpoint's.
-    A completed prior invocation advances ``epoch_base`` so shuffle orders
-    never repeat; an interrupted one of the same shape resumes mid-epoch,
-    skipping the batches already trained."""
+    The sidecar applies only when its ``step`` is the restored checkpoint's
+    (a sidecar ahead of every durable checkpoint is stale: it degrades to
+    replaying the epoch). A completed prior invocation advances
+    ``epoch_base`` so shuffle orders never repeat; an interrupted one of
+    the same shape (pipe mode included) resumes mid-epoch, skipping the
+    batches already trained."""
     meta = (_read_resume_meta(cfg.model_dir, health)
             if cfg.model_dir else None)
     if not meta or not restored_step:
         return 0, 0, 0
     base = int(meta.get("epoch_base", 0))
-    touched = int(meta.get("epoch", 0)) + 1
+    # Epochs whose shuffle order the recorded invocation may have touched.
+    # Pipe mode records epoch 0 (its position is steps into the stream)
+    # while its producer may have replayed every epoch's order.
+    touched = (int(meta.get("num_epochs", 0)) if meta.get("pipe_mode")
+               else int(meta.get("epoch", 0)) + 1)
     if meta.get("step") != restored_step:
+        # Stale: the position is unusable, the epoch base still advances.
         return base + touched, 0, 0
     if meta.get("completed"):
         return base + int(meta.get("num_epochs", 0)), 0, 0
     if (int(meta.get("num_epochs", -1)) == cfg.num_epochs
+            and bool(meta.get("pipe_mode")) == bool(cfg.pipe_mode)
             and meta.get("layout") == _consumption_layout(cfg)
             and meta.get("files") == files_digest):
         return (base, int(meta.get("epoch", 0)),
@@ -381,7 +468,8 @@ def _maybe_poison(pipeline):
 
 
 def _fit_epoch(trainer: Trainer, cfg: Config, state: TrainState, pipeline,
-               hooks, guard) -> Tuple[TrainState, Dict[str, float]]:
+               hooks, guard, on_log=None
+               ) -> Tuple[TrainState, Dict[str, float]]:
     """One epoch: device-resident when ``--device_dataset`` is set and the
     run qualifies, else the staged pipeline. A fallback warns with the
     reason, so a run expected on the device learns why it staged."""
@@ -389,18 +477,92 @@ def _fit_epoch(trainer: Trainer, cfg: Config, state: TrainState, pipeline,
         reason = trainer.device_dataset_ineligible(pipeline)
         if reason is None:
             return trainer.fit_device_resident(state, pipeline, hooks=hooks,
-                                               guard=guard)
+                                               on_log=on_log, guard=guard)
         warnings.warn(
             f"--device_dataset fell back to the staged input path: {reason}",
             RuntimeWarning, stacklevel=2)
-    return trainer.fit(state, pipeline, hooks=hooks, guard=guard)
+    return trainer.fit(state, pipeline, hooks=hooks, on_log=on_log,
+                       guard=guard)
+
+
+def _make_throttled_eval_hook(trainer: Trainer, cfg: Config,
+                              va_files: List[str], result: Dict[str, float],
+                              on_eval=None, evaluate=None):
+    """Mid-train eval hook with TrainSpec/EvalSpec timing: the first eval
+    no earlier than ``eval_start_delay_secs`` into the run, then at most
+    one every ``eval_throttle_secs``, checked once per dispatch."""
+    t_start = time.time()
+    last_eval_t: List[Optional[float]] = [None]
+    result["mid_train_evals"] = 0.0
+
+    def hook(state: TrainState, m) -> None:
+        now = time.time()
+        due = (now - t_start >= cfg.eval_start_delay_secs
+               and (last_eval_t[0] is None
+                    or now - last_eval_t[0] >= cfg.eval_throttle_secs))
+        if not due:
+            return
+        last_eval_t[0] = time.time()
+        ev = (evaluate(state) if evaluate is not None
+              else trainer.evaluate(state, _eval_pipeline(cfg, va_files)))
+        result["mid_train_evals"] += 1
+        result.update({"auc": ev["auc"], "eval_loss": ev["loss"],
+                       "eval_examples_per_sec": ev["examples_per_sec"]})
+        log.info("throttled eval @ step %d: auc=%.5f loss=%.5f",
+                 int(state.step), ev["auc"], ev["loss"])
+        if on_eval is not None:
+            on_eval(ev, state)
+
+    return hook
+
+
+def _make_online_eval(trainer: Trainer, cfg: Config, va_files: List[str],
+                      window: metrics_lib.WindowedAuc, step_fn):
+    """Online-mode evaluate: one predict pass over the held-out files,
+    folded into the sliding :class:`~.metrics.WindowedAuc` at the current
+    training step (``step_fn(state)``): "AUC over the last N steps of
+    traffic" rather than the batch job's cumulative AUC."""
+
+    def evaluate(state: TrainState) -> Dict[str, float]:
+        pipeline = _eval_pipeline(cfg, va_files)
+        probs: List[np.ndarray] = []
+        labels: List[np.ndarray] = []
+        real_rows: List[int] = []
+        t0 = time.time()
+
+        def feed():
+            for batch in pipeline:
+                n = batch["label"].shape[0]
+                real_rows.append(n)
+                labels.append(np.asarray(batch["label"]).reshape(-1)[:n])
+                yield (pad_batch(batch, cfg.batch_size)
+                       if n < cfg.batch_size else batch)
+
+        for i, p in enumerate(trainer.predict(state, feed())):
+            probs.append(np.asarray(p).reshape(-1)[:real_rows[i]])
+        elapsed = max(time.time() - t0, 1e-9)
+        p = (np.concatenate(probs) if probs
+             else np.zeros((0,), np.float64)).astype(np.float64)
+        y = (np.concatenate(labels) if labels
+             else np.zeros((0,), np.float64)).astype(np.float64)
+        window.update(int(step_fn(state)), p, y)
+        pc = np.clip(p, 1e-7, 1.0 - 1e-7)
+        loss = (float((-(y * np.log(pc) + (1.0 - y) * np.log1p(-pc))).mean())
+                if len(y) else 0.0)
+        return {"auc": window.compute(), "loss": loss,
+                "examples_per_sec": len(y) / elapsed,
+                "window_examples": float(window.examples)}
+
+    return evaluate
 
 
 def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
     train_dir, eval_dir = resolve_channel_dirs(cfg)
     tr_files = resolve_files(train_dir, "tr")
     va_files = resolve_files(eval_dir, "va")
-    if not tr_files:
+    if not tr_files and not cfg.online_mode:
+        # Online mode tails the directory: starting before the first shard
+        # arrives is the normal case.
         raise FileNotFoundError(f"no training tfrecords in {train_dir!r}")
     log.info("train dir=%s files=%d eval files=%d", train_dir,
              len(tr_files), len(va_files))
@@ -410,7 +572,9 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
     if cfg.model_dir:
         mgr = ckpt_lib.CheckpointManager(
             cfg.model_dir, max_to_keep=cfg.keep_checkpoint_max,
-            save_interval_steps=cfg.save_checkpoints_steps)
+            save_interval_steps=cfg.save_checkpoints_steps,
+            max_save_failures=cfg.max_save_failures,
+            retry_policy=retry_lib.policy_from_config(cfg))
     state = _restore_or_init(trainer, cfg, require=False, mgr=mgr)
     # One health record and one guard for the whole run (the skip/rollback
     # budget spans rollback attempts), and the process-wide preemption
@@ -419,10 +583,19 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
     health = guard_lib.TrainHealth()
     guard = guard_lib.NonFiniteGuard.from_config(cfg, health=health)
     listener = preempt_lib.get_listener()
-    files_digest = _files_fingerprint(tr_files)
+    # Online mode's listing grows by design: a stable digest keeps the
+    # resume gate from refusing a replayable skip, and the stream's
+    # high-water-mark sidecar says what will be read.
+    files_digest = (_ONLINE_FILES_DIGEST if cfg.online_mode
+                    else _files_fingerprint(tr_files))
     fault_after = _env_steps(FAULT_AFTER_ENV)
     preempt_after = _env_steps(PREEMPT_AFTER_ENV)
     hold_after = _env_steps(PREEMPT_HOLD_ENV)
+    # train_and_evaluate timing: mid-train evals no earlier than
+    # eval_start_delay_secs, then at most every eval_throttle_secs (and a
+    # final one); with both 0, an eval after every epoch.
+    eval_throttled = bool(va_files) and (
+        cfg.eval_start_delay_secs > 0 or cfg.eval_throttle_secs > 0)
     result: Dict[str, float] = {}
     # Every pipeline (train and eval) owns a DataHealth; their counts fold
     # into one total for the run.
@@ -436,12 +609,42 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
             log.info("data health (%s): %s", where, data_health.summary())
         data_health.merge_into(health_totals)
 
+    def run_eval(at_state: TrainState, where: str) -> Dict[str, float]:
+        pipe = _eval_pipeline(cfg, va_files)
+        ev = trainer.evaluate(at_state, pipe)
+        log_health(pipe, where)
+        return ev
+
+    tb = TensorBoardWriter(cfg.tensorboard_dir)
+
+    def tb_log(step: int, loss: float, eps: float) -> None:
+        tb.scalars(step, loss=loss, examples_per_sec=eps)
+
+    def tb_eval(ev: Dict[str, float], at_state: TrainState) -> None:
+        tb.scalars(int(at_state.step), eval_auc=ev["auc"],
+                   eval_loss=ev["loss"])
+
+    def record_eval(ev: Dict[str, float], at_state: TrainState) -> None:
+        result.update({"auc": ev["auc"], "eval_loss": ev["loss"],
+                       "eval_examples_per_sec": ev["examples_per_sec"]})
+        if "window_examples" in ev:  # the online windowed AUC
+            result["window_examples"] = ev["window_examples"]
+        tb_eval(ev, at_state)
+
+    def record_fit(fit_m: Dict[str, float]) -> None:
+        if fit_m["steps"]:  # a fully skipped resumed epoch reports no loss
+            result["loss"] = fit_m["loss"]
+            result["examples_per_sec"] = fit_m.get("examples_per_sec", 0.0)
+            result["step_ms_p50"] = fit_m.get("step_ms_p50", 0.0)
+            result.update({k: v for k, v in fit_m.items()
+                           if k.startswith(("hotcold_", "staging_"))})
+
     def attempt(state: TrainState) -> TrainState:
         """One training attempt from ``state``: the resume position, the
-        hooks, the epochs and the final save. A RollbackSignal ends the
-        attempt; the loop below restores the latest checkpoint and starts
-        another, whose resume position replays from that checkpoint's
-        recorded offset."""
+        hooks, the epochs (or the one stream) and the final save. A
+        RollbackSignal ends the attempt; the loop below restores the latest
+        checkpoint and starts another, whose resume position replays from
+        that checkpoint's recorded offset."""
         restored_step = int(state.step)
         epoch_base, start_epoch, skip_batches = _resume_position(
             cfg, restored_step, files_digest, health)
@@ -449,6 +652,7 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
             log.info("step-accurate resume: epoch %d (+%d batches already "
                      "trained), epoch_base=%d", start_epoch, skip_batches,
                      epoch_base)
+        # Pipe mode's position is steps into the one stream (epoch 0).
         progress = {"epoch": start_epoch,
                     "epoch_start": restored_step - skip_batches}
 
@@ -456,17 +660,52 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
             return {"step": step, "epoch": progress["epoch"],
                     "steps_into_epoch": step - progress["epoch_start"],
                     "epoch_base": epoch_base, "num_epochs": cfg.num_epochs,
+                    "pipe_mode": int(cfg.pipe_mode),
                     "layout": _consumption_layout(cfg),
                     "files": files_digest, "completed": completed}
 
+        def save(step: int, s: TrainState, *, completed: bool = False,
+                 force: bool = False) -> bool:
+            """A checkpoint and, once it is durable, its resume sidecar
+            (an interval save lands on the executor thread; the sidecar's
+            content is fixed now)."""
+            m = meta(step, completed)
+            return mgr.save(step, _ckpt_state(trainer, s), force=force,
+                            on_saved=lambda: _write_resume_meta(
+                                cfg.model_dir, m))
+
+        # Hot publishing, per attempt: a rollback's replay starts with a
+        # clean in-flight ledger (published versions stay, and a republish
+        # of one is idempotent).
+        publisher = None
+        online_stream = [None]  # the UnboundedFileStream, for preemption
+        if cfg.online_mode and (cfg.publish_every_steps
+                                or cfg.publish_every_secs):
+            pdir = cfg.publish_dir or (
+                os.path.join(cfg.model_dir, "publish") if cfg.model_dir
+                else "")
+            if not pdir:
+                raise ValueError("--publish_every_steps/secs needs "
+                                 "--publish_dir or --model_dir")
+            publisher = publish_lib.Publisher(
+                cfg, pdir, every_steps=cfg.publish_every_steps,
+                every_secs=cfg.publish_every_secs,
+                timeout_s=cfg.publish_timeout_s, health=health)
+            # A resumed run crosses the boundaries a fresh run would.
+            publisher.seed_cadence(restored_step)
+        drain_timeout = cfg.publish_timeout_s or None
+
         last_saved = [-1]
         hooks = []
+        if publisher is not None:
+            # Cadence, host snapshot, async submit; also the wedged-publish
+            # watchdog (exit 43).
+            hooks.append(lambda s, m: publisher.maybe_publish(s, s.step))
+
         if mgr is not None:
             def ckpt_hook(s: TrainState, m) -> None:
-                if mgr.should_save(s.step) and mgr.save(
-                        s.step, _ckpt_state(trainer, s)):
+                if mgr.should_save(s.step) and save(s.step, s):
                     last_saved[0] = s.step
-                    _write_resume_meta(cfg.model_dir, meta(s.step, False))
             hooks.append(ckpt_hook)
 
         if preempt_after:
@@ -508,8 +747,14 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
             if mgr is not None:
                 # An interval save may have landed on this very step (save
                 # dedups); the sidecar makes the mid-epoch resume exact.
-                mgr.save(s.step, _ckpt_state(trainer, s))
+                save(s.step, s, force=True)
                 _write_resume_meta(cfg.model_dir, meta(s.step, False))
+            if online_stream[0] is not None:
+                online_stream[0].request_stop()  # wake a blocked poll
+            if publisher is not None:
+                # A graceful preemption never abandons a half-staged
+                # publish (a wedged one still trips exit 43).
+                publisher.drain(timeout=drain_timeout)
             raise preempt_lib.Preempted(s.step, listener.reason)
         hooks.append(preempt_hook)
 
@@ -521,72 +766,150 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
                         f"{s.step - restored_step} steps")
             hooks.append(fault_hook)
 
-        for epoch in range(start_epoch, cfg.num_epochs):
-            progress["epoch"] = epoch
-            progress["epoch_start"] = state.step - (
-                skip_batches if epoch == start_epoch else 0)
-            pipeline = _maybe_poison(make_pipeline(
-                cfg, tr_files, epochs=1, shuffle=True,
-                epoch_offset=epoch_base + epoch,
-                skip_batches=skip_batches if epoch == start_epoch else 0))
-            state, fit_m = _fit_epoch(trainer, cfg, state, pipeline, hooks,
-                                      guard)
-            log_health(pipeline, f"epoch {epoch + 1} end")
-            if health.consume_dirty():
-                log.info("train health (epoch %d): %s", epoch + 1,
-                         health.summary())
-            if fit_m["steps"]:
-                result["loss"] = fit_m["loss"]
-                result["examples_per_sec"] = fit_m.get("examples_per_sec",
-                                                       0.0)
-                result["step_ms_p50"] = fit_m.get("step_ms_p50", 0.0)
-                result.update({k: v for k, v in fit_m.items()
-                               if k.startswith(("hotcold_", "staging_"))})
-            if (mgr is not None and last_saved[0] == state.step
-                    and epoch + 1 < cfg.num_epochs):
-                # A checkpoint landed on this epoch's last step: point the
-                # sidecar at the next epoch instead of a fully trained one.
-                progress["epoch"] = epoch + 1
-                progress["epoch_start"] = state.step
-                _write_resume_meta(cfg.model_dir, meta(state.step, False))
-            if va_files:
-                eval_pipe = _eval_pipeline(cfg, va_files)
-                ev = trainer.evaluate(state, eval_pipe)
-                log_health(eval_pipe, f"epoch {epoch + 1} eval")
-                log.info("epoch %d/%d: eval auc=%.5f loss=%.5f", epoch + 1,
-                         cfg.num_epochs, ev["auc"], ev["loss"])
-                result.update({"auc": ev["auc"], "eval_loss": ev["loss"],
-                               "eval_examples_per_sec":
-                                   ev["examples_per_sec"]})
+        tracer = prof_lib.StepWindowTracer(
+            cfg.profile_dir, num_steps=cfg.profile_steps,
+            device=trainer.device)
+        hooks.append(lambda s, m: tracer.on_step(int(m.get("steps_done", 1))))
+        # Online windowed eval: the throttled eval decides when; this
+        # evaluate swaps the cumulative AUC for the sliding window's.
+        online_eval_fn = None
+        if (cfg.online_mode and va_files
+                and cfg.online_eval_window_steps > 0):
+            window = metrics_lib.WindowedAuc(cfg.online_eval_window_steps,
+                                             num_bins=cfg.auc_num_thresholds)
+            online_eval_fn = _make_online_eval(trainer, cfg, va_files,
+                                               window, lambda s: s.step)
+        final_eval = online_eval_fn or (lambda s: run_eval(s, "final eval"))
+        if eval_throttled:
+            hooks.append(_make_throttled_eval_hook(
+                trainer, cfg, va_files, result, on_eval=tb_eval,
+                evaluate=(online_eval_fn
+                          or (lambda s: run_eval(s, "throttled eval")))))
+        try:
+            if cfg.pipe_mode:
+                # One fit over one single-pass stream, the epochs replayed
+                # by the producer (the Pipe-mode FIFO shape); a resume
+                # skips the stream's trained prefix. Online mode swaps the
+                # finite file chain for the directory watcher.
+                if cfg.online_mode:
+                    pipeline, ustream = make_online_pipeline(
+                        cfg, train_dir, skip_batches=skip_batches)
+                    online_stream[0] = ustream
+                else:
+                    pipeline = make_streaming_pipeline(
+                        cfg, tr_files, epochs=cfg.num_epochs,
+                        skip_batches=skip_batches, epoch_offset=epoch_base)
+                pipeline = _maybe_poison(pipeline)
+                state, fit_m = trainer.fit(state, pipeline, hooks=hooks,
+                                           on_log=tb_log, guard=guard)
+                log_health(pipeline, "stream end")
+                if health.consume_dirty():
+                    log.info("train health (stream end): %s",
+                             health.summary())
+                record_fit(fit_m)
+                if publisher is not None:
+                    # The stream ended (idle timeout or stop): one forced
+                    # publish at the terminal step, so an interrupted and a
+                    # clean run over the same shards share a final version.
+                    publisher.drain(timeout=drain_timeout)
+                    final_step = int(state.step)
+                    if final_step and final_step not in publisher.published:
+                        publisher.publish_now(state, final_step)
+                        publisher.drain(timeout=drain_timeout)
+                    pub_stats = publisher.stats()
+                    result.update(pub_stats)
+                    tb.scalar_dict(final_step, "publish/", pub_stats)
+                if va_files:
+                    ev = final_eval(state)
+                    log.info("streaming train done: eval auc=%.5f loss=%.5f",
+                             ev["auc"], ev["loss"])
+                    record_eval(ev, state)
+            else:
+                for epoch in range(start_epoch, cfg.num_epochs):
+                    progress["epoch"] = epoch
+                    progress["epoch_start"] = state.step - (
+                        skip_batches if epoch == start_epoch else 0)
+                    pipeline = _maybe_poison(make_pipeline(
+                        cfg, tr_files, epochs=1, shuffle=True,
+                        epoch_offset=epoch_base + epoch,
+                        skip_batches=(skip_batches if epoch == start_epoch
+                                      else 0)))
+                    state, fit_m = _fit_epoch(trainer, cfg, state, pipeline,
+                                              hooks, guard, on_log=tb_log)
+                    log_health(pipeline, f"epoch {epoch + 1} end")
+                    if health.consume_dirty():
+                        log.info("train health (epoch %d): %s", epoch + 1,
+                                 health.summary())
+                    record_fit(fit_m)
+                    if (mgr is not None and last_saved[0] == state.step
+                            and epoch + 1 < cfg.num_epochs):
+                        # A checkpoint landed on this epoch's last step:
+                        # point its sidecar at the next epoch instead of a
+                        # fully trained one, once that checkpoint is
+                        # durable.
+                        progress["epoch"] = epoch + 1
+                        progress["epoch_start"] = state.step
+                        if state.step in mgr.all_steps():
+                            _write_resume_meta(cfg.model_dir,
+                                               meta(state.step, False))
+                    if va_files and not eval_throttled:
+                        ev = run_eval(state, f"epoch {epoch + 1} eval")
+                        log.info("epoch %d/%d: eval auc=%.5f loss=%.5f",
+                                 epoch + 1, cfg.num_epochs, ev["auc"],
+                                 ev["loss"])
+                        record_eval(ev, state)
+                if va_files and eval_throttled:
+                    ev = final_eval(state)
+                    log.info("final eval: auc=%.5f loss=%.5f", ev["auc"],
+                             ev["loss"])
+                    record_eval(ev, state)
+        finally:
+            tracer.close()
+            if publisher is not None:
+                publisher.close()
+            if online_stream[0] is not None:
+                online_stream[0].close()
+                online_stream[0] = None
         if mgr is not None:
-            mgr.save(state.step, _ckpt_state(trainer, state))
+            save(state.step, state, completed=True, force=True)
             _write_resume_meta(cfg.model_dir, meta(state.step, True))
         return state
 
-    while True:
-        try:
-            state = attempt(state)
-            break
-        except guard_lib.RollbackSignal as rs:
-            # The guard's shared budget (max_rollbacks, over skips and
-            # rollbacks) bounds how often a run gets here.
-            if mgr is None or mgr.latest_step() is None:
-                raise guard_lib.NonFiniteError(
-                    f"rollback requested at step {rs.step} but no "
-                    f"checkpoint exists to roll back to (set model_dir or "
-                    f"use on_nonfinite=skip)") from rs
-            health.record_rollback()
-            state = mgr.restore(trainer.init_state())
-            # The save cadence restarts from the restored checkpoint.
-            mgr._last_should_save_step = None
-            log.warning("rolled back: restored checkpoint step %d after a "
-                        "non-finite value at step %d; replaying from the "
-                        "recorded offset", state.step, rs.step)
+    try:
+        while True:
+            try:
+                state = attempt(state)
+                break
+            except guard_lib.RollbackSignal as rs:
+                # The guard's shared budget (max_rollbacks, over skips and
+                # rollbacks) bounds how often a run gets here. The latest
+                # step includes an interval save still landing.
+                if mgr is None or mgr.latest_step() is None:
+                    raise guard_lib.NonFiniteError(
+                        f"rollback requested at step {rs.step} but no "
+                        f"checkpoint exists to roll back to (set model_dir "
+                        f"or use on_nonfinite=skip)") from rs
+                health.record_rollback()
+                state = mgr.restore(trainer.init_state())
+                # The save cadence restarts from the restored checkpoint.
+                mgr._last_should_save_step = None
+                log.warning("rolled back: restored checkpoint step %d after "
+                            "a non-finite value at step %d; replaying from "
+                            "the recorded offset", state.step, rs.step)
+        tb.scalars(int(state.step), **{f"health/{name}": float(v)
+                                       for name, v in
+                                       health.snapshot().items()})
+    finally:
+        tb.close()
+        if mgr is not None:
+            mgr.close()
     if cfg.servable_model_dir:
         _export(trainer, cfg, state)
     result["steps"] = float(state.step)
     result["read_retries"] = float(health_totals.get("read_retries", 0))
     result["bad_records"] = float(health_totals.get("bad_records", 0))
+    if mgr is not None:
+        result["save_failures"] = float(mgr.save_failures)
     result.update({k: float(v) for k, v in health.snapshot().items()})
     return result
 

@@ -23,14 +23,15 @@ from __future__ import annotations
 import json
 import logging
 import os
-import tempfile
 import threading
+import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..data import fileio
 from . import device as device_lib
 
 log = logging.getLogger(__name__)
@@ -50,23 +51,6 @@ LATEST_FILE = "LATEST"
 class ArtifactIncomplete(RuntimeError):
     """A servable artifact dir is missing its completion marker (export
     crashed mid-write, or the caller raced an in-flight publish)."""
-
-
-def write_atomic(path: str, text: str) -> None:
-    """Write ``text`` to ``path`` so readers see the old or the new file,
-    never a torn one."""
-    d = os.path.dirname(os.path.abspath(path))
-    fd, tmp = tempfile.mkstemp(dir=d, prefix=".tmp-")
-    try:
-        with os.fdopen(fd, "w", encoding="utf-8") as f:
-            f.write(text)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise
 
 
 def export_serving(model: torch.nn.Module, cfg: Config, out_dir: str, *,
@@ -102,7 +86,7 @@ def export_serving(model: torch.nn.Module, cfg: Config, out_dir: str, *,
         os.fsync(f.fileno())
 
     # 3. Completion marker — strictly last, atomically.
-    write_atomic(os.path.join(out_dir, COMPLETE_MARKER),
+    fileio.write_atomic(os.path.join(out_dir, COMPLETE_MARKER),
                  json.dumps({"step": meta["step"]}))
     log.info("exported servable model to %s", out_dir)
     return out_dir
@@ -262,7 +246,7 @@ def load_serving(artifact_dir: str, *,
 def write_latest(publish_dir: str, version: str) -> None:
     """Point ``<publish_dir>/LATEST`` at artifact dir ``version`` (basename).
     Atomic: a crashed update leaves the previous pointer intact."""
-    write_atomic(os.path.join(publish_dir, LATEST_FILE), str(version))
+    fileio.write_atomic(os.path.join(publish_dir, LATEST_FILE), str(version))
 
 
 def read_latest(publish_dir: str) -> Optional[str]:
@@ -277,6 +261,59 @@ def read_latest(publish_dir: str) -> Optional[str]:
         return None
     path = os.path.join(publish_dir, version)
     return path if os.path.exists(path) else None
+
+
+# Append-only audit sidecar next to LATEST: one JSON line per pointer move,
+# so every deployment decision replays from the publish dir alone.
+POINTER_HISTORY_FILE = "pointer_history.jsonl"
+
+
+def append_pointer_event(publish_dir: str, version: str, actor: str,
+                         reason: str = "", *,
+                         wall_time: Optional[float] = None) -> Dict[str, Any]:
+    """Append one pointer-history event; returns the entry written (or the
+    tail entry when this is a replay).
+
+    The write protocol is *append history, then move the pointer*: a crash
+    between the two re-runs both on the healing retry, so an append whose
+    ``(version, actor, reason)`` equals the tail entry's is skipped rather
+    than duplicated."""
+    entry = {"version": str(version), "actor": str(actor),
+             "reason": str(reason),
+             "wall_time": float(wall_time if wall_time is not None
+                                else time.time())}
+    history = pointer_history(publish_dir)
+    if history:
+        tail = history[-1]
+        if all(tail.get(k) == entry[k] for k in ("version", "actor",
+                                                  "reason")):
+            return tail
+    path = os.path.join(publish_dir, POINTER_HISTORY_FILE)
+    with open(path, "a", encoding="utf-8") as f:
+        f.write(json.dumps(entry, sort_keys=True,
+                           separators=(",", ":")) + "\n")
+        f.flush()
+        os.fsync(f.fileno())
+    return entry
+
+
+def pointer_history(publish_dir: str) -> list:
+    """All pointer-history events, oldest first. A torn final line (a crash
+    mid-append) is dropped: the retried append rewrites it whole."""
+    path = os.path.join(publish_dir, POINTER_HISTORY_FILE)
+    if not os.path.exists(path):
+        return []
+    out = []
+    with open(path, "r", encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                break  # torn tail: everything after it is suspect
+    return out
 
 
 class LatestWatcher:

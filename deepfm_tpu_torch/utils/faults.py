@@ -1,5 +1,5 @@
 """Chaos seams of the port (its copy of the ``executor_slow``,
-``cold_fetch``, NaN-batch and read-fault parts of
+``cold_fetch``, NaN-batch, publish-crash and read-fault parts of
 ``deepfm_tpu.utils.faults``).
 
 * Serving: a test or drill arms the next ``calls`` serving flushes to sleep
@@ -13,6 +13,10 @@
   of the next pipeline the train task builds with NaN
   (:func:`set_nan_plan`, :class:`BatchPoisoner`), which drives the
   non-finite guard's skip and rollback policies end to end.
+* Publishing: a test arms a one-shot crash at a named stage of the
+  publish sequence (:func:`set_publish_crash`); the publisher raises
+  :class:`InjectedFault` there (:func:`check_publish_crash`), as if the
+  process died mid-publish.
 * Input path: :class:`FlakyFS` installs itself as the fileio fault
   injector and fails scripted reads and opens, which the input path's
   retry must heal; ``DEEPFM_TPU_READ_FAULT_EVERY=k`` (the JAX package's
@@ -33,6 +37,33 @@ from ..data import fileio
 class InjectedFault(IOError):
     """Marker subclass so tests can tell injected faults from real ones.
     An IOError, so the default retryable classification applies."""
+
+
+# -- publish crash seam ------------------------------------------------------
+#
+# One-shot: the publisher calls check_publish_crash at each stage
+# ("before_rename", "after_rename_before_latest",
+# "after_history_before_latest"); the armed stage raises once.
+
+_publish_crash_lock = threading.Lock()
+_publish_crash: Optional[str] = None
+
+
+def set_publish_crash(stage: str) -> None:
+    """Arm a one-shot crash at publish stage ``stage`` (taken once)."""
+    global _publish_crash
+    with _publish_crash_lock:
+        _publish_crash = str(stage)
+
+
+def check_publish_crash(stage: str) -> None:
+    """Called by the publisher at each stage; raises iff armed for it."""
+    global _publish_crash
+    with _publish_crash_lock:
+        if _publish_crash != stage:
+            return
+        _publish_crash = None
+    raise InjectedFault(f"injected publish crash at stage {stage!r}")
 
 
 _exec_slow_lock = threading.Lock()

@@ -1,14 +1,81 @@
-"""Step-time and throughput meter and the host input path's per-stage
-timer (the ``ThroughputMeter`` and ``HostStageStats`` of
+"""Step-time and throughput meter, the host input path's per-stage timer
+and the profiler's step window (the ``ThroughputMeter``,
+``HostStageStats`` and ``StepWindowTracer`` of
 ``deepfm_tpu.utils.profiling``)."""
 
 from __future__ import annotations
 
 import contextlib
+import logging
+import os
 import time
 from typing import Dict, Iterator, List, Optional
 
 from ..obs import metrics as metrics_lib
+
+log = logging.getLogger(__name__)
+
+
+class StepWindowTracer:
+    """Trace a bounded window of train steps with ``torch.profiler``.
+
+    Tracing every step of a long run buffers an unloadable trace; the
+    signal is a few steady-state steps. The window opens once ``start_step``
+    steps have run (past the first calls' kernel builds and allocator
+    growth) and closes after ``num_steps`` more; the trace is exported as
+    Chrome-trace JSON (``trace-<pid>-<n>.json``) into ``profile_dir``. On
+    the card it records CUDA activity (every kernel launched in the
+    process, the hand-written ones included) beside the CPU's; on the CPU,
+    CPU activity. ``on_step`` is a fit-loop hook (hooks fire once per
+    dispatch, which may cover several steps); ``close`` ends a window still
+    open when the run ends. A no-op when ``profile_dir`` is empty.
+    """
+
+    def __init__(self, profile_dir: Optional[str], *, start_step: int = 2,
+                 num_steps: int = 20, device="cpu"):
+        self.profile_dir = profile_dir
+        self.start_step = start_step
+        self.num_steps = num_steps
+        self._cuda = str(device).startswith("cuda")
+        self._seen = 0
+        self._prof = None
+        self._done = False
+        self.trace_path: Optional[str] = None
+
+    def on_step(self, steps_done: int = 1) -> None:
+        if not self.profile_dir or self._done:
+            return
+        self._seen += steps_done
+        if self._prof is None and self._seen >= self.start_step:
+            import torch  # noqa: PLC0415 (profiling is opt-in)
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self._cuda:
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.start()
+        elif (self._prof is not None
+              and self._seen >= self.start_step + self.num_steps):
+            self._stop()
+
+    def _stop(self) -> None:
+        prof, self._prof = self._prof, None
+        self._done = True
+        if self._cuda:
+            import torch  # noqa: PLC0415
+            torch.cuda.synchronize()
+        prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        n = len([f for f in os.listdir(self.profile_dir)
+                 if f.startswith(f"trace-{os.getpid()}-")])
+        self.trace_path = os.path.join(self.profile_dir,
+                                       f"trace-{os.getpid()}-{n}.json")
+        prof.export_chrome_trace(self.trace_path)
+        log.info("profiler trace of steps %d..%d -> %s", self.start_step,
+                 self._seen, self.trace_path)
+
+    def close(self) -> None:
+        if self._prof is not None:
+            self._stop()
 
 
 class HostStageStats:

@@ -65,14 +65,36 @@ def test_every_module_imports_without_jax():
     "deepfm_tpu_torch.launch", "deepfm_tpu_torch.native.loader",
     "deepfm_tpu_torch.data.health", "deepfm_tpu_torch.data.cache",
     "deepfm_tpu_torch.data.fileio", "deepfm_tpu_torch.utils.retry",
-    "deepfm_tpu_torch.utils.profiling", "deepfm_tpu_torch.data.pipeline"])
+    "deepfm_tpu_torch.utils.profiling", "deepfm_tpu_torch.data.pipeline",
+    "deepfm_tpu_torch.data.stream", "deepfm_tpu_torch.data.shm_ring",
+    "deepfm_tpu_torch.data.workers", "deepfm_tpu_torch.train.publish",
+    "deepfm_tpu_torch.train.metrics", "deepfm_tpu_torch.utils.checkpoint",
+    "deepfm_tpu_torch.utils.export", "deepfm_tpu_torch.obs.tensorboard"])
 def test_module_list_covers_the_runtime_modules(module):
     """The fit loop's runtime (the staging ring, the guard and its state
-    snapshot, preemption and its fault seams) and the input path (the
-    native decoder's loader, data health, the decoded cache, file I/O and
-    read retries) are among the modules the first check imports without
-    jax."""
+    snapshot, preemption and its fault seams), the input path (the native
+    decoder's loader, data health, the decoded cache, file I/O, read
+    retries, the shard stream and the input service) and the online
+    trainer's pieces (the publisher, the windowed AUC, async checkpoints,
+    the pointer history, TensorBoard) are among the modules the first
+    check imports without jax."""
     assert module in _modules()
+
+
+def test_worker_import_chain_leaves_torch_out():
+    """A spawned input worker imports ``data.workers``: that chain (the
+    pipeline, the native loader, data health, obs, retries, the config and
+    the package's ``__init__``) must not import torch, which would cost
+    seconds a spawn and could touch the card."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, deepfm_tpu_torch.data.workers; "
+         "print(sorted(m for m in sys.modules if m.split('.')[0] == "
+         "'torch'))"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
 
 
 def test_input_path_loads_nothing_from_the_jax_package(tmp_path):

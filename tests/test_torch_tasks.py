@@ -161,8 +161,8 @@ def test_resume_across_the_emission_layout_replays_the_epoch(data_dir,
 
 
 def test_layout_orders_as_jax():
-    """The same fields in the JAX package's order (less its process count
-    and online mode), under the port's own tag."""
+    """The same fields in the JAX package's order (less its process count),
+    under the port's own tag."""
     kw = dict(steps_per_loop=4, use_native_decoder=False, batch_size=64,
               shuffle_buffer=123, seed=5, drop_remainder=False,
               shuffle_files=False, decoded_cache="disk",
@@ -170,7 +170,7 @@ def test_layout_orders_as_jax():
     got = tasks._consumption_layout(Config(**kw))
     want = jax_tasks._consumption_layout(JaxConfig(**kw))
     assert got[0] == "torch-2"
-    assert got[1:] == [want[2], *want[3:11], want[12]]
+    assert got[1:] == want[2:]
 
 
 def test_pooled_resume_mid_epoch_matches_uninterrupted_run(data_dir,
@@ -250,29 +250,39 @@ def test_eval_infer_export_need_a_checkpoint(data_dir, tmp_path):
     ("profile_dir", "prof"), ("mesh_model", 2), ("decoded_cache", "ram"),
     ("eval_throttle_secs", 5), ("grad_accum_steps", 2),
     ("on_bad_record", "skip"), ("input_workers", 2),
+    ("enable_data_multi_path", True), ("num_processes", 2),
 ])
 def test_unported_modes_raise_naming_their_flag(data_dir, tmp_path, flag,
                                                 value):
-    """Each mode the port has not reached raises naming its flag. Gradient
-    accumulation, the decoded cache, the device-resident dataset (with a
-    pool that covers the epoch, so it does not fall back) and bad-record
-    skipping are ported, and their train tasks run."""
+    """Each mode the port has not reached (a mesh, the multi-path channels,
+    more than one process) raises naming its flag. The others are ported
+    and their train tasks run one epoch: online and pipe mode, publishing,
+    TensorBoard, the profiler window, throttled eval, the input service,
+    gradient accumulation, the decoded cache, the device-resident dataset
+    (with a pool that covers the epoch, so it does not fall back) and
+    bad-record skipping."""
     kw = {flag: value}
     named = flag
+    if flag in ("tensorboard_dir", "profile_dir"):
+        kw[flag] = str(tmp_path / value)
     if flag == "device_dataset":
         kw.update(decoded_cache="ram", shuffle_buffer=601)
     if flag == "grad_accum_steps":  # must divide steps_per_loop
         kw["steps_per_loop"] = 2
     if flag == "online_mode":
-        kw.update(pipe_mode=1, num_epochs=1)
-    if flag in ("grad_accum_steps", "decoded_cache", "device_dataset",
-                "on_bad_record"):
+        kw.update(pipe_mode=1, publish_every_steps=8,
+                  stream_poll_secs=0.05, stream_idle_timeout_secs=0.3)
+    if flag not in ("mesh_model", "enable_data_multi_path", "num_processes"):
         with warnings.catch_warnings():
             warnings.simplefilter("error", RuntimeWarning)
             res = tasks.run(_cfg(data_dir, str(tmp_path), num_epochs=1, **kw),
                             device="cpu")
         assert res["steps"] == 600 // 32 and np.isfinite(res["loss"])
         assert res["bad_records"] == 0 and res["read_retries"] == 0
+        if flag == "online_mode":
+            assert res["published_versions"][-1] == 600 // 32
+        if flag == "profile_dir":
+            assert os.listdir(kw[flag])
         return
     with pytest.raises(NotImplementedError,
                        match=f"--{named}.* not yet ported"):
