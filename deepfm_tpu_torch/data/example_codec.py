@@ -1,9 +1,12 @@
 """Minimal ``tf.train.Example`` wire-format codec for the CTR schema.
 
-The port's copy of the single-label subset of
-``deepfm_tpu.data.example_codec``: on-disk schema ``{label: float,
-ids: int64[F], values: float[F]}``, with the legacy ``feat_ids`` /
-``feat_vals`` keys accepted on read.
+The port's copy of the CTR subset of ``deepfm_tpu.data.example_codec``:
+on-disk schema ``{label: float, ids: int64[F], values: float[F]}``, with
+the legacy ``feat_ids`` / ``feat_vals`` keys accepted on read, and two
+optional extensions: a second task's ``label2`` float (multi-task input)
+and the ragged user-history pair ``hist_ids`` int64[L] / ``hist_vals``
+float[L] (sequence models), any length including zero. Records written
+without them are byte-identical to the single-label encoding.
 
 Wire format facts used (protobuf encoding spec):
   Example        { Features features = 1; }
@@ -16,7 +19,7 @@ Wire format facts used (protobuf encoding spec):
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -25,6 +28,13 @@ IDS_KEY = "ids"
 VALS_KEY = "values"
 LEGACY_IDS_KEY = "feat_ids"
 LEGACY_VALS_KEY = "feat_vals"
+# Optional second task label (e.g. conversion for --tasks ctr,cvr); decode
+# defaults it to 0.0.
+LABEL2_KEY = "label2"
+# Optional ragged user-history pair, decoded into fixed [max_len] id/mask
+# columns (decode_ctr_example_hist; the native dfm_decode_ctr_hist).
+HIST_IDS_KEY = "hist_ids"
+HIST_VALS_KEY = "hist_vals"
 
 
 def write_varint(n: int, out: bytearray) -> None:
@@ -214,14 +224,27 @@ def decode_example(buf: bytes) -> Dict[str, np.ndarray]:
     return out
 
 
-def encode_ctr_example(label: float, ids: np.ndarray,
-                       vals: np.ndarray) -> bytes:
-    """Encode the reference CTR schema ``{label, ids, values}``."""
-    return encode_example({
+def encode_ctr_example(label: float, ids: np.ndarray, vals: np.ndarray,
+                       label2: Optional[float] = None,
+                       hist_ids: Optional[np.ndarray] = None,
+                       hist_vals: Optional[np.ndarray] = None) -> bytes:
+    """Encode the reference CTR schema ``{label, ids, values}``, plus
+    ``label2`` when given and the ``hist_ids``/``hist_vals`` pair when
+    ``hist_ids`` is given (``hist_vals`` defaults to ones). With every
+    optional None the bytes are the single-label encoding's."""
+    features = {
         LABEL_KEY: (np.asarray([label], np.float32), "float"),
         IDS_KEY: (np.asarray(ids, np.int64), "int64"),
         VALS_KEY: (np.asarray(vals, np.float32), "float"),
-    })
+    }
+    if label2 is not None:
+        features[LABEL2_KEY] = (np.asarray([label2], np.float32), "float")
+    if hist_ids is not None:
+        features[HIST_IDS_KEY] = (np.asarray(hist_ids, np.int64), "int64")
+        hv = hist_vals if hist_vals is not None else np.ones(
+            len(np.asarray(hist_ids)), np.float32)
+        features[HIST_VALS_KEY] = (np.asarray(hv, np.float32), "float")
+    return encode_example(features)
 
 
 def decode_ctr_example(buf: bytes, field_size: int
@@ -245,3 +268,47 @@ def decode_ctr_example(buf: bytes, field_size: int
             f"expected field_size={field_size}, got ids={ids.shape[0]} "
             f"vals={vals.shape[0]}")
     return float(np.asarray(label, np.float32)[0]), ids, vals
+
+
+def decode_ctr_example2(buf: bytes, field_size: int
+                        ) -> Tuple[float, float, np.ndarray, np.ndarray]:
+    """Two-label decode: ``(label, label2, ids, vals)``, ``label2`` 0.0
+    when the key is absent. The Python mirror of the native
+    ``dfm_decode_ctr2_ex``."""
+    feats = decode_example(buf)
+    label, ids, vals = decode_ctr_example(buf, field_size)
+    label2 = 0.0
+    if LABEL2_KEY in feats:
+        l2 = np.asarray(feats[LABEL2_KEY], np.float32)
+        if l2.shape[0] != 1:
+            raise ValueError(
+                f"'label2' must be a single float, got {l2.shape[0]} values")
+        label2 = float(l2[0])
+    return label, label2, ids, vals
+
+
+def decode_ctr_example_hist(
+        buf: bytes, field_size: int, max_len: int
+) -> Tuple[float, np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]:
+    """History decode: ``(label, ids, vals, hist_ids [max_len] int32,
+    hist_vals [max_len] float32, hist_len)``, the ragged pair zero-padded
+    to ``max_len`` and truncated past it (``hist_len = min(actual,
+    max_len)``); a record without the pair has an empty history, and one
+    whose two lists differ in length is a schema error. The Python mirror
+    of the native ``dfm_decode_ctr_hist``."""
+    feats = decode_example(buf)
+    label, ids, vals = decode_ctr_example(buf, field_size)
+    h_ids = np.asarray(feats[HIST_IDS_KEY], np.int64) \
+        if HIST_IDS_KEY in feats else np.zeros((0,), np.int64)
+    h_vals = np.asarray(feats[HIST_VALS_KEY], np.float32) \
+        if HIST_VALS_KEY in feats else np.zeros((0,), np.float32)
+    if h_ids.shape[0] != h_vals.shape[0]:
+        raise ValueError(
+            f"history length mismatch: {h_ids.shape[0]} hist_ids vs "
+            f"{h_vals.shape[0]} hist_vals")
+    n = min(h_ids.shape[0], int(max_len))
+    out_ids = np.zeros((max_len,), np.int32)
+    out_vals = np.zeros((max_len,), np.float32)
+    out_ids[:n] = h_ids[:n].astype(np.int32)
+    out_vals[:n] = h_vals[:n]
+    return label, ids, vals, out_ids, out_vals, n

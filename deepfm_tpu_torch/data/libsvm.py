@@ -1,10 +1,10 @@
 """LibSVM text -> TFRecord conversion and the synthetic CTR generator.
 
-The port's copy of the single-label subset of ``deepfm_tpu.data.libsvm``:
-each LibSVM line ``"label id:val id:val ..."`` becomes one
-``Example{label: float, ids: int64[F], values: float[F]}``.
+The port's copy of the conversion and generator subset of
+``deepfm_tpu.data.libsvm``: each LibSVM line ``"label id:val id:val ..."``
+becomes one ``Example{label: float, ids: int64[F], values: float[F]}``.
 ``generate_synthetic_ctr`` writes the same bytes as the JAX package's for
-the same arguments.
+the same arguments, with the optional ``label2`` and history keys.
 """
 
 from __future__ import annotations
@@ -52,18 +52,32 @@ def convert_libsvm_file(in_path: str, out_path: str, *,
 def generate_synthetic_ctr(out_dir: str, *, num_files: int,
                            examples_per_file: int, feature_size: int,
                            field_size: int, prefix: str = "tr",
-                           seed: int = 0, hidden_seed: int = 12345
+                           seed: int = 0, hidden_seed: int = 12345,
+                           num_labels: int = 1, history: int = 0
                            ) -> List[str]:
-    """Write synthetic Criteo-shaped TFRecords with a learnable signal.
+    """Write synthetic Criteo-shaped TFRecords with a learnable signal,
+    byte-identical to the JAX package's generator for the same arguments.
 
     Labels follow a logistic model over a hidden random weight vector
     (fixed by ``hidden_seed``, independently of the example sampler's
     ``seed``), so train/eval splits made with different seeds share one
-    ground truth and AUC above 0.5 is reachable."""
+    ground truth and AUC above 0.5 is reachable. ``num_labels=2`` adds a
+    click-gated ``label2`` (conversion) from a second hidden vector.
+    ``history > 0`` adds a ragged ``hist_ids``/``hist_vals`` pair of
+    0..``history`` ids drawn from a rolling pool of clicked ids (early
+    records have none), with a history/candidate affinity term in the
+    click logit. The defaults draw nothing extra."""
+    if num_labels not in (1, 2):
+        raise ValueError(f"num_labels must be 1 or 2, got {num_labels}")
+    if history < 0:
+        raise ValueError(f"history must be >= 0, got {history}")
     os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
     hidden_w = np.random.default_rng(hidden_seed).normal(
         0, 1.0, size=feature_size).astype(np.float32)
+    hidden_w2 = np.random.default_rng(hidden_seed + 1).normal(
+        0, 1.0, size=feature_size).astype(np.float32)
+    clicked_pool: List[int] = []
     paths = []
     for fi in range(num_files):
         path = os.path.join(out_dir, f"{prefix}_{fi:04d}.tfrecords")
@@ -74,6 +88,28 @@ def generate_synthetic_ctr(out_dir: str, *, num_files: int,
                                    dtype=np.int64)
                 vals = rng.normal(0, 1, size=field_size).astype(np.float32)
                 logit = float(np.dot(hidden_w[ids], vals)) * 0.5
+                hist_ids = None
+                if history > 0:
+                    hist_n = min(int(rng.integers(0, history + 1)),
+                                 len(clicked_pool))
+                    if hist_n > 0:
+                        pick = rng.integers(0, len(clicked_pool), size=hist_n)
+                        hist_ids = np.asarray(
+                            [clicked_pool[j] for j in pick], np.int64)
+                        logit += float(np.mean(hidden_w[hist_ids])) \
+                            * float(np.mean(hidden_w[ids])) * 2.0
                 label = float(rng.random() < 1.0 / (1.0 + np.exp(-logit)))
-                w.write(example_codec.encode_ctr_example(label, ids, vals))
+                if history > 0 and label > 0:
+                    clicked_pool.extend(int(i) for i in ids)
+                    if len(clicked_pool) > 4096:
+                        del clicked_pool[:-4096]
+                label2 = None
+                if num_labels == 2:
+                    label2 = 0.0
+                    if label > 0:
+                        logit2 = float(np.dot(hidden_w2[ids], vals)) * 0.5
+                        label2 = float(
+                            rng.random() < 1.0 / (1.0 + np.exp(-logit2)))
+                w.write(example_codec.encode_ctr_example(
+                    label, ids, vals, label2=label2, hist_ids=hist_ids))
     return paths

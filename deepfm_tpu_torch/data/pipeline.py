@@ -1,8 +1,8 @@
 """Host-side input pipeline: TFRecord -> fixed-shape numpy batches.
 
 The port's copy of ``deepfm_tpu.data.pipeline``'s ``CtrPipeline`` (one
-process, one label column). For the same files, seed and flags its batches
-are bit-identical to the JAX package's. Two emission paths:
+process). For the same files, seed and flags its batches are bit-identical
+to the JAX package's. Two emission paths:
 
 * Pooled (``use_native_decoder=True``, the default): ~64 MB read chunks
   framed by the native decoder (``native.loader``), pooled until
@@ -34,7 +34,15 @@ replayed once per epoch by the producer) or the online trainer's
 ``data.stream.UnboundedFileStream``.
 
 Batches are ``{"feat_ids": int32[B,F], "feat_vals": f32[B,F],
-"label": f32[B,1]}``.
+"label": f32[B,1]}``. With ``num_labels=2`` (multi-task training, ``--tasks
+ctr,cvr``) they gain ``"label2"`` f32[B,1] from the optional on-disk key;
+with ``history=True`` (sequence models) ``"hist_ids"`` int32[B,L] and
+``"hist_mask"`` f32[B,L], the ragged on-disk pair padded or truncated to
+``history_max_len``. Either extension takes the eager decode path only, as
+in the JAX package: the fused assembly, the input service and the decoded
+cache are single-label layouts, so they are forced off. The pool carries
+the history as packed columns (ids ``feat_ids || hist_ids``, vals
+``feat_vals || hist_mask``), split at batch assembly.
 """
 
 from __future__ import annotations
@@ -44,6 +52,8 @@ import contextlib
 import os
 import queue
 import threading
+import time
+import weakref
 from typing import BinaryIO, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -79,6 +89,49 @@ def decode_batch_python(records: Sequence[bytes], field_size: int):
         ids[i] = rid.astype(np.int32)
         vals[i] = rval
     return labels, ids, vals
+
+
+def decode_batch2_python(records: Sequence[bytes], field_size: int):
+    """Two-label :func:`decode_batch_python`: (labels, labels2, ids, vals),
+    ``label2`` 0.0 where a record has none (``loader.decode_batch2``'s
+    Python mirror)."""
+    n = len(records)
+    labels = np.empty((n,), np.float32)
+    labels2 = np.empty((n,), np.float32)
+    ids = np.empty((n, field_size), np.int32)
+    vals = np.empty((n, field_size), np.float32)
+    for i, rec in enumerate(records):
+        lab, lab2, rid, rval = example_codec.decode_ctr_example2(
+            rec, field_size)
+        labels[i] = lab
+        labels2[i] = lab2
+        ids[i] = rid.astype(np.int32)
+        vals[i] = rval
+    return labels, labels2, ids, vals
+
+
+def decode_batch_hist_python(records: Sequence[bytes], field_size: int,
+                             max_len: int):
+    """History :func:`decode_batch_python`: (labels, ids, vals, hist_ids
+    [n, max_len] int32, hist_vals [n, max_len] float32, hist_len [n] int32)
+    (``loader.decode_batch_hist``'s Python mirror)."""
+    n = len(records)
+    labels = np.empty((n,), np.float32)
+    ids = np.empty((n, field_size), np.int32)
+    vals = np.empty((n, field_size), np.float32)
+    hist_ids = np.zeros((n, max_len), np.int32)
+    hist_vals = np.zeros((n, max_len), np.float32)
+    hist_len = np.zeros((n,), np.int32)
+    for i, rec in enumerate(records):
+        lab, rid, rval, hid, hval, hn = example_codec.decode_ctr_example_hist(
+            rec, field_size, max_len)
+        labels[i] = lab
+        ids[i] = rid.astype(np.int32)
+        vals[i] = rval
+        hist_ids[i] = hid
+        hist_vals[i] = hval
+        hist_len[i] = hn
+    return labels, ids, vals, hist_ids, hist_vals, hist_len
 
 
 def _timed(stats, name: str):
@@ -289,7 +342,8 @@ class CtrPipeline:
                  input_workers: int = 0,
                  input_worker_slab_records: Optional[int] = None,
                  input_worker_death: str = "raise",
-                 stall_timeout_s: float = 0.0):
+                 stall_timeout_s: float = 0.0, num_labels: int = 1,
+                 history: bool = False, history_max_len: int = 20):
         self._files = tuple(files)
         self.field_size = field_size
         self.batch_size = batch_size
@@ -341,6 +395,32 @@ class CtrPipeline:
         # Ring reads raise InputStallError after this long without a
         # message from a live worker (0: wait forever).
         self.stall_timeout_s = float(stall_timeout_s)
+        # Multi-label and history emission take the eager decode path only:
+        # the fused assembly, the worker slabs and the decoded cache are
+        # single-label layouts, forced off rather than dropping a column.
+        self.num_labels = max(1, int(num_labels))
+        if self.num_labels > 2:
+            raise ValueError(
+                f"num_labels must be 1 or 2, got {num_labels} (the on-disk "
+                "schema carries at most one extra 'label2' column)")
+        self.history = bool(history)
+        self.history_max_len = int(history_max_len)
+        if self.history and self.num_labels > 1:
+            raise ValueError(
+                "history=True is incompatible with num_labels>1 (one "
+                "optional schema extension per stream)")
+        if self.history and self.history_max_len < 1:
+            raise ValueError(
+                f"history_max_len must be >= 1 when history=True, got "
+                f"{history_max_len}")
+        if self.num_labels > 1 or self.history:
+            self.input_workers = 0
+            self.native_assembly = False
+            self.decoded_cache = "off"
+        # Pool column width: the history rides the (labels, ids, vals)
+        # chunks as packed columns, split at batch assembly.
+        self._pool_cols = self.field_size + (
+            self.history_max_len if self.history else 0)
         if self._use_native:
             _native_loader()  # build now: a failed build raises here
 
@@ -354,6 +434,16 @@ class CtrPipeline:
         the reader threads (bounded in-flight depth, FIFO order)."""
         def decode(job: Tuple[bytes, np.ndarray, np.ndarray]):
             buf, offsets, lengths = job
+            if self.num_labels > 1:
+                labels, labels2, ids, vals = loader.decode_spans2(
+                    buf, offsets, lengths, self.field_size)
+                return np.stack([labels, labels2], axis=1), ids, vals
+            if self.history:
+                labels, ids, vals, hid, hmask, _ = loader.decode_spans_hist(
+                    buf, offsets, lengths, self.field_size,
+                    self.history_max_len)
+                return (labels, np.hstack([ids, hid]),
+                        np.hstack([vals, hmask]))
             return loader.decode_spans(buf, offsets, lengths,
                                        self.field_size)
 
@@ -600,7 +690,8 @@ class CtrPipeline:
         # eager path's, so the emission is the same.
         use_shm = (cached_cols is None and self.input_workers > 0
                    and loader is not None)
-        fused = not use_shm and self.shuffle and loader is not None
+        fused = (not use_shm and self.shuffle and loader is not None
+                 and self.num_labels == 1 and not self.history)
         drain_pool = _DrainPool(self.reader_threads)
         stats = self.stage_stats
         try:
@@ -625,16 +716,20 @@ class CtrPipeline:
                             perm = rng.permutation(n_pend)
                             # The label column is [n, 1]: a batch slice IS
                             # the emitted ``label`` array.
-                            labels = np.empty((n_pend, 1), np.float32)
+                            labels = np.empty((n_pend, self.num_labels),
+                                              np.float32)
                             lab_col = labels.reshape(-1)
-                            ids = np.empty((n_pend, self.field_size),
+                            ids = np.empty((n_pend, self._pool_cols),
                                            np.int32)
-                            vals = np.empty((n_pend, self.field_size),
+                            vals = np.empty((n_pend, self._pool_cols),
                                             np.float32)
                             off = 0
                             for lab, idx, val in pend:
                                 dest = perm[off:off + len(lab)]
-                                lab_col[dest] = lab.reshape(-1)
+                                if self.num_labels == 1:
+                                    lab_col[dest] = lab.reshape(-1)
+                                else:
+                                    labels[dest] = lab.reshape(len(lab), -1)
                                 ids[dest] = idx
                                 vals[dest] = val
                                 off += len(lab)
@@ -648,20 +743,22 @@ class CtrPipeline:
                             # Every held slab view is scattered into the
                             # fresh pool: hand the slots back to the workers.
                             service.release_consumed()
+                    hl = self.history_max_len if self.history else 0
                     while n_pend >= sb:
                         with _timed(stats, "emit"):
-                            rows = self._assemble_batch(pend, sb)
+                            rows = self._assemble_batch(pend, sb, hl)
                         yield rows, k, sb
                         n_pend -= sb
                     if final:
                         while n_pend >= bs:
                             with _timed(stats, "emit"):
-                                rows = self._assemble_batch(pend, bs)
+                                rows = self._assemble_batch(pend, bs, hl)
                             yield rows, 1, bs
                             n_pend -= bs
                         if n_pend and not self.drop_remainder:
                             with _timed(stats, "emit"):
-                                rows = self._assemble_batch(pend, n_pend)
+                                rows = self._assemble_batch(pend, n_pend,
+                                                            hl)
                             yield rows, 1, n_pend
                             n_pend = 0
 
@@ -724,10 +821,14 @@ class CtrPipeline:
         yield from src
 
     @staticmethod
-    def _assemble_batch(pend: "collections.deque", bs: int) -> Batch:
+    def _assemble_batch(pend: "collections.deque", bs: int,
+                        hist_len: int = 0) -> Batch:
         """Pop exactly ``bs`` rows off the front of the pending chunk deque
         (O(1) per chunk). A contiguous pool slice passes through as a view:
-        same bytes, no copy."""
+        same bytes, no copy. With ``hist_len > 0`` the trailing
+        ``hist_len`` packed columns split out into ``hist_ids`` and
+        ``hist_mask``; [n, 2] label chunks split into ``label`` and
+        ``label2``."""
         take: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
         need = bs
         while need:
@@ -745,6 +846,23 @@ class CtrPipeline:
             labels = np.concatenate([t[0] for t in take])
             ids = np.concatenate([t[1] for t in take])
             vals = np.concatenate([t[2] for t in take])
+        if hist_len:
+            fs = ids.shape[1] - hist_len
+            return {
+                "feat_ids": np.ascontiguousarray(ids[:, :fs], np.int32),
+                "feat_vals": np.ascontiguousarray(vals[:, :fs], np.float32),
+                "hist_ids": np.ascontiguousarray(ids[:, fs:], np.int32),
+                "hist_mask": np.ascontiguousarray(vals[:, fs:], np.float32),
+                "label": np.ascontiguousarray(labels.reshape(-1, 1),
+                                              np.float32),
+            }
+        if labels.ndim == 2 and labels.shape[1] > 1:
+            return {
+                "feat_ids": np.ascontiguousarray(ids, np.int32),
+                "feat_vals": np.ascontiguousarray(vals, np.float32),
+                "label": np.ascontiguousarray(labels[:, :1], np.float32),
+                "label2": np.ascontiguousarray(labels[:, 1:2], np.float32),
+            }
         return {
             "feat_ids": np.ascontiguousarray(ids, np.int32),
             "feat_vals": np.ascontiguousarray(vals, np.float32),
@@ -785,12 +903,8 @@ class CtrPipeline:
         yield from buf
 
     def _make_batch(self, records: List[bytes]) -> Batch:
-        labels, ids, vals = decode_batch_python(records, self.field_size)
-        return {
-            "feat_ids": np.ascontiguousarray(ids, np.int32),
-            "feat_vals": np.ascontiguousarray(vals, np.float32),
-            "label": labels.reshape(-1, 1).astype(np.float32),
-        }
+        return _record_batch(records, self.field_size, self.num_labels,
+                             self.history_max_len if self.history else 0)
 
     def _iter_batches_sync(self) -> Iterator[Batch]:
         skip = self.skip_batches
@@ -913,7 +1027,7 @@ class StreamingCtrPipeline:
                  verify_crc: bool = False, skip_batches: int = 0,
                  on_bad_record: str = "raise", max_bad_records: int = 0,
                  stream_label: str = "<stream>",
-                 health: Optional[DataHealth] = None):
+                 health: Optional[DataHealth] = None, num_labels: int = 1):
         self.stream = stream
         self.field_size = field_size
         self.batch_size = batch_size
@@ -927,6 +1041,10 @@ class StreamingCtrPipeline:
         self._stream_label = stream_label
         self._bad_policy = BadRecordPolicy(on_bad_record, max_bad_records,
                                            self.health)
+        self.num_labels = max(1, int(num_labels))
+        if self.num_labels > 2:
+            raise ValueError(
+                f"num_labels must be 1 or 2, got {num_labels}")
         if self._use_native:
             _native_loader()  # build now: a failed build raises here
 
@@ -957,8 +1075,13 @@ class StreamingCtrPipeline:
                 path=self._stream_label, policy=self._bad_policy):
             if len(offsets) == 0:
                 continue
-            pend.append(loader.decode_spans(buf, offsets, lengths,
-                                            self.field_size))
+            if self.num_labels > 1:
+                lab1, lab2, ids, vals = loader.decode_spans2(
+                    buf, offsets, lengths, self.field_size)
+                pend.append((np.stack([lab1, lab2], axis=1), ids, vals))
+            else:
+                pend.append(loader.decode_spans(buf, offsets, lengths,
+                                                self.field_size))
             n_pend += len(offsets)
             while n_pend >= sb:
                 yield CtrPipeline._assemble_batch(pend, sb), k, sb
@@ -970,12 +1093,7 @@ class StreamingCtrPipeline:
             yield CtrPipeline._assemble_batch(pend, n_pend), 1, n_pend
 
     def _batch_from_records(self, records: List[bytes]) -> Batch:
-        labels, ids, vals = decode_batch_python(records, self.field_size)
-        return {
-            "feat_ids": np.ascontiguousarray(ids, np.int32),
-            "feat_vals": np.ascontiguousarray(vals, np.float32),
-            "label": labels.reshape(-1, 1).astype(np.float32),
-        }
+        return _record_batch(records, self.field_size, self.num_labels)
 
     def _iter_record_batches(self) -> Iterator[Batch]:
         """Per-record path: Python framing and the codec."""
@@ -1022,6 +1140,42 @@ class StreamingCtrPipeline:
         yield from src
 
 
+def _record_batch(records: List[bytes], field_size: int, num_labels: int,
+                  hist_len: int = 0) -> Batch:
+    """One batch of the per-record path through the Python codec, with
+    ``label2`` (``num_labels`` 2) or the history columns (``hist_len``)."""
+    if num_labels > 1:
+        labels, labels2, ids, vals = decode_batch2_python(records, field_size)
+        extra = {"label2": labels2.reshape(-1, 1).astype(np.float32)}
+    elif hist_len:
+        labels, ids, vals, hid, hmask, _ = decode_batch_hist_python(
+            records, field_size, hist_len)
+        extra = {"hist_ids": np.ascontiguousarray(hid, np.int32),
+                 "hist_mask": np.ascontiguousarray(hmask, np.float32)}
+    else:
+        labels, ids, vals = decode_batch_python(records, field_size)
+        extra = {}
+    return {"feat_ids": np.ascontiguousarray(ids, np.int32),
+            "feat_vals": np.ascontiguousarray(vals, np.float32),
+            "label": labels.reshape(-1, 1).astype(np.float32), **extra}
+
+
+# The live producer threads of every prefetch (see join_prefetch_threads).
+_PREFETCH_THREADS: "weakref.WeakSet[threading.Thread]" = weakref.WeakSet()
+
+
+def join_prefetch_threads(timeout: float) -> bool:
+    """Wait up to ``timeout`` seconds in all for the prefetch producers whose
+    consumers have stopped to drop out; True when none is left. A process
+    that exits while a daemon producer is still inside a torch call (a
+    staging transfer's copy or event sync) can abort in interpreter
+    finalization, so the launcher calls this before a preempted exit."""
+    deadline = time.monotonic() + timeout
+    for t in list(_PREFETCH_THREADS):
+        t.join(max(0.0, deadline - time.monotonic()))
+    return not any(t.is_alive() for t in list(_PREFETCH_THREADS))
+
+
 def prefetch(it: Iterator, depth: int) -> Iterator:
     """Run ``it`` in a daemon thread, keeping up to ``depth`` items ready.
 
@@ -1057,6 +1211,7 @@ def prefetch(it: Iterator, depth: int) -> Iterator:
                     close()
 
     t = threading.Thread(target=worker, daemon=True, name="pipeline-prefetch")
+    _PREFETCH_THREADS.add(t)
     t.start()
     try:
         while True:

@@ -8,8 +8,10 @@ that wants the CPU calls ``main(argv, device="cpu")``.
 
 A preempted train task (SIGTERM/SIGINT, after its forced checkpoint)
 prints ``{"task": ..., "preempted": true, "step": N}`` and returns
-``EXIT_PREEMPTED`` (42); the stall watchdog exits the process with
-``EXIT_WATCHDOG`` (43) itself (``utils.preempt``).
+``EXIT_PREEMPTED`` (42) once the abandoned fit's prefetch threads have
+dropped out (a daemon thread still inside a torch call when the
+interpreter finalizes can abort the process); the stall watchdog exits
+the process with ``EXIT_WATCHDOG`` (43) itself (``utils.preempt``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import logging
 import sys
 
 from .config import parse_args
+from .data import pipeline as pipe_lib
 from .train import tasks
 from .utils import preempt as preempt_lib
 
@@ -36,6 +39,8 @@ def main(argv=None, *, device="cuda") -> int:
         # The checkpoint and the resume sidecar are already saved; the
         # exit code tells an orchestrator "restart me", not "crashed".
         log.warning("exiting after preemption: %s", p)
+        if not pipe_lib.join_prefetch_threads(timeout=30.0):
+            log.warning("a prefetch thread is still running at exit")
         print(json.dumps({"task": cfg.task_type, "preempted": True,
                           "step": p.step}))
         return preempt_lib.EXIT_PREEMPTED

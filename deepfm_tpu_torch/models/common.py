@@ -15,8 +15,10 @@ Behavioral parity with the JAX package:
   * Matmuls run in ``compute_dtype`` (bfloat16 by default) over float32
     params, rounding where the JAX package rounds: after each product and
     again after each bias add.
-  * The output head (``[d, 1]``) is computed as a row-wise float32 dot
-    product rounded to ``compute_dtype``: the same value as the JAX
+  * Every ``[d, 1]`` head (the tower's output, DCN-v2's combination
+    head, the multi-task heads, DIN's score layer) is computed as a
+    row-wise float32 dot product rounded to ``compute_dtype``
+    (:func:`dense_head`): the same value as the JAX
     ``h @ w`` up to summation order, and independent of the batch size,
     so a padded serving bucket returns bit-identical real rows (BLAS picks
     a matrix-vector kernel whose sum order depends on the row count).
@@ -161,9 +163,37 @@ def init_tower(in_dim: int, layer_sizes: Sequence[int], use_bn: bool, *,
     """Hidden stack + final dense->1. Returns (tower, bn running stats)."""
     tower = Tower(in_dim, layer_sizes, use_bn=use_bn, generator=generator,
                   device=device)
-    bn = nn.ModuleList(RunningStats(d, device=device) for d in layer_sizes
-                       ) if use_bn else nn.ModuleList()
-    return tower, bn
+    return tower, _running_stats(layer_sizes, use_bn, device)
+
+
+def _running_stats(layer_sizes: Sequence[int], use_bn: bool,
+                   device: torch.device) -> nn.ModuleList:
+    return nn.ModuleList(RunningStats(d, device=device) for d in layer_sizes
+                         ) if use_bn else nn.ModuleList()
+
+
+class Stack(nn.Module):
+    """A hidden stack that carries its own BN running statistics, with the
+    tower's dense->1 head when ``head``: one JAX ``(params, state)`` pair,
+    params ``{"layers": [...][, "out": {...}]}`` and state ``{"bn":
+    [...]}``, so its names (``layers.<i>.w``, ``out.w``, ``bn.<i>.mean``)
+    are the flattened JAX trees under the owner's key (the multi-task
+    bottom, experts and towers)."""
+
+    def __init__(self, in_dim: int, layer_sizes: Sequence[int], *,
+                 use_bn: bool, head: bool,
+                 generator: Optional[torch.Generator],
+                 device: torch.device):
+        super().__init__()
+        dims = [in_dim] + list(layer_sizes)
+        self.layers = nn.ModuleList(
+            Dense(d_in, d_out, use_bn=use_bn, generator=generator,
+                  device=device)
+            for d_in, d_out in zip(dims[:-1], dims[1:]))
+        if head:
+            self.out = Dense(dims[-1], 1, use_bn=False, generator=generator,
+                             device=device)
+        self.bn = _running_stats(layer_sizes, use_bn, device)
 
 
 def dropout(h: torch.Tensor, keep: float,
@@ -205,9 +235,28 @@ def apply_tower(tower: Tower, bn: nn.ModuleList, x: torch.Tensor, *,
                            dropout_keep=dropout_keep, use_bn=use_bn,
                            bn_decay=bn_decay, generator=generator,
                            compute_dtype=compute_dtype)
-    w = tower.out.w[:, 0].to(compute_dtype).float()
-    out = torch.sum(h.float() * w, dim=1).to(compute_dtype)
-    return (out + tower.out.b[0].to(compute_dtype)).float()
+    return dense_head(h, tower.out.w, tower.out.b)
+
+
+def dense_head(h: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """A ``[d, 1]`` head ``h @ w + b`` in ``h``'s dtype -> float32 [...]:
+    a row-wise float32 dot product of ``h`` with ``w`` cast to ``h``'s
+    dtype, rounded to it, plus the bias in it. Independent of the row
+    count, so padded serving buckets return bit-identical real rows
+    (BLAS's matrix-vector kernel sums in a batch-dependent order)."""
+    cdt = h.dtype
+    out = torch.sum(h.float() * w[:, 0].to(cdt).float(), dim=-1).to(cdt)
+    return (out + b[0].to(cdt)).float()
+
+
+def narrow_matmul(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` for a narrow ``w`` [d, n] (MMoE's gates: n = experts) in
+    ``h``'s dtype: per-row float32 dot products rounded to it, like
+    :func:`dense_head`, so the result does not depend on the row count."""
+    cdt = h.dtype
+    return torch.sum(h.float().unsqueeze(-1) * w.to(cdt).float(),
+                     dim=-2).to(cdt)
 
 
 def l2_half_sum(x: torch.Tensor) -> torch.Tensor:

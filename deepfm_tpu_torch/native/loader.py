@@ -1,8 +1,9 @@
 """ctypes bindings of the native TFRecord decoder (``tfrecord_native.cc``):
 record framing, CRC32C and the CTR ``tf.train.Example`` decode in C++.
 
-The port's copy of ``deepfm_tpu.native.loader`` less the two-label and
-history decodes. The library is built with the host compiler,
+The port's copy of ``deepfm_tpu.native.loader``, with the two-label
+(``decode_spans2``, multi-task input) and history (``decode_spans_hist``,
+sequence models) decodes. The library is built with the host compiler,
 ``g++ -O3 -shared -fPIC -std=c++17``, at first use into
 ``deepfm_tpu_torch/_build/``, under a file name that carries a hash of the
 source and the flags, so an edited source never loads a stale build. Builds
@@ -123,6 +124,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(ctypes.c_void_p), _LONGP, ctypes.c_long,
         ctypes.c_long, _LONGP, _F32P, _I32P, _F32P, _LONGP, _LONGP]
+    lib.dfm_decode_ctr2_ex.restype = ctypes.c_long
+    lib.dfm_decode_ctr2_ex.argtypes = [
+        _U8P, _LONGP, _LONGP, ctypes.c_long, ctypes.c_long,
+        _F32P, _F32P, _I32P, _F32P, _LONGP]
+    lib.dfm_decode_ctr_hist.restype = ctypes.c_long
+    lib.dfm_decode_ctr_hist.argtypes = [
+        _U8P, _LONGP, _LONGP, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        _F32P, _I32P, _F32P, _I32P, _F32P, _I32P, _LONGP]
     lib.dfm_crc32c.restype = ctypes.c_uint32
     lib.dfm_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_long]
 
@@ -225,6 +234,10 @@ def _decode_reason(code: int, field_size: int) -> str:
         -22: f"'values' length != field_size={field_size}",
         -23: ("required keys missing — need 'label' plus 'ids'/'values' "
               "(reference schema) or 'feat_ids'/'feat_vals' (legacy)"),
+        -24: "'label2' is not a single float",
+        -25: "malformed 'hist_ids' int64 list",
+        -26: "malformed 'hist_vals' float list",
+        -27: "'hist_ids'/'hist_vals' lengths differ (or one key missing)",
     }
     return reasons.get(code, f"malformed Example wire data (code {code})")
 
@@ -349,13 +362,102 @@ def assemble_spans_python(jobs, field_size: int, labels: np.ndarray,
 def decode_batch(records: Sequence[bytes], field_size: int
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Decode a list of serialized Examples in one C call."""
+    return decode_spans(*_spans_of(records), field_size)
+
+
+def _spans_of(records: Sequence[bytes]):
+    """(joined buffer, offsets, lengths) of a list of records."""
     buf = b"".join(records)
     lengths = np.fromiter((len(r) for r in records), dtype=np.int64,
                           count=len(records))
     offsets = np.zeros(len(records), dtype=np.int64)
     if len(records) > 1:
         np.cumsum(lengths[:-1], out=offsets[1:])
-    return decode_spans(buf, offsets, lengths, field_size)
+    return buf, offsets, lengths
+
+
+def has_labels2() -> bool:
+    """True when the built library exports the two-label decode entry
+    (``dfm_decode_ctr2_ex``); the library is built from this checkout's
+    source, so it always does."""
+    return hasattr(load(), "dfm_decode_ctr2_ex")
+
+
+def decode_spans2(buf, offsets: np.ndarray, lengths: np.ndarray,
+                  field_size: int
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Two-label :func:`decode_spans` (multi-task input): ``(labels,
+    labels2, ids, vals)``, ``labels2[i]`` from the optional ``label2`` key
+    (0.0 when absent)."""
+    lib = load()
+    n = len(offsets)
+    labels = np.empty(n, dtype=np.float32)
+    labels2 = np.empty(n, dtype=np.float32)
+    ids = np.empty((n, field_size), dtype=np.int32)
+    vals = np.empty((n, field_size), dtype=np.float32)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int64)
+    detail = ctypes.c_long(0)
+    rc = lib.dfm_decode_ctr2_ex(
+        _ptr(buf), _p(offsets, _LONGP), _p(lengths, _LONGP), n, field_size,
+        _p(labels, _F32P), _p(labels2, _F32P), _p(ids, _I32P),
+        _p(vals, _F32P), ctypes.byref(detail))
+    if rc != 0:
+        raise ValueError(f"native 2-label decode failed at record "
+                         f"{-rc - 100}: "
+                         f"{_decode_reason(detail.value, field_size)}")
+    return labels, labels2, ids, vals
+
+
+def decode_batch2(records: Sequence[bytes], field_size: int
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Two-label sibling of :func:`decode_batch`."""
+    return decode_spans2(*_spans_of(records), field_size)
+
+
+def has_hist() -> bool:
+    """True when the built library exports the history decode entry
+    (``dfm_decode_ctr_hist``); always, as :func:`has_labels2`."""
+    return hasattr(load(), "dfm_decode_ctr_hist")
+
+
+def decode_spans_hist(
+        buf, offsets: np.ndarray, lengths: np.ndarray, field_size: int,
+        max_len: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray,
+           np.ndarray]:
+    """History :func:`decode_spans` (sequence models): ``(labels, ids,
+    vals, hist_ids [n, max_len] int32, hist_vals [n, max_len] float32,
+    hist_len [n] int32)``, each record's ragged pair zero-padded and
+    truncated to ``max_len`` (an absent pair: an empty history)."""
+    lib = load()
+    n = len(offsets)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int64)
+    labels = np.empty(n, dtype=np.float32)
+    ids = np.empty((n, field_size), dtype=np.int32)
+    vals = np.empty((n, field_size), dtype=np.float32)
+    hist_ids = np.zeros((n, max_len), dtype=np.int32)
+    hist_vals = np.zeros((n, max_len), dtype=np.float32)
+    hist_len = np.zeros(n, dtype=np.int32)
+    detail = ctypes.c_long(0)
+    rc = lib.dfm_decode_ctr_hist(
+        _ptr(buf), _p(offsets, _LONGP), _p(lengths, _LONGP), n, field_size,
+        max_len, _p(labels, _F32P), _p(ids, _I32P), _p(vals, _F32P),
+        _p(hist_ids, _I32P), _p(hist_vals, _F32P), _p(hist_len, _I32P),
+        ctypes.byref(detail))
+    if rc != 0:
+        raise ValueError(f"native history decode failed at record "
+                         f"{-rc - 100}: "
+                         f"{_decode_reason(detail.value, field_size)}")
+    return labels, ids, vals, hist_ids, hist_vals, hist_len
+
+
+def decode_batch_hist(records: Sequence[bytes], field_size: int, max_len: int
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                 np.ndarray, np.ndarray, np.ndarray]:
+    """History sibling of :func:`decode_batch`."""
+    return decode_spans_hist(*_spans_of(records), field_size, max_len)
 
 
 def decode_file_bytes(buf: bytes, field_size: int, *, verify_crc: bool = True

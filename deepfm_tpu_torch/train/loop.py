@@ -60,7 +60,6 @@ import contextlib
 import itertools
 import logging
 import math
-import os
 import queue
 import threading
 import time
@@ -100,13 +99,22 @@ def pad_batch(batch: Batch, bs: int) -> Batch:
             for k, v in batch.items()}
 
 
-def zero_batch(field_size: int, bs: int) -> Batch:
-    """All-zero batch with the canonical CTR schema."""
-    return {
+def zero_batch(field_size: int, bs: int, num_labels: int = 1,
+               hist_len: int = 0) -> Batch:
+    """All-zero batch with the canonical CTR schema: multi-task runs carry a
+    second label column (``label2``), history runs the fixed-shape
+    ``hist_ids``/``hist_mask`` pair (all masked: an empty history)."""
+    batch = {
         "feat_ids": np.zeros((bs, field_size), np.int32),
         "feat_vals": np.zeros((bs, field_size), np.float32),
         "label": np.zeros((bs, 1), np.float32),
     }
+    if num_labels > 1:
+        batch["label2"] = np.zeros((bs, 1), np.float32)
+    if hist_len > 0:
+        batch["hist_ids"] = np.zeros((bs, hist_len), np.int32)
+        batch["hist_mask"] = np.zeros((bs, hist_len), np.float32)
+    return batch
 
 
 def _with_weight(batch: Batch, bs: int) -> Batch:
@@ -183,9 +191,10 @@ class _StagingRing:
     ``overlap_fraction`` is the share of staging time doing transfer work
     (1.0 = never fenced)."""
 
-    # Test/bench only: inflate each transfer by N ns per staged record, so
-    # a CPU run has a transfer to overlap (never set in production).
-    SYNTH_TRANSFER_ENV = "DEEPFM_TPU_TORCH_SYNTH_TRANSFER_NS_PER_RECORD"
+    # Test seam, never set in production: called with the record count
+    # inside each transfer's timed region, so a CPU run has a synthetic
+    # transfer to overlap with a dispatch.
+    transfer_hook: Optional[Callable[[int], None]] = None
 
     def __init__(self, n_slots: int, device="cpu"):
         self.n_slots = max(int(n_slots), 1)
@@ -198,7 +207,6 @@ class _StagingRing:
         self._slots: List[Optional[Dict[str, Tuple]]] = [None] * self.n_slots
         self.transfer_s = 0.0
         self.wait_s = 0.0
-        self._synth_ns = int(os.environ.get(self.SYNTH_TRANSFER_ENV, "0"))
         if self._cuda:
             self._compute = torch.cuda.current_stream(self.device)
             self._copy = torch.cuda.Stream(self.device)
@@ -208,7 +216,7 @@ class _StagingRing:
         self._staged += 1
         if self._staged > self.n_slots:
             with trace_lib.span("stage.wait", slot=self._staged):
-                t0 = time.time()
+                t0 = time.perf_counter()
                 fence = None
                 # Poll against close, so an abandoned fit never strands the
                 # staging thread on this queue.
@@ -220,16 +228,16 @@ class _StagingRing:
                         continue
                 if fence is not None:
                     fence.synchronize()
-                self.wait_s += time.time() - t0
+                self.wait_s += time.perf_counter() - t0
         with self._lock:
             if self._closed.is_set():
                 raise RingClosed("staging ring closed: its fit ended")
             with trace_lib.span("stage.transfer", records=n_records):
-                t0 = time.time()
+                t0 = time.perf_counter()
                 out = transfer()
-                if self._synth_ns and n_records:
-                    time.sleep(self._synth_ns * n_records * 1e-9)
-                self.transfer_s += time.time() - t0
+                if self.transfer_hook is not None:
+                    self.transfer_hook(n_records)
+                self.transfer_s += time.perf_counter() - t0
         return out
 
     def stage(self, group: List[Batch]):
@@ -346,6 +354,11 @@ class Trainer:
         self.cfg = cfg
         self.device = device_lib.resolve(device)
         self.model = get_model(cfg, device="meta")
+        # Multi-task models emit [B, T] logits and own the per-task loss
+        # combination; single-task models keep the [B] path.
+        self._task_names = tuple(getattr(self.model, "task_names",
+                                         ("ctr",)))
+        self._multitask = len(self._task_names) > 1
         self.opt = opt_lib.build_optimizer(cfg, world_size=1)
         self._embed_names = self.model.embedding_param_names()
         # Sparse (touched-rows-only) embedding updates with lazy Adam; the
@@ -455,17 +468,39 @@ class Trainer:
     def _logits(self, state: TrainState, batch: Dict[str, torch.Tensor], *,
                 train: bool, **emb_kw) -> torch.Tensor:
         """The model over ``state``'s tensors; ``emb_kw`` (``emb_rows``,
-        ``emb_plan``) feeds the sparse update's row leaves."""
+        ``emb_plan``) feeds the sparse update's row leaves. A sequence
+        model gets the batch's history columns as keyword arguments."""
         self.model.train(train)
         return functional_call(
             self.model, {**state.params, **state.model_state},
             (batch["feat_ids"], batch["feat_vals"]),
-            {"generator": state.rng if train else None, **emb_kw})
+            {"generator": state.rng if train else None, **emb_kw,
+             **self._hist_kwargs(batch)})
+
+    def _hist_kwargs(self, batch) -> Dict[str, torch.Tensor]:
+        """``hist_ids``/``hist_mask`` for a model that opts in
+        (``uses_history``) when the batch carries them; otherwise the
+        model sees an empty history."""
+        if getattr(self.model, "uses_history", False) and "hist_ids" in batch:
+            return {"hist_ids": batch["hist_ids"],
+                    "hist_mask": batch["hist_mask"]}
+        return {}
+
+    def _batch_labels(self, batch) -> torch.Tensor:
+        """[B] labels, or the [B, T] label matrix of a multi-task model:
+        task 0 reads ``label``, task 1 ``label2``."""
+        if not self._multitask:
+            return batch["label"].reshape(-1).float()
+        cols = [batch["label"].reshape(-1), batch["label2"].reshape(-1)]
+        return torch.stack(cols[:len(self._task_names)], dim=1).float()
 
     def _per_example_loss(self, logits: torch.Tensor,
                           labels: torch.Tensor) -> torch.Tensor:
         """``optax.sigmoid_binary_cross_entropy`` for log_loss; the squared
-        error of the probability for square_loss."""
+        error of the probability for square_loss. A multi-task model
+        combines its tasks itself ([B, T] -> [B])."""
+        if self._multitask:
+            return self.model.per_example_loss(logits, labels)
         if self.cfg.loss_type == "log_loss":
             return (-labels * F.logsigmoid(logits)
                     - (1.0 - labels) * F.logsigmoid(-logits))
@@ -479,10 +514,10 @@ class Trainer:
         names = list(state.params)
         with torch.enable_grad():
             logits = self._logits(state, batch, train=True)
-            labels = batch["label"].reshape(-1).float()
+            labels = self._batch_labels(batch)
             xent = torch.mean(self._per_example_loss(logits, labels))
             loss = xent + self.model.l2_loss(state.params)
-            grads = dict(zip(names, torch.autograd.grad(
+            grads = dict(zip(names, _grads(
                 loss, [state.params[n] for n in names])))
         # Pad rows never move: their gradient is already zero (no real id
         # reaches them; the l2 term excludes them), and this makes it so.
@@ -628,7 +663,7 @@ class Trainer:
         emb = self.model.emb
         tabs = self._tables(state)
         rest = [state.params[k] for k in self._rest_keys]
-        labels = batch["label"].reshape(-1).float()
+        labels = self._batch_labels(batch)
         mono = {n: t[emb.MONO] for n, t in tabs.items()} \
             if not emb.hashed else None
         fused = self._use_fused_backward() and self._fused_tables_ok(mono)
@@ -654,8 +689,7 @@ class Trainer:
                 l2 = self.model.l2_loss(emb_rows=leaves, emb_plan=plan)
                 loss = xent + l2
             flat = [(n, k) for n in self._embed_names for k in leaves[n]]
-            grads = torch.autograd.grad(
-                loss, [leaves[n][k] for n, k in flat] + rest)
+            grads = _grads(loss, [leaves[n][k] for n, k in flat] + rest)
         g_rows = {n: {} for n in self._embed_names}
         for (n, k), g in zip(flat, grads):
             g_rows[n][k] = g
@@ -706,10 +740,9 @@ class Trainer:
         for batch in batches:
             with torch.enable_grad():
                 logits = self._logits(state, batch, train=True)
-                labels = batch["label"].reshape(-1).float()
+                labels = self._batch_labels(batch)
                 xent = torch.mean(self._per_example_loss(logits, labels))
-                g = list(torch.autograd.grad(xent, params,
-                                             grad_outputs=scale))
+                g = _grads(xent, params, grad_outputs=scale)
             if grads is None:
                 grads = g
             else:
@@ -799,11 +832,10 @@ class Trainer:
                     state, batch, train=True,
                     emb_rows={n: {emb.MONO: leaf[n]} for n in names},
                     emb_plan=None)
-                labels = batch["label"].reshape(-1).float()
+                labels = self._batch_labels(batch)
                 xent = torch.mean(self._per_example_loss(logits, labels))
-                grads = torch.autograd.grad(
-                    xent, [leaf[n] for n in names] + rest,
-                    grad_outputs=scale)
+                grads = _grads(xent, [leaf[n] for n in names] + rest,
+                               grad_outputs=scale)
             for n, g in zip(names, grads):
                 g_views[n][o0:o1].copy_(g)
             g = list(grads[len(names):])
@@ -1080,6 +1112,9 @@ class Trainer:
         """None when ``fit_device_resident`` reproduces the staged run of
         ``pipe``, else the reason it cannot (the caller warns and stages)."""
         cfg = self.cfg
+        if self._multitask:
+            return "multi-task run (the decoded-cache column set carries a "\
+                   "single label column)"
         if getattr(pipe, "decoded_cache", "off") == "off":
             return "pipeline has no decoded cache (device upload reads the "\
                    "cached columns)"
@@ -1270,8 +1305,10 @@ class Trainer:
             # rows + cold store).
             state = self._tier.densified(state)
         cfg = self.cfg
-        auc_state = metrics_lib.auc_init(cfg.auc_num_thresholds,
-                                         device=self.device)
+        names = self._task_names
+        auc_states = [metrics_lib.auc_init(cfg.auc_num_thresholds,
+                                           device=self.device)
+                      for _ in names]
         loss_state = metrics_lib.mean_init(device=self.device)
         n = 0
         t_start = time.time()
@@ -1280,11 +1317,17 @@ class Trainer:
             for batch in batches:
                 dev = self.put_batch(_with_weight(batch, cfg.batch_size))
                 logits = self._logits(state, dev, train=False)
-                labels = dev["label"].reshape(-1).float()
+                labels = self._batch_labels(dev)
                 w = dev["weight"].reshape(-1)
                 per_ex = self._per_example_loss(logits, labels)
-                auc_state = metrics_lib.auc_update(
-                    auc_state, torch.sigmoid(logits), labels, w)
+                probs = torch.sigmoid(logits)
+                if self._multitask:
+                    auc_states = [metrics_lib.auc_update(
+                        a, probs[:, t], labels[:, t], w)
+                        for t, a in enumerate(auc_states)]
+                else:
+                    auc_states = [metrics_lib.auc_update(
+                        auc_states[0], probs, labels, w)]
                 loss_state = metrics_lib.MeanState(
                     total=loss_state.total + torch.sum(per_ex * w),
                     count=loss_state.count + torch.sum(w))
@@ -1292,9 +1335,14 @@ class Trainer:
                 if t_first is None:
                     t_first = time.time()
         if n == 0:
-            return {"auc": 0.0, "loss": 0.0, "batches": 0.0,
-                    "examples_per_sec": 0.0, "examples_per_sec_steady": 0.0}
-        auc = float(metrics_lib.auc_compute(auc_state))  # device sync
+            out = {"auc": 0.0, "loss": 0.0, "batches": 0.0,
+                   "examples_per_sec": 0.0, "examples_per_sec_steady": 0.0}
+            if self._multitask:
+                out.update({f"auc_{t}": 0.0 for t in names})
+            return out
+        aucs = [float(metrics_lib.auc_compute(a))  # device sync
+                for a in auc_states]
+        auc = aucs[0]
         n_examples = float(loss_state.count)
         elapsed = max(time.time() - t_start, 1e-9)
         raw_eps = n_examples / elapsed
@@ -1303,21 +1351,38 @@ class Trainer:
         steady_window = elapsed - (t_first - t_start)
         steady_eps = (n_examples * (n - 1) / n / steady_window
                       if n > 1 and steady_window > 1e-9 else raw_eps)
-        return {"auc": auc,
-                "loss": float(metrics_lib.mean_compute(loss_state)),
-                "batches": float(n), "examples_per_sec": raw_eps,
-                "examples_per_sec_steady": steady_eps}
+        out = {"auc": auc,
+               "loss": float(metrics_lib.mean_compute(loss_state)),
+               "batches": float(n), "examples_per_sec": raw_eps,
+               "examples_per_sec_steady": steady_eps}
+        if self._multitask:
+            # Named per-task AUCs beside the headline (the first task's).
+            out.update({f"auc_{t}": a for t, a in zip(names, aucs)})
+        return out
 
     def predict(self, state: TrainState,
                 batches: Iterable[Batch]) -> Iterator[np.ndarray]:
-        """Yield one probability vector per batch."""
+        """Yield one probability vector [B] per batch, or [B, T] (column t
+        is task t) for a multi-task model."""
         if self._tier is not None:
             state = self._tier.densified(state)
         with torch.no_grad():
             for batch in batches:
                 logits = self._logits(state, self.put_batch(batch),
                                       train=False)
-                yield torch.sigmoid(logits).cpu().numpy()
+                probs = (self.model.probs_from_logits(logits)
+                         if self._multitask else torch.sigmoid(logits))
+                yield probs.cpu().numpy()
+
+
+def _grads(out: torch.Tensor, inputs: List[torch.Tensor],
+           **kw) -> List[torch.Tensor]:
+    """``torch.autograd.grad`` with zeros for an input the output does not
+    read (DCN-v2 never reads ``fm_w``): its update runs with a zero
+    gradient, as the JAX package's does."""
+    grads = torch.autograd.grad(out, inputs, allow_unused=True, **kw)
+    return [torch.zeros_like(x) if g is None else g
+            for x, g in zip(inputs, grads)]
 
 
 def _groups(batches: Iterable[Batch], k: int) -> Iterator[List[Batch]]:

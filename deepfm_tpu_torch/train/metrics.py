@@ -9,13 +9,13 @@ the same probabilities whatever the order of the sums.
 
 Everything stays on the device of the inputs; only ``float()`` of a result
 reads it back. :class:`WindowedAuc` is the online trainer's sliding-window
-AUC over host arrays; the multi-task ``WindowedAucDict`` is not ported.
+AUC over host arrays, and :class:`WindowedAucDict` one window per task.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -144,6 +144,42 @@ class WindowedAuc:
         return float(auc_compute(AucState(
             pos=torch.as_tensor(self._pos, dtype=torch.float32),
             neg=torch.as_tensor(self._neg, dtype=torch.float32))))
+
+
+class WindowedAucDict:
+    """Per-task :class:`WindowedAuc`: one window per named task.
+
+    ``update`` takes per-task probability and label columns ([B, T] in
+    ``task_names`` order, or [B] for one task); ``compute`` returns
+    ``{task: windowed_auc}``."""
+
+    def __init__(self, task_names, window_steps: int, num_bins: int = 200):
+        self.task_names = tuple(task_names)
+        if not self.task_names:
+            raise ValueError("task_names must name at least one task")
+        self._windows = {t: WindowedAuc(window_steps, num_bins)
+                         for t in self.task_names}
+
+    def __getitem__(self, task: str) -> WindowedAuc:
+        return self._windows[task]
+
+    @property
+    def examples(self) -> int:
+        """Examples inside the window (every update feeds every task)."""
+        return self._windows[self.task_names[0]].examples
+
+    def update(self, step: int, probs, labels) -> None:
+        probs = np.asarray(probs)
+        labels = np.asarray(labels)
+        if probs.ndim == 1:
+            probs = probs[:, None]
+        if labels.ndim == 1:
+            labels = labels[:, None]
+        for i, t in enumerate(self.task_names):
+            self._windows[t].update(step, probs[:, i], labels[:, i])
+
+    def compute(self) -> Dict[str, float]:
+        return {t: w.compute() for t, w in self._windows.items()}
 
 
 def auc_numpy_reference(probs, labels) -> float:

@@ -32,8 +32,12 @@ single-process path of ``deepfm_tpu.train.tasks``).
   * ``--tensorboard_dir`` writes scalar summaries (``obs.tensorboard``);
     ``--profile_dir`` traces a window of ``--profile_steps`` steps with
     ``torch.profiler`` (``utils.profiling.StepWindowTracer``).
-  * ``eval`` — AUC + loss on the eval files.
-  * ``infer`` — one probability per line to ``pred.txt``.
+  * ``eval`` — AUC + loss on the eval files (and ``auc_<task>`` per task
+    of a multi-task model).
+  * ``infer`` — one probability per line to ``pred.txt`` (one
+    space-separated column per task of a multi-task model). A sequence
+    model reads the records' history, as its eval does (the JAX package's
+    infer pipeline leaves the history out).
   * ``export`` — the servable artifact of the latest checkpoint, through
     ``utils.export.export_serving``: what ``serve.ServingEngine`` loads.
 
@@ -187,6 +191,8 @@ def make_pipeline(cfg: Config, files: List[str], *, epochs: int = 1,
         decoded_cache_dir=_decoded_cache_dir(cfg),
         input_workers=cfg.input_workers,
         stall_timeout_s=cfg.dispatch_timeout_s,
+        num_labels=cfg.num_tasks, history=cfg.history_max_len > 0,
+        history_max_len=max(1, cfg.history_max_len),
         **_fault_tolerance_kwargs(cfg))
 
 
@@ -216,7 +222,8 @@ def make_streaming_pipeline(cfg: Config, files: List[str], *, epochs: int = 1,
         use_native_decoder=cfg.use_native_decoder,
         skip_batches=skip_batches, verify_crc=cfg.verify_crc,
         on_bad_record=cfg.on_bad_record,
-        max_bad_records=cfg.max_bad_records, health=health)
+        max_bad_records=cfg.max_bad_records, num_labels=cfg.num_tasks,
+        health=health)
 
 
 # The online stream's high-water-mark sidecar, beside the checkpoints it
@@ -251,7 +258,7 @@ def make_online_pipeline(cfg: Config, train_dir: str, *, skip_batches: int = 0
         use_native_decoder=cfg.use_native_decoder,
         skip_batches=skip_batches, verify_crc=cfg.verify_crc,
         on_bad_record=cfg.on_bad_record,
-        max_bad_records=cfg.max_bad_records,
+        max_bad_records=cfg.max_bad_records, num_labels=cfg.num_tasks,
         stream_label=f"<online:{train_dir}>", health=health)
     return pipeline, stream
 
@@ -508,6 +515,7 @@ def _make_throttled_eval_hook(trainer: Trainer, cfg: Config,
         result["mid_train_evals"] += 1
         result.update({"auc": ev["auc"], "eval_loss": ev["loss"],
                        "eval_examples_per_sec": ev["examples_per_sec"]})
+        result.update({k: v for k, v in ev.items() if k.startswith("auc_")})
         log.info("throttled eval @ step %d: auc=%.5f loss=%.5f",
                  int(state.step), ev["auc"], ev["loss"])
         if on_eval is not None:
@@ -517,11 +525,16 @@ def _make_throttled_eval_hook(trainer: Trainer, cfg: Config,
 
 
 def _make_online_eval(trainer: Trainer, cfg: Config, va_files: List[str],
-                      window: metrics_lib.WindowedAuc, step_fn):
+                      window, step_fn):
     """Online-mode evaluate: one predict pass over the held-out files,
-    folded into the sliding :class:`~.metrics.WindowedAuc` at the current
-    training step (``step_fn(state)``): "AUC over the last N steps of
-    traffic" rather than the batch job's cumulative AUC."""
+    folded into the sliding window (:class:`~.metrics.WindowedAuc`, or
+    :class:`~.metrics.WindowedAucDict` with one window per task) at the
+    current training step (``step_fn(state)``): "AUC over the last N steps
+    of traffic" rather than the batch job's cumulative AUC. The loss is
+    the task-weighted sum of the per-task clipped log losses."""
+    task_names = cfg.task_names
+    num_tasks = len(task_names)
+    weights = cfg.task_weight_values
 
     def evaluate(state: TrainState) -> Dict[str, float]:
         pipeline = _eval_pipeline(cfg, va_files)
@@ -534,24 +547,40 @@ def _make_online_eval(trainer: Trainer, cfg: Config, va_files: List[str],
             for batch in pipeline:
                 n = batch["label"].shape[0]
                 real_rows.append(n)
-                labels.append(np.asarray(batch["label"]).reshape(-1)[:n])
+                cols = [np.asarray(batch["label"]).reshape(-1)[:n]]
+                if num_tasks > 1:
+                    cols.append(np.asarray(batch["label2"]).reshape(-1)[:n])
+                labels.append(np.stack(cols, axis=1))
                 yield (pad_batch(batch, cfg.batch_size)
                        if n < cfg.batch_size else batch)
 
         for i, p in enumerate(trainer.predict(state, feed())):
-            probs.append(np.asarray(p).reshape(-1)[:real_rows[i]])
+            arr = np.asarray(p)
+            if arr.ndim == 1:
+                arr = arr[:, None]
+            probs.append(arr[:real_rows[i]])
         elapsed = max(time.time() - t0, 1e-9)
         p = (np.concatenate(probs) if probs
-             else np.zeros((0,), np.float64)).astype(np.float64)
+             else np.zeros((0, num_tasks), np.float64)).astype(np.float64)
         y = (np.concatenate(labels) if labels
-             else np.zeros((0,), np.float64)).astype(np.float64)
+             else np.zeros((0, num_tasks), np.float64)).astype(np.float64)
         window.update(int(step_fn(state)), p, y)
         pc = np.clip(p, 1e-7, 1.0 - 1e-7)
-        loss = (float((-(y * np.log(pc) + (1.0 - y) * np.log1p(-pc))).mean())
-                if len(y) else 0.0)
-        return {"auc": window.compute(), "loss": loss,
-                "examples_per_sec": len(y) / elapsed,
-                "window_examples": float(window.examples)}
+        if len(y):
+            per_task = -(y * np.log(pc) + (1.0 - y) * np.log1p(-pc)).mean(
+                axis=0)
+            loss = float(sum(w * per_task[t] for t, w in enumerate(weights)))
+        else:
+            loss = 0.0
+        auc = window.compute()
+        out = {"loss": loss, "examples_per_sec": len(y) / elapsed,
+               "window_examples": float(window.examples)}
+        if isinstance(auc, dict):
+            out["auc"] = auc[task_names[0]]
+            out.update({f"auc_{t}": v for t, v in auc.items()})
+        else:
+            out["auc"] = auc
+        return out
 
     return evaluate
 
@@ -627,6 +656,8 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
     def record_eval(ev: Dict[str, float], at_state: TrainState) -> None:
         result.update({"auc": ev["auc"], "eval_loss": ev["loss"],
                        "eval_examples_per_sec": ev["examples_per_sec"]})
+        # Named per-task AUCs beside the headline (multi-task runs).
+        result.update({k: v for k, v in ev.items() if k.startswith("auc_")})
         if "window_examples" in ev:  # the online windowed AUC
             result["window_examples"] = ev["window_examples"]
         tb_eval(ev, at_state)
@@ -775,8 +806,14 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
         online_eval_fn = None
         if (cfg.online_mode and va_files
                 and cfg.online_eval_window_steps > 0):
-            window = metrics_lib.WindowedAuc(cfg.online_eval_window_steps,
-                                             num_bins=cfg.auc_num_thresholds)
+            if cfg.num_tasks > 1:
+                window = metrics_lib.WindowedAucDict(
+                    cfg.task_names, cfg.online_eval_window_steps,
+                    num_bins=cfg.auc_num_thresholds)
+            else:
+                window = metrics_lib.WindowedAuc(
+                    cfg.online_eval_window_steps,
+                    num_bins=cfg.auc_num_thresholds)
             online_eval_fn = _make_online_eval(trainer, cfg, va_files,
                                                window, lambda s: s.step)
         final_eval = online_eval_fn or (lambda s: run_eval(s, "final eval"))
@@ -944,12 +981,18 @@ def _task_infer(trainer: Trainer, cfg: Config) -> Dict[str, float]:
 
     probs = [p[:real_rows[i]]
              for i, p in enumerate(trainer.predict(state, feed()))]
+    # Single-task probabilities are [n]; multi-task [n, T], one column per
+    # task in cfg.task_names order.
+    tail = (cfg.num_tasks,) if cfg.num_tasks > 1 else ()
     all_probs = (np.concatenate(probs) if probs
-                 else np.zeros((0,), np.float32)).astype(np.float32)
+                 else np.zeros((0,) + tail, np.float32)).astype(np.float32)
     out_path = os.path.join(pred_dir, "pred.txt")
     with open(out_path, "w", encoding="utf-8") as f:
+        # One line per record; a multi-task model writes one
+        # space-separated column per task.
         for p in all_probs:
-            f.write(f"{float(p):.6f}\n")
+            f.write(" ".join(f"{float(v):.6f}" for v in np.atleast_1d(p))
+                    + "\n")
     log.info("wrote %d predictions to %s", len(all_probs), out_path)
     return {"num_predictions": float(len(all_probs))}
 

@@ -12,7 +12,12 @@ A servable artifact is a directory holding:
 
 ``load_serving`` rebuilds the model from the config, loads the weights onto
 ``device`` and returns ``f(feat_ids, feat_vals) -> probs``: numpy in, the
-forward under ``torch.inference_mode()``, sigmoid, numpy out.
+forward under ``torch.inference_mode()``, sigmoid, numpy out. A multi-task
+artifact serves named outputs ``{task: probs}`` in task order; a sequence
+model's artifact takes packed inputs ``field_size + history_len`` wide
+(ids ``feat_ids || hist_ids``, vals ``feat_vals || hist_mask``), split
+before the forward, so buckets, ``padded_predict`` and the engine serve
+it unchanged.
 
 Paths are local. Remote storage schemes (the JAX package's ``fileio``
 layer), StableHLO and the TF SavedModel sidecar are not part of the port.
@@ -53,6 +58,25 @@ class ArtifactIncomplete(RuntimeError):
     crashed mid-write, or the caller raced an in-flight publish)."""
 
 
+def _task_names(model) -> Tuple[str, ...]:
+    return tuple(getattr(model, "task_names", ()) or ())
+
+
+def _serving_hist_len(model, cfg: Config) -> int:
+    """History columns of the serving signature: > 0 only for a sequence
+    model exported from a config with history."""
+    if getattr(model, "uses_history", False) and cfg.history_max_len > 0:
+        return int(cfg.history_max_len)
+    return 0
+
+
+def serving_input_cols(model, cfg: Config) -> int:
+    """Width of the artifact's feat_ids/feat_vals inputs: ``field_size``,
+    plus ``history_max_len`` packed history columns for a sequence
+    model."""
+    return cfg.field_size + _serving_hist_len(model, cfg)
+
+
 def export_serving(model: torch.nn.Module, cfg: Config, out_dir: str, *,
                    step: int = 0) -> str:
     """Write the servable artifact of ``model``; returns the artifact path."""
@@ -64,19 +88,23 @@ def export_serving(model: torch.nn.Module, cfg: Config, out_dir: str, *,
             for k, v in model.state_dict().items()}
     torch.save(flat, os.path.join(out_dir, _PARAMS_FILE))
 
-    # 2. Signature/config metadata (the JAX package's schema). History-aware
-    # models, whose inputs are wider, are not ported.
-    in_cols = cfg.field_size
+    # 2. Signature/config metadata (the JAX package's schema). A multi-task
+    # artifact names one output per task; a sequence model's inputs are
+    # field_size + history_len wide.
+    in_cols = serving_input_cols(model, cfg)
+    names = _task_names(model)
+    outputs = ({name: ["batch", "float32"] for name in names}
+               if len(names) > 1 else {"prob": ["batch", "float32"]})
     meta = {
         "signature": {
             "inputs": {
                 "feat_ids": ["batch", in_cols, "int32"],
                 "feat_vals": ["batch", in_cols, "float32"],
             },
-            "outputs": {"prob": ["batch", "float32"]},
+            "outputs": outputs,
         },
         "model": cfg.model,
-        "history_len": 0,
+        "history_len": _serving_hist_len(model, cfg),
         "config": cfg.to_dict(),
         "step": int(step),
     }
@@ -205,6 +233,18 @@ def load_model(artifact_dir: str, *, device="cuda",
     return model.eval(), cfg, meta
 
 
+def host_sigmoid(logits: np.ndarray) -> np.ndarray:
+    """The served probabilities: a float32 sigmoid on the host, element by
+    element the same whatever the array's size. (``torch.sigmoid`` on the
+    CPU takes a vectorized loop for whole chunks and a scalar one for the
+    rest, which round differently, so a padded bucket's real rows could
+    differ from the unpadded call's in the last bit.)"""
+    x = np.asarray(logits, np.float32)
+    e = np.exp(-np.abs(x))
+    one = np.float32(1.0)
+    return np.where(x >= 0, one / (one + e), e / (one + e)).astype(np.float32)
+
+
 def load_serving(artifact_dir: str, *,
                  buckets: Optional[Sequence[int]] = None, device="cuda"
                  ) -> Callable[[np.ndarray, np.ndarray], np.ndarray]:
@@ -218,15 +258,30 @@ def load_serving(artifact_dir: str, *,
     that poll (``watch_latest``) treat this as "try again later"; everything
     else should treat it as a corrupt deployment.
     """
-    model, _, meta = load_model(artifact_dir, device=device)
+    model, cfg, meta = load_model(artifact_dir, device=device)
     dev = model.fm_b.device
+    names = _task_names(model)
+    hist_len = int(meta.get("history_len", 0))
+    fs = cfg.field_size
 
-    def serve(feat_ids: np.ndarray, feat_vals: np.ndarray) -> np.ndarray:
-        ids = torch.from_numpy(np.ascontiguousarray(feat_ids, np.int32))
-        vals = torch.from_numpy(np.ascontiguousarray(feat_vals, np.float32))
+    def serve(feat_ids: np.ndarray, feat_vals: np.ndarray):
+        ids = torch.from_numpy(np.ascontiguousarray(feat_ids, np.int32)
+                               ).to(dev)
+        vals = torch.from_numpy(np.ascontiguousarray(feat_vals, np.float32)
+                                ).to(dev)
+        kw = {}
+        if hist_len:
+            # The packed columns: feat_ids || hist_ids, feat_vals ||
+            # hist_mask (contiguous again: the FM kernel reads rows).
+            kw = {"hist_ids": ids[:, fs:].contiguous(),
+                  "hist_mask": vals[:, fs:].contiguous()}
+            ids, vals = ids[:, :fs].contiguous(), vals[:, :fs].contiguous()
         with torch.inference_mode():
-            probs = torch.sigmoid(model(ids.to(dev), vals.to(dev)))
-            return probs.cpu().numpy()
+            logits = model(ids, vals, **kw).float().cpu().numpy()
+        probs = host_sigmoid(logits)
+        if len(names) > 1:
+            return {name: probs[:, t] for t, name in enumerate(names)}
+        return probs
 
     # Input width from the signature metadata: what a pre-warm caller (the
     # hot-swap watcher) needs to drive every bucket shape before the swap.

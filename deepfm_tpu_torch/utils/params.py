@@ -9,8 +9,15 @@ as the port's modules name them (``tower.layers.0.w``, ``bn.0.mean``, ...):
     model.load_state_dict({**params, **state})
 
 No layout change is needed: the port keeps the JAX tower layout
-(``w`` [d_in, d_out], applied as ``x @ w``) and ``fm_b`` as a ``[1]``
-vector. ``opt_state_from_jax`` carries optax's Adam state over the same
+(``w`` [d_in, d_out], applied as ``x @ w``) and ``fm_b`` as a vector
+(``[1]``, or ``[T]`` for a multi-task model), and every zoo model names its
+modules as the JAX trees nest: DCN-v2's ``cross.<i>.{w|u,v,b}`` and
+``head.{w,b}``; the multi-task ``bottom.*``, ``experts.<i>.*``,
+``gates.<t>.w``, ``heads.<t>.{w,b}`` and ``towers.<t>.*``; DIN's
+``att.{w1,b1,w2,b2}`` and BST's ``att.{pos,target_pos,wq,wk,wv}``. The
+model states ``{"bn": [...]}``, ``{"bottom": {"bn": ...}}``, ``{"experts":
+[...]}`` and ``{"towers": [...]}`` flatten onto the BN buffers
+(``bn.0.mean``, ``experts.1.bn.0.var``, ...). ``opt_state_from_jax`` carries optax's Adam state over the same
 way, so a port run can resume a JAX trajectory mid-way. This module never
 imports jax: numpy is the interchange.
 """

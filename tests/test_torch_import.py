@@ -69,15 +69,23 @@ def test_every_module_imports_without_jax():
     "deepfm_tpu_torch.data.stream", "deepfm_tpu_torch.data.shm_ring",
     "deepfm_tpu_torch.data.workers", "deepfm_tpu_torch.train.publish",
     "deepfm_tpu_torch.train.metrics", "deepfm_tpu_torch.utils.checkpoint",
-    "deepfm_tpu_torch.utils.export", "deepfm_tpu_torch.obs.tensorboard"])
+    "deepfm_tpu_torch.utils.export", "deepfm_tpu_torch.obs.tensorboard",
+    "deepfm_tpu_torch.models.graph", "deepfm_tpu_torch.models.widedeep",
+    "deepfm_tpu_torch.models.dcnv2", "deepfm_tpu_torch.models.multitask",
+    "deepfm_tpu_torch.models.sequence", "deepfm_tpu_torch.ops.fm",
+    "deepfm_tpu_torch.data.example_codec", "deepfm_tpu_torch.data.libsvm",
+    "deepfm_tpu_torch.utils.params"])
 def test_module_list_covers_the_runtime_modules(module):
     """The fit loop's runtime (the staging ring, the guard and its state
     snapshot, preemption and its fault seams), the input path (the native
     decoder's loader, data health, the decoded cache, file I/O, read
-    retries, the shard stream and the input service) and the online
+    retries, the shard stream and the input service), the online
     trainer's pieces (the publisher, the windowed AUC, async checkpoints,
-    the pointer history, TensorBoard) are among the modules the first
-    check imports without jax."""
+    the pointer history, TensorBoard) and the model zoo (the single-task
+    graphs, the multi-task heads, the sequence models and their masked
+    softmax, the two-label and history codec and generator, the weight
+    carry-over) are among the modules the first check imports without
+    jax."""
     assert module in _modules()
 
 

@@ -171,24 +171,29 @@ def test_training_mode_raises():
 @pytest.mark.parametrize("name", sorted(set(jax_registered_models())
                                         - {"deepfm"}))
 def test_unported_models_raise(name):
-    assert registered_models() == ["deepfm"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_model(Config(**_cfg_kw(model=name)), device="cpu")
+    """Every model of the JAX registry is ported now: the registries agree
+    and each name builds (none raises ``NotImplementedError``)."""
+    assert registered_models() == jax_registered_models()
+    model = get_model(Config(**_cfg_kw(model=name)), device="cpu")
+    assert model.name == name
 
 
 def test_hashed_embeddings_not_ported():
     """Hash-bucketed tables are ported now: the model holds one table per
-    bucket count under the JAX tree's names; a multi-task model over them
-    still raises."""
+    bucket count under the JAX tree's names, and a multi-task model over
+    them builds the same tables with one bias per task."""
     model = get_model(Config(**_cfg_kw(embedding_buckets="64,32")),
                       device="cpu")
     shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()
               if k.startswith("fm_")}
     assert shapes == {"fm_b": (1,), "fm_w.t0": (64,), "fm_w.t1": (32,),
                       "fm_v.t0": (64, K), "fm_v.t1": (32, K)}
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_model(Config(**_cfg_kw(embedding_buckets="64,32",
-                                   tasks="ctr,cvr")), device="cpu")
+    multi = get_model(Config(**_cfg_kw(embedding_buckets="64,32",
+                                       tasks="ctr,cvr")), device="cpu")
+    shapes = {k: tuple(v.shape) for k, v in multi.state_dict().items()
+              if k.startswith("fm_")}
+    assert shapes == {"fm_b": (2,), "fm_w.t0": (64,), "fm_w.t1": (32,),
+                      "fm_v.t0": (64, K), "fm_v.t1": (32, K)}
 
 
 def test_missing_gpu_raises(monkeypatch):

@@ -170,12 +170,49 @@ def test_slots_are_preallocated_and_reused():
 
 
 def test_fit_reports_overlap_with_a_synthetic_transfer(monkeypatch):
-    """A synthetic per-record transfer cost (the CPU has no transfer to
-    overlap): transfer_s takes it, and at 2 slots, 2 groups ahead, the
-    transfers run beside the dispatches."""
-    monkeypatch.setenv(_StagingRing.SYNTH_TRANSFER_ENV, "100000")  # 3.2 ms
-    _, _, out = _run("dense", 2, 2)
-    assert out["staging_transfer_s"] >= 5 * 2 * B * 100000e-9
+    """A synthetic transfer (the CPU has no copy to overlap) through the
+    ring's ``transfer_hook``: it costs 100 us per record, and transfer j > 0
+    then signals that it runs and holds until dispatch j - 1, which waits
+    for that signal, has seen it. So at 2 slots, 2 groups ahead, every
+    transfer but the first provably runs beside a dispatch, whatever the
+    scheduler does; ``transfer_s`` takes the synthetic cost (10 batches at
+    steps_per_loop 2: five groups of 2 * B records) and
+    ``staging_overlap_fraction`` reports a share of the staging time spent
+    transferring."""
+    ns, n_groups = 100000, 5
+    running = [threading.Event() for _ in range(n_groups)]
+    seen = [threading.Event() for _ in range(n_groups)]
+    transfers = iter(range(n_groups))
+
+    def hook(n_records):
+        j = next(transfers)
+        time.sleep(ns * n_records * 1e-9)
+        running[j].set()
+        if j and not seen[j].wait(30.0):
+            raise AssertionError(f"dispatch {j - 1} never saw transfer {j}")
+
+    monkeypatch.setattr(_StagingRing, "transfer_hook", staticmethod(hook))
+    tr = Trainer(Config(**_kw(staging_buffers=2, transfer_ahead=2,
+                              **LAYOUTS["dense"])), device="cpu")
+    multi_step = tr.multi_step
+    dispatches = iter(range(n_groups))
+    beside = []
+
+    def dispatch(state, group):
+        i = next(dispatches)
+        out = multi_step(state, group)
+        if i + 1 < n_groups:
+            # Transfer i + 1 runs now, and holds until this dispatch has
+            # seen it.
+            beside.append(running[i + 1].wait(30.0))
+            seen[i + 1].set()
+        return out
+
+    monkeypatch.setattr(tr, "multi_step", dispatch)
+    _, out = tr.fit(tr.init_state(), _batches(2 * n_groups))
+    assert beside == [True] * (n_groups - 1)
+    assert out["steps"] == 2 * n_groups
+    assert out["staging_transfer_s"] >= 5 * 2 * B * ns * 1e-9
     assert 0.0 < out["staging_overlap_fraction"] <= 1.0
 
 
