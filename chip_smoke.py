@@ -213,7 +213,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the CPU (float32 tower, dropout off); then one timing line per model
    (B = 1,024 train step ms and device busy ms, B = 256 forward ms,
    beside the card's name and power limit).
-12. Serve phase: DeepFM at the reference width (``Config()`` defaults:
+12. Retrieval phase, on the zoo's DIN records and DIN artifact: the
+   twin tower trained by ``train_twin_tower`` (two epochs at B = 1,024,
+   D = 32, MLPs 32-64-32, Adam) with exact launch counts (a segments
+   launch and a take backward per lookup, two lookups a step), one step's
+   call and device time and idle share, and the take backward at the
+   history shape (B x L = 20,480 positions, D = 32, U = 117,632) bit-equal
+   to the numpy oracle beside its bound and ``index_add_``; the item matrix
+   over all 117,581 items, the brute index on the card and the int8 ANN at
+   its default P = 342, nprobe = 85 and at P = 32, nprobe = 16, with
+   recall@50 against brute force (brute must read 1.0) and search times;
+   ``export_cascade`` of the DIN ranker, the towers and the brute index
+   behind ``LATEST``, served by a staged and a fused ``CascadeEngine``
+   (retrieve 50, rank to 10): fused equals staged bit for bit over 32
+   single users (empty histories included), the FM kernel launches once per
+   request on each path, sequential p50/p99/QPS of both and
+   ``recommend_batch`` at 64 users; a float32 copy of the ranker served on
+   the card and on the CPU (the same 50 items, probabilities within 1e-5);
+   a v2 published by ``Publisher(extra_export=cascade_extra_export(...))``
+   hot-swapped into both engines (answers equal a fresh v2 engine's) and a
+   torn v3 whose swap is deferred.
+13. Serve phase: DeepFM at the reference width (``Config()`` defaults:
    V=117,581, F=39, K=32, tower 128-64-32, bfloat16 tower) with random
    weights from a seed, exported, published behind ``LATEST`` and served by
    ``ServingEngine.serve_latest`` to several client threads. Every response
@@ -234,8 +254,10 @@ two decoded-cache tasks, the device-resident tasks with their staged
 counterparts, the pipe-mode task (``train_pipe``), the input-service task
 (``train_input_workers``), the online trainer's training and serving
 (``train_online``, ``serve_online``), the hashed online run
-(``train_online_hashed``) and every zoo model's train task (``zoo_<name>``,
-``zoo_<name>_sparse_hashed``, ``zoo_mmoe_sparse_tiered``).
+(``train_online_hashed``), every zoo model's train task (``zoo_<name>``,
+``zoo_<name>_sparse_hashed``, ``zoo_mmoe_sparse_tiered``), the twin
+tower's training (``train_twin_tower``) and the cascade's staged and fused
+requests (``cascade_staged``, ``cascade_fused``).
 
 Kernel times come from torch.profiler's device events. A time the
 profiler does not see in three tries prints as "missing (profiler saw no
@@ -264,6 +286,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import warnings
 
 import numpy as np
@@ -278,16 +301,24 @@ from deepfm_tpu_torch.data import cache as cache_lib  # noqa: E402
 from deepfm_tpu_torch.data import fileio, libsvm  # noqa: E402
 from deepfm_tpu_torch.data import pipeline as pipe_lib  # noqa: E402
 from deepfm_tpu_torch.models import get_model  # noqa: E402
+from deepfm_tpu_torch.models.twin_tower import (  # noqa: E402
+    TwinTower, tower_batch, train_twin_tower, twin_tower_step)
 from deepfm_tpu_torch.native import loader as tfr_loader  # noqa: E402
 from deepfm_tpu_torch.obs import trace as trace_lib  # noqa: E402
 from deepfm_tpu_torch.ops import embedding as emb_ops  # noqa: E402
 from deepfm_tpu_torch.ops import embedding_kernels as ek  # noqa: E402
 from deepfm_tpu_torch.ops import fused_fm as ffm  # noqa: E402
 from deepfm_tpu_torch.ops.fused_fm import fused_fm, reference_fm  # noqa: E402
+from deepfm_tpu_torch.rec.cascade import (  # noqa: E402
+    ITEM_SLOT, TOWERS_FILE, CascadeEngine, cascade_extra_export,
+    export_cascade)
+from deepfm_tpu_torch.rec.index import INDEX_FILE, CandidateIndex  # noqa: E402
 from deepfm_tpu_torch.serve import ServingEngine  # noqa: E402
 from deepfm_tpu_torch.train import Trainer, tasks  # noqa: E402
 from deepfm_tpu_torch.train import guard as guard_lib  # noqa: E402
 from deepfm_tpu_torch.train import loop as loop_lib  # noqa: E402
+from deepfm_tpu_torch.train.optimizers import Adam  # noqa: E402
+from deepfm_tpu_torch.train.publish import Publisher  # noqa: E402
 from deepfm_tpu_torch.train.state import StateSnapshot  # noqa: E402
 from deepfm_tpu_torch.utils import checkpoint as ckpt_lib  # noqa: E402
 from deepfm_tpu_torch.utils import export as export_lib  # noqa: E402
@@ -3847,7 +3878,411 @@ def zoo_phase(workdir: str, cfg: Config, dev: torch.device,
     if dev.type == "cuda":
         for name, kw in ZOO.items():
             zoo_timing(cfg.replace(**kw), name, artifacts[name])
+    return paths, artifacts, data
+
+
+# ---------------------------------------------------------------------------
+# Retrieval: twin tower, candidate index, the retrieve→rank cascade
+# ---------------------------------------------------------------------------
+
+# The bench's cascade series (bench.py:1448, :1503): 50 candidates ranked
+# to 10; the ANN at its default P = floor(sqrt(V)) = 342, nprobe = P // 4 =
+# 85, and at P = 32, nprobe = 16.
+RETRIEVE_K, RANK_K = 50, 10
+ANN_SMALL = (32, 16)
+# The bench's engine (bench.py:1530-1531): flushes of up to 64 rows, a
+# 1 ms batching deadline.
+CASCADE_MAX_BATCH, CASCADE_DELAY_MS = 64, 1.0
+# The card's staged answers against the CPU's on a float32 ranker.
+CASCADE_CPU_ATOL = 1e-5
+RECALL_QUERIES = 256
+CASCADE_REQUESTS = 32    # fused against staged, bit for bit
+CASCADE_TIMED = 200      # sequential recommend calls timed per path
+CASCADE_BATCH = 64       # recommend_batch users
+CASCADE_CPU_REQUESTS = 16
+# A swapped-in v2 ranker: the v1 weights with fm_b moved by this much, so
+# every answer after the swap differs from v1's.
+V2_BIAS = 0.25
+
+
+def _history_pipe(cfg: Config, files, epochs: int, batch: int):
+    return pipe_lib.CtrPipeline(
+        files, field_size=cfg.field_size, batch_size=batch,
+        num_epochs=epochs, shuffle=False, history=True,
+        history_max_len=cfg.history_max_len)
+
+
+def _cascade_requests(batch: dict, n: int):
+    """Single-user requests from eval records (every fourth with its
+    history emptied): (hist_ids [L], hist_mask [L], feat_ids [F],
+    feat_vals [F])."""
+    out = []
+    for i in range(n):
+        mask = batch["hist_mask"][i].copy()
+        ids = batch["hist_ids"][i].copy()
+        if i % 4 == 3:
+            mask[:] = 0.0
+            ids[:] = 0
+        out.append((ids, mask, batch["feat_ids"][i].copy(),
+                    batch["feat_vals"][i].copy()))
+    assert any(not r[1].any() for r in out)
+    return out
+
+
+def _cascade_engine(publish_dir: str, dev, **kw) -> CascadeEngine:
+    return CascadeEngine(publish_dir, retrieve_k=RETRIEVE_K,
+                         max_batch=CASCADE_MAX_BATCH,
+                         max_delay_ms=CASCADE_DELAY_MS,
+                         watcher_kw={"poll_secs": 3600, "start": False},
+                         device=dev, **kw)
+
+
+def _check_answers(answers, k: int) -> None:
+    for items, probs in answers:
+        assert items.shape == (k,) and probs.shape == (k,)
+        assert len(set(map(int, items))) == k
+        assert np.all(np.isfinite(probs)) and np.all(
+            (probs >= 0) & (probs <= 1)), probs
+        assert np.all(np.diff(probs) <= 0)
+
+
+def _same_answers(a, b) -> bool:
+    return all(np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+               for x, y in zip(a, b))
+
+
+def _timed_recommend(engine: CascadeEngine, reqs, n: int):
+    """(p50 ms, p99 ms, requests/s) of ``n`` sequential recommend calls."""
+    for r in reqs[:4]:
+        engine.recommend(*r, k=RANK_K)
+    lat = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        t = time.perf_counter()
+        engine.recommend(*reqs[i % len(reqs)], k=RANK_K)
+        lat.append(1000.0 * (time.perf_counter() - t))
+    wall = time.perf_counter() - t0
+    return (float(np.percentile(lat, 50)), float(np.percentile(lat, 99)),
+            n / wall)
+
+
+def twin_tower_phase(cfg: Config, dev: torch.device, files) -> tuple:
+    """``train_twin_tower`` over the zoo's history records (two epochs at
+    B = 1,024) with exact launch counts: a segments launch and a take
+    backward per lookup (the history's and the positive items') per step.
+    Then one step's call and device time, and the take backward at the
+    history lookup's shape beside its bound and ``index_add_``. Returns
+    (tower, launches, timing)."""
+    t0 = time.perf_counter()
+    batches = list(_history_pipe(cfg, files, ZOO_EPOCHS, cfg.batch_size))
+    decode_s = time.perf_counter() - t0
+    steps = len(batches)
+    _zero_counts()
+    t0 = time.perf_counter()
+    tower, stats = train_twin_tower(cfg, batches, item_slot=ITEM_SLOT,
+                                    seed=SEED, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    on = int(dev.type == "cuda")
+    want = {k: 0 for k in launches}
+    want.update(take_bwd=2 * steps * on, segments=2 * steps * on)
+    assert launches == want, (launches, want)
+    assert stats["steps"] == steps and stats["positive_rows"] > 0, stats
+    assert np.isfinite(stats["first_loss"]) and np.isfinite(stats["loss"])
+    rate = steps * cfg.batch_size / wall
+    timing = {"steps": steps, "examples_per_sec": rate,
+              "first_loss": stats["first_loss"], "loss": stats["loss"]}
+    line = (f"retrieval twin tower: train_twin_tower {steps} steps "
+            f"B={cfg.batch_size} D={cfg.embedding_size} MLPs "
+            f"{cfg.embedding_size}->{2 * cfg.embedding_size}->"
+            f"{cfg.embedding_size} wall_s={wall:.3f} examples_per_sec="
+            f"{rate:.1f} (batches decoded beforehand in {decode_s:.2f}s) "
+            f"loss {stats['first_loss']:.5f} -> {stats['loss']:.5f}, "
+            f"positive rows {stats['positive_rows']:.0f}; launches "
+            f"{launches}")
+    if dev.type != "cuda":
+        print(line)
+        return tower, launches, timing
+    # One step's time on a tower of its own (the trained one is the
+    # index's): the loop's own sync included (float(loss)).
+    probe = TwinTower(cfg, device=dev)
+    opt = Adam(cfg.learning_rate)
+    opt_state = opt.init(dict(probe.named_parameters()))
+    inputs, _ = tower_batch(batches[0], ITEM_SLOT, dev)
+    step = lambda: float(twin_tower_step(  # noqa: E731
+        probe, opt, opt_state, inputs))
+    step_ms = cuda_ms(step, iters=30, warmup=5)
+    busy = profiled_ms(step, iters=10)
+    idle = None if busy is None else 1.0 - busy / step_ms
+    timing.update(step_ms=step_ms, device_ms=busy, idle=idle)
+    print(f"{line}; one step call_ms={step_ms:.4f} device_busy_ms="
+          f"{ms(busy)} idle_share="
+          f"{'n/a' if idle is None else f'{idle:.3f}'} ({card_line()})")
+
+    # The history lookup's take backward (B*L positions of the padded
+    # vocabulary at D = K, a run at id 0 for every padded position) with
+    # its segments given, and the segments build, against the bounds.
+    ids = inputs[0].reshape(-1).long()
+    n, u, d = ids.shape[0], tower.padded_vocab, cfg.embedding_size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    g = torch.randn(n, d, device=dev, generator=gen)
+    seg = ek.position_segments(ids, u)
+    got = ek.segment_sum(g, ids, u, segments=seg)
+    assert np.array_equal(got.cpu().numpy(), take_bwd_oracle(g, ids, None,
+                                                             u))
+    run0 = int((ids == 0).sum())
+    kern = timed(lambda: ek.segment_sum(g, ids, u, segments=seg), iters=50)
+    both = timed(lambda: ek.segment_sum(g, ids, u), iters=50)
+    lib = timed(lambda: torch.zeros(u, d, device=dev).index_add_(0, ids, g),
+                iters=50)
+    tb = take_bwd_bound(d, [n], [u])
+    sb = segments_bound(ids.reshape(1, -1), [u], None)
+    timing.update(take_bwd_ms=kern[0], segment_sum_ms=both[0],
+                  index_add_ms=lib[0], take_bwd_bound_ms=tb[0],
+                  segments_bound_ms=sb[0], n=n, run0=run0)
+    print(f"retrieval take_bwd history N=B*L={n} U={u} D={d} run at id 0 "
+          f"{run0}: bit-equal to the numpy ascending-p oracle; take "
+          f"backward (segments given) device_ms={ms(kern[0])} call_ms="
+          f"{kern[1]:.6f} bound_ms={tb[0]:.6f} ({tb[1]}: {tb[2]} B); "
+          f"segments + take backward device_ms={ms(both[0])} bound_ms="
+          f"{tb[0] + sb[0]:.6f}; library index_add_ device_ms={ms(lib[0])} "
+          f"({kern[2]}) ({card_line()})")
+    return tower, launches, timing
+
+
+def index_phase(cfg: Config, dev: torch.device, tower: TwinTower,
+                eval_batch: dict) -> tuple:
+    """The item matrix over the whole vocabulary, the brute index on the
+    card and the ANN at its default and at P = 32 / nprobe = 16: build
+    times, recall@50 against brute force (brute must read 1.0), and the
+    search time per query. Returns (brute index, index meta)."""
+    t0 = time.perf_counter()
+    vecs = tower.all_item_embeddings(cfg.feature_size)
+    emb_s = time.perf_counter() - t0
+    assert vecs.shape == (cfg.feature_size, cfg.embedding_size)
+    norms = np.linalg.norm(vecs, axis=1)
+    assert np.all(np.abs(norms - 1.0) < 1e-4), norms
+    brute = CandidateIndex(vecs, device=dev)
+    t0 = time.perf_counter()
+    ann = CandidateIndex(vecs, kind="ann", seed=SEED, device=dev)
+    ann_s = time.perf_counter() - t0
+    small = CandidateIndex(vecs, kind="ann", num_partitions=ANN_SMALL[0],
+                           nprobe=ANN_SMALL[1], seed=SEED, device=dev)
+    with torch.inference_mode():
+        users = tower.user_embed(
+            torch.from_numpy(eval_batch["hist_ids"]).to(dev),
+            torch.from_numpy(eval_batch["hist_mask"]).to(dev))
+    queries = users.cpu().numpy()
+    r_brute = brute.recall_at_k(queries, RETRIEVE_K)
+    r_ann = ann.recall_at_k(queries, RETRIEVE_K)
+    r_small = small.recall_at_k(queries, RETRIEVE_K)
+    assert r_brute == 1.0, r_brute
+    t0 = time.perf_counter()
+    ann.search(queries, RETRIEVE_K)
+    ann_ms = 1000.0 * (time.perf_counter() - t0) / len(queries)
+    t0 = time.perf_counter()
+    small.search(queries, RETRIEVE_K)
+    small_ms = 1000.0 * (time.perf_counter() - t0) / len(queries)
+    meta = {"recall_at_50": r_brute, "ann_recall_at_50": r_ann,
+            "ann_small_recall_at_50": r_small}
+    timing = {"item_embeddings_s": emb_s, "ann_build_s": ann_s,
+              "ann_ms_per_query": ann_ms, "ann_small_ms_per_query": small_ms,
+              **meta}
+    print(f"retrieval index: all_item_embeddings {cfg.feature_size} items "
+          f"in {emb_s:.3f}s; ANN build (P={ann.num_partitions}, nprobe="
+          f"{ann.nprobe}) {ann_s:.3f}s; recall@{RETRIEVE_K} over "
+          f"{len(queries)} eval users: brute {r_brute}, ANN default "
+          f"{r_ann:.4f}, ANN P={ANN_SMALL[0]} nprobe={ANN_SMALL[1]} "
+          f"{r_small:.4f}; ANN search host ms/query {ann_ms:.4f} (default), "
+          f"{small_ms:.4f} (P={ANN_SMALL[0]})")
+    if dev.type == "cuda":
+        for b in (1, RECALL_QUERIES):
+            q = users[:b].contiguous()
+            t = timed(lambda: brute.topk_rows(q, RETRIEVE_K), iters=50)
+            host = cuda_ms(lambda: brute.search(queries[:b], RETRIEVE_K),
+                           iters=20, warmup=3)
+            timing[f"brute_B{b}"] = (t[0], t[1], host)
+            print(f"retrieval brute search B={b} V={cfg.feature_size} "
+                  f"D={cfg.embedding_size} k={RETRIEVE_K}: device_ms="
+                  f"{ms(t[0])} call_ms={t[1]:.6f} per query "
+                  f"{t[1] / b:.6f}; search() from numpy call_ms="
+                  f"{host:.6f} ({t[2]}) ({card_line()})")
+    return brute, meta, timing
+
+
+def cascade_phase(workdir: str, dev: torch.device, din_artifact: str,
+                  tower: TwinTower, brute: CandidateIndex, meta: dict,
+                  eval_batch: dict) -> dict:
+    """``export_cascade`` of the zoo's DIN ranker with the towers and the
+    brute index behind ``LATEST``; a staged and a fused ``CascadeEngine``
+    over it: fused equals staged bit for bit over single users (empty
+    histories included), the ranker's FM kernel launches on both paths,
+    their sequential latency, ``recommend_batch`` at 64 users; the card's
+    staged answers against the CPU's on a float32 copy of the ranker; a
+    v2 published by ``Publisher(extra_export=cascade_extra_export(...))``
+    swapped in and answering as a fresh v2 engine does; a torn v3 that
+    defers the swap. Returns {path: launches}."""
+    ranker, rcfg, _ = export_lib.load_model(din_artifact, device=dev)
+    pub = os.path.join(workdir, "cascade_pub")
+    export_cascade(ranker, rcfg, os.path.join(pub, "1"), tower=tower,
+                   index=brute, index_meta=meta, step=1)
+    export_lib.write_latest(pub, "1")
+    reqs = _cascade_requests(eval_batch, CASCADE_REQUESTS)
+    on = int(dev.type == "cuda")
+    paths = {}
+    staged = _cascade_engine(pub, dev)
+    fused = _cascade_engine(pub, dev, fused=True)
+    try:
+        assert fused.current().supports_fused
+        _zero_counts()
+        s_ans = [staged.recommend(*r, k=RANK_K) for r in reqs]
+        paths["cascade_staged"] = _counts()
+        _zero_counts()
+        f_ans = [fused.recommend(*r, k=RANK_K) for r in reqs]
+        paths["cascade_fused"] = _counts()
+        assert fused.fused_calls == len(reqs) and staged.fused_calls == 0
+        _check_answers(s_ans, RANK_K)
+        assert _same_answers(f_ans, s_ans), "fused != staged"
+        for p in ("cascade_staged", "cascade_fused"):
+            want = {k: 0 for k in paths[p]}
+            want["fused_fm"] = on * len(reqs)
+            assert paths[p] == want, (p, paths[p])
+        print(f"retrieval cascade fused vs staged: {len(reqs)} single-user "
+              f"requests ({sum(not r[1].any() for r in reqs)} with empty "
+              f"histories), retrieve_k={RETRIEVE_K} k={RANK_K}: items and "
+              f"probabilities bit-identical; launches staged "
+              f"{paths['cascade_staged']} fused {paths['cascade_fused']}")
+        timing = {}
+        for name, eng in (("staged", staged), ("fused", fused)):
+            timing[name] = _timed_recommend(eng, reqs, CASCADE_TIMED)
+            p50, p99, qps = timing[name]
+            print(f"retrieval cascade {name} recommend: {CASCADE_TIMED} "
+                  f"sequential requests p50_ms={p50:.4f} p99_ms={p99:.4f} "
+                  f"qps={qps:.1f} ({card_line() if on else 'cpu'})")
+        rng = np.random.default_rng(SEED + 90)
+        pick = rng.integers(0, len(eval_batch["label"]), CASCADE_BATCH)
+        cols = [eval_batch[c][pick] for c in ("hist_ids", "hist_mask",
+                                              "feat_ids", "feat_vals")]
+        b_items, b_probs = fused.recommend_batch(*cols, k=RANK_K)
+        t0 = time.perf_counter()
+        reps = 10
+        for _ in range(reps):
+            fused.recommend_batch(*cols, k=RANK_K)
+        batch_ms = 1000.0 * (time.perf_counter() - t0) / reps
+        gap, same = 0.0, 0
+        for i in range(CASCADE_BATCH):
+            items, probs = staged.recommend(*(c[i] for c in cols), k=RANK_K)
+            same += int(np.array_equal(items, b_items[i]))
+            common = {int(t): p for t, p in zip(items, probs)}
+            for t, p in zip(b_items[i], b_probs[i]):
+                if int(t) in common:
+                    gap = max(gap, abs(float(p) - common[int(t)]))
+        assert np.all(np.isfinite(b_probs)) and gap <= SERVE_ATOL, gap
+        timing["batch"] = (batch_ms, CASCADE_BATCH * 1000.0 / batch_ms)
+        print(f"retrieval cascade fused recommend_batch B={CASCADE_BATCH}: "
+              f"call_ms={batch_ms:.4f} users_per_s="
+              f"{timing['batch'][1]:.1f}; against per-user staged: "
+              f"{same}/{CASCADE_BATCH} identical top-{RANK_K} lists, max "
+              f"|prob diff| on shared items {gap:.3e} (atol {SERVE_ATOL}; "
+              f"bf16 tower GEMMs at other row counts) "
+              f"({card_line() if on else 'cpu'})")
+
+        # v2 through the publisher's hook, swapped into both engines.
+        v2 = export_lib.load_model(din_artifact, device=dev)[0]
+        with torch.no_grad():
+            v2.fm_b.add_(V2_BIAS)
+        publisher = Publisher(rcfg, pub, extra_export=cascade_extra_export(
+            rcfg, tower, brute, index_meta=meta))
+        publisher.publish_now(types.SimpleNamespace(
+            params=dict(v2.named_parameters()),
+            model_state=dict(v2.named_buffers())), 2)
+        assert publisher.drain(timeout=300)
+        publisher.close()
+        assert publisher.published == [2], publisher.stats()
+        for name in (TOWERS_FILE, INDEX_FILE, export_lib.COMPLETE_MARKER):
+            assert os.path.exists(os.path.join(pub, "2", name)), name
+        assert staged.watcher.check_once() and fused.watcher.check_once()
+        assert staged.current().path.endswith("2")
+        s2 = [staged.recommend(*r, k=RANK_K) for r in reqs]
+        f2 = [fused.recommend(*r, k=RANK_K) for r in reqs]
+        fresh = _cascade_engine(pub, dev)
+        try:
+            fresh_ans = [fresh.recommend(*r, k=RANK_K) for r in reqs]
+        finally:
+            fresh.close()
+        assert _same_answers(s2, fresh_ans) and _same_answers(f2, s2)
+        assert not any(np.array_equal(a[1], b[1])
+                       for a, b in zip(s2, s_ans))
+        # A torn v3 (no marker) defers the swap; serving stays on v2.
+        os.makedirs(os.path.join(pub, "3"))
+        export_lib.write_latest(pub, "3")
+        assert not staged.watcher.check_once()
+        assert staged.watcher.swap_failures == 1
+        assert staged.current().path.endswith("2")
+        _check_answers([staged.recommend(*reqs[0], k=RANK_K)], RANK_K)
+        export_lib.write_latest(pub, "2")
+        print(f"retrieval cascade hot swap: v2 (fm_b + {V2_BIAS}) published "
+              f"by Publisher(extra_export=cascade_extra_export(...)) "
+              f"with towers and index; swapped into both engines, answers "
+              f"equal a fresh v2 engine's (staged and fused); torn v3 "
+              f"deferred (swap_failures 1), still serving v2; serving "
+              f"failures {staged.stats.summary()['serving_failed']}")
+        assert staged.stats.summary()["serving_failed"] == 0
+    finally:
+        staged.close()
+        fused.close()
+
+    # The card against the CPU on a float32 copy of the ranker: all 50
+    # candidates ranked, the same items, each probability within 1e-5.
+    r32, c32, _ = export_lib.load_model(din_artifact, device=dev,
+                                        compute_dtype="float32")
+    pub32 = os.path.join(workdir, "cascade_pub_f32")
+    export_cascade(r32, c32, os.path.join(pub32, "1"), tower=tower,
+                   index=brute, step=1)
+    export_lib.write_latest(pub32, "1")
+    card = _cascade_engine(pub32, dev)
+    cpu = _cascade_engine(pub32, "cpu")
+    gap = 0.0
+    try:
+        for r in reqs[:CASCADE_CPU_REQUESTS]:
+            a_items, a_probs = card.recommend(*r, k=RETRIEVE_K)
+            b_items, b_probs = cpu.recommend(*r, k=RETRIEVE_K)
+            assert sorted(map(int, a_items)) == sorted(map(int, b_items))
+            want = dict(zip(map(int, b_items), b_probs))
+            gap = max(gap, max(abs(float(p) - float(want[int(t)]))
+                               for t, p in zip(a_items, a_probs)))
+    finally:
+        card.close()
+        cpu.close()
+    assert gap <= CASCADE_CPU_ATOL, gap
+    print(f"retrieval cascade card vs cpu (float32 ranker, staged): "
+          f"{CASCADE_CPU_REQUESTS} requests, all {RETRIEVE_K} candidates "
+          f"ranked: the same items, max |prob diff| {gap:.3e} (atol "
+          f"{CASCADE_CPU_ATOL})")
+    paths["timing"] = timing
     return paths
+
+
+def retrieval_phase(workdir: str, cfg: Config, dev: torch.device,
+                    data: dict, din_artifact: str) -> tuple:
+    """The retrieval slice at the reference width on the zoo's history
+    records and DIN artifact: the twin tower, the indexes, the cascade.
+    Returns ({path: launches}, timings)."""
+    files = sorted(os.path.join(data["dir"], f)
+                   for f in os.listdir(data["dir"]) if f.startswith("tr_"))
+    evals = [os.path.join(data["dir"], "va_0000.tfrecords")]
+    eval_batch = next(iter(_history_pipe(cfg, evals, 1, RECALL_QUERIES)))
+    t0 = time.perf_counter()
+    tower, tower_launches, tower_t = twin_tower_phase(cfg, dev, files)
+    brute, meta, index_t = index_phase(cfg, dev, tower, eval_batch)
+    paths = cascade_phase(workdir, dev, din_artifact, tower, brute, meta,
+                          eval_batch)
+    cascade_t = paths.pop("timing")
+    paths["train_twin_tower"] = tower_launches
+    print(f"retrieval phase: {time.perf_counter() - t0:.1f}s")
+    return paths, {"tower": tower_t, "index": index_t, "cascade": cascade_t}
 
 
 def main() -> int:
@@ -3933,7 +4368,13 @@ def main() -> int:
                                            steps_per_loop=8, **kw),
                 dev, name="accum_" + name, epochs=1)[0]
         rollback_preempt_phase(workdir, cfg, dev)
-        paths.update(zoo_phase(workdir, cfg, dev, data))
+        zoo_paths, zoo_artifacts, zoo_data = zoo_phase(workdir, cfg, dev,
+                                                       data)
+        paths.update(zoo_paths)
+        retrieval_paths, retrieval_t = retrieval_phase(
+            workdir, cfg.replace(**ZOO["din"]), dev, zoo_data["history"],
+            zoo_artifacts["din"])
+        paths.update(retrieval_paths)
         train_step_timing(cfg)
         accum_step_timing(cfg)
         serve_launches, artifact = serve_phase(workdir, cfg, dev)
@@ -3986,8 +4427,24 @@ def main() -> int:
     take["take_bwd"]["segment_sum_accum_fused_leg"] = {
         "n": ACCUM_N, "ms": sk_, "library_index_add_ms": sl_}
     (hk_, _, _), (hl_, _, _) = hist_t["segment_sum"]["din_history_fm_v"]
+    # The history lookup's bounds: its take backward alone (each kept
+    # position's cotangent row and order entry read, the [U, 32] gradient
+    # written) and with its int64 ids' segments build.
+    hist_tb = take_bwd_bound(32, [HISTORY_N], [MONO_ROWS])[0]
+    hist_sb = segments_bound(torch.empty((1, HISTORY_N), dtype=torch.int64),
+                             [MONO_ROWS], None)[0]
     take["take_bwd"]["segment_sum_din_history"] = {
-        "n": HISTORY_N, "ms": hk_, "library_index_add_ms": hl_}
+        "n": HISTORY_N, "ms": hk_, "library_index_add_ms": hl_,
+        "bound_ms": hist_tb + hist_sb, "take_bwd_bound_ms": hist_tb}
+    tw = retrieval_t["tower"]
+    take["take_bwd"]["twin_tower_history"] = {
+        "n": tw["n"], "run_at_id_0": tw["run0"], "ms": tw["take_bwd_ms"],
+        "bound_ms": tw["take_bwd_bound_ms"],
+        "segment_sum_ms": tw["segment_sum_ms"],
+        "segment_sum_bound_ms": tw["take_bwd_bound_ms"]
+        + tw["segments_bound_ms"],
+        "library_index_add_ms": tw["index_add_ms"],
+        "step_call_ms": tw["step_ms"], "step_device_ms": tw["device_ms"]}
     # The segments kernel at the hashed step's shape (the main path's
     # launch), and at the dense and fused-leg shapes.
     (sk, _, ssrc), (sp, _, _), (sl, _, _), (sb, sby, _), _ = seg_kernel_t[

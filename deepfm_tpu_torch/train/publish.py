@@ -23,7 +23,9 @@ exposing a half-written directory. :class:`Publisher` is a fit-loop hook:
     ``<step>/`` name; only then does ``LATEST`` move, logged first to the
     pointer history and never backwards. A crash at any point leaves the
     previous artifact set intact or a complete new artifact, never a
-    partly visible one.
+    partly visible one. An ``extra_export`` hook writes further servables
+    (the cascade's towers and index) into the staging dir before the
+    ranker's export, so the one marker certifies every stage.
   * **Longevity** — :meth:`drain` lets the preemption path wait for an
     in-flight publish before exit 42; :meth:`check_wedged` (called every
     dispatch) trips the watchdog abort (exit 43) when a publish has been in
@@ -80,8 +82,13 @@ class Publisher:
                  executor: Optional[AsyncSaveExecutor] = None,
                  clock: Callable[[], float] = time.monotonic,
                  abort: Optional[Callable[[str], None]] = None,
-                 health=None):
+                 health=None,
+                 extra_export: Optional[Callable[[str], None]] = None):
         self._cfg = cfg
+        # Writes more servables into the staging dir before the ranker's
+        # export, so its completion marker certifies them too (the
+        # cascade's towers and index: ``rec.cascade.cascade_extra_export``).
+        self._extra_export = extra_export
         self._dir = publish_dir
         self.every_steps = int(every_steps)
         self.every_secs = float(every_secs)
@@ -170,6 +177,8 @@ class Publisher:
         model = get_model(self._cfg, device="meta")
         model.load_state_dict({**params, **mstate}, assign=True)
         with trace_lib.span("publish.stage", version=step):
+            if self._extra_export is not None:
+                self._extra_export(staging)
             export_lib.export_serving(model.eval(), self._cfg, staging,
                                       step=step)
             fileio.fsync_dir(staging)

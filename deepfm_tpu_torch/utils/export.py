@@ -17,7 +17,9 @@ artifact serves named outputs ``{task: probs}`` in task order; a sequence
 model's artifact takes packed inputs ``field_size + history_len`` wide
 (ids ``feat_ids || hist_ids``, vals ``feat_vals || hist_mask``), split
 before the forward, so buckets, ``padded_predict`` and the engine serve
-it unchanged.
+it unchanged. The result also carries ``raw_call(ids, vals) -> logits``,
+the same forward on device tensors with no host copy (the fused
+cascade's ranker, ``rec.cascade``).
 
 Paths are local. Remote storage schemes (the JAX package's ``fileio``
 layer), StableHLO and the TF SavedModel sidecar are not part of the port.
@@ -252,6 +254,9 @@ def load_serving(artifact_dir: str, *,
 
     With ``buckets`` the result is a :class:`BucketedPredict` — every call
     pads to the next bucket size (the serving engine's shape policy).
+    Either result carries ``raw_call(ids, vals) -> logits``: the same
+    forward on device tensors, returning device logits (no host copy, no
+    padding; the fused cascade calls it at its own bucket shapes).
 
     Raises :class:`ArtifactIncomplete` when the dir lacks its completion
     marker — the dir is mid-write, or an export crashed into it. Callers
@@ -264,11 +269,10 @@ def load_serving(artifact_dir: str, *,
     hist_len = int(meta.get("history_len", 0))
     fs = cfg.field_size
 
-    def serve(feat_ids: np.ndarray, feat_vals: np.ndarray):
-        ids = torch.from_numpy(np.ascontiguousarray(feat_ids, np.int32)
-                               ).to(dev)
-        vals = torch.from_numpy(np.ascontiguousarray(feat_vals, np.float32)
-                                ).to(dev)
+    def raw_call(ids: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+        """Device logits ([n], or [n, T] multi-task) of int32 ids and
+        float32 vals already on the model's device, with no host copy: the
+        forward every served call runs, and the fused cascade's ranker."""
         kw = {}
         if hist_len:
             # The packed columns: feat_ids || hist_ids, feat_vals ||
@@ -277,8 +281,14 @@ def load_serving(artifact_dir: str, *,
                   "hist_mask": vals[:, fs:].contiguous()}
             ids, vals = ids[:, :fs].contiguous(), vals[:, :fs].contiguous()
         with torch.inference_mode():
-            logits = model(ids, vals, **kw).float().cpu().numpy()
-        probs = host_sigmoid(logits)
+            return model(ids, vals, **kw)
+
+    def serve(feat_ids: np.ndarray, feat_vals: np.ndarray):
+        ids = torch.from_numpy(np.ascontiguousarray(feat_ids, np.int32)
+                               ).to(dev)
+        vals = torch.from_numpy(np.ascontiguousarray(feat_vals, np.float32)
+                                ).to(dev)
+        probs = host_sigmoid(raw_call(ids, vals).float().cpu().numpy())
         if len(names) > 1:
             return {name: probs[:, t] for t, name in enumerate(names)}
         return probs
@@ -287,9 +297,11 @@ def load_serving(artifact_dir: str, *,
     # hot-swap watcher) needs to drive every bucket shape before the swap.
     in_cols = int(meta["signature"]["inputs"]["feat_ids"][1])
     serve.input_cols = in_cols
+    serve.raw_call = raw_call
     if buckets is not None:
         wrapped = BucketedPredict(serve, buckets)
         wrapped.input_cols = in_cols
+        wrapped.raw_call = raw_call
         return wrapped
     return serve
 

@@ -18,7 +18,9 @@ modules as the JAX trees nest: DCN-v2's ``cross.<i>.{w|u,v,b}`` and
 model states ``{"bn": [...]}``, ``{"bottom": {"bn": ...}}``, ``{"experts":
 [...]}`` and ``{"towers": [...]}`` flatten onto the BN buffers
 (``bn.0.mean``, ``experts.1.bn.0.var``, ...). ``opt_state_from_jax`` carries optax's Adam state over the same
-way, so a port run can resume a JAX trajectory mid-way. This module never
+way, so a port run can resume a JAX trajectory mid-way.
+``tower_params_from_jax`` carries a ``TwinTower`` param tree (``emb``,
+``user``, ``item``) into the port's ``TwinTower`` state. This module never
 imports jax: numpy is the interchange.
 """
 
@@ -60,6 +62,14 @@ def params_from_jax(params: Dict[str, Any], model_state: Dict[str, Any]
     ``(params, model_state)`` of CPU tensors, flat and dot-named."""
     return ({k: _tensor(v) for k, v in flatten(params).items()},
             {k: _tensor(v) for k, v in flatten(model_state).items()})
+
+
+def tower_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``TwinTower`` param tree of numpy arrays (``{"emb": entry,
+    "user": [{"w", "b"}, ...], "item": [...]}``) -> the port's
+    ``TwinTower`` state dict (``emb`` or ``emb.t0``, ..., ``user.0.w``,
+    ...) of CPU tensors."""
+    return {k: _tensor(v) for k, v in flatten(tree).items()}
 
 
 def opt_state_from_jax(opt_state: Any) -> Dict[str, Any]:

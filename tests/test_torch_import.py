@@ -74,7 +74,9 @@ def test_every_module_imports_without_jax():
     "deepfm_tpu_torch.models.dcnv2", "deepfm_tpu_torch.models.multitask",
     "deepfm_tpu_torch.models.sequence", "deepfm_tpu_torch.ops.fm",
     "deepfm_tpu_torch.data.example_codec", "deepfm_tpu_torch.data.libsvm",
-    "deepfm_tpu_torch.utils.params"])
+    "deepfm_tpu_torch.utils.params", "deepfm_tpu_torch.models.twin_tower",
+    "deepfm_tpu_torch.rec", "deepfm_tpu_torch.rec.index",
+    "deepfm_tpu_torch.rec.cascade"])
 def test_module_list_covers_the_runtime_modules(module):
     """The fit loop's runtime (the staging ring, the guard and its state
     snapshot, preemption and its fault seams), the input path (the native
@@ -84,7 +86,8 @@ def test_module_list_covers_the_runtime_modules(module):
     the pointer history, TensorBoard) and the model zoo (the single-task
     graphs, the multi-task heads, the sequence models and their masked
     softmax, the two-label and history codec and generator, the weight
-    carry-over) are among the modules the first check imports without
+    carry-over) and retrieval (the twin tower, the candidate index, the
+    cascade) are among the modules the first check imports without
     jax."""
     assert module in _modules()
 
