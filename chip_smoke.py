@@ -147,8 +147,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    install kernel once per tiered plan and never elsewhere; each trained
    artifact then serves. Every train task reads through the pooled native
    path (``Config()``'s default) and prints its examples/s and step p50
-   beside the per-record path's recorded figures; one dense run with
-   ``--use_native_decoder false`` gives the per-record path in the same
+   beside the per-record path's recorded figures; one dense run of one
+   epoch with ``--use_native_decoder false`` gives the per-record path in
+   the same
    process. Then ``--grad_accum_steps 4 --steps_per_loop 8``
    on the dense, sparse monolithic and hashed layouts, one epoch each:
    the embedding kernels launch per apply as predicted, and the final
@@ -162,9 +163,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    staged run with the same flags less ``--device_dataset``: no fallback
    warning, bit-identical tables and generator, equal launch counts,
    examples/s and step p50 of both, the columns' bytes against the
-   budget; then one k-step dispatch of each feed in turns (time, device
-   busy time, idle share, host-to-device copies and data bytes per
-   dispatch). Then bad records: a copy of one train file with one flipped
+   budget; then one k-step dispatch of each feed, one after the other
+   (time, device busy time, idle share, host-to-device copies and data
+   bytes per dispatch). Then bad records: a copy of one train file with one flipped
    data-CRC byte trains under ``--verify_crc --on_bad_record skip`` with
    exactly one record dropped and counted, and under ``raise`` fails
    naming the path and the byte offset; a read fault every 3rd read
@@ -233,7 +234,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    a v2 published by ``Publisher(extra_export=cascade_extra_export(...))``
    hot-swapped into both engines (answers equal a fresh v2 engine's) and a
    torn v3 whose swap is deferred.
-13. Serve phase: DeepFM at the reference width (``Config()`` defaults:
+13. Data-parallel phase (``torch.distributed``; DeepFM at the reference
+   width, dropout off, one epoch of the train phases' records at the
+   global batch of 1,024): (a) two gloo ranks on ``cuda:0`` (NCCL takes
+   one rank per card) in child processes, train, eval, infer and export
+   through the launcher at 512 rows a rank, float32 tower; held against
+   one device over the same global batches: the last logged loss within
+   1e-4, the tables' difference at most 10% of their movement, eval AUC
+   within 5e-3 with equal example counts, ``pred.txt`` in global record
+   order within 1e-5; only rank 0 saves, exports and writes; each rank's
+   launches equal a single-device run at B = 512 over rank 0's shard
+   (``launches_by_path`` key ``train_dp_gloo``). (b) ``python -m
+   deepfm_tpu_torch.fanout --worker_per_host 1``: NCCL, world 1, tables
+   bit-equal to the single-device task's. (c) With two or more cards,
+   ``fanout --worker_per_host min(count, 4)`` over NCCL, held as (a),
+   with per-rank examples/s, step and dispatch ms and the all_reduce's
+   device ms per apply in training and alone (back-to-back calls) beside
+   its bytes and its NVLink bound; then 1,024 rows a card (three epochs,
+   the last one's rate) beside (b)'s one-card rate. ``python3
+   chip_smoke.py --phase dp`` runs this phase alone (no result lines).
+14. Serve phase: DeepFM at the reference width (``Config()`` defaults:
    V=117,581, F=39, K=32, tower 128-64-32, bfloat16 tower) with random
    weights from a seed, exported, published behind ``LATEST`` and served by
    ``ServingEngine.serve_latest`` to several client threads. Every response
@@ -256,8 +276,9 @@ counterparts, the pipe-mode task (``train_pipe``), the input-service task
 (``train_online``, ``serve_online``), the hashed online run
 (``train_online_hashed``), every zoo model's train task (``zoo_<name>``,
 ``zoo_<name>_sparse_hashed``, ``zoo_mmoe_sparse_tiered``), the twin
-tower's training (``train_twin_tower``) and the cascade's staged and fused
-requests (``cascade_staged``, ``cascade_fused``).
+tower's training (``train_twin_tower``), the cascade's staged and fused
+requests (``cascade_staged``, ``cascade_fused``) and rank 0 of the
+one-card data-parallel train task (``train_dp_gloo``).
 
 Kernel times come from torch.profiler's device events. A time the
 profiler does not see in three tries prints as "missing (profiler saw no
@@ -305,6 +326,7 @@ from deepfm_tpu_torch.models.twin_tower import (  # noqa: E402
     TwinTower, tower_batch, train_twin_tower, twin_tower_step)
 from deepfm_tpu_torch.native import loader as tfr_loader  # noqa: E402
 from deepfm_tpu_torch.obs import trace as trace_lib  # noqa: E402
+from deepfm_tpu_torch.parallel import bootstrap  # noqa: E402
 from deepfm_tpu_torch.ops import embedding as emb_ops  # noqa: E402
 from deepfm_tpu_torch.ops import embedding_kernels as ek  # noqa: E402
 from deepfm_tpu_torch.ops import fused_fm as ffm  # noqa: E402
@@ -2777,15 +2799,21 @@ def _profile_dispatch(fn, iters: int = 5):
     return sum(spans) / 1000.0 / iters, len(spans) / iters, htod / iters
 
 
+# One turn of the two feeds per layout: two turns cost ~70 s, most of it
+# the profiled hashed dispatches, time the data-parallel phase needs.
+DD_TIMING_TURNS = 1
+
+
 def dd_dispatch_timing(cfg: Config, files) -> dict:
     """One dispatch (k steps) fed from the device-resident columns and one
-    fed through the staging ring, in turns: time, device busy time, idle
+    fed through the staging ring, ``DD_TIMING_TURNS`` turns: time, device
+    busy time, idle
     share, host->device copies per dispatch (profiler) and data bytes each
     feed moves to the card per dispatch."""
     dev = torch.device("cuda")
     k, bs = cfg.steps_per_loop, cfg.batch_size
     out = {}
-    for turn in range(2):
+    for turn in range(DD_TIMING_TURNS):
         for feed in ("device_resident", "staged"):
             trainer = Trainer(cfg, device=dev)
             state = trainer.init_state(SEED)
@@ -4285,6 +4313,457 @@ def retrieval_phase(workdir: str, cfg: Config, dev: torch.device,
     return paths, {"tower": tower_t, "index": index_t, "cascade": cascade_t}
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism (torch.distributed): gloo ranks on one card, NCCL
+# through fanout
+# ---------------------------------------------------------------------------
+
+DP_WORLD_GLOO = 2
+# The DP phase's task: DeepFM at the reference width (the Config()
+# defaults), dropout off (each rank draws its own dropout, so a run with
+# dropout cannot be held against one device), one epoch of the train
+# phases' 64 Ki records at the global batch of 1,024. The runs held against
+# one device compute the tower in float32: in bfloat16 each rank rounds its
+# partial weight gradient (a sum over its B/N rows) to bfloat16 before the
+# average, one device its sum over B rows, and Adam carries those rounding
+# differences (the zoo phase's card-against-CPU parity is float32 for the
+# same reason). The world-1 run (bit-equal to one device) and the rate runs
+# keep the bfloat16 tower.
+# Two steps a dispatch: the run at 1,024 rows a card has 16 steps, and the
+# rate leaves out the first two dispatches.
+DP_CFG = dict(dropout="1.0,1.0,1.0", num_epochs=1, log_steps=8,
+              steps_per_loop=2)
+DP_HELD = dict(compute_dtype="float32")
+DP_LOSS_ATOL = 1e-4
+DP_TABLE_REL = 0.10
+DP_AUC_ATOL = 5e-3
+DP_PRED_ATOL = 1e-5
+DP_RANK_TIMEOUT_S = 420
+# NVLink of an H100 SXM: 900 GB/s to the other cards of the host, 450 GB/s
+# each way (NVIDIA's data sheet).
+NVLINK_BYTES_PER_S = 450e9
+DP_TASKS = ("train", "eval", "infer", "export")
+DP_WEAK_EPOCHS = 3
+# The all_reduce alone: back-to-back calls on the training payload.
+DP_ALLREDUCE_WARMUP, DP_ALLREDUCE_ITERS = 5, 50
+
+
+def _dp_cfg(workdir: str, data: dict, cfg: Config, name: str) -> Config:
+    run = os.path.join(workdir, name)
+    return cfg.replace(data_dir=data["dir"], val_data_dir=data["dir"],
+                       model_dir=os.path.join(run, "ckpt"),
+                       servable_model_dir=os.path.join(run, "servable"),
+                       **DP_CFG)
+
+
+def dp_rank_main(spec_path: str, rank: int) -> int:
+    """One gloo rank of the one-card DP run (a child process of
+    ``dp_phase``): train, eval, infer and export through the launcher on
+    the spec's device (``cuda``: card 0 for every rank), each task's result
+    line and kernel launches written to ``<out>.<rank>.json``."""
+    with open(spec_path, encoding="utf-8") as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = {}
+    for task in DP_TASKS:
+        argv = spec["argv"][task] + [
+            "--dist_mode", "1", "--num_processes", str(spec["world"]),
+            "--process_id", str(rank), "--worker_per_host",
+            str(spec["world"]), "--coordinator_address",
+            f"file://{spec['store']}.{task}"]
+        _zero_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = launch.main(argv, device=spec["device"], backend="gloo")
+        if rc != 0:
+            raise RuntimeError(f"rank {rank} task {task}: exit {rc}")
+        out[task] = {"result": json.loads(
+            buf.getvalue().strip().splitlines()[-1]), "launches": _counts()}
+    with open(f"{spec['out']}.{rank}.json", "w", encoding="utf-8") as f:
+        json.dump(out, f)
+    return 0
+
+
+def dp_allreduce_main(spec_path: str, rank: int) -> int:
+    """One rank of the isolated all_reduce timing (a child process of
+    ``dp_nccl_phase``, one card each): ``DP_ALLREDUCE_ITERS`` back-to-back
+    all_reduces of the training payload after a barrier, each between two
+    CUDA events; the median ms written to ``<out>.<rank>.json``."""
+    with open(spec_path, encoding="utf-8") as f:
+        spec = json.load(f)
+    dev = torch.device(spec["device"])
+    bootstrap.initialize(Config(
+        dist_mode=1, num_processes=spec["world"], process_id=rank,
+        worker_per_host=spec["world"],
+        coordinator_address=f"file://{spec['store']}"), device=dev)
+    buf = torch.ones(spec["bytes"] // 4, dtype=torch.float32, device=dev)
+    for _ in range(DP_ALLREDUCE_WARMUP):
+        torch.distributed.all_reduce(buf)
+    marks = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    bootstrap.barrier()
+    for _ in range(DP_ALLREDUCE_ITERS):
+        if dev.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            torch.distributed.all_reduce(buf)
+            b.record()
+        else:
+            a = time.perf_counter()
+            torch.distributed.all_reduce(buf)
+            b = time.perf_counter()
+        marks.append((a, b))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) if dev.type == "cuda" else (b - a) * 1e3
+          for a, b in marks]
+    with open(f"{spec['out']}.{rank}.json", "w", encoding="utf-8") as f:
+        json.dump({"median_ms": float(np.median(ms))}, f)
+    bootstrap.destroy()
+    return 0
+
+
+def _run_children(cmds, env, log_paths, timeout_s: float) -> None:
+    """Start every command, wait for all under one deadline; one failure or
+    the deadline ends the others and raises with the logs' tails. ``env``
+    is one environment for all, or a list of one per command."""
+    envs = env if isinstance(env, list) else [env] * len(cmds)
+    procs = []
+    try:
+        for cmd, path, e in zip(cmds, log_paths, envs):
+            with open(path, "w", encoding="utf-8") as log:
+                procs.append(subprocess.Popen(
+                    cmd, cwd=HERE, env=e, stdout=log,
+                    stderr=subprocess.STDOUT, text=True))
+        deadline = time.time() + timeout_s
+        while any(p.poll() is None for p in procs):
+            if (time.time() > deadline
+                    or any(p.poll() not in (None, 0) for p in procs)):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if any(p.returncode for p in procs):
+        tails = []
+        for p, path in zip(procs, log_paths):
+            with open(path, encoding="utf-8") as f:
+                tails.append(f"--- {path} rc={p.returncode}\n"
+                             + f.read()[-4000:])
+        raise RuntimeError("DP child failed:\n" + "\n".join(tails))
+
+
+def _dp_env(**extra) -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    env["DEEPFM_LOG_ALL_RANKS"] = "1"
+    env.update(extra)
+    return env
+
+
+def _global_batches(cfg: Config, files, world: int):
+    """The global batches ``world`` ranks of ``cfg`` read in its first
+    epoch: batch t of every rank's shard, end to end in rank order."""
+    pipes = [tasks.make_pipeline(cfg, files, epochs=1, rank=r, world=world)
+             for r in range(world)]
+    return [{k: np.concatenate([b[k] for b in bs]) for k in bs[0]}
+            for bs in zip(*pipes)]
+
+
+def _dp_oracle(cfg: Config, dev: torch.device, files, world: int):
+    """The single-device run over the ranks' global batches at the ranks'
+    learning rate (scaled by the world under ``scale_lr_by_world``):
+    (trainer, initial tables, final state, fit result)."""
+    lr = cfg.learning_rate * (world if cfg.scale_lr_by_world else 1)
+    tr = Trainer(cfg.replace(learning_rate=lr, model_dir="",
+                             servable_model_dir=""), device=dev)
+    state = tr.init_state()
+    init = {k: v.detach().clone() for k, v in state.params.items()
+            if k.split(".")[0] in ("fm_w", "fm_v")}
+    state, res = tr.fit(state, _global_batches(cfg, files, world))
+    return tr, init, state, res
+
+
+def _table_rel(got, want, init) -> float:
+    """||got - want|| over ||want - init||, over the embedding tables."""
+    diff = sum(float(((got.params[k].detach() - want.params[k].detach())
+                      .double() ** 2).sum()) for k in init)
+    move = sum(float(((want.params[k].detach() - init[k]).double() ** 2)
+                     .sum()) for k in init)
+    return (diff / max(move, 1e-300)) ** 0.5
+
+
+def _dp_hold(name: str, cfg: Config, dev: torch.device, files, world: int,
+             loss: float) -> dict:
+    """The N-rank checkpoint against the single-device oracle: the last
+    logged loss within 1e-4, the tables by the norm of their difference
+    against their movement (at most 10%), eval AUC and loss on the
+    oracle's state."""
+    tr, init, want, res = _dp_oracle(cfg, dev, files, world)
+    got = ckpt_lib.CheckpointManager(cfg.model_dir).restore(
+        Trainer(cfg, device=dev).init_state())
+    rel = _table_rel(got, want, init)
+    dl = abs(loss - res["loss"])
+    print(f"dp {name}: {world} ranks vs one device on the same global "
+          f"batches: steps {got.step}/{want.step}, last logged loss "
+          f"{loss:.6f} vs {res['loss']:.6f} (|diff| {dl:.3e}, atol "
+          f"{DP_LOSS_ATOL}), tables |diff|/|movement| {rel:.3e} (at most "
+          f"{DP_TABLE_REL})")
+    assert got.step == want.step, (got.step, want.step)
+    assert dl <= DP_LOSS_ATOL, (loss, res["loss"])
+    assert rel <= DP_TABLE_REL, rel
+    return {"trainer": tr, "state": want, "dp_state": got}
+
+
+def _worker_results(text: str) -> dict:
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("[worker ") and '{"task"' in line:
+            rank = int(line[len("[worker "):line.index("]")])
+            out[rank] = json.loads(line[line.index("{"):])
+    return out
+
+
+def dp_gloo_phase(workdir: str, data: dict, cfg: Config,
+                  dev: torch.device) -> dict:
+    """(a) Two gloo ranks on ``cuda:0`` (NCCL refuses two ranks on one
+    card) through the launcher: train (one epoch, its eval), eval, infer
+    and export at the global batch of 1,024 (512 a rank). Held against the
+    single-device oracle over the same global batches; only rank 0 writes;
+    each rank's launches equal a single-device run at B = 512 over rank
+    0's shard. Returns rank 0's train-task launches."""
+    world = DP_WORLD_GLOO
+    dcfg = _dp_cfg(workdir, data, cfg, "dp_gloo").replace(**DP_HELD)
+    export_dir = os.path.join(workdir, "dp_gloo", "exported")
+    argv = {t: _launch_argv(dcfg.replace(servable_model_dir=export_dir)
+                            if t == "export" else dcfg, t)
+            for t in DP_TASKS}
+    spec = {"world": world, "argv": argv, "device": str(dev),
+            "store": os.path.join(workdir, "dp_gloo_store"),
+            "out": os.path.join(workdir, "dp_gloo_out")}
+    spec_path = os.path.join(workdir, "dp_gloo_spec.json")
+    with open(spec_path, "w", encoding="utf-8") as f:
+        json.dump(spec, f)
+    logs = [os.path.join(workdir, f"dp_gloo_rank{r}.log")
+            for r in range(world)]
+    cmds = [[sys.executable, "-c",
+             "import sys, chip_smoke; sys.exit(chip_smoke.dp_rank_main("
+             f"{spec_path!r}, {r}))"] for r in range(world)]
+    t0 = time.perf_counter()
+    _run_children(cmds, _dp_env(), logs, DP_RANK_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with open(f"{spec['out']}.{r}.json", encoding="utf-8") as f:
+            ranks.append(json.load(f))
+    text = [open(p, encoding="utf-8").read() for p in logs]
+    train = [rk["train"]["result"] for rk in ranks]
+    print(f"dp gloo: {world} ranks on cuda:0 (gloo, CUDA tensors), "
+          f"B={dcfg.batch_size} global ({dcfg.batch_size // world} a rank), "
+          f"4 launcher tasks in {wall:.1f}s; per rank: " + "; ".join(
+              f"rank {r} examples_per_sec={t['examples_per_sec']:.1f} "
+              f"step_ms_p50={t['step_ms_p50']:.3f} (host clock) "
+              f"collective_applies={t['collective_applies']:.0f} "
+              f"collective_bytes={t['collective_bytes']:.0f}"
+              for r, t in enumerate(train)))
+    # Only the chief writes: its log holds the saves and the exports, the
+    # other rank's (every rank logs here) none.
+    for what in ("checkpoint saved", "exported servable", "wrote "):
+        assert what in text[0], what
+        assert what not in text[1], what
+    assert sorted(os.listdir(dcfg.servable_model_dir)) == [
+        str(int(train[0]["steps"]))]
+    assert sorted(os.listdir(export_dir)) == [str(int(train[0]["steps"]))]
+    files = tasks.resolve_files(data["dir"], "tr")
+    held = _dp_hold("gloo", dcfg, dev, files, world, train[0]["loss"])
+    tr, state = held["trainer"], held["state"]
+    # The eval and infer tasks of the 2-rank checkpoint against the same
+    # tasks of that checkpoint on one device (the oracle's state, trained
+    # apart, also evaluated for the record).
+    ev = tr.evaluate(held["dp_state"], tasks._eval_pipeline(
+        tr.cfg, tasks.resolve_files(data["dir"], "va")))
+    ev_oracle = tr.evaluate(state, tasks._eval_pipeline(
+        tr.cfg, tasks.resolve_files(data["dir"], "va")))
+    for r, rk in enumerate(ranks):
+        e = rk["eval"]["result"]
+        assert e["examples"] == ev["examples"] == data["eval"], (e, ev)
+        assert abs(e["auc"] - ev["auc"]) <= DP_AUC_ATOL, (e, ev)
+        assert abs(e["loss"] - ev["loss"]) <= DP_LOSS_ATOL, (e, ev)
+        assert abs(e["auc"] - ev_oracle["auc"]) <= DP_AUC_ATOL, (
+            e, ev_oracle)
+    preds = np.loadtxt(os.path.join(data["dir"], "pred.txt"))
+    te = tasks.make_pipeline(tr.cfg, tasks.resolve_files(data["dir"], "te"),
+                             shuffle=False, drop_remainder=False)
+    want = np.concatenate(list(tr.predict(held["dp_state"], te)))
+    perr = float(np.abs(preds - want).max())
+    e0 = ranks[0]["eval"]["result"]
+    print(f"dp gloo eval task: auc={e0['auc']:.6f} loss={e0['loss']:.6f} "
+          f"over {e0['examples']:.0f} examples; the same checkpoint on one "
+          f"device: auc={ev['auc']:.6f} loss={ev['loss']:.6f} over "
+          f"{ev['examples']:.0f}; the one-device trajectory's state: "
+          f"auc={ev_oracle['auc']:.6f} loss={ev_oracle['loss']:.6f}; "
+          f"pred.txt {len(preds)} lines in global record order, max |diff| "
+          f"to one device {perr:.3e} (atol {DP_PRED_ATOL})")
+    assert preds.shape == want.shape and perr <= DP_PRED_ATOL, perr
+    # Per-rank kernel launches: those of a single-device run at B = 512
+    # over rank 0's shard (fit, then the eval of its eval shard).
+    local = dcfg.replace(batch_size=dcfg.batch_size // world,
+                         learning_rate=dcfg.learning_rate * world,
+                         model_dir="", servable_model_dir="")
+    one = Trainer(local, device=dev)
+    _zero_counts()
+    s1, _ = one.fit(one.init_state(), tasks.make_pipeline(
+        dcfg, files, epochs=1, rank=0, world=world))
+    one.evaluate(s1, tasks.make_pipeline(
+        dcfg, tasks.resolve_files(data["dir"], "va"), shuffle=False,
+        drop_remainder=False, rank=0, world=world))
+    single = _counts()
+    for r, rk in enumerate(ranks):
+        assert rk["train"]["launches"] == single, (r, rk["train"], single)
+    print(f"dp gloo launches per rank (train task) = single device at "
+          f"B={local.batch_size}: {single}")
+    return ranks[0]["train"]["launches"]
+
+
+def _fanout_train(workdir: str, name: str, cfg: Config, n: int,
+                  env: dict) -> dict:
+    """``python -m deepfm_tpu_torch.fanout --worker_per_host n`` training
+    ``cfg`` (NCCL, one card a rank): {rank: result line}."""
+    log = os.path.join(workdir, f"{name}.log")
+    cmd = [sys.executable, "-m", "deepfm_tpu_torch.fanout",
+           "--worker_per_host", str(n),
+           *_launch_argv(cfg, "train")]
+    t0 = time.perf_counter()
+    _run_children([cmd], env, [log], DP_RANK_TIMEOUT_S)
+    with open(log, encoding="utf-8") as f:
+        res = _worker_results(f.read())
+    assert sorted(res) == list(range(n)), sorted(res)
+    print(f"dp {name}: fanout --worker_per_host {n} in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return res
+
+
+def _dp_rank_lines(name: str, res: dict, world: int) -> None:
+    for r, t in sorted(res.items()):
+        print(f"dp {name} rank {r}: examples_per_sec={t['examples_per_sec']:.1f}"
+              f" (all ranks' examples) step_ms_p50={t['step_ms_p50']:.3f} "
+              f"(host clock) dispatch_device_ms (median)="
+              f"{t.get('dispatch_device_ms', float('nan')):.4f} "
+              f"collective_device_ms={t.get('collective_device_ms', 0.0):.4f}"
+              f" (median) per apply over "
+              f"{t.get('collective_bytes', 0) / max(t.get('collective_applies', 1), 1):.0f}"
+              f" bytes (bound {_allreduce_bound_ms(t, world):.4f} ms over "
+              f"NVLink) {card_line()}")
+
+
+def _allreduce_bound_ms(t: dict, world: int) -> float:
+    """A ring all_reduce's least time: each card sends and receives
+    2 (N - 1) / N of the payload over NVLink's 450 GB/s each way."""
+    if world <= 1 or not t.get("collective_applies"):
+        return 0.0
+    payload = t["collective_bytes"] / t["collective_applies"]
+    return 2 * (world - 1) / world * payload / NVLINK_BYTES_PER_S * 1e3
+
+
+def dp_allreduce_timing(workdir: str, n: int, nbytes: int,
+                        dev: torch.device) -> float:
+    """The all_reduce of ``nbytes`` over ``n`` ranks alone (NCCL, one card
+    each): rank 0's median device ms of back-to-back calls."""
+    spec = {"world": n, "bytes": nbytes, "device": str(dev),
+            "store": os.path.join(workdir, "dp_allreduce_store"),
+            "out": os.path.join(workdir, "dp_allreduce_out")}
+    path = os.path.join(workdir, "dp_allreduce_spec.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(spec, f)
+    cmds = [[sys.executable, "-c",
+             "import sys, chip_smoke; sys.exit(chip_smoke.dp_allreduce_main("
+             f"{path!r}, {r}))"] for r in range(n)]
+    envs = [_dp_env(CUDA_VISIBLE_DEVICES=str(r)) for r in range(n)]
+    logs = [os.path.join(workdir, f"dp_allreduce_rank{r}.log")
+            for r in range(n)]
+    _run_children(cmds, envs, logs, DP_RANK_TIMEOUT_S)
+    with open(f"{spec['out']}.0.json", encoding="utf-8") as f:
+        return json.load(f)["median_ms"]
+
+
+def dp_nccl_phase(workdir: str, data: dict, cfg: Config,
+                  dev: torch.device) -> None:
+    """(b) NCCL, world 1, through ``fanout`` (bfloat16 tower): its tables
+    bit-equal to the single-device task's. (c) With two or more cards:
+    ``fanout --worker_per_host min(count, 4)`` over NCCL at the global
+    batch of 1,024 (float32 tower), held against the single-device oracle
+    as (a), with per-rank rates, dispatch and all_reduce device times; then
+    the same ranks at 1,024 a rank (bfloat16 tower; the global batch times
+    the ranks) beside the one-card rate of (b)."""
+    env = _dp_env(**{loop_lib.TIME_COLLECTIVES_ENV: "1"})
+    one = _dp_cfg(workdir, data, cfg, "dp_nccl1")
+    res1 = _fanout_train(workdir, "nccl_world1", one, 1, env)[0]
+    ref = _dp_cfg(workdir, data, cfg, "dp_single")
+    tasks.run(ref.replace(task_type="train"), device=dev)
+    a = ckpt_lib.CheckpointManager(one.model_dir).restore(
+        Trainer(one, device=dev).init_state())
+    b = ckpt_lib.CheckpointManager(ref.model_dir).restore(
+        Trainer(ref, device=dev).init_state())
+    same = all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+    print(f"dp nccl world 1 (fanout, launcher): steps={res1['steps']:.0f} "
+          f"examples_per_sec={res1['examples_per_sec']:.1f} step_ms_p50="
+          f"{res1['step_ms_p50']:.3f} dispatch_device_ms="
+          f"{res1.get('dispatch_device_ms', float('nan')):.4f}; tables "
+          f"bit-equal to the single-device task: {same}")
+    assert same
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        print(f"dp nccl multi-card: {torch.cuda.device_count()} card "
+              "visible; the N-card run needs two or more")
+        return
+    cn = _dp_cfg(workdir, data, cfg, f"dp_nccl{n}").replace(**DP_HELD)
+    res = _fanout_train(workdir, f"nccl_world{n}", cn, n, env)
+    _dp_rank_lines(f"nccl world {n} B={cn.batch_size}", res, n)
+    _dp_hold(f"nccl world {n}", cn, dev, tasks.resolve_files(
+        data["dir"], "tr"), n, res[0]["loss"])
+    payload = int(res[0]["collective_bytes"] / res[0]["collective_applies"])
+    alone = dp_allreduce_timing(workdir, n, payload, dev)
+    bound = _allreduce_bound_ms(res[0], n)
+    print(f"dp nccl world {n} all_reduce alone: {payload} bytes, median "
+          f"{alone:.4f} ms of {DP_ALLREDUCE_ITERS} back-to-back calls "
+          f"(device, CUDA events), bound {bound:.4f} ms over NVLink, bus "
+          f"{2 * (n - 1) / n * payload / alone / 1e6:.1f} GB/s; in training "
+          f"(which waits for the slowest rank to arrive) "
+          f"{res[0]['collective_device_ms']:.4f} ms on rank 0 "
+          f"({card_line()})")
+    # 1,024 rows a card leaves 64 Ki / (1,024 N) steps an epoch (16 on
+    # four cards): three epochs, the rate read from the last (warm) one.
+    weak = _dp_cfg(workdir, data, cfg, f"dp_nccl{n}_weak").replace(
+        batch_size=cfg.batch_size * n, num_epochs=DP_WEAK_EPOCHS)
+    resw = _fanout_train(workdir, f"nccl_world{n}_weak", weak, n, env)
+    _dp_rank_lines(f"nccl world {n} B={weak.batch_size}", resw, n)
+    print(f"dp scaling: {n} cards at B={weak.batch_size} global "
+          f"({cfg.batch_size} a card, epoch {DP_WEAK_EPOCHS} of "
+          f"{DP_WEAK_EPOCHS}): {resw[0]['examples_per_sec']:.1f} "
+          f"examples/s; at "
+          f"B={cn.batch_size} global: {res[0]['examples_per_sec']:.1f}; one "
+          f"card (fanout world 1) at B={one.batch_size}: "
+          f"{res1['examples_per_sec']:.1f} ({card_line()})")
+
+
+def dp_phase(workdir: str, data: dict, cfg: Config,
+             dev: torch.device) -> dict:
+    """Data parallelism over ``torch.distributed``: (a) gloo ranks on one
+    card, (b) NCCL world 1, (c) NCCL on every card up to four. Returns
+    {"train_dp_gloo": rank 0's launches}."""
+    t0 = time.perf_counter()
+    launches = dp_gloo_phase(workdir, data, cfg, dev)
+    dp_nccl_phase(workdir, data, cfg, dev)
+    print(f"dp phase: {time.perf_counter() - t0:.1f}s")
+    return {"train_dp_gloo": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -4313,6 +4792,17 @@ def main() -> int:
     print(f"kernel build: {build_s:.2f}s (nvcc {' '.join(_native.NVCC_FLAGS)})")
     print(f"decoder build: {decoder['s']:.2f}s (g++ "
           f"{' '.join(tfr_loader.GXX_FLAGS)}), in parallel with the kernels")
+    if sys.argv[1:] == ["--phase", "dp"]:
+        # The data-parallel phase alone (a quick check of that path); no
+        # result lines.
+        workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=HERE)
+        try:
+            cfg = Config()
+            dp_phase(workdir, make_train_data(workdir, cfg), cfg,
+                     torch.device("cuda"))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        return 0
 
     fm_err, fm_t = kernel_phase()
     kern_ms, plain_ms, bound_ms, bound_by, ms_source = fm_t[TIMED_SHAPE]
@@ -4342,9 +4832,11 @@ def main() -> int:
         golden_phase(workdir)
         paths = {}
         paths["train"], dense_res = train_phase(workdir, data, cfg, dev)
+        # One epoch: the per-record path's rate is the point, and a
+        # second epoch costs ~8 s.
         paths["train_per_record"] = train_phase(
             workdir, data, cfg.replace(use_native_decoder=False), dev,
-            name="dense_per_record")[0]
+            name="dense_per_record", epochs=1)[0]
         for name, kw in {**SPARSE_LAYOUTS, "sparse_tiered": TIERED}.items():
             paths["train_" + name] = train_phase(
                 workdir, data, cfg.replace(**kw), dev, name=name)[0]
@@ -4375,6 +4867,7 @@ def main() -> int:
             workdir, cfg.replace(**ZOO["din"]), dev, zoo_data["history"],
             zoo_artifacts["din"])
         paths.update(retrieval_paths)
+        paths.update(dp_phase(workdir, data, cfg, dev))
         train_step_timing(cfg)
         accum_step_timing(cfg)
         serve_launches, artifact = serve_phase(workdir, cfg, dev)

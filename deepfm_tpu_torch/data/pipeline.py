@@ -28,6 +28,13 @@ is applied inside each emission path. ``input_workers`` moves the pooled
 path's frame+decode into spawned worker processes (``data.workers``) with
 the same emission; a service that cannot start raises.
 
+Under data parallelism each rank's pipeline takes its share of the files
+(``shard``, a ``sharding.ShardSpec``): a file list, or with fewer files
+than ranks a record shard ``(world, rank)`` that keeps every world-th
+record of the epoch's file order, as the JAX package's does. A record
+shard turns the decoded cache, the input service and the fused assembly
+off (the kept rows depend on the epoch's global record index).
+
 Pipe mode: :class:`StreamingCtrPipeline` decodes batches in stream order
 from one sequential byte source, a :class:`ChainedFileStream` (the files
 replayed once per epoch by the producer) or the online trainer's
@@ -58,7 +65,7 @@ from typing import BinaryIO, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import example_codec, fileio, tfrecord
+from . import example_codec, fileio, sharding, tfrecord
 from .health import BadRecordPolicy, DataHealth
 
 Batch = Dict[str, np.ndarray]
@@ -333,6 +340,7 @@ class CtrPipeline:
                  batch_size: int, num_epochs: int = 1, shuffle: bool = True,
                  shuffle_files: bool = True, shuffle_buffer: int = 10000,
                  drop_remainder: bool = True, seed: int = 42,
+                 shard: Optional[sharding.ShardSpec] = None,
                  prefetch_batches: int = 4, use_native_decoder: bool = True,
                  native_assembly: bool = True, reader_threads: int = 4,
                  verify_crc: bool = False, epoch_offset: int = 0,
@@ -344,7 +352,12 @@ class CtrPipeline:
                  input_worker_death: str = "raise",
                  stall_timeout_s: float = 0.0, num_labels: int = 1,
                  history: bool = False, history_max_len: int = 20):
-        self._files = tuple(files)
+        if shard is not None:
+            self._files: Tuple[str, ...] = shard.files
+            self._record_shard = shard.record_shard
+        else:
+            self._files = tuple(files)
+            self._record_shard = None
         self.field_size = field_size
         self.batch_size = batch_size
         self.num_epochs = num_epochs
@@ -417,6 +430,18 @@ class CtrPipeline:
             self.input_workers = 0
             self.native_assembly = False
             self.decoded_cache = "off"
+        if self._record_shard is not None:
+            # The 1/world filter keys off the global record index of the
+            # epoch's file order: a cache cannot hold the kept rows, and
+            # decode workers see per-file streams (the JAX package's rule).
+            if decoded_cache != "off" or self.input_workers:
+                import warnings  # noqa: PLC0415
+                warnings.warn(
+                    "decoded_cache and input_workers off: record-level "
+                    "sharding keeps rows by per-epoch global index",
+                    RuntimeWarning, stacklevel=2)
+            self.decoded_cache = "off"
+            self.input_workers = 0
         # Pool column width: the history rides the (labels, ids, vals)
         # chunks as packed columns, split at batch assembly.
         self._pool_cols = self.field_size + (
@@ -607,6 +632,7 @@ class CtrPipeline:
         file order and framing for both pooled decodes, so the fused and
         the eager emissions cannot drift apart."""
         files = self._epoch_files(epoch)
+        n_seen = 0
         got_any = False
         for path in files:
             for buf, offsets, lengths in _iter_framed_chunks(
@@ -615,6 +641,15 @@ class CtrPipeline:
                 if len(offsets) == 0:
                     continue
                 got_any = True
+                base = n_seen
+                n_seen += len(offsets)
+                if self._record_shard is not None:
+                    world, rank = self._record_shard
+                    keep = (np.arange(base, base + len(offsets))
+                            % world) == rank
+                    offsets, lengths = offsets[keep], lengths[keep]
+                    if len(offsets) == 0:
+                        continue
                 yield buf, offsets, lengths
         if not got_any and files:
             raise IOError(f"no records found in {len(files)} files")
@@ -691,7 +726,8 @@ class CtrPipeline:
         use_shm = (cached_cols is None and self.input_workers > 0
                    and loader is not None)
         fused = (not use_shm and self.shuffle and loader is not None
-                 and self.num_labels == 1 and not self.history)
+                 and self._record_shard is None and self.num_labels == 1
+                 and not self.history)
         drain_pool = _DrainPool(self.reader_threads)
         stats = self.stage_stats
         try:
@@ -880,8 +916,12 @@ class CtrPipeline:
                                           self.verify_crc,
                                           policy=self._bad_policy,
                                           retry_policy=self._retry_policy):
+                keep = (self._record_shard is None
+                        or n_seen % self._record_shard[0]
+                        == self._record_shard[1])
                 n_seen += 1
-                yield rec
+                if keep:
+                    yield rec
         if n_seen == 0 and files:
             raise IOError(f"no records found in {len(files)} files")
 
@@ -1027,8 +1067,12 @@ class StreamingCtrPipeline:
                  verify_crc: bool = False, skip_batches: int = 0,
                  on_bad_record: str = "raise", max_bad_records: int = 0,
                  stream_label: str = "<stream>",
-                 health: Optional[DataHealth] = None, num_labels: int = 1):
+                 health: Optional[DataHealth] = None, num_labels: int = 1,
+                 record_shard: Optional[Tuple[int, int]] = None):
         self.stream = stream
+        # (world, rank): keep every world-th record of the stream, when
+        # ranks share it (fewer files than ranks).
+        self._record_shard = record_shard
         self.field_size = field_size
         self.batch_size = batch_size
         self.drop_remainder = drop_remainder
@@ -1056,9 +1100,16 @@ class StreamingCtrPipeline:
         self._consumed = True
 
     def _iter_records(self) -> Iterator[bytes]:
-        return tfrecord.iter_records_from_stream(
+        it = tfrecord.iter_records_from_stream(
             self.stream, verify_crc=self.verify_crc,
             path=self._stream_label, policy=self._bad_policy)
+        if self._record_shard is None:
+            yield from it
+            return
+        world, rank = self._record_shard
+        for i, rec in enumerate(it):
+            if i % world == rank:
+                yield rec
 
     def _iter_vectorized_grouped(self, loader, k: int
                                  ) -> Iterator[Tuple[Batch, int, int]]:
@@ -1070,11 +1121,20 @@ class StreamingCtrPipeline:
         sb = bs * max(k, 1)
         pend: "collections.deque" = collections.deque()
         n_pend = 0
+        n_seen = 0
         for buf, offsets, lengths in _iter_framed_stream(
                 self.stream, loader, self.verify_crc,
                 path=self._stream_label, policy=self._bad_policy):
             if len(offsets) == 0:
                 continue
+            if self._record_shard is not None:
+                world, rank = self._record_shard
+                keep = (np.arange(n_seen, n_seen + len(offsets))
+                        % world) == rank
+                n_seen += len(offsets)
+                offsets, lengths = offsets[keep], lengths[keep]
+                if len(offsets) == 0:
+                    continue
             if self.num_labels > 1:
                 lab1, lab2, ids, vals = loader.decode_spans2(
                     buf, offsets, lengths, self.field_size)

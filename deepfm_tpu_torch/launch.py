@@ -6,6 +6,14 @@ result as one JSON line ``{"task": ..., **metrics}``. There is no device
 flag: the CLI runs on the GPU and raises on a host without one. A caller
 that wants the CPU calls ``main(argv, device="cpu")``.
 
+Under ``--dist_mode 1|2`` (``deepfm_tpu_torch.fanout`` starts one child
+per GPU) the process group is bootstrapped before the task, on the card
+the local rank names (``parallel.bootstrap``): NCCL on the card, gloo on
+the CPU, or the ``backend`` a Python caller names. Logging is then
+rank-aware (``utils.logging``): the chief logs, every line carries its
+rank. Every rank prints its own result line (``fanout`` prefixes each
+with its worker).
+
 A preempted train task (SIGTERM/SIGINT, after its forced checkpoint)
 prints ``{"task": ..., "preempted": true, "step": N}`` and returns
 ``EXIT_PREEMPTED`` (42) once the abandoned fit's prefetch threads have
@@ -22,16 +30,22 @@ import sys
 
 from .config import parse_args
 from .data import pipeline as pipe_lib
+from .parallel import bootstrap
 from .train import tasks
+from .utils import device as device_lib
+from .utils import logging as ulog
 from .utils import preempt as preempt_lib
 
 
-def main(argv=None, *, device="cuda") -> int:
+def main(argv=None, *, device="cuda", backend=None) -> int:
     cfg = parse_args(argv)
     logging.basicConfig(
         level=logging.INFO, stream=sys.stderr, datefmt="%H:%M:%S",
         format="%(asctime)s %(levelname)s deepfm_tpu_torch: %(message)s")
     log = logging.getLogger("deepfm_tpu_torch.launch")
+    bootstrap.initialize(cfg, device=device_lib.resolve(device),
+                         backend=backend)
+    ulog.install()
     log.info("config: %s", json.dumps(cfg.to_dict(), sort_keys=True))
     try:
         result = tasks.run(cfg, device=device)
@@ -46,6 +60,7 @@ def main(argv=None, *, device="cuda") -> int:
         return preempt_lib.EXIT_PREEMPTED
     log.info("task %s finished: %s", cfg.task_type, result)
     print(json.dumps({"task": cfg.task_type, **result}))
+    bootstrap.destroy()
     return 0
 
 

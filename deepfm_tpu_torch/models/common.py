@@ -6,7 +6,9 @@ hash-bucketed, with the sparse update's plan and row operations.
 Behavioral parity with the JAX package:
   * Hidden layers: dense -> ReLU -> [BatchNorm] -> [dropout]. BN runs in
     float32, from batch statistics in train mode and running statistics in
-    eval mode (see :func:`batch_norm`). ``dropout`` values are KEEP
+    eval mode (see :func:`batch_norm`); under data parallelism
+    (:func:`cross_replica_bn`) the batch statistics are averaged over the
+    data ranks, forward and backward. ``dropout`` values are KEEP
     probabilities, applied in train mode only; the masks come from an
     explicit ``torch.Generator`` and so differ from ``jax.random``'s bits.
   * Tower weights keep the JAX layout, ``w`` is ``[d_in, d_out]`` applied
@@ -30,7 +32,9 @@ over instead of comparing inits.
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+import contextlib
+from typing import (Any, Dict, Iterator, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 from torch import nn
@@ -88,6 +92,40 @@ def glorot_uniform(shape: Sequence[int], *,
 # ---------------------------------------------------------------------------
 
 
+# The data axis of a training forward under data parallelism: (world size,
+# process group), set by :func:`cross_replica_bn` around the forward.
+_BN_DATA_AXIS: Optional[Tuple[int, Any]] = None
+
+
+@contextlib.contextmanager
+def cross_replica_bn(world: int, group: Any = None) -> Iterator[None]:
+    """Train-mode BN inside the block takes its batch statistics over the
+    ``world`` data ranks of ``group`` (the JAX ``pmean`` over ``'data'``)."""
+    global _BN_DATA_AXIS
+    prev = _BN_DATA_AXIS
+    _BN_DATA_AXIS = (world, group) if world > 1 else None
+    try:
+        yield
+    finally:
+        _BN_DATA_AXIS = prev
+
+
+def _pmean_stats(mean: torch.Tensor, mean_sq: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The data ranks' average of (E[x], E[x^2]) in ONE all_reduce that
+    autograd differentiates: its backward all-reduces the incoming
+    gradient, so rank r's local statistics receive the sum over ranks of
+    their share, and the averaged parameter gradient of N ranks at B/N rows
+    equals one device's at B rows."""
+    from torch.distributed.nn import functional as dist_fn  # noqa: PLC0415
+    world, group = _BN_DATA_AXIS
+    both = dist_fn.all_reduce(torch.stack([mean, mean_sq]),
+                              group=group if group is not None
+                              else torch.distributed.group.WORLD)
+    both = both / world
+    return both[0], both[1]
+
+
 def batch_norm(h32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                stats: "RunningStats", *, train: bool, decay: float,
                eps: float = 1e-3) -> torch.Tensor:
@@ -98,10 +136,15 @@ def batch_norm(h32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     blends them into the running statistics in place, ``decay`` parts old
     to ``1 - decay`` parts new: what ``deepfm_tpu.models.common.batch_norm``
     returns as the new model state. ``nn.BatchNorm1d`` differs on both counts
-    (unbiased running variance, ``momentum = 1 - decay``)."""
+    (unbiased running variance, ``momentum = 1 - decay``). Inside
+    :func:`cross_replica_bn` E[x] and E[x^2] are averaged over the data
+    ranks first, so every rank blends the same statistics."""
     if train:
         mean = torch.mean(h32, dim=0)
-        var = torch.mean(h32 * h32, dim=0) - mean * mean
+        mean_sq = torch.mean(h32 * h32, dim=0)
+        if _BN_DATA_AXIS is not None:
+            mean, mean_sq = _pmean_stats(mean, mean_sq)
+        var = mean_sq - mean * mean
         with torch.no_grad():
             stats.mean.copy_(decay * stats.mean + (1 - decay) * mean)
             stats.var.copy_(decay * stats.var + (1 - decay) * var)

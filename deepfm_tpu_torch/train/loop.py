@@ -1,5 +1,6 @@
-"""Trainer: train, eval and predict steps and the fit loop on one device
-(port of ``deepfm_tpu.train.loop``).
+"""Trainer: train, eval and predict steps and the fit loop, on one device
+or one GPU per process of a data-parallel group (port of
+``deepfm_tpu.train.loop``).
 
 The model module is a stateless template built on the ``meta`` device; a
 :class:`TrainState` carries the tensors, and every step runs the module
@@ -50,8 +51,29 @@ rows' indices at a cursor and gathers the batches on the card, then runs
 the same steps as ``fit`` over the same batch order, so the two are
 bit-identical.
 
-Not ported yet, raising ``NotImplementedError`` naming its flag: a mesh
-other than 1x1.
+Data parallelism (``--mesh_data N`` over N processes, ``parallel.mesh``):
+every rank holds the whole replicated state and steps over its
+``batch_size / N`` rows. The gradients are averaged over the ranks once
+per optimizer apply (the JAX ``pmean`` over ``'data'``: under
+accumulation once per apply, not per microbatch) in one all_reduce of a
+flat buffer per dtype that also carries the step's cross-entropy for the
+reported loss; with ``_hier_groups`` set they go through
+``mesh.hierarchical_pmean`` instead. The learning rate is scaled by N
+under ``scale_lr_by_world``, BN takes its batch statistics over the ranks
+(``models.common.cross_replica_bn``), and each rank draws its own dropout
+(a generator seeded per step from the run's seed and the rank). The
+sparse update under a mesh warns and trains dense, and the hot/cold tier
+raises, as in the JAX package. ``fit`` keeps the ranks in lockstep: each
+round of ``steps_per_loop`` batches the ranks exchange their counts and
+all dispatch the global minimum (``_stage_multiprocess``); ``evaluate``
+pads with zero-weight batches until every rank is done
+(``lockstep_batches``) and sums the metric state over the ranks. Every
+collective is issued from the fit thread, in the same order on every
+rank; the staging ring still transfers ahead on its own thread.
+
+Not ported yet, raising ``NotImplementedError`` naming its flag: a model
+axis (``--mesh_model > 1``) and ``--embedding_shard rows`` under a mesh
+(ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -60,6 +82,7 @@ import contextlib
 import itertools
 import logging
 import math
+import os
 import queue
 import threading
 import time
@@ -68,15 +91,19 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, \
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.func import functional_call
 
 from ..config import Config
 from ..data import pipeline as pipe_lib
+from ..models import common as common_lib
 from ..models import get_model
 from ..obs import trace as trace_lib
 from ..ops import embedding as emb_ops
 from ..ops import embedding_kernels as ek
+from ..parallel import bootstrap
+from ..parallel import mesh as mesh_lib
 from ..utils import device as device_lib
 from ..utils import profiling as prof_lib
 from . import guard as guard_lib
@@ -87,6 +114,12 @@ from .state import StateSnapshot, TrainState
 log = logging.getLogger(__name__)
 
 Batch = Dict[str, np.ndarray]
+
+#: Set to 1 to time the gradient all_reduce and each dispatch on the
+#: device's clock (CUDA events; host time on the CPU): ``fit`` then
+#: reports the medians ``collective_device_ms`` per apply and
+#: ``dispatch_device_ms`` per dispatch.
+TIME_COLLECTIVES_ENV = "DEEPFM_TPU_TORCH_TIME_COLLECTIVES"
 
 
 def pad_batch(batch: Batch, bs: int) -> Batch:
@@ -133,10 +166,14 @@ def _with_weight(batch: Batch, bs: int) -> Batch:
 def check_ported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a Trainer option that the port has
     not reached yet, naming its flag."""
+    multi = cfg.mesh_data > 1 or cfg.num_processes > 1
     unported = [
-        (cfg.mesh_data > 1 or cfg.mesh_model > 1,
-         f"--mesh_data {cfg.mesh_data} --mesh_model {cfg.mesh_model} (a mesh "
-         "other than 1x1)"),
+        (cfg.mesh_model > 1,
+         f"--mesh_model {cfg.mesh_model} (embedding rows sharded over a "
+         "model axis, ROADMAP queue 1 item 4)"),
+        (multi and cfg.embedding_shard == "rows",
+         "--embedding_shard rows under a mesh (the row exchange, ROADMAP "
+         "queue 1 item 4)"),
     ]
     for hit, what in unported:
         if hit:
@@ -347,9 +384,11 @@ class _StagingRing:
 
 
 class Trainer:
-    """Runs the train, eval and predict steps of one model on one device."""
+    """Runs the train, eval and predict steps of one model on one device,
+    or on this rank's GPU of a data-parallel group."""
 
-    def __init__(self, cfg: Config, *, device="cuda"):
+    def __init__(self, cfg: Config, *, device="cuda",
+                 mesh_info: Optional[mesh_lib.MeshInfo] = None):
         check_ported(cfg)
         self.cfg = cfg
         self.device = device_lib.resolve(device)
@@ -359,12 +398,26 @@ class Trainer:
         self._task_names = tuple(getattr(self.model, "task_names",
                                          ("ctr",)))
         self._multitask = len(self._task_names) > 1
-        self.opt = opt_lib.build_optimizer(cfg, world_size=1)
+        # The data axis: one rank per GPU, every tensor replicated.
+        self.mesh_info = (mesh_info if mesh_info is not None
+                          else mesh_lib.build_mesh(cfg))
+        self._world = self.mesh_info.data_size
+        self._rank = bootstrap.process_index() if self._world > 1 else 0
+        self.opt = opt_lib.build_optimizer(cfg, world_size=self._world)
         self._embed_names = self.model.embedding_param_names()
         # Sparse (touched-rows-only) embedding updates with lazy Adam; the
         # tables' flat state names, and the rest of the params, which the
-        # base optimizer updates.
+        # base optimizer updates. Under a mesh the sparse plane needs the
+        # row exchange (--embedding_shard rows, not ported): replicated
+        # tables with per-rank sparse plans would drift apart, so the run
+        # trains dense, as the JAX Trainer does.
         self.sparse_embed = cfg.embedding_update == "sparse"
+        if self.sparse_embed and self.mesh_info.is_mesh:
+            log.warning(
+                "embedding_update=sparse under a mesh needs the row "
+                "exchange plane (--embedding_shard rows) -> falling back "
+                "to dense embedding updates")
+            self.sparse_embed = False
         emb = self.model.emb
         self._embed_keys = {n: {k: emb.param_key(n, k)
                                 for k in emb.table_keys()}
@@ -377,6 +430,11 @@ class Trainer:
         # update, monolithic table).
         self._tier = None
         if cfg.embedding_tiering == "hot_cold":
+            if not self.sparse_embed:
+                raise ValueError(
+                    "embedding_tiering=hot_cold requires the sparse "
+                    "single-device update path (a mesh forced the dense "
+                    "fallback)")
             from ..data import hot_cold  # noqa: PLC0415
             self._tier = hot_cold.TieredEmbeddingRuntime(cfg, self.model)
         # Microbatches per optimizer apply (config-validated: divides
@@ -388,6 +446,16 @@ class Trainer:
         self.watchdog_abort: Optional[Callable[[str], None]] = None
         # The device-resident dataset: (cache fingerprint, device columns).
         self._dd_cols: Optional[Tuple[str, Dict[str, torch.Tensor]]] = None
+        # Two-stage (intra-host, inter-host) gradient reduce: derived from
+        # the ranks' hosts, None on one host. Tests set it to force the
+        # hierarchical program on one host.
+        self._hier_groups = mesh_lib.data_axis_host_groups(self.mesh_info)
+        # This rank's dropout generator under a mesh (seeded per step).
+        self._rank_rng: Optional[torch.Generator] = None
+        self._grad_bytes: Optional[int] = None
+        # Collective and dispatch timings of the active fit, when timed.
+        self._time_comm = os.environ.get(TIME_COLLECTIVES_ENV, "") == "1"
+        self._comm_marks: List[Any] = []
 
     # ------------------------------------------------------------------
     # State
@@ -466,16 +534,36 @@ class Trainer:
     # Steps
     # ------------------------------------------------------------------
     def _logits(self, state: TrainState, batch: Dict[str, torch.Tensor], *,
-                train: bool, **emb_kw) -> torch.Tensor:
+                train: bool, micro: int = 0, **emb_kw) -> torch.Tensor:
         """The model over ``state``'s tensors; ``emb_kw`` (``emb_rows``,
         ``emb_plan``) feeds the sparse update's row leaves. A sequence
-        model gets the batch's history columns as keyword arguments."""
+        model gets the batch's history columns as keyword arguments. A
+        training forward under a mesh takes its BN statistics over the
+        data ranks and draws this rank's dropout (``micro``: the
+        microbatch within an accumulated apply)."""
         self.model.train(train)
-        return functional_call(
-            self.model, {**state.params, **state.model_state},
-            (batch["feat_ids"], batch["feat_vals"]),
-            {"generator": state.rng if train else None, **emb_kw,
-             **self._hist_kwargs(batch)})
+        gen = self._dropout_generator(state, micro) if train else None
+        with common_lib.cross_replica_bn(self._world if train else 1):
+            return functional_call(
+                self.model, {**state.params, **state.model_state},
+                (batch["feat_ids"], batch["feat_vals"]),
+                {"generator": gen, **emb_kw, **self._hist_kwargs(batch)})
+
+    def _dropout_generator(self, state: TrainState,
+                           micro: int = 0) -> torch.Generator:
+        """The state's generator on one device. Under a mesh each rank
+        draws different dropout (the JAX ``fold_in(rng, axis_index)``): a
+        generator seeded from (seed, step, microbatch, rank), so a resumed
+        run draws what an uninterrupted one does."""
+        if self._world <= 1:
+            return state.rng
+        if self._rank_rng is None:
+            self._rank_rng = torch.Generator(device=state.rng.device)
+        seed = np.random.SeedSequence(
+            [abs(int(self.cfg.seed)), int(state.step), int(micro),
+             self._rank]).generate_state(2, np.uint32)
+        self._rank_rng.manual_seed(int(seed[0]) << 31 | int(seed[1]) >> 1)
+        return self._rank_rng
 
     def _hist_kwargs(self, batch) -> Dict[str, torch.Tensor]:
         """``hist_ids``/``hist_mask`` for a model that opts in
@@ -506,37 +594,114 @@ class Trainer:
                     - (1.0 - labels) * F.logsigmoid(-logits))
         return torch.square(torch.sigmoid(logits) - labels)
 
-    def loss_and_grads(self, state: TrainState,
-                       batch: Dict[str, torch.Tensor]):
-        """Training-mode forward and backward: ``(loss, xent, grads)`` with
-        loss = xent + l2 and pad-row gradients zeroed. Updates the BN
-        running statistics in ``state`` and draws from its generator."""
+    def _loss_terms(self, state: TrainState,
+                    batch: Dict[str, torch.Tensor]):
+        """Training-mode forward and backward: ``(xent, l2, grads)``, the
+        gradient of xent + l2 with pad-row gradients zeroed. Updates the
+        BN running statistics in ``state`` and draws from its generator."""
         names = list(state.params)
         with torch.enable_grad():
             logits = self._logits(state, batch, train=True)
             labels = self._batch_labels(batch)
             xent = torch.mean(self._per_example_loss(logits, labels))
-            loss = xent + self.model.l2_loss(state.params)
+            l2 = self.model.l2_loss(state.params)
             grads = dict(zip(names, _grads(
-                loss, [state.params[n] for n in names])))
+                xent + l2, [state.params[n] for n in names])))
         # Pad rows never move: their gradient is already zero (no real id
         # reaches them; the l2 term excludes them), and this makes it so.
         for keys in self._embed_keys.values():
             for p in keys.values():
                 grads[p] = self.model.emb.mask_pad_grads(grads[p])
-        return loss.detach(), xent.detach(), grads
+        return xent.detach(), l2.detach(), grads
+
+    def loss_and_grads(self, state: TrainState,
+                       batch: Dict[str, torch.Tensor]):
+        """``(loss, xent, grads)`` of this rank's batch, loss = xent + l2
+        (see :meth:`_loss_terms`; no collective)."""
+        xent, l2, grads = self._loss_terms(state, batch)
+        return xent + l2, xent, grads
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One optimizer step on a device batch; updates ``state`` in place
         and returns it with the step's ``loss`` and ``xent`` (on the
-        device: reading them waits for the card)."""
+        device: reading them waits for the card). Under a mesh the
+        gradients and xent are averaged over the data ranks first (the l2
+        term is the same on every rank)."""
         if self.sparse_embed:
             return self._sparse_step_impl(state, batch)
-        loss, xent, grads = self.loss_and_grads(state, batch)
+        xent, l2, grads = self._loss_terms(state, batch)
+        if self._world > 1:
+            xent = self._pmean_grads(grads, xent)
         self.opt.apply(state.params, grads, state.opt_state)
         state.step += 1
-        return state, {"loss": loss, "xent": xent}
+        return state, {"loss": xent + l2, "xent": xent}
+
+    # -- gradient sync -----------------------------------------------------
+    def _pmean_grads(self, grads: Dict[str, torch.Tensor],
+                     xent: torch.Tensor) -> torch.Tensor:
+        """THE gradient sync point of data parallelism (Horovod's allreduce
+        in the reference, the JAX ``pmean`` over ``'data'``): ``grads``
+        replaced in place by their mean over the data ranks, and the mean
+        xent returned. One all_reduce of a flat buffer per dtype; xent
+        rides the float32 one. With ``_hier_groups`` the buffers go
+        through ``hierarchical_pmean`` (intra-host, then inter-host)."""
+        buckets: Dict[torch.dtype, List[str]] = {}
+        for name, g in grads.items():
+            buckets.setdefault(g.dtype, []).append(name)
+        buckets.setdefault(torch.float32, [])
+        flats = []
+        for dt, names in buckets.items():
+            parts = [grads[n].reshape(-1) for n in names]
+            if dt == torch.float32:
+                parts.append(xent.reshape(1).float())
+            flats.append(torch.cat(parts))
+        mark = self._comm_mark()
+        if self._hier_groups is not None:
+            mesh_lib.hierarchical_pmean(flats, self._hier_groups, self._world)
+        else:
+            for flat in flats:
+                dist.all_reduce(flat)
+                flat.div_(self._world)
+        if mark is not None:
+            self._comm_marks.append((mark, self._comm_mark()))
+        for (dt, names), flat in zip(buckets.items(), flats):
+            off = 0
+            for n in names:
+                k = grads[n].numel()
+                grads[n] = flat[off:off + k].view_as(grads[n])
+                off += k
+            if dt == torch.float32:
+                xent = flat[off]
+        return xent
+
+    def _comm_mark(self):
+        """A timing mark when collectives are timed: a CUDA event recorded
+        on the current stream, or the host clock on the CPU."""
+        if not self._time_comm:
+            return None
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    @staticmethod
+    def _elapsed_ms(a, b) -> float:
+        if isinstance(a, float):
+            return (b - a) * 1e3
+        return float(a.elapsed_time(b))
+
+    def _grad_payload_bytes(self) -> int:
+        """Bytes of ONE gradient all_reduce (``mesh.grad_payload_bytes``
+        of the model's params), from shapes only."""
+        if self._grad_bytes is None:
+            emb = {p for keys in self._embed_keys.values()
+                   for p in keys.values()}
+            self._grad_bytes = mesh_lib.grad_payload_bytes(
+                dict(self.model.named_parameters()), emb,
+                self.mesh_info.model_size)
+        return self._grad_bytes
 
     # -- sparse embedding update ----------------------------------------
     def _tables(self, state: TrainState) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -727,7 +892,9 @@ class Trainer:
         a fixed order of exact per-microbatch gradients (the dense lookups
         sum theirs in position order, ``ek.index_rows``), so the result is
         the same on every run. ``state.step`` advances by ``a``; the
-        optimizer's ``count`` (Adam's bias correction) by one."""
+        optimizer's ``count`` (Adam's bias correction) by one. Under a mesh
+        the summed gradients and the mean xent are averaged over the data
+        ranks once, before the apply."""
         if self.sparse_embed:
             return self._sparse_accum_step_impl(state, batches)
         a = len(batches)
@@ -737,9 +904,9 @@ class Trainer:
                            device=self.device)
         grads: Optional[List[torch.Tensor]] = None
         xent_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        for batch in batches:
+        for i, batch in enumerate(batches):
             with torch.enable_grad():
-                logits = self._logits(state, batch, train=True)
+                logits = self._logits(state, batch, train=True, micro=i)
                 labels = self._batch_labels(batch)
                 xent = torch.mean(self._per_example_loss(logits, labels))
                 g = _grads(xent, params, grad_outputs=scale)
@@ -755,12 +922,14 @@ class Trainer:
             if gi is not None:
                 g.add_(gi)
         gd = dict(zip(names, grads))
+        xent = xent_sum / a
+        if self._world > 1:
+            xent = self._pmean_grads(gd, xent)
         for keys in self._embed_keys.values():
             for p in keys.values():
                 gd[p] = self.model.emb.mask_pad_grads(gd[p])
         self.opt.apply(state.params, gd, state.opt_state)
         state.step += a
-        xent = xent_sum / a
         return state, {"loss": (xent + l2).detach(), "xent": xent}
 
     def _sparse_accum_step_impl(self, state: TrainState,
@@ -934,9 +1103,20 @@ class Trainer:
         happened; a rollback raises :class:`guard_lib.RollbackSignal` for
         the task driver. The result carries the ring's
         ``staging_overlap_fraction``, ``staging_transfer_s`` and
-        ``staging_wait_s``."""
+        ``staging_wait_s``.
+
+        Under a mesh the ranks dispatch in lockstep
+        (:meth:`_stage_multiprocess`), ``examples_per_sec`` counts every
+        rank's examples, and the result adds ``collective_applies`` (one
+        gradient all_reduce per apply), ``collective_bytes`` (applies x the
+        payload) and ``collective_strategy`` (``flat`` or
+        ``hierarchical``); timed (``DEEPFM_TPU_TORCH_TIME_COLLECTIVES=1``),
+        also the medians ``collective_device_ms`` per apply and
+        ``dispatch_device_ms`` per dispatch (the span between events
+        recorded around it on the compute stream)."""
         cfg = self.cfg
         k = max(cfg.steps_per_loop, 1)
+        world = self._world
         src_health = getattr(batches, "health", None)
         if max_steps is not None:
             batches = itertools.islice(iter(batches), max_steps)
@@ -946,6 +1126,8 @@ class Trainer:
         if tier is not None:
             staged = self._stage_tiered(batches, k, cfg.transfer_ahead,
                                         tier.start_staging())
+        elif world > 1:
+            staged = self._stage_multiprocess(batches, k, cfg.transfer_ahead)
         else:
             staged = self._stage(batches, k, cfg.transfer_ahead)
         guard_active = guard is not None and guard.per_dispatch
@@ -956,6 +1138,9 @@ class Trainer:
         examples_since_log = 0
         m: Dict[str, Any] = {}
         meter = prof_lib.ThroughputMeter()
+        comm_applies = 0
+        self._comm_marks = []
+        dispatch_marks: List[Tuple[Any, Any]] = []
         t0 = time.time()
         try:
             for group, ready, n_ex in staged:
@@ -969,15 +1154,21 @@ class Trainer:
                     snapshot.take(state)
                     prev_m = m
                 ring.wait(ready)
+                mark = self._comm_mark()
                 with trace_lib.span("train.dispatch", steps=len(group),
                                     examples=n_ex):
                     if len(group) == 1:
                         state, m = self.train_step(state, group[0])
                     else:
                         state, m = self.multi_step(state, group)
-                # The slot fence goes before the verdict: a skipped
-                # dispatch still occupied its slot.
+                if mark is not None:
+                    dispatch_marks.append((mark, self._comm_mark()))
+                # The slot fence and the collective count go before the
+                # verdict: a skipped dispatch still occupied its slot and
+                # its all_reduces still ran.
                 ring.retire()
+                comm_applies += (len(group) // self._accum
+                                 + len(group) % self._accum)
                 if guard_active:
                     verdict = self._guard_verdict(guard, state, m)
                     if verdict == "skip":
@@ -989,8 +1180,8 @@ class Trainer:
                         raise guard_lib.RollbackSignal(int(state.step))
                 prev_steps = n_steps
                 n_steps += len(group)
-                examples_since_log += n_ex
-                meter.update(n_ex, len(group))
+                examples_since_log += n_ex * world
+                meter.update(n_ex * world, len(group))
                 if watchdog is not None:
                     watchdog.beat(n_steps)
                 if cfg.log_steps and (n_steps // cfg.log_steps
@@ -1039,6 +1230,19 @@ class Trainer:
         out["staging_overlap_fraction"] = ring.overlap_fraction()
         out["staging_transfer_s"] = ring.transfer_s
         out["staging_wait_s"] = ring.wait_s
+        if world > 1 and comm_applies:
+            out["collective_applies"] = float(comm_applies)
+            out["collective_bytes"] = float(
+                comm_applies * self._grad_payload_bytes())
+            out["collective_strategy"] = (
+                "hierarchical" if self._hier_groups is not None else "flat")
+        if self._time_comm and n_steps:
+            if self._comm_marks:
+                out["collective_device_ms"] = float(np.median(
+                    [self._elapsed_ms(a, b) for a, b in self._comm_marks]))
+            out["dispatch_device_ms"] = float(np.median(
+                [self._elapsed_ms(a, b) for a, b in dispatch_marks]))
+        self._comm_marks = []
         if tier is not None:
             out.update({f"hotcold_{k_}": float(v)
                         for k_, v in tier.stats.items()})
@@ -1069,6 +1273,69 @@ class Trainer:
                 n_ex = sum(int(b["label"].shape[0]) for b in group)
                 dev, ready = ring.stage(group)
                 yield dev, ready, n_ex
+
+        if depth <= 0:
+            return gen()
+        return pipe_lib.prefetch(gen(), depth)
+
+    def _stage_multiprocess(self, batches: Iterable[Batch], k: int,
+                            depth: int
+                            ) -> Iterator[Tuple[List[Dict[str, torch.Tensor]],
+                                                Any, int]]:
+        """Lockstep staging under a mesh (the JAX ``_stage_multiprocess``):
+        :meth:`_stage`'s yield contract, in rounds of ``k`` batches. Each
+        round the ranks exchange how many local batches they pulled and all
+        dispatch the global minimum as ONE group, stopping at the first
+        short round (a longer rank's leftovers are dropped: the
+        cross-rank ``drop_remainder``). Every train dispatch carries an
+        all_reduce, so every rank must dispatch the same sequence of
+        groups. The rounds are transferred ahead on the staging thread
+        (:meth:`_stage_rounds`); the count exchanges, like every
+        collective, run on the fit thread."""
+        rounds = self._stage_rounds(batches, k, depth)
+        try:
+            for dev, ready, group in rounds:
+                counts = [c[0] for c in bootstrap.allgather_ints([len(group)])]
+                m = min(counts)
+                if m > 0:
+                    n_ex = sum(int(b["label"].shape[0]) for b in group[:m])
+                    yield dev[:m], ready, n_ex
+                if m < k:
+                    if len(group) > m:
+                        log.warning(
+                            "ragged shards: dropped >= %d local batches to "
+                            "keep ranks in lockstep (min of %s per round)",
+                            len(group) - m, counts)
+                    return
+        finally:
+            rounds.close()
+
+    def _stage_rounds(self, batches: Iterable[Batch], k: int, depth: int
+                      ) -> Iterator[Tuple[Any, Any, List[Batch]]]:
+        """(device batches, copy event, host batches) per round of up to
+        ``k`` batches, each moved through the staging ring, ``depth``
+        rounds ahead on a staging thread. A short round (an empty one
+        included) ends the stream. Discrete batches, not the pipeline's
+        superbatches: a superbatch may come short at a pool boundary,
+        which would end the lockstep early on one rank."""
+        ring = self._ring
+
+        def gen():
+            it = iter(batches)
+            try:
+                while True:
+                    group = list(itertools.islice(it, k))
+                    if not group:
+                        yield None, None, group
+                        return
+                    dev, ready = ring.stage(group)
+                    yield dev, ready, group
+                    if len(group) < k:
+                        return
+            finally:
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()
 
         if depth <= 0:
             return gen()
@@ -1115,6 +1382,9 @@ class Trainer:
         if self._multitask:
             return "multi-task run (the decoded-cache column set carries a "\
                    "single label column)"
+        if self._world > 1:
+            return "multi-process run (device columns would need per-host "\
+                   "record sharding)"
         if getattr(pipe, "decoded_cache", "off") == "off":
             return "pipeline has no decoded cache (device upload reads the "\
                    "cached columns)"
@@ -1295,27 +1565,78 @@ class Trainer:
     # ------------------------------------------------------------------
     # Eval / predict
     # ------------------------------------------------------------------
+    def lockstep_batches(self, batches: Iterable[Batch],
+                         make_dummy: Callable[[], Batch], *,
+                         rounds_of: Optional[int] = None
+                         ) -> Iterator[Tuple[Batch, bool]]:
+        """``(batch, is_real)`` with the same count on every rank (the JAX
+        ``lockstep_batches``): each round every rank pulls up to
+        ``rounds_of`` (default ``steps_per_loop``) local batches and
+        gathers the counts once; a rank below the round's maximum tops up
+        with ``make_dummy()`` batches (the caller gives them zero weight or
+        drops their output). Ends when every rank is exhausted."""
+        k = (max(self.cfg.steps_per_loop, 1) if rounds_of is None
+             else rounds_of)
+        it = iter(batches)
+        try:
+            while True:
+                group = list(itertools.islice(it, k))
+                top = max(c[0] for c in bootstrap.allgather_ints(
+                    [len(group)]))
+                if top == 0:
+                    return
+                for b in group:
+                    yield b, True
+                for _ in range(top - len(group)):
+                    yield make_dummy(), False
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+
+    def _dummy_eval_batch(self, local_bs: int) -> Batch:
+        """An all-zero-weight batch: adds nothing to the AUC or the loss."""
+        hist_len = (self.cfg.history_max_len
+                    if getattr(self.model, "uses_history", False) else 0)
+        return {**zero_batch(self.cfg.field_size, local_bs,
+                             num_labels=len(self._task_names),
+                             hist_len=hist_len),
+                "weight": np.zeros((local_bs, 1), np.float32)}
+
     def evaluate(self, state: TrainState,
                  batches: Iterable[Batch]) -> Dict[str, float]:
         """Streaming eval: binned AUC + mean loss. Every batch is padded to
-        ``batch_size`` with zero-weight rows, so no record is dropped and
-        none counts twice."""
+        the local batch size with zero-weight rows, so no record is dropped
+        and none counts twice. Under a mesh each rank evaluates its shard
+        in lockstep rounds (a rank whose shard is done feeds zero-weight
+        batches) and the histograms and loss sums are summed over the
+        ranks before the compute. ``examples`` is the weighted count of
+        every rank's records (the histograms' total)."""
         if self._tier is not None:
             # The ordinary dense forward over the full tables (flushed hot
             # rows + cold store).
             state = self._tier.densified(state)
         cfg = self.cfg
         names = self._task_names
+        world = self._world
+        local_bs = mesh_lib.local_batch_size(cfg, world)
         auc_states = [metrics_lib.auc_init(cfg.auc_num_thresholds,
                                            device=self.device)
                       for _ in names]
         loss_state = metrics_lib.mean_init(device=self.device)
+        if world > 1:
+            staged = ((_with_weight(b, local_bs) if real else b, real)
+                      for b, real in self.lockstep_batches(
+                          batches, lambda: self._dummy_eval_batch(local_bs)))
+        else:
+            staged = ((_with_weight(b, local_bs), True) for b in batches)
         n = 0
+        dispatched = 0
         t_start = time.time()
         t_first = None
         with torch.no_grad():
-            for batch in batches:
-                dev = self.put_batch(_with_weight(batch, cfg.batch_size))
+            for batch, real in staged:
+                dev = self.put_batch(batch)
                 logits = self._logits(state, dev, train=False)
                 labels = self._batch_labels(dev)
                 w = dev["weight"].reshape(-1)
@@ -1331,15 +1652,19 @@ class Trainer:
                 loss_state = metrics_lib.MeanState(
                     total=loss_state.total + torch.sum(per_ex * w),
                     count=loss_state.count + torch.sum(w))
-                n += 1
+                n += int(real)
+                dispatched += 1
                 if t_first is None:
                     t_first = time.time()
-        if n == 0:
-            out = {"auc": 0.0, "loss": 0.0, "batches": 0.0,
+        if dispatched == 0:
+            out = {"auc": 0.0, "loss": 0.0, "batches": 0.0, "examples": 0.0,
                    "examples_per_sec": 0.0, "examples_per_sec_steady": 0.0}
             if self._multitask:
                 out.update({f"auc_{t}": 0.0 for t in names})
             return out
+        if world > 1:
+            auc_states = [metrics_lib.auc_psum(a) for a in auc_states]
+            loss_state = metrics_lib.mean_psum(loss_state)
         aucs = [float(metrics_lib.auc_compute(a))  # device sync
                 for a in auc_states]
         auc = aucs[0]
@@ -1353,7 +1678,8 @@ class Trainer:
                       if n > 1 and steady_window > 1e-9 else raw_eps)
         out = {"auc": auc,
                "loss": float(metrics_lib.mean_compute(loss_state)),
-               "batches": float(n), "examples_per_sec": raw_eps,
+               "batches": float(n), "examples": n_examples,
+               "examples_per_sec": raw_eps,
                "examples_per_sec_steady": steady_eps}
         if self._multitask:
             # Named per-task AUCs beside the headline (the first task's).

@@ -8,7 +8,9 @@ float32 (exact below 2**24 per bin), so they equal the JAX package's on
 the same probabilities whatever the order of the sums.
 
 Everything stays on the device of the inputs; only ``float()`` of a result
-reads it back. :class:`WindowedAuc` is the online trainer's sliding-window
+reads it back. Under data parallelism each rank accumulates its own
+shard's histograms and loss sums; :func:`auc_psum` and :func:`mean_psum`
+sum them over the data ranks (one all_reduce each) before the compute. :class:`WindowedAuc` is the online trainer's sliding-window
 AUC over host arrays, and :class:`WindowedAucDict` one window per task.
 """
 
@@ -53,6 +55,21 @@ def auc_merge(a: AucState, b: AucState) -> AucState:
     return AucState(pos=a.pos + b.pos, neg=a.neg + b.neg)
 
 
+def _all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    import torch.distributed as dist  # noqa: PLC0415
+    out = t.clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def auc_psum(state: AucState, group=None) -> AucState:
+    """The histograms summed over the data ranks (the JAX ``psum``): one
+    all_reduce of the stacked pair. Bin counts are integers in float32,
+    so the sum is exact in any order below 2**24 per bin."""
+    both = _all_reduce_sum(torch.stack([state.pos, state.neg]), group)
+    return AucState(pos=both[0], neg=both[1])
+
+
 def auc_compute(state: AucState) -> torch.Tensor:
     """Trapezoidal AUC over the ROC curve swept across bin thresholds.
 
@@ -85,6 +102,12 @@ def mean_init(*, device=None) -> MeanState:
 
 def mean_compute(state: MeanState) -> torch.Tensor:
     return state.total / torch.clamp(state.count, min=1.0)
+
+
+def mean_psum(state: MeanState, group=None) -> MeanState:
+    """The weighted sum and count summed over the data ranks."""
+    both = _all_reduce_sum(torch.stack([state.total, state.count]), group)
+    return MeanState(total=both[0], count=both[1])
 
 
 class WindowedAuc:

@@ -1,5 +1,5 @@
-"""Tasks: train / eval / infer / export on one device (port of the
-single-process path of ``deepfm_tpu.train.tasks``).
+"""Tasks: train / eval / infer / export on one device or one GPU per
+process of a data-parallel group (port of ``deepfm_tpu.train.tasks``).
 
   * ``train`` — per-epoch train loop with an eval after each epoch (or,
     with ``--eval_start_delay_secs``/``--eval_throttle_secs``, throttled
@@ -45,9 +45,29 @@ Files resolve as in the JAX package: ``tr*`` / ``va*`` / ``te*`` +
 ``.tfrecords``, falling back to every ``*.tfrecords`` in the directory.
 
 ``run(cfg, device="cuda")`` runs on the card unless the caller asks for
-the CPU. Modes the port has not reached raise ``NotImplementedError``
-naming their flag (see ``check_task_ported``): more than one process, the
-multi-path channels and a mesh.
+the CPU. It bootstraps the process group (``parallel.bootstrap``) under
+``--dist_mode 1|2``. Under more than one process:
+
+  * ``batch_size`` is global: each rank reads ``batch_size / world`` rows
+    (``_local_batch_size``) from its share of the files (``data.sharding``
+    ``shard_files``: the reference's multi_path x s3_shard matrix; with
+    fewer files than ranks a record shard), checked for coverage at start;
+    ``--enable_data_multi_path`` gives each local worker its own channel.
+  * Only the chief clears ``model_dir`` (the others wait at a barrier),
+    checkpoints, exports and writes ``pred.txt``; every rank restores the
+    same checkpoint. The resume position is decided on the chief and
+    broadcast.
+  * The throttled eval and the preemption poll consult the clock and the
+    flag only at agreed dispatches (``_eval_check_due``): the chief's eval
+    verdict is broadcast and the preemption flag is ORed over the ranks, so
+    every rank evaluates, saves and stops at the same dispatch.
+  * Infer predicts a record shard per rank, gathers the predictions to
+    every rank and re-interleaves them into global record order.
+  * ``--online_mode`` raises ``NotImplementedError``, as the JAX package's
+    does.
+
+Modes the port has not reached raise ``NotImplementedError`` naming their
+flag (see ``check_task_ported``): a model axis (``--mesh_model > 1``).
 
 Every pipeline takes the input flags: the native decoder and its pooled
 emission (``--use_native_decoder``, ``--native_assembly``,
@@ -86,10 +106,13 @@ from ..config import Config
 from ..data import cache as cache_lib
 from ..data import fileio
 from ..data import pipeline as pipe_lib
+from ..data import sharding as shard_lib
 from ..data import stream as stream_lib
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ..obs.tensorboard import TensorBoardWriter
+from ..parallel import bootstrap
+from ..parallel import mesh as mesh_lib
 from ..utils import checkpoint as ckpt_lib
 from ..utils import export as export_lib
 from ..utils import faults as faults_lib
@@ -99,7 +122,7 @@ from ..utils import retry as retry_lib
 from . import guard as guard_lib
 from . import metrics as metrics_lib
 from . import publish as publish_lib
-from .loop import Trainer, check_ported, pad_batch
+from .loop import Trainer, check_ported, pad_batch, zero_batch
 from .state import TrainState
 
 log = logging.getLogger(__name__)
@@ -107,17 +130,9 @@ log = logging.getLogger(__name__)
 
 def check_task_ported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a task mode the port has not
-    reached yet, naming its flag."""
+    reached yet, naming its flag: the Trainer's (``check_ported``: a
+    model axis, the row exchange)."""
     check_ported(cfg)
-    unported = [
-        (cfg.enable_data_multi_path,
-         "--enable_data_multi_path (multi-path channels)"),
-        (cfg.num_processes > 1, "--num_processes > 1 (multi-process runs)"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not yet ported to deepfm_tpu_torch")
 
 
 def resolve_files(directory: str, prefix: str) -> List[str]:
@@ -130,26 +145,91 @@ def resolve_files(directory: str, prefix: str) -> List[str]:
     return sorted(files)
 
 
-def resolve_channel_dirs(cfg: Config) -> Tuple[str, str]:
-    """(train_dir, eval_dir). With SageMaker-style channels (eval channel
-    first) each resolves to ``$SM_CHANNEL_<NAME>``, else a
-    ``<data_dir>/<name>`` subdirectory, else ``data_dir``."""
+def _channel_path(cfg: Config, name: str, *, require: bool = False) -> str:
+    """A channel's directory: ``$SM_CHANNEL_<NAME>`` when set, else a
+    ``<data_dir>/<name>`` subdirectory, else ``data_dir``. ``require``
+    (multi-path channels) makes the last fallback an error: resolving every
+    worker's private channel to the shared ``data_dir`` would train the
+    same records on every local worker."""
+    env_key = "SM_CHANNEL_" + "".join(
+        c if c.isalnum() else "_" for c in name).upper()
+    if os.environ.get(env_key):
+        return os.environ[env_key]
+    sub = os.path.join(cfg.data_dir, name) if cfg.data_dir else ""
+    if sub and os.path.isdir(sub):
+        return sub
+    if require:
+        raise FileNotFoundError(
+            f"channel {name!r} resolves to neither ${env_key} nor "
+            f"{sub or '<data_dir>/' + name!r}; enable_data_multi_path needs "
+            f"a real private directory per training channel")
+    return cfg.data_dir
+
+
+def resolve_channel_dirs(cfg: Config, *, process_index: Optional[int] = None
+                         ) -> Tuple[str, str]:
+    """(train_dir, eval_dir) for this process. With SageMaker-style
+    channels (eval channel first, reference ``2-hvd-gpu/...py:376-380,
+    403``) each resolves through :func:`_channel_path`; under
+    ``enable_data_multi_path`` local worker ``rank % worker_per_host``
+    reads its own training channel ``channel_names[1 + local_rank]``."""
     names = cfg.channel_names
     eval_default = cfg.val_data_dir or cfg.data_dir
     if not names:
         return cfg.data_dir, eval_default
-
-    def path(name: str) -> str:
-        env_key = "SM_CHANNEL_" + "".join(
-            c if c.isalnum() else "_" for c in name).upper()
-        if os.environ.get(env_key):
-            return os.environ[env_key]
-        sub = os.path.join(cfg.data_dir, name) if cfg.data_dir else ""
-        return sub if sub and os.path.isdir(sub) else cfg.data_dir
-
-    eval_dir = path(names[0]) if len(names) > 1 else eval_default
+    eval_dir = (_channel_path(cfg, names[0])
+                if len(names) > 1 else eval_default)
     train_names = names[1:] if len(names) > 1 else names
-    return path(train_names[0]), eval_dir
+    wph = max(cfg.worker_per_host, 1)
+    if cfg.enable_data_multi_path:
+        if len(train_names) < wph:
+            raise ValueError(
+                f"enable_data_multi_path needs one training channel per "
+                f"local worker: have {len(train_names)} channels "
+                f"{train_names} for worker_per_host={wph} "
+                f"(reference contract, README-EN.md:82)")
+        rank = (bootstrap.process_index() if process_index is None
+                else process_index)
+        train_dir = _channel_path(cfg, train_names[rank % wph], require=True)
+    else:
+        train_dir = _channel_path(cfg, train_names[0])
+    return train_dir, eval_dir
+
+
+def _local_batch_size(cfg: Config, world: Optional[int] = None) -> int:
+    """This rank's (or each of ``world`` ranks') rows of the global
+    ``batch_size``."""
+    return mesh_lib.local_batch_size(
+        cfg, bootstrap.process_count() if world is None else world)
+
+
+def _shard_spec(cfg: Config, files: List[str], rank: Optional[int] = None,
+                world: Optional[int] = None) -> shard_lib.ShardSpec:
+    """This rank's (or ``rank``'s of ``world``) share of ``files``."""
+    rank = bootstrap.process_index() if rank is None else rank
+    world = bootstrap.process_count() if world is None else world
+    return shard_lib.shard_files(
+        files, enable_data_multi_path=cfg.enable_data_multi_path,
+        enable_s3_shard=cfg.enable_s3_shard, rank=rank,
+        local_rank=rank % max(cfg.worker_per_host, 1), world_size=world,
+        workers_per_host=cfg.worker_per_host)
+
+
+def _validate_shard_coverage(cfg: Config, files: List[str]) -> None:
+    """Start-up guard of a multi-process run: the ranks' shard specs cover
+    every training file exactly once (every rank derives all the specs
+    and checks the same thing). Under ``enable_s3_shard`` this host's
+    local workers cover this host's files; private multi-path channels
+    are not one list, so they are not checked."""
+    world = bootstrap.process_count()
+    if world <= 1 or cfg.enable_data_multi_path:
+        return
+    if cfg.enable_s3_shard:
+        ranks = range(min(max(cfg.worker_per_host, 1), world))
+    else:
+        ranks = range(world)
+    specs = [_shard_spec(cfg, files, rank=r) for r in ranks]
+    shard_lib.validate_shard_coverage(specs, sorted(files))
 
 
 def _fault_tolerance_kwargs(cfg: Config) -> Dict:
@@ -172,11 +252,19 @@ def _decoded_cache_dir(cfg: Config) -> str:
 
 
 def make_pipeline(cfg: Config, files: List[str], *, epochs: int = 1,
-                  shuffle: bool = True, drop_remainder: Optional[bool] = None,
-                  epoch_offset: int = 0,
-                  skip_batches: int = 0) -> pipe_lib.CtrPipeline:
+                  shuffle: bool = True, sharded: bool = True,
+                  drop_remainder: Optional[bool] = None,
+                  epoch_offset: int = 0, skip_batches: int = 0,
+                  rank: Optional[int] = None, world: Optional[int] = None,
+                  shard: Optional[shard_lib.ShardSpec] = None
+                  ) -> pipe_lib.CtrPipeline:
+    """The file pipeline of this rank (or of ``rank`` of ``world``): its
+    shard of ``files`` (``shard`` when given) at the local batch size."""
+    if shard is None and sharded:
+        shard = _shard_spec(cfg, files, rank=rank, world=world)
     return pipe_lib.CtrPipeline(
-        sorted(files), field_size=cfg.field_size, batch_size=cfg.batch_size,
+        sorted(files), field_size=cfg.field_size,
+        batch_size=_local_batch_size(cfg, world), shard=shard,
         num_epochs=epochs, shuffle=shuffle,
         shuffle_files=shuffle and cfg.shuffle_files,
         shuffle_buffer=cfg.shuffle_buffer,
@@ -206,24 +294,27 @@ def make_streaming_pipeline(cfg: Config, files: List[str], *, epochs: int = 1,
                             skip_batches: int = 0, epoch_offset: int = 0
                             ) -> pipe_lib.StreamingCtrPipeline:
     """Pipe mode (``--pipe_mode 1``): one sequential single-pass stream over
-    the files, the epochs replayed by the producer (the Pipe-mode FIFO
-    shape). One DataHealth is shared by the producer (read retries, per
-    file) and the consumer (bad records)."""
+    this rank's share of the files, the epochs replayed by the producer
+    (the Pipe-mode FIFO shape); with fewer files than ranks each keeps
+    every world-th record. One DataHealth is shared by the producer (read
+    retries, per file) and the consumer (bad records)."""
+    shard = _shard_spec(cfg, files)
     health = pipe_lib.DataHealth()
     stream = pipe_lib.ChainedFileStream(
-        sorted(files), num_epochs=epochs,
+        list(shard.files), num_epochs=epochs,
         shuffle_each_epoch=cfg.shuffle_files, seed=cfg.seed,
         epoch_offset=epoch_offset,
         retry_policy=retry_lib.policy_from_config(cfg), health=health)
     return pipe_lib.StreamingCtrPipeline(
-        stream, field_size=cfg.field_size, batch_size=cfg.batch_size,
+        stream, field_size=cfg.field_size,
+        batch_size=_local_batch_size(cfg),
         drop_remainder=cfg.drop_remainder,
         prefetch_batches=cfg.prefetch_batches,
         use_native_decoder=cfg.use_native_decoder,
         skip_batches=skip_batches, verify_crc=cfg.verify_crc,
         on_bad_record=cfg.on_bad_record,
         max_bad_records=cfg.max_bad_records, num_labels=cfg.num_tasks,
-        health=health)
+        health=health, record_shard=shard.record_shard)
 
 
 # The online stream's high-water-mark sidecar, beside the checkpoints it
@@ -242,7 +333,15 @@ def make_online_pipeline(cfg: Config, train_dir: str, *, skip_batches: int = 0
     """``--online_mode``: the watcher tails ``tr*.tfrecords`` under
     ``train_dir`` (``data.stream``: admission, healing, the sidecar) and
     the streaming consumer decodes it. Returns (pipeline, stream): the
-    stream handle lets the preemption path wake a blocked poll."""
+    stream handle lets the preemption path wake a blocked poll. One
+    process only, as in the JAX package: ranks could record-shard an
+    unbounded stream consistently only after a chief-coordinated
+    admission order."""
+    if bootstrap.process_count() > 1:
+        raise NotImplementedError(
+            "online_mode is single-process for now: shard admission order "
+            "must be chief-coordinated before ranks can record-shard an "
+            "unbounded stream consistently")
     health = pipe_lib.DataHealth()
     sidecar = (os.path.join(cfg.model_dir, _STREAM_SIDECAR)
                if cfg.model_dir else "")
@@ -313,8 +412,11 @@ def _servable_state(trainer: Trainer, state: TrainState) -> TrainState:
 
 def run(cfg: Config, device="cuda") -> Dict[str, float]:
     """Entry point: dispatch on ``cfg.task_type``; returns result metrics.
-    ``device`` defaults to the card; pass ``"cpu"`` to run on the CPU."""
+    ``device`` defaults to the card; pass ``"cpu"`` to run on the CPU. The
+    process group comes up first under ``--dist_mode 1|2`` (a no-op when
+    the launcher already started it)."""
     check_task_ported(cfg)
+    bootstrap.initialize(cfg, device=device)
     # The --io_retry_* policy for every fileio op, and the read faults of
     # DEEPFM_TPU_READ_FAULT_EVERY (a drill's seam) when it is set.
     fileio.set_retry_policy(retry_lib.policy_from_config(cfg))
@@ -329,8 +431,8 @@ def run(cfg: Config, device="cuda") -> Dict[str, float]:
             os.path.join(obs_dir, f"metrics-{os.getpid()}.jsonl"),
             cfg.metrics_snapshot_secs)
     trainer = Trainer(cfg, device=device)
-    log.info("task=%s model=%s device=%s", cfg.task_type, cfg.model,
-             trainer.device)
+    log.info("task=%s model=%s device=%s processes=%d", cfg.task_type,
+             cfg.model, trainer.device, bootstrap.process_count())
     tasks = {"train": _task_train, "eval": _task_eval, "infer": _task_infer,
              "export": _task_export}
     if cfg.task_type not in tasks:
@@ -372,13 +474,40 @@ def _read_resume_meta(model_dir: str,
         return None
 
 
-def _files_fingerprint(files: List[str]) -> str:
+def _files_fingerprint(files: List[str], cfg: Optional[Config] = None
+                       ) -> str:
     """Digest of what the pipeline would read (basenames + sizes): a
-    mid-epoch skip is exact only over the same files."""
+    mid-epoch skip is exact only over the same files. Computed on the
+    chief. Under ``enable_data_multi_path`` (and the other shard-mapping
+    flags) the digest also covers the mapping and EVERY local worker's
+    training channel (each instance holds all of them), so an edit of a
+    sibling's channel invalidates the skip; an unresolvable channel or a
+    failed stat degrades to a stable marker."""
     h = hashlib.sha256(b"v1|")
-    for path in sorted(files):
-        h.update(f"{os.path.basename(path)}:{os.path.getsize(path)}|"
+    tagged = [("", p) for p in files]
+    if cfg is not None and (cfg.enable_data_multi_path
+                            or cfg.enable_s3_shard
+                            or cfg.worker_per_host > 1):
+        h.update(f"{int(cfg.enable_data_multi_path)}|"
+                 f"{int(cfg.enable_s3_shard)}|{cfg.worker_per_host}|"
                  .encode())
+        if cfg.enable_data_multi_path:
+            tagged = []
+            for r in range(max(cfg.worker_per_host, 1)):
+                try:
+                    chan_dir, _ = resolve_channel_dirs(cfg, process_index=r)
+                    tagged.extend((f"c{r}", p)
+                                  for p in resolve_files(chan_dir, "tr"))
+                except (OSError, ValueError):
+                    tagged.append((f"c{r}", "<unresolved>"))
+    for tag, path in sorted(tagged):
+        try:
+            n = os.path.getsize(path) if path != "<unresolved>" else -2
+        except OSError:
+            n = -1
+        name = f"{tag}={os.path.basename(path)}" if tag else \
+            os.path.basename(path)
+        h.update(f"{name}:{n}|".encode())
     return h.hexdigest()[:32]
 
 
@@ -390,8 +519,12 @@ def _consumption_layout(cfg: Config) -> List:
     order, and online mode swaps the producer for the unbounded stream. ``grad_accum_steps`` does not change which batches a step count
     covers (``state.step`` counts microbatches), but it changes which
     optimizer trajectory wrote the checkpoint: a resume across any of these
-    replays the epoch rather than skip along another stream."""
-    return ["torch-2", cfg.steps_per_loop, int(cfg.use_native_decoder),
+    replays the epoch rather than skip along another stream. The number of
+    processes (each reads its shard at ``batch_size / world`` rows) rides
+    the tag of a multi-process run."""
+    world = bootstrap.process_count()
+    tag = "torch-2" if world == 1 else f"torch-2-w{world}"
+    return [tag, cfg.steps_per_loop, int(cfg.use_native_decoder),
             cfg.batch_size, cfg.shuffle_buffer, cfg.seed,
             int(cfg.drop_remainder), int(cfg.shuffle_files),
             cache_lib.MODES.index(cfg.decoded_cache),
@@ -438,7 +571,11 @@ def _resume_position(cfg: Config, restored_step: int, files_digest: str,
 # ---------------------------------------------------------------------------
 
 
-def _export(trainer: Trainer, cfg: Config, state: TrainState) -> str:
+def _export(trainer: Trainer, cfg: Config, state: TrainState
+            ) -> Optional[str]:
+    """The servable artifact of ``state``, written by the chief only."""
+    if not bootstrap.is_chief():
+        return None
     out = os.path.join(cfg.servable_model_dir, str(int(state.step)))
     model = trainer.servable_model(_servable_state(trainer, state))
     return export_lib.export_serving(model, cfg, out, step=int(state.step))
@@ -492,21 +629,47 @@ def _fit_epoch(trainer: Trainer, cfg: Config, state: TrainState, pipeline,
                        guard=guard)
 
 
+# Under more than one process the ranks consult their own clocks and flags
+# only at agreed dispatch counts, then adopt one verdict: the eval (a
+# collective) and the preemption save happen at the same dispatch on
+# every rank without a sync per dispatch.
+_EVAL_CHECK_DISPATCHES = 50
+
+
+def _eval_check_due(n_dispatch: int) -> bool:
+    """The rank-independent schedule of check dispatches: powers of two
+    early, so short runs still get mid-train evals, then every
+    ``_EVAL_CHECK_DISPATCHES``."""
+    if n_dispatch < _EVAL_CHECK_DISPATCHES:
+        return n_dispatch & (n_dispatch - 1) == 0  # 1, 2, 4, 8, 16, 32
+    return n_dispatch % _EVAL_CHECK_DISPATCHES == 0
+
+
 def _make_throttled_eval_hook(trainer: Trainer, cfg: Config,
                               va_files: List[str], result: Dict[str, float],
                               on_eval=None, evaluate=None):
     """Mid-train eval hook with TrainSpec/EvalSpec timing: the first eval
     no earlier than ``eval_start_delay_secs`` into the run, then at most
-    one every ``eval_throttle_secs``, checked once per dispatch."""
+    one every ``eval_throttle_secs``, checked once per dispatch. Under
+    more than one process the clock is read at the :func:`_eval_check_due`
+    dispatches only and the chief's verdict is broadcast (``fit`` keeps
+    the dispatch counts equal across ranks)."""
     t_start = time.time()
     last_eval_t: List[Optional[float]] = [None]
+    n_dispatch = [0]
     result["mid_train_evals"] = 0.0
 
     def hook(state: TrainState, m) -> None:
+        n_dispatch[0] += 1
+        multi = bootstrap.process_count() > 1
+        if multi and not _eval_check_due(n_dispatch[0]):
+            return
         now = time.time()
         due = (now - t_start >= cfg.eval_start_delay_secs
                and (last_eval_t[0] is None
                     or now - last_eval_t[0] >= cfg.eval_throttle_secs))
+        if multi:
+            due = bool(bootstrap.broadcast_ints([int(due)])[0])
         if not due:
             return
         last_eval_t[0] = time.time()
@@ -593,10 +756,15 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
         # Online mode tails the directory: starting before the first shard
         # arrives is the normal case.
         raise FileNotFoundError(f"no training tfrecords in {train_dir!r}")
+    _validate_shard_coverage(cfg, tr_files)
     log.info("train dir=%s files=%d eval files=%d", train_dir,
              len(tr_files), len(va_files))
+    multi = bootstrap.process_count() > 1
     if cfg.clear_existing_model and cfg.model_dir:
-        ckpt_lib.clear_model_dir(cfg.model_dir)
+        ckpt_lib.clear_model_dir(cfg.model_dir)  # the chief's rmtree
+        # No rank builds its CheckpointManager (which re-creates the
+        # directory) before the chief's delete is done.
+        bootstrap.barrier()
     mgr = None
     if cfg.model_dir:
         mgr = ckpt_lib.CheckpointManager(
@@ -614,9 +782,13 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
     listener = preempt_lib.get_listener()
     # Online mode's listing grows by design: a stable digest keeps the
     # resume gate from refusing a replayable skip, and the stream's
-    # high-water-mark sidecar says what will be read.
-    files_digest = (_ONLINE_FILES_DIGEST if cfg.online_mode
-                    else _files_fingerprint(tr_files))
+    # high-water-mark sidecar says what will be read. The resume decision
+    # is the chief's, broadcast (a rank deciding from its own view of the
+    # files could desynchronize the lockstep).
+    files_digest = ""
+    if bootstrap.is_chief():
+        files_digest = (_ONLINE_FILES_DIGEST if cfg.online_mode
+                        else _files_fingerprint(tr_files, cfg))
     fault_after = _env_steps(FAULT_AFTER_ENV)
     preempt_after = _env_steps(PREEMPT_AFTER_ENV)
     hold_after = _env_steps(PREEMPT_HOLD_ENV)
@@ -644,7 +816,8 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
         log_health(pipe, where)
         return ev
 
-    tb = TensorBoardWriter(cfg.tensorboard_dir)
+    tb = TensorBoardWriter(cfg.tensorboard_dir if bootstrap.is_chief()
+                           else "")
 
     def tb_log(step: int, loss: float, eps: float) -> None:
         tb.scalars(step, loss=loss, examples_per_sec=eps)
@@ -668,7 +841,8 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
             result["examples_per_sec"] = fit_m.get("examples_per_sec", 0.0)
             result["step_ms_p50"] = fit_m.get("step_ms_p50", 0.0)
             result.update({k: v for k, v in fit_m.items()
-                           if k.startswith(("hotcold_", "staging_"))})
+                           if k.startswith(("hotcold_", "staging_",
+                                            "collective_", "dispatch_"))})
 
     def attempt(state: TrainState) -> TrainState:
         """One training attempt from ``state``: the resume position, the
@@ -677,8 +851,10 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
         checkpoint and starts another, whose resume position replays from
         that checkpoint's recorded offset."""
         restored_step = int(state.step)
-        epoch_base, start_epoch, skip_batches = _resume_position(
-            cfg, restored_step, files_digest, health)
+        pos = (_resume_position(cfg, restored_step, files_digest, health)
+               if bootstrap.is_chief() else (0, 0, 0))
+        epoch_base, start_epoch, skip_batches = (
+            bootstrap.broadcast_ints(pos) if multi else pos)
         if start_epoch or skip_batches:
             log.info("step-accurate resume: epoch %d (+%d batches already "
                      "trained), epoch_base=%d", start_epoch, skip_batches,
@@ -765,21 +941,33 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
                     time.sleep(0.05)
             hooks.append(hold_hook)
 
+        pc_dispatch = [0]
+
         def preempt_hook(s: TrainState, m) -> None:
             # Polled once per dispatch, after the dispatch's checkpoint
-            # hook: the in-flight dispatch has finished.
-            if not listener.triggered():
+            # hook: the in-flight dispatch has finished. Under more than
+            # one process the flag is read at the agreed dispatches only
+            # and ORed over the ranks, so every rank saves and stops at
+            # the same dispatch.
+            pc_dispatch[0] += 1
+            trig = listener.triggered()
+            if multi:
+                if not _eval_check_due(pc_dispatch[0]):
+                    return
+                trig = bootstrap.any_rank(trig)
+            if not trig:
                 return
             health.record_preemption()
             log.warning("preemption (%s): force-saving a checkpoint at step "
                         "%d, then exiting with code %d",
-                        listener.reason or "signal", s.step,
+                        listener.reason or "peer rank", s.step,
                         preempt_lib.EXIT_PREEMPTED)
             if mgr is not None:
                 # An interval save may have landed on this very step (save
                 # dedups); the sidecar makes the mid-epoch resume exact.
                 save(s.step, s, force=True)
-                _write_resume_meta(cfg.model_dir, meta(s.step, False))
+                if bootstrap.is_chief():
+                    _write_resume_meta(cfg.model_dir, meta(s.step, False))
             if online_stream[0] is not None:
                 online_stream[0].request_stop()  # wake a blocked poll
             if publisher is not None:
@@ -886,7 +1074,8 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
                         # durable.
                         progress["epoch"] = epoch + 1
                         progress["epoch_start"] = state.step
-                        if state.step in mgr.all_steps():
+                        if (bootstrap.is_chief()
+                                and state.step in mgr.all_steps()):
                             _write_resume_meta(cfg.model_dir,
                                                meta(state.step, False))
                     if va_files and not eval_throttled:
@@ -909,7 +1098,8 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
                 online_stream[0] = None
         if mgr is not None:
             save(state.step, state, completed=True, force=True)
-            _write_resume_meta(cfg.model_dir, meta(state.step, True))
+            if bootstrap.is_chief():
+                _write_resume_meta(cfg.model_dir, meta(state.step, True))
         return state
 
     try:
@@ -920,7 +1110,11 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
             except guard_lib.RollbackSignal as rs:
                 # The guard's shared budget (max_rollbacks, over skips and
                 # rollbacks) bounds how often a run gets here. The latest
-                # step includes an interval save still landing.
+                # step includes an interval save still landing (the
+                # chief's; the others wait for it at the barrier).
+                if mgr is not None:
+                    mgr.wait()
+                    bootstrap.barrier()
                 if mgr is None or mgr.latest_step() is None:
                     raise guard_lib.NonFiniteError(
                         f"rollback requested at step {rs.step} but no "
@@ -962,38 +1156,76 @@ def _task_eval(trainer: Trainer, cfg: Config) -> Dict[str, float]:
     return ev
 
 
+def _interleave_rank_shards(gathered: np.ndarray, counts: np.ndarray
+                            ) -> np.ndarray:
+    """Global record order from per-rank record-sharded results: rank r
+    held records r, r + world, r + 2 * world, ..., so global record
+    ``i * world + r`` is ``gathered[r, i]``. Trailing dims (per-task
+    columns) carry through."""
+    world = gathered.shape[0]
+    out = np.empty((int(counts.sum()),) + gathered.shape[2:],
+                   dtype=gathered.dtype)
+    for r in range(world):
+        n = int(counts[r])
+        out[r:(n - 1) * world + r + 1:world] = gathered[r, :n]
+    return out
+
+
 def _task_infer(trainer: Trainer, cfg: Config) -> Dict[str, float]:
     pred_dir = cfg.val_data_dir or cfg.data_dir
     te_files = resolve_files(pred_dir, "te")
     if not te_files:
         raise FileNotFoundError("no inference tfrecords found")
     state = _restore_or_init(trainer, cfg, require=True)
-    pipeline = make_pipeline(cfg, te_files, shuffle=False,
-                             drop_remainder=False)
+    world = bootstrap.process_count()
+    rank = bootstrap.process_index()
+    local_bs = _local_batch_size(cfg)
+    # Record-level shard: each rank predicts every world-th record and the
+    # predictions are re-interleaved into global order before the chief
+    # writes them.
+    files = tuple(sorted(te_files))
+    pipeline = make_pipeline(cfg, list(files), shuffle=False,
+                             drop_remainder=False, shard=shard_lib.ShardSpec(
+                                 files, record_shard=((world, rank)
+                                                      if world > 1 else None)))
     real_rows: List[int] = []
 
     def feed():
-        for batch in pipeline:
-            n = batch["label"].shape[0]
+        if world > 1:
+            # Lockstep rounds, as eval's: every rank feeds the same number
+            # of batches (an exhausted rank dummies, their output dropped).
+            src = trainer.lockstep_batches(pipeline, lambda: zero_batch(
+                cfg.field_size, local_bs, num_labels=cfg.num_tasks,
+                hist_len=cfg.history_max_len))
+        else:
+            src = ((b, True) for b in pipeline)
+        for batch, real in src:
+            n = batch["label"].shape[0] if real else 0
             real_rows.append(n)
-            yield pad_batch(batch, cfg.batch_size) if n < cfg.batch_size \
-                else batch
+            yield (pad_batch(batch, local_bs) if real and n < local_bs
+                   else batch)
 
     probs = [p[:real_rows[i]]
-             for i, p in enumerate(trainer.predict(state, feed()))]
+             for i, p in enumerate(trainer.predict(state, feed()))
+             if real_rows[i]]
     # Single-task probabilities are [n]; multi-task [n, T], one column per
     # task in cfg.task_names order.
     tail = (cfg.num_tasks,) if cfg.num_tasks > 1 else ()
-    all_probs = (np.concatenate(probs) if probs
-                 else np.zeros((0,) + tail, np.float32)).astype(np.float32)
+    local = (np.concatenate(probs) if probs
+             else np.zeros((0,) + tail, np.float32)).astype(np.float32)
+    if world > 1:
+        all_probs = _interleave_rank_shards(*bootstrap.allgather_rows(local))
+    else:
+        all_probs = local
     out_path = os.path.join(pred_dir, "pred.txt")
-    with open(out_path, "w", encoding="utf-8") as f:
-        # One line per record; a multi-task model writes one
-        # space-separated column per task.
-        for p in all_probs:
-            f.write(" ".join(f"{float(v):.6f}" for v in np.atleast_1d(p))
-                    + "\n")
-    log.info("wrote %d predictions to %s", len(all_probs), out_path)
+    if bootstrap.is_chief():
+        with open(out_path, "w", encoding="utf-8") as f:
+            # One line per record; a multi-task model writes one
+            # space-separated column per task.
+            for p in all_probs:
+                f.write(" ".join(f"{float(v):.6f}" for v in np.atleast_1d(p))
+                        + "\n")
+        log.info("wrote %d predictions to %s", len(all_probs), out_path)
     return {"num_predictions": float(len(all_probs))}
 
 

@@ -20,6 +20,10 @@ callbacks (the resume sidecar) run only once their checkpoint is durable. An int
 deferred to the next interval; only more than ``max_save_failures``
 consecutive failures abort the run, and a forced save that fails always
 raises. ``latest_step`` and ``restore`` read through ``retry_policy``.
+
+Under data parallelism only the chief writes (saves, async saves and
+``clear_model_dir``); every rank holds the same replicated state and
+restores the same checkpoint from the shared ``model_dir``.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel import bootstrap
 from . import retry as retry_lib
 
 log = logging.getLogger(__name__)
@@ -203,6 +208,13 @@ class CheckpointManager:
         (or being saved) or an interval save failed within its budget.
         ``on_saved`` runs once the checkpoint is durable."""
         step = int(step)
+        if not bootstrap.is_chief():
+            # The chief writes the replicated state; this rank keeps only
+            # the dedup bookkeeping, so its answers match the chief's.
+            if step in self._saved_steps:
+                return False
+            self._saved_steps.add(step)
+            return True
         if force:
             self.wait()
         else:
@@ -267,7 +279,10 @@ class CheckpointManager:
 
 
 def clear_model_dir(directory: str) -> None:
-    """``clear_existing_model``: wipe the checkpoint dir for a fresh run."""
+    """``clear_existing_model``: wipe the checkpoint dir for a fresh run;
+    chief only (the caller puts the other ranks behind a barrier)."""
+    if not bootstrap.is_chief():
+        return
     if os.path.isdir(directory):
         shutil.rmtree(directory)
         log.info("cleared existing model dir %s", directory)

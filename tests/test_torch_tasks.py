@@ -254,13 +254,15 @@ def test_eval_infer_export_need_a_checkpoint(data_dir, tmp_path):
 ])
 def test_unported_modes_raise_naming_their_flag(data_dir, tmp_path, flag,
                                                 value):
-    """Each mode the port has not reached (a mesh, the multi-path channels,
-    more than one process) raises naming its flag. The others are ported
-    and their train tasks run one epoch: online and pipe mode, publishing,
-    TensorBoard, the profiler window, throttled eval, the input service,
-    gradient accumulation, the decoded cache, the device-resident dataset
-    (with a pool that covers the epoch, so it does not fall back) and
-    bad-record skipping."""
+    """Each mode the port has not reached (a model axis) raises naming its
+    flag. The others are ported and their train tasks run one epoch: online
+    and pipe mode, publishing, TensorBoard, the profiler window, throttled
+    eval, the input service, gradient accumulation, the decoded cache, the
+    device-resident dataset (with a pool that covers the epoch, so it does
+    not fall back), bad-record skipping, and the multi-process flags, which
+    in one process (``--dist_mode 0``) train as one process does: no
+    channels configured for the multi-path flag, a world of 1 for
+    ``--num_processes``."""
     kw = {flag: value}
     named = flag
     if flag in ("tensorboard_dir", "profile_dir"):
@@ -272,7 +274,7 @@ def test_unported_modes_raise_naming_their_flag(data_dir, tmp_path, flag,
     if flag == "online_mode":
         kw.update(pipe_mode=1, publish_every_steps=8,
                   stream_poll_secs=0.05, stream_idle_timeout_secs=0.3)
-    if flag not in ("mesh_model", "enable_data_multi_path", "num_processes"):
+    if flag != "mesh_model":
         with warnings.catch_warnings():
             warnings.simplefilter("error", RuntimeWarning)
             res = tasks.run(_cfg(data_dir, str(tmp_path), num_epochs=1, **kw),

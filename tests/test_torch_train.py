@@ -425,10 +425,16 @@ def test_unported_guard_policies_raise(policy):
     ("device_dataset", True, "--device_dataset"),
 ])
 def test_unported_trainer_flags_raise(flag, value, match):
-    """A mesh other than 1x1 still raises naming its flag; gradient
-    accumulation, the stall watchdog and the device-resident dataset are
-    ported and pass."""
+    """A model axis still raises naming its flag; a data axis wider than
+    the process group (``--mesh_data 2`` in one process) raises naming its
+    flag too, as a configuration error; gradient accumulation, the stall
+    watchdog and the device-resident dataset are ported and pass."""
     kw = _kw(**{flag: value})
+    if flag == "mesh_data":
+        check_ported(Config(**kw))
+        with pytest.raises(ValueError, match=match):
+            Trainer(Config(**kw), device="cpu")
+        return
     if flag == "grad_accum_steps":
         kw["steps_per_loop"] = 2
     if flag == "device_dataset":
