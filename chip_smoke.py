@@ -295,6 +295,7 @@ below assumes both.
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import io
 import json
@@ -317,6 +318,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from deepfm_tpu_torch import _native, launch  # noqa: E402
+from deepfm_tpu_torch import config as config_lib  # noqa: E402
 from deepfm_tpu_torch.config import Config  # noqa: E402
 from deepfm_tpu_torch.data import cache as cache_lib  # noqa: E402
 from deepfm_tpu_torch.data import fileio, libsvm  # noqa: E402
@@ -4764,6 +4766,406 @@ def dp_phase(workdir: str, data: dict, cfg: Config,
     return {"train_dp_gloo": launches}
 
 
+# ---------------------------------------------------------------------------
+# The model axis: tables row-sharded over --mesh_model ranks
+# ---------------------------------------------------------------------------
+
+MP_ROWS = dict(embedding_update="sparse", embedding_shard="rows")
+# leg -> (mesh_data, mesh_model, config overrides); the model-only legs are
+# held bit-equal to one device, the data-only row plane (leg iii) within
+# the DP phase's tolerances.
+MP_LEGS = {
+    "train_mp_dense": (1, 2, {}),
+    "train_mp_allgather": (1, 2, dict(embedding_lookup="allgather_table")),
+    "train_mp_rows": (1, 2, MP_ROWS),
+    "train_mp_rows_hashed": (1, 2, dict(
+        MP_ROWS, **{k: v for k, v in SPARSE_LAYOUTS["sparse_hashed"].items()
+                    if k != "embedding_update"})),
+    "train_dp_rows": (0, 1, MP_ROWS),
+}
+# The legs whose artifact is served against the one-device artifact.
+MP_SERVED = ("train_mp_dense", "train_mp_rows")
+MP_SERVE_REQUESTS = 24
+MP_RANK_TIMEOUT_S = 420
+# Four cards (--phase mp): the row plane at 1x4 and 2x2, and one large
+# hashed table, 4 x 4,194,304 buckets (fm_v 2.15 GB, its m and v 4.3 GB).
+MP_BIG_BUCKETS = "4194304,4194304,4194304,4194304"
+
+
+def _mp_leg_cfg(cfg: Config, run_dir: str, data: dict, leg: str) -> Config:
+    """The leg's task config: the DP phase's (one epoch, dropout off, a
+    float32 tower) with the leg's mesh and layout, in ``run_dir``."""
+    d, m, over = MP_LEGS[leg]
+    return cfg.replace(data_dir=data["dir"], val_data_dir=data["dir"],
+                       model_dir=os.path.join(run_dir, "ckpt"),
+                       servable_model_dir=os.path.join(run_dir, "srv"),
+                       mesh_data=d, mesh_model=m, **DP_CFG, **DP_HELD,
+                       **over)
+
+
+def placement_bytes(cfg: Config, dev: torch.device) -> dict:
+    """A Trainer's state of ``cfg`` placed on ``dev``: the allocator's bytes
+    before and after ``init_state`` (the card's ``memory_allocated``; 0 on
+    the CPU) and the embedding tables' and their optimizer slots' bytes
+    counted from the tensors this rank holds."""
+    tr = Trainer(cfg, device=dev)
+
+    def allocated():
+        # Collect earlier phases' cyclic garbage first: freed during the
+        # init, it would read as negative placement.
+        gc.collect()
+        if dev.type != "cuda":
+            return 0
+        torch.cuda.synchronize(dev)
+        return int(torch.cuda.memory_allocated(dev))
+
+    before = allocated()
+    state = tr.init_state()
+    after = allocated()
+    keys = {p for ks in tr._embed_keys.values() for p in ks.values()}
+
+    def emb_bytes(tree, path):
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            tree = tree._asdict()
+        if isinstance(tree, dict):
+            return sum(emb_bytes(v, path + (k,)) for k, v in tree.items())
+        if isinstance(tree, torch.Tensor) and (
+                set(path) & keys or path[:2] == ("opt", "embed")):
+            return tree.numel() * tree.element_size()
+        return 0
+
+    emb = emb_bytes({"params": state.params, "opt": state.opt_state}, ())
+    del state, tr
+    return {"allocated": after - before, "embedding_bytes": int(emb)}
+
+
+def mp_rank_main(spec_path: str, rank: int) -> int:
+    """One gloo rank of the one-card model-axis runs (a child process of
+    ``mp_phase``): each leg's train task through the launcher (its kernel
+    launches and result line), then each leg's placement bytes on one
+    process group; written to ``<out>.<rank>.json``."""
+    with open(spec_path, encoding="utf-8") as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device(spec["device"])
+    dist = ["--dist_mode", "1", "--num_processes", str(spec["world"]),
+            "--process_id", str(rank), "--worker_per_host",
+            str(spec["world"])]
+    out = {}
+    for leg, argv in spec["argv"].items():
+        _zero_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = launch.main(argv + dist + [
+                "--coordinator_address", f"file://{spec['store']}.{leg}"],
+                device=dev, backend="gloo")
+        if rc != 0:
+            raise RuntimeError(f"rank {rank} leg {leg}: exit {rc}")
+        out[leg] = {"result": json.loads(
+            buf.getvalue().strip().splitlines()[-1]), "launches": _counts()}
+    bootstrap.initialize(config_lib.parse_args(dist + [
+        "--coordinator_address", f"file://{spec['store']}.placement"]),
+        device=dev, backend="gloo")
+    for leg, argv in spec["argv"].items():
+        out[leg]["placement"] = placement_bytes(
+            config_lib.parse_args(argv + dist), dev)
+        out[leg]["transport"] = emb_ops.exchange_transport(
+            emb_ops.ModelAxis(0, 2), dev)
+    bootstrap.barrier()
+    bootstrap.destroy()
+    with open(f"{spec['out']}.{rank}.json", "w", encoding="utf-8") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _restored(cfg: Config, dev: torch.device):
+    """The latest checkpoint of ``cfg.model_dir`` restored on one device."""
+    one = cfg.replace(mesh_data=0, mesh_model=1)
+    return ckpt_lib.CheckpointManager(cfg.model_dir).restore(
+        Trainer(one, device=dev).init_state())
+
+
+def _state_tensors(state) -> dict:
+    """{path: tensor} of a state's params, model state and optimizer
+    slots."""
+    out = {f"p.{k}": v.detach() for k, v in state.params.items()}
+    out.update({f"s.{k}": v for k, v in state.model_state.items()})
+
+    def walk(tree, path):
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            tree = tree._asdict()
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{path}.{k}")
+        elif isinstance(tree, torch.Tensor):
+            out[path] = tree
+
+    walk(state.opt_state, "o")
+    return out
+
+
+def _serve_answers(servable: str, step: int, requests, dev) -> list:
+    """``serve_latest`` of ``servable``'s version ``step``, one request at a
+    time (so every flush holds one request, the same on every engine)."""
+    export_lib.write_latest(servable, str(step))
+    buckets = export_lib.serving_buckets(256)
+    engine = ServingEngine.serve_latest(
+        servable, max_batch=256, max_delay_ms=1.0, inflight=1,
+        buckets=buckets, watcher_kw={"loader": lambda path: (
+            export_lib.load_serving(path, buckets=buckets, device=dev))})
+    try:
+        return [engine.submit(ids, vals).result(timeout=300)
+                for ids, vals in requests]
+    finally:
+        engine.close(timeout=60)
+
+
+def mp_phase(workdir: str, data: dict, cfg: Config,
+             dev: torch.device) -> dict:
+    """The model axis on one card: two gloo ranks on ``dev`` (NCCL takes
+    one rank a card), the launcher's train task for every leg of
+    ``MP_LEGS`` at the reference width, one epoch at a global B of 1,024.
+    The model-only legs (1x2: the dense update over masked_psum and
+    allgather_table, the row plane monolithic and hashed) must end with
+    checkpoints (the gathered full state) equal bit for bit to one
+    device's run of the same task, each rank's kernel launches must equal
+    the one-device run's (dense legs) or one plan, one segments build, two
+    takes forward and two backward a step (row legs), each rank must hold
+    half of one device's embedding bytes, and two artifacts exported from
+    1x2 states must answer ``serve_latest``'s requests as the one-device
+    artifacts do, bit for bit. The data-only row plane (2x1, leg iii) is
+    held against one device on the same global batches as the DP phase
+    holds its runs. Returns {leg: rank 0's train-task launches}."""
+    t0 = time.perf_counter()
+    world = 2
+    cfgs = {leg: _mp_leg_cfg(cfg, os.path.join(workdir, leg), data, leg)
+            for leg in MP_LEGS}
+    spec = {"world": world, "device": str(dev),
+            "argv": {leg: _launch_argv(c, "train") for leg, c in cfgs.items()},
+            "store": os.path.join(workdir, "mp_store"),
+            "out": os.path.join(workdir, "mp_out")}
+    spec_path = os.path.join(workdir, "mp_spec.json")
+    with open(spec_path, "w", encoding="utf-8") as f:
+        json.dump(spec, f)
+    logs = [os.path.join(workdir, f"mp_rank{r}.log") for r in range(world)]
+    cmds = [[sys.executable, "-c",
+             "import sys, chip_smoke; sys.exit(chip_smoke.mp_rank_main("
+             f"{spec_path!r}, {r}))"] for r in range(world)]
+    env = _dp_env(**{loop_lib.TIME_COLLECTIVES_ENV: "1"})
+    _run_children(cmds, env, logs, MP_RANK_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with open(f"{spec['out']}.{r}.json", encoding="utf-8") as f:
+            ranks.append(json.load(f))
+    text = [open(p, encoding="utf-8").read() for p in logs]
+    for what in ("checkpoint saved", "exported servable"):
+        assert what in text[0], what
+        assert what not in text[1], what
+    print(f"mp: {world} gloo ranks on {dev} ({len(MP_LEGS)} train tasks in "
+          f"{wall:.1f}s), exchange transport "
+          f"{ranks[0]['train_mp_rows']['transport']} ({card_line()})")
+    launches = {}
+    files = tasks.resolve_files(data["dir"], "tr")
+    rng = np.random.default_rng(SEED)
+    requests = [(rng.integers(0, cfg.feature_size, (n, cfg.field_size)
+                              ).astype(np.int32),
+                 rng.random((n, cfg.field_size), dtype=np.float32))
+                for n in rng.choice(REQUEST_SIZES, size=MP_SERVE_REQUESTS)]
+    for leg, (d, m, _) in MP_LEGS.items():
+        c = cfgs[leg]
+        res = [rk[leg]["result"] for rk in ranks]
+        counts = [rk[leg]["launches"] for rk in ranks]
+        place = [rk[leg]["placement"] for rk in ranks]
+        steps = int(res[0]["steps"])
+        launches[leg] = counts[0]
+        assert counts[0] == counts[1], (leg, counts)
+        print(f"mp {leg} ({d or world}x{m}): steps={steps} loss="
+              f"{res[0]['loss']:.6f} examples_per_sec (all ranks)="
+              f"{res[0]['examples_per_sec']:.1f} step_ms_p50="
+              f"{res[0]['step_ms_p50']:.3f} (host clock) dispatch_device_ms="
+              f"{res[0].get('dispatch_device_ms', float('nan')):.4f} "
+              f"exchange_bytes={res[0].get('exchange_bytes', 0):.0f} "
+              f"exchange_ms (median a step)="
+              f"{res[0].get('exchange_device_ms', float('nan')):.4f} "
+              f"collective_device_ms="
+              f"{res[0].get('collective_device_ms', float('nan')):.4f}; "
+              f"rank launches {counts[0]}")
+        one_place = placement_bytes(c.replace(mesh_data=0, mesh_model=1),
+                                    dev)
+        print(f"mp {leg} embedding bytes per rank: "
+              f"{[p['embedding_bytes'] for p in place]} counted, "
+              f"{[p['allocated'] for p in place]} allocated by placement; "
+              f"one device {one_place['embedding_bytes']} counted, "
+              f"{one_place['allocated']} allocated")
+        if m > 1:
+            # Half the embedding state a rank; the rest of the state (the
+            # tower and its slots) is replicated, allocated alike.
+            for p in place:
+                assert 2 * p["embedding_bytes"] == \
+                    one_place["embedding_bytes"], (leg, p, one_place)
+                if dev.type == "cuda":
+                    rest = p["allocated"] - p["embedding_bytes"]
+                    one_rest = (one_place["allocated"]
+                                - one_place["embedding_bytes"])
+                    assert abs(rest - one_rest) <= 0.01 * \
+                        one_place["allocated"], (leg, p, one_place)
+        if d == 0:  # leg iii: the data axis only
+            _dp_hold("dp rows", c, dev, files, world, res[0]["loss"])
+            assert dev.type != "cuda" or counts[0]["plan_build"] == steps, \
+                counts[0]
+            continue
+        # The same task on one device: its checkpoint, its launches.
+        one = c.replace(mesh_model=1, model_dir=os.path.join(
+            workdir, leg + "_one", "ckpt"), servable_model_dir=os.path.join(
+            workdir, leg + "_one", "srv"))
+        _zero_counts()
+        launch_task(one, "train", dev)
+        single = _counts()
+        a = _state_tensors(_restored(c, dev))
+        b = _state_tensors(_restored(one, dev))
+        assert set(a) == set(b), (sorted(a), sorted(b))
+        same = all(torch.equal(a[k], b[k]) for k in b)
+        print(f"mp {leg}: the 1x2 checkpoint (gathered tables, optimizer "
+              f"slots, BN) restored on one device equals one device's run "
+              f"bit for bit: {same}; one-device launches {single}")
+        assert same, [k for k in b if not torch.equal(a[k], b[k])]
+        # On the CPU (a rehearsal) the wrappers launch nothing.
+        if c.embedding_shard == "rows" and dev.type == "cuda":
+            want = dict(single, plan_build=steps, take_fwd=2 * steps,
+                        take_bwd=2 * steps, segments=steps)
+            assert counts[0] == want, (counts[0], want)
+        else:
+            assert counts[0] == single, (counts[0], single)
+        if leg in MP_SERVED:
+            got = _serve_answers(c.servable_model_dir, steps, requests, dev)
+            want = _serve_answers(one.servable_model_dir, steps, requests,
+                                  dev)
+            equal = all(np.array_equal(x, y) for x, y in zip(got, want))
+            print(f"mp {leg}: the 1x2 artifact served by serve_latest "
+                  f"answers {len(requests)} requests as the one-device "
+                  f"artifact does, bit for bit: {equal}")
+            assert equal
+    print(f"mp phase: {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
+def mp_child_main(argv, device: str = "cuda") -> int:
+    """One NCCL rank of a four-card model-axis run (a ``fanout`` child, one
+    card; gloo on the CPU in a rehearsal): the placement bytes of its state
+    on the task's process group as a ``{"task": "placement", ...}`` line,
+    then the launcher's task on the same group."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = config_lib.parse_args(argv)
+    dev = torch.device(device)
+    bootstrap.initialize(cfg, device=dev)
+    print(json.dumps({"task": "placement", **placement_bytes(cfg, dev)}),
+          flush=True)
+    return launch.main(argv, device=dev)
+
+
+def _fanout_mp(workdir: str, name: str, cfg: Config, n: int,
+               env: dict, dev: torch.device) -> dict:
+    """``fanout --worker_per_host n`` of ``cfg``'s train task with
+    :func:`mp_child_main` children: {task: {rank: line}}."""
+    log = os.path.join(workdir, f"{name}.log")
+    argv = ["--worker_per_host", str(n), "--coordinator_address",
+            f"file://{os.path.join(workdir, name + '_store')}",
+            *_launch_argv(cfg, "train")]
+    child = [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.mp_child_main(sys.argv[1:], "
+             f"{dev.type!r}))"]
+    cmd = [sys.executable, "-c", "import sys, json; from deepfm_tpu_torch "
+           "import fanout; sys.exit(fanout.main(json.loads(sys.argv[1]), "
+           "child=json.loads(sys.argv[2])))", json.dumps(argv),
+           json.dumps(child)]
+    t0 = time.perf_counter()
+    _run_children([cmd], env, [log], MP_RANK_TIMEOUT_S)
+    out: dict = {}
+    with open(log, encoding="utf-8") as f:
+        for line in f:
+            if line.startswith("[worker ") and '{"task"' in line:
+                rank = int(line[len("[worker "):line.index("]")])
+                res = json.loads(line[line.index("{"):])
+                out.setdefault(res["task"], {})[rank] = res
+    assert sorted(out.get("train", {})) == list(range(n)), out.keys()
+    print(f"mp {name}: fanout --worker_per_host {n} in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def _mp_rank_lines(name: str, out: dict, d: int, m: int) -> None:
+    for r, t in sorted(out["train"].items()):
+        xb = t.get("exchange_bytes", 0.0)
+        print(f"mp {name} rank {r} ({d}x{m}, NCCL): examples_per_sec (all "
+              f"ranks)={t['examples_per_sec']:.1f} step_ms_p50="
+              f"{t['step_ms_p50']:.3f} (host clock) dispatch_device_ms="
+              f"{t.get('dispatch_device_ms', float('nan')):.4f} exchange: "
+              f"{xb:.0f} bytes a step, device ms (median) "
+              f"{t.get('exchange_device_ms', float('nan')):.4f} against "
+              f"{xb / NVLINK_BYTES_PER_S * 1e3:.4f} over NVLink; gradient "
+              f"all_reduce device ms (median) "
+              f"{t.get('collective_device_ms', float('nan')):.4f} over "
+              f"{t.get('collective_bytes', 0) / max(t.get('collective_applies', 1), 1):.0f}"
+              f" bytes; placement {out['placement'][r]} ({card_line()})")
+
+
+def mp_nccl_phase(workdir: str, data: dict, cfg: Config,
+                  dev: torch.device) -> None:
+    """The model axis on four cards over NCCL (``--phase mp``): the row
+    plane, monolithic and hashed, at 1x4 (its checkpoint bit-equal to one
+    device's run) and 2x2 (held against one device on the global batches
+    as the DP phase holds its runs), with per-rank rates, the exchange's
+    device ms against its NVLink bound and the gradient all_reduce's; then
+    the 4 x 4,194,304 hashed table at 1x4 with each card's embedding bytes
+    against one device's."""
+    n = torch.cuda.device_count()
+    if n < 4:
+        print(f"mp nccl: {n} card(s) visible; the 1x4 and 2x2 runs need "
+              "four")
+        return
+    env = _dp_env(**{loop_lib.TIME_COLLECTIVES_ENV: "1"})
+    files = tasks.resolve_files(data["dir"], "tr")
+    for leg in ("train_mp_rows", "train_mp_rows_hashed"):
+        for d, m in ((1, 4), (2, 2)):
+            name = f"{leg}_{d}x{m}"
+            c = _mp_leg_cfg(cfg, os.path.join(workdir, name), data,
+                            leg).replace(mesh_data=d, mesh_model=m)
+            out = _fanout_mp(workdir, name, c, n, env, dev)
+            _mp_rank_lines(name, out, d, m)
+            one = c.replace(mesh_data=0, mesh_model=1)
+            if d == 1:
+                ref = one.replace(model_dir=os.path.join(
+                    workdir, name + "_one", "ckpt"), servable_model_dir="")
+                launch_task(ref, "train", dev)
+                a = _state_tensors(_restored(c, dev))
+                b = _state_tensors(_restored(ref, dev))
+                same = all(torch.equal(a[k], b[k]) for k in b)
+                print(f"mp {name}: checkpoint equal to one device's run bit "
+                      f"for bit: {same}")
+                assert same
+            else:
+                _dp_hold(name, one, dev, files, d,
+                         out["train"][0]["loss"])
+    big = _mp_leg_cfg(cfg, os.path.join(workdir, "mp_big"), data,
+                      "train_mp_rows_hashed").replace(
+        mesh_model=4, embedding_buckets=MP_BIG_BUCKETS,
+        servable_model_dir="")
+    out = _fanout_mp(workdir, "mp_big_1x4", big, n, env, dev)
+    _mp_rank_lines("big_1x4", out, 1, 4)
+    one = placement_bytes(big.replace(mesh_model=1, model_dir=""), dev)
+    for r, p in sorted(out["placement"].items()):
+        print(f"mp big table (4 x 4,194,304 buckets) rank {r}: embedding "
+              f"bytes {p['embedding_bytes']} counted, {p['allocated']} "
+              f"allocated by placement; one device "
+              f"{one['embedding_bytes']} counted, {one['allocated']} "
+              f"allocated ({card_line()})")
+        assert 4 * p["embedding_bytes"] == one["embedding_bytes"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -4792,6 +5194,21 @@ def main() -> int:
     print(f"kernel build: {build_s:.2f}s (nvcc {' '.join(_native.NVCC_FLAGS)})")
     print(f"decoder build: {decoder['s']:.2f}s (g++ "
           f"{' '.join(tfr_loader.GXX_FLAGS)}), in parallel with the kernels")
+    if sys.argv[1:] in (["--phase", "mp"], ["--phase", "mp_gloo"]):
+        # The model axis alone: mp_gloo, the default smoke's one-card phase
+        # (two gloo ranks on card 0); mp, the NCCL runs on four cards. No
+        # result lines.
+        workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=HERE)
+        try:
+            cfg = Config()
+            data = make_train_data(workdir, cfg)
+            if sys.argv[2] == "mp_gloo":
+                mp_phase(workdir, data, cfg, torch.device("cuda"))
+            else:
+                mp_nccl_phase(workdir, data, cfg, torch.device("cuda"))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        return 0
     if sys.argv[1:] == ["--phase", "dp"]:
         # The data-parallel phase alone (a quick check of that path); no
         # result lines.
@@ -4868,6 +5285,7 @@ def main() -> int:
             zoo_artifacts["din"])
         paths.update(retrieval_paths)
         paths.update(dp_phase(workdir, data, cfg, dev))
+        paths.update(mp_phase(workdir, data, cfg, dev))
         train_step_timing(cfg)
         accum_step_timing(cfg)
         serve_launches, artifact = serve_phase(workdir, cfg, dev)

@@ -20,6 +20,12 @@ with:
     ``2-hvd-gpu/...py:355-357``; the JAX package's
     ``TPU_VISIBLE_DEVICES``). NCCL needs one rank per card.
 
+``--mesh_data D --mesh_model M`` (launch flags, passed through) must
+cover the processes: D * M = ``num_hosts * worker_per_host`` (``D`` 0:
+every process the model axis leaves), checked before any child starts
+(``ValueError`` naming the flags). Model peers are adjacent ranks, so a
+host holds whole mesh rows when M divides ``worker_per_host``.
+
 Each child's output is prefixed ``[worker N]``. When one child fails the
 others are terminated (they would wait in a collective for the dead rank)
 and the parent exits with the first nonzero code.
@@ -77,6 +83,12 @@ def main(argv: Optional[List[str]] = None, *,
             "(every host must rendezvous on host 0's address)")
     coord = args.coordinator_address or f"localhost:{_free_port()}"
     world = args.num_hosts * n
+    peek = argparse.ArgumentParser(add_help=False)
+    peek.add_argument("--mesh_data", type=int, default=0)
+    peek.add_argument("--mesh_model", type=int, default=1)
+    mesh, _ = peek.parse_known_args(passthrough)
+    from .parallel import mesh as mesh_lib  # noqa: PLC0415 (torch)
+    mesh_lib.mesh_shape(mesh, world)
     prefix = (list(child) if child is not None
               else [sys.executable, "-m", "deepfm_tpu_torch.launch"])
 

@@ -12,7 +12,8 @@ the local rank names (``parallel.bootstrap``): NCCL on the card, gloo on
 the CPU, or the ``backend`` a Python caller names. Logging is then
 rank-aware (``utils.logging``): the chief logs, every line carries its
 rank. Every rank prints its own result line (``fanout`` prefixes each
-with its worker).
+with its worker). The mesh (``--mesh_data`` x ``--mesh_model``) must
+cover ``--num_processes``, checked before the group starts.
 
 A preempted train task (SIGTERM/SIGINT, after its forced checkpoint)
 prints ``{"task": ..., "preempted": true, "step": N}`` and returns
@@ -43,6 +44,7 @@ def main(argv=None, *, device="cuda", backend=None) -> int:
         level=logging.INFO, stream=sys.stderr, datefmt="%H:%M:%S",
         format="%(asctime)s %(levelname)s deepfm_tpu_torch: %(message)s")
     log = logging.getLogger("deepfm_tpu_torch.launch")
+    tasks.check_task_ported(cfg)
     bootstrap.initialize(cfg, device=device_lib.resolve(device),
                          backend=backend)
     ulog.install()

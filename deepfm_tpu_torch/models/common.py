@@ -1,7 +1,8 @@
-"""Shared model building blocks (the single-device subset of
-``deepfm_tpu.models.common``): initializers, the DNN tower with BN and
-dropout, the l2 terms and the embedding layouts, monolithic and
-hash-bucketed, with the sparse update's plan and row operations.
+"""Shared model building blocks (port of ``deepfm_tpu.models.common``):
+initializers, the DNN tower with BN and dropout, the l2 terms and the
+embedding layouts, monolithic and hash-bucketed, with the sparse update's
+plan and row operations and the lookups of tables row-sharded over a model
+axis.
 
 Behavioral parity with the JAX package:
   * Hidden layers: dense -> ReLU -> [BatchNorm] -> [dropout]. BN runs in
@@ -314,9 +315,23 @@ def l2_half_sum(x: torch.Tensor) -> torch.Tensor:
 
 Entry = Union[torch.Tensor, Dict[str, torch.Tensor]]
 Plan = Dict[str, emb_ops.PlanEntry]
-# A batch's dense gather ids: monolithic (with the in-range marks) or the
-# hashed tables' buckets.
-DenseIndex = Union[emb_ops.DenseIds, ek.SharedSegments]
+# A batch's dense gather ids: monolithic (with the in-range marks), the
+# hashed tables' buckets, or either as a row shard reads them.
+DenseIndex = Union[emb_ops.DenseIds, ek.SharedSegments, emb_ops.ShardedIds,
+                   "ShardedBuckets"]
+
+
+class ShardedBuckets:
+    """The hashed tables' buckets as a row shard reads them: each bucket in
+    its table's local rows (0 where another shard owns it), ``mine`` [T,
+    ...] marking the owned ones, whose positions alone enter the segments."""
+
+    def __init__(self, local: torch.Tensor, mine: torch.Tensor,
+                 rows_local: List[int]):
+        self.mine = mine
+        self.shared = ek.SharedSegments(
+            local.reshape(len(rows_local), -1), rows_local,
+            keep=mine.reshape(len(rows_local), -1))
 
 
 class EmbeddingSchema:
@@ -331,6 +346,14 @@ class EmbeddingSchema:
       bucket in it by stateless uint32 mixing (``ops.embedding.
       hash_bucket``), so the logical ``feature_size`` may exceed any one
       table.
+
+    Under a model axis (an ``axis``, :class:`ops.embedding.ModelAxis`) an
+    entry holds this rank's rows of each table: :meth:`lookup` reads the
+    owned ids and sums the peers' parts (monolithic: ``--embedding_lookup
+    masked_psum`` or ``allgather_table``; hashed: one sum for every
+    table), and :meth:`l2` / :meth:`mask_pad_grads` take the shard's global
+    row ``offset``. Table shapes never depend on the mesh
+    (``padded_vocab``).
 
     An *entry* is one param's table (monolithic) or dict of tables
     (hashed). In the model's flat state the hashed tables are named
@@ -348,8 +371,14 @@ class EmbeddingSchema:
         self.hashed = bool(self.buckets)
         self.assign = cfg.embedding_assign
         self.kernels = cfg.embedding_kernels
+        self.lookup_strategy = cfg.embedding_lookup
         self.padded_vocab = emb_ops.padded_vocab(cfg.feature_size,
                                                  cfg.mesh_model)
+        # --embedding_shard rows: the sparse row plane's shard count (1:
+        # every rank holds whole tables). The dense update's model axis
+        # shards the tables too; its lookups read the shard from ``axis``.
+        self.num_shards = (max(int(cfg.mesh_model), 1)
+                           if cfg.embedding_shard == "rows" else 1)
 
     # -- layout ---------------------------------------------------------
     def table_keys(self) -> List[str]:
@@ -412,38 +441,70 @@ class EmbeddingSchema:
         return emb_ops.hash_table_assign(feat_ids, n)
 
     # -- dense forward --------------------------------------------------
-    def dense_index(self, feat_ids: torch.Tensor, entry: Entry) -> DenseIndex:
+    def dense_index(self, feat_ids: torch.Tensor, entry: Entry,
+                    axis: Optional[emb_ops.ModelAxis] = None) -> DenseIndex:
         """One batch's gather ids into tables shaped like ``entry``'s,
         shared by every embedding name's :meth:`lookup` of the batch, so
         the backward builds their position segments once (one launch for
-        all hashed tables on the card)."""
+        all hashed tables on the card). Under ``axis`` ``entry`` holds
+        this rank's rows."""
         if not self.hashed:
-            return emb_ops.dense_ids(feat_ids, entry.shape[0])
+            rows = entry.shape[0]
+            if axis is None:
+                return emb_ops.dense_ids(feat_ids, rows)
+            if self.lookup_strategy == "allgather_table":
+                return emb_ops.dense_ids(feat_ids, rows * axis.size)
+            return emb_ops.sharded_ids(feat_ids, rows, axis)
+        keys = self.table_keys()
         ids = torch.stack([emb_ops.hash_bucket(feat_ids, b, salt=i + 1)
-                           .reshape(-1) for i, b in enumerate(self.buckets)])
-        return ek.SharedSegments(ids.long(), [entry[k].shape[0]
-                                              for k in self.table_keys()])
+                           .reshape(-1) for i, b in enumerate(self.buckets)
+                           ]).long()
+        rows = [entry[k].shape[0] for k in keys]
+        if axis is None:
+            return ek.SharedSegments(ids, rows)
+        local = ids - axis.index * torch.tensor(
+            rows, dtype=ids.dtype, device=ids.device)[:, None]
+        rl = torch.tensor(rows, dtype=ids.dtype, device=ids.device)[:, None]
+        mine = (local >= 0) & (local < rl)
+        return ShardedBuckets(torch.where(mine, local, torch.zeros_like(
+            local)), mine, rows)
 
     def lookup(self, entry: Entry, feat_ids: torch.Tensor,
-               index: Optional[DenseIndex] = None) -> torch.Tensor:
+               index: Optional[DenseIndex] = None,
+               axis: Optional[emb_ops.ModelAxis] = None) -> torch.Tensor:
         """[B,F,*trailing] gather (the dense path, eval and serving), at
         ``index`` (:meth:`dense_index` of ``feat_ids``, built here when
         None). The hashed parts are summed in table order t0, t1, ..., as
-        the JAX package sums them."""
+        the JAX package sums them; under ``axis`` each part is this
+        shard's owned buckets and ONE sum over the peers reassembles every
+        table's at once."""
         if index is None:
-            index = self.dense_index(feat_ids, entry)
+            index = self.dense_index(feat_ids, entry, axis)
         if not self.hashed:
-            return emb_ops.lookup(entry, feat_ids, index)
+            if axis is None:
+                return emb_ops.lookup(entry, feat_ids, index)
+            if self.lookup_strategy == "allgather_table":
+                return emb_ops.sharded_lookup_allgather(entry, feat_ids,
+                                                        axis, index)
+            return emb_ops.sharded_lookup(entry, feat_ids, axis, index)
         table_of = self._table_of(feat_ids)
+        shared = index.shared if axis is not None else index
         out = None
         for i in range(len(self.buckets)):
             tab = entry[f"t{i}"]
-            part = index.rows(tab, i).reshape(
+            part = shared.rows(tab, i).reshape(
                 tuple(feat_ids.shape) + tuple(tab.shape[1:]))
+            if axis is not None:
+                part = torch.where(emb_ops.trailing_dims(
+                    index.mine[i].reshape(feat_ids.shape), part.dim()),
+                    part, torch.zeros((), dtype=part.dtype,
+                                      device=part.device))
             sel = emb_ops.trailing_dims((table_of == i).to(part.dtype),
                                         part.dim())
             part = part * sel
             out = part if out is None else out + part
+        if axis is not None:
+            out = emb_ops.sum_over_peers(out, axis)
         return out
 
     # -- sparse-update plan ---------------------------------------------
@@ -533,13 +594,16 @@ class EmbeddingSchema:
         return out
 
     # -- regularization -------------------------------------------------
-    def l2(self, entry: Entry) -> torch.Tensor:
+    def l2(self, entry: Entry, offset: int = 0) -> torch.Tensor:
         """0.5*sum(x^2) over REAL rows: monolithic pad rows are masked out,
         so their gradient is exactly zero by construction; hashed tables
-        have no pad rows and are summed table by table."""
+        have no pad rows and are summed table by table. ``offset``: the
+        global row of a shard's first row (this shard's part only; the
+        caller sums the peers')."""
         if self.hashed:
             return sum(l2_half_sum(t) for t in entry.values())
-        return l2_half_sum(emb_ops.mask_pad_rows(entry, self.feature_size))
+        return l2_half_sum(emb_ops.mask_pad_rows(entry, self.feature_size,
+                                                 offset))
 
     def l2_rows(self, rows: Dict[str, torch.Tensor],
                 plan: Plan) -> torch.Tensor:
@@ -554,9 +618,10 @@ class EmbeddingSchema:
             total = s if total is None else total + s
         return total
 
-    def mask_pad_grads(self, grad_entry: torch.Tensor) -> torch.Tensor:
+    def mask_pad_grads(self, grad_entry: torch.Tensor,
+                       offset: int = 0) -> torch.Tensor:
         """Zero pad-row gradients on the dense path (hashed tables have no
-        pad rows: the identity)."""
+        pad rows: the identity); ``offset`` as in :meth:`l2`."""
         if self.hashed:
             return grad_entry
-        return emb_ops.mask_pad_rows(grad_entry, self.feature_size)
+        return emb_ops.mask_pad_rows(grad_entry, self.feature_size, offset)

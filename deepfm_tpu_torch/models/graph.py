@@ -40,6 +40,7 @@ from torch import nn
 
 from ..config import Config
 from ..ops import fm as fm_ops
+from ..ops.embedding import ModelAxis
 from ..ops.fused_fm import fused_fm
 from ..utils import device as device_lib
 from . import common
@@ -179,40 +180,51 @@ class GraphModel(nn.Module):
     def _emb_lookup(self, name: str, feat_ids: torch.Tensor,
                     emb_rows: Optional[Dict[str, Dict[str, torch.Tensor]]],
                     emb_plan: Optional[common.Plan],
-                    index: Optional[common.DenseIndex] = None
-                    ) -> torch.Tensor:
-        """Dense gather from the full tables at ``index`` (the batch's ids,
-        shared by every name), or (sparse update) the view over the batch's
-        pre-gathered rows ``emb_rows[name]``, which are then the gradient
-        leaves."""
+                    index: Optional[common.DenseIndex] = None,
+                    shard: Optional[ModelAxis] = None) -> torch.Tensor:
+        """Dense gather from the tables at ``index`` (the batch's ids,
+        shared by every name; under ``shard`` the tables are this rank's
+        rows and the lookup sums the model peers' parts), or (sparse
+        update) the view over the batch's pre-gathered rows
+        ``emb_rows[name]``, which are then the gradient leaves."""
         if emb_rows is not None:
             return self.emb.lookup_rows(emb_rows[name], emb_plan)
-        return self.emb.lookup(self._entry(name), feat_ids, index)
+        return self.emb.lookup(self._entry(name), feat_ids, index, shard)
 
     def _embed(self, feat_ids: torch.Tensor, feat_vals: torch.Tensor,
-               emb_rows, emb_plan, names: Tuple[str, ...] = ("fm_w", "fm_v")
-               ) -> Dict[str, torch.Tensor]:
+               emb_rows, emb_plan, names: Tuple[str, ...] = ("fm_w", "fm_v"),
+               shard: Optional[ModelAxis] = None) -> Dict[str, torch.Tensor]:
         """The embedding stage: ``{name: [B,F,...]}`` for ``names``, the
         dense lookups sharing one index of the batch's ids."""
         index = None if emb_rows is not None else self.emb.dense_index(
-            feat_ids, self._entry(names[0]))
-        return {n: self._emb_lookup(n, feat_ids, emb_rows, emb_plan, index)
+            feat_ids, self._entry(names[0]), shard)
+        return {n: self._emb_lookup(n, feat_ids, emb_rows, emb_plan, index,
+                                    shard)
                 for n in names}
 
     def l2_loss(self, params: Optional[Mapping[str, torch.Tensor]] = None,
                 *, emb_rows: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                emb_plan: Optional[common.Plan] = None) -> torch.Tensor:
+                emb_plan: Optional[common.Plan] = None,
+                shard: Optional[ModelAxis] = None) -> torch.Tensor:
         """l2_reg * pad-aware L2 over every embedding table, in full (the
         dense path), or over the batch's touched rows only when
         ``emb_rows``/``emb_plan`` are given (the sparse path). ``params``
-        (flat state names) defaults to the module's own."""
+        (flat state names) defaults to the module's own. Under ``shard``
+        the tables are this rank's rows: the result is this shard's part
+        (the caller sums the model peers')."""
         names = self.embedding_param_names()
         if emb_rows is not None:
             terms = [self.emb.l2_rows(emb_rows[n], emb_plan) for n in names]
         else:
             if params is None:
                 params = dict(self.named_parameters())
-            terms = [self.emb.l2(self.emb.entry(params, n)) for n in names]
+            terms = []
+            for n in names:
+                entry = self.emb.entry(params, n)
+                off = 0
+                if shard is not None and not self.emb.hashed:
+                    off = shard.index * entry.shape[0]
+                terms.append(self.emb.l2(entry, off))
         total = terms[0]
         for t in terms[1:]:
             total = total + t
@@ -263,17 +275,21 @@ class GraphDeepFM(GraphModel):
     def forward(self, feat_ids: torch.Tensor, feat_vals: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None,
                 emb_rows: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                emb_plan: Optional[common.Plan] = None) -> torch.Tensor:
+                emb_plan: Optional[common.Plan] = None,
+                shard: Optional[ModelAxis] = None) -> torch.Tensor:
         """Logits [B] float32 from int ids [B,F] and values [B,F].
 
         In training mode with a dropout keep below 1, ``generator`` (on the
         inputs' device) draws the dropout masks; it is required there, so a
         training step never drops its dropout silently. ``emb_rows`` and
         ``emb_plan`` (the sparse update) replace the table lookups by views
-        over pre-gathered rows (``EmbeddingSchema.lookup_rows``)."""
+        over pre-gathered rows (``EmbeddingSchema.lookup_rows``).
+        ``shard`` (an ``ops.embedding.ModelAxis``): the tables hold this
+        rank's rows of a model axis and the dense lookups sum the model
+        peers' parts."""
         self._check_generator(generator)
         feat_vals = feat_vals.float()
-        e = self._embed(feat_ids, feat_vals, emb_rows, emb_plan)
+        e = self._embed(feat_ids, feat_vals, emb_rows, emb_plan, shard=shard)
         w, v = e["fm_w"], e["fm_v"]  # [B,F], [B,F,K]
         xv = v * feat_vals[..., None]
         y_wv = fm_block(self.cfg, w, feat_vals, xv)
@@ -289,10 +305,11 @@ class GraphWideDeep(GraphDeepFM):
     def forward(self, feat_ids: torch.Tensor, feat_vals: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None,
                 emb_rows: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                emb_plan: Optional[common.Plan] = None) -> torch.Tensor:
+                emb_plan: Optional[common.Plan] = None,
+                shard: Optional[ModelAxis] = None) -> torch.Tensor:
         self._check_generator(generator)
         feat_vals = feat_vals.float()
-        e = self._embed(feat_ids, feat_vals, emb_rows, emb_plan)
+        e = self._embed(feat_ids, feat_vals, emb_rows, emb_plan, shard=shard)
         y_wide = first_order(e["fm_w"], feat_vals)
         xv = e["fm_v"] * feat_vals[..., None]
         y_d = self._tower(self._deep_in(xv), generator)
@@ -320,13 +337,14 @@ class GraphDCNv2(GraphDeepFM):
     def forward(self, feat_ids: torch.Tensor, feat_vals: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None,
                 emb_rows: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                emb_plan: Optional[common.Plan] = None) -> torch.Tensor:
+                emb_plan: Optional[common.Plan] = None,
+                shard: Optional[ModelAxis] = None) -> torch.Tensor:
         cfg = self.cfg
         self._check_generator(generator)
         cdt = self.compute_dtype
         feat_vals = feat_vals.float()
         v = self._embed(feat_ids, feat_vals, emb_rows, emb_plan,
-                        names=("fm_v",))["fm_v"]
+                        names=("fm_v",), shard=shard)["fm_v"]
         x0 = self._deep_in(v * feat_vals[..., None])
         cross_out = cross_network(self.cross, x0.to(cdt))
         h = common.apply_hidden_stack(
@@ -356,10 +374,11 @@ class DLRM(GraphDeepFM):
     def forward(self, feat_ids: torch.Tensor, feat_vals: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None,
                 emb_rows: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                emb_plan: Optional[common.Plan] = None) -> torch.Tensor:
+                emb_plan: Optional[common.Plan] = None,
+                shard: Optional[ModelAxis] = None) -> torch.Tensor:
         self._check_generator(generator)
         feat_vals = feat_vals.float()
-        e = self._embed(feat_ids, feat_vals, emb_rows, emb_plan)
+        e = self._embed(feat_ids, feat_vals, emb_rows, emb_plan, shard=shard)
         xv = e["fm_v"] * feat_vals[..., None]
         y_first = first_order(e["fm_w"], feat_vals)
         top_in = torch.cat([self._deep_in(xv), dot_interaction(xv)], dim=1)

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config
+from ..ops.embedding import ModelAxis
 from . import common, graph
 
 
@@ -97,14 +98,15 @@ class MultiTaskModel(graph.GraphModel):
     def forward(self, feat_ids: torch.Tensor, feat_vals: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None,
                 emb_rows: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                emb_plan: Optional[common.Plan] = None) -> torch.Tensor:
+                emb_plan: Optional[common.Plan] = None,
+                shard: Optional[ModelAxis] = None) -> torch.Tensor:
         """Per-task logits [B, T] float32 (the contract of
         ``graph.GraphDeepFM.forward`` otherwise)."""
         cfg = self.cfg
         self._check_generator(generator)
         cdt = self.compute_dtype
         feat_vals = feat_vals.float()
-        e = self._embed(feat_ids, feat_vals, emb_rows, emb_plan)
+        e = self._embed(feat_ids, feat_vals, emb_rows, emb_plan, shard=shard)
         xv = e["fm_v"] * feat_vals[..., None]
         y_first = graph.first_order(e["fm_w"], feat_vals)  # shared [B]
         deep_in = xv.reshape(xv.shape[0],

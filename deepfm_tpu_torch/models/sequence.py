@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from ..ops import fm as fm_ops
+from ..ops.embedding import ModelAxis
 from . import common
 from .graph import GraphDeepFM, fm_block
 
@@ -102,15 +103,19 @@ class GraphDIN(GraphDeepFM):
             self.cfg.embedding_size, self._att_dim(), generator=generator,
             device=dev)
 
-    def _history_keys(self, hist_ids: torch.Tensor) -> torch.Tensor:
+    def _history_keys(self, hist_ids: torch.Tensor,
+                      shard: Optional[ModelAxis] = None) -> torch.Tensor:
         """[B, L, K]: the dense schema lookup of ``fm_v`` at the history's
         own index (the sparse plan covers feat_ids only; the config refuses
-        history with the sparse update)."""
-        return self.emb.lookup(self._entry("fm_v"), hist_ids)
+        history with the sparse update), over this rank's rows under
+        ``shard``."""
+        return self.emb.lookup(self._entry("fm_v"), hist_ids, axis=shard)
 
     def _history_summary(self, query: torch.Tensor, hist_ids: torch.Tensor,
-                         hist_mask: torch.Tensor) -> torch.Tensor:
-        return target_attention(self.att, query, self._history_keys(hist_ids),
+                         hist_mask: torch.Tensor,
+                         shard: Optional[ModelAxis] = None) -> torch.Tensor:
+        return target_attention(self.att, query,
+                                self._history_keys(hist_ids, shard),
                                 hist_mask, compute_dtype=self.compute_dtype)
 
     def forward(self, feat_ids: torch.Tensor, feat_vals: torch.Tensor, *,
@@ -118,7 +123,8 @@ class GraphDIN(GraphDeepFM):
                 emb_rows: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
                 emb_plan: Optional[common.Plan] = None,
                 hist_ids: Optional[torch.Tensor] = None,
-                hist_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                hist_mask: Optional[torch.Tensor] = None,
+                shard: Optional[ModelAxis] = None) -> torch.Tensor:
         """Logits [B]; ``hist_ids`` int [B, L] and ``hist_mask`` [B, L]
         (both or neither)."""
         self._check_generator(generator)
@@ -126,13 +132,14 @@ class GraphDIN(GraphDeepFM):
         if hist_ids is None:
             hist_ids, hist_mask = _empty_history(feat_ids.shape[0],
                                                  feat_ids.device)
-        e = self._embed(feat_ids, feat_vals, emb_rows, emb_plan)
+        e = self._embed(feat_ids, feat_vals, emb_rows, emb_plan, shard=shard)
         w, v = e["fm_w"], e["fm_v"]
         xv = v * feat_vals[..., None]
         # Candidate query: the value-weighted sum of the example's field
         # embeddings.
         query = torch.sum(xv, dim=1)  # [B, K]
-        hist = self._history_summary(query, hist_ids, hist_mask)  # [B, K]
+        hist = self._history_summary(query, hist_ids, hist_mask,
+                                     shard)  # [B, K]
         y_wv = fm_block(self.cfg, w, feat_vals, xv)
         deep_in = torch.cat([self._deep_in(xv), hist], dim=1)
         return self.fm_b[0] + y_wv + self._tower(deep_in, generator)
@@ -172,7 +179,8 @@ class GraphBST(GraphDIN):
                                 generator=generator, device=dev)
 
     def _history_summary(self, query: torch.Tensor, hist_ids: torch.Tensor,
-                         hist_mask: torch.Tensor) -> torch.Tensor:
+                         hist_mask: torch.Tensor,
+                         shard: Optional[ModelAxis] = None) -> torch.Tensor:
         att = self.att
         ln = hist_ids.shape[1]
         if ln > att.pos.shape[0]:
@@ -180,7 +188,7 @@ class GraphBST(GraphDIN):
                 f"history length {ln} exceeds the learned position table "
                 f"({att.pos.shape[0]} rows) — train and serve with the "
                 "same --history_max_len")
-        keys = self._history_keys(hist_ids)  # [B, L, K]
+        keys = self._history_keys(hist_ids, shard)  # [B, L, K]
         seq = torch.cat([keys + att.pos[None, :ln, :],
                          (query + att.target_pos)[:, None, :]], dim=1)
         mask = torch.cat([(hist_mask > 0).float(),

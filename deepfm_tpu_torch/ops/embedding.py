@@ -1,7 +1,8 @@
-"""Embedding ops for one device (port of ``deepfm_tpu.ops.embedding``
-without the row-sharded exchange): the dense lookup, the stateless id
-hashing of the multi-table layout, and the sparse-update plan with its row
-gather, positionwise view and writeback.
+"""Embedding ops (port of ``deepfm_tpu.ops.embedding``): the dense lookup,
+the stateless id hashing of the multi-table layout, the sparse-update plan
+with its row gather, positionwise view and writeback, and the model axis:
+lookups from tables row-sharded over ``--mesh_model`` ranks and the row
+exchange of ``--embedding_shard rows``.
 
 ``lookup`` reproduces ``jnp.take``'s semantics, not ``torch.index_select``'s:
 an id in ``[-V, 0)`` wraps to ``id + V``, and any other out-of-range id gives
@@ -19,14 +20,33 @@ take backward kernel on the card, over position segments built once per
 batch for every name that gathers with the same ids. ``index_select``'s
 own backward would use float atomics on the card, whose order, and with it
 the last bits of a table gradient, changes from run to run.
+
+The model axis. A rank holds shard ``index`` of ``size``: rows
+``[index * R, (index + 1) * R)`` of each table (``R = rows / size``), and
+its model peers see the same batch. There is no ``axis_index`` in
+PyTorch, so every function here takes the shard index (and the peers'
+process group, :class:`ModelAxis`) explicitly. ``sharded_lookup`` gathers
+the ids this shard owns from its rows (the others read zero and are left
+out of the gradient's position segments) and sums the peers' parts with one
+all_reduce: each element has one nonzero part, so the result equals the
+one-device lookup bit for bit. Its backward is the identity: the cotangent
+of the summed lookup is the same on every peer, and each peer's shard
+gradient is its slice of the one-device gradient (an autograd all_reduce
+would sum the peers' equal cotangents, M times too much).
+``sharded_lookup_allgather`` all-gathers the table and gathers from it; its
+backward keeps the rank's slice of the full table's cotangent. The sparse
+update's row exchange (``build_exchange``, ``exchange_rows``,
+``owner_scatter_add``) moves only the plan's rows: two ``all_to_all``s and
+one all_reduce, again one nonzero part per element.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from . import embedding_kernels
 
@@ -78,20 +98,24 @@ def lookup(table: torch.Tensor, ids: torch.Tensor,
                                            device=out.device))
 
 
-def pad_row_mask(num_rows: int, feature_size: int, *,
+def pad_row_mask(num_rows: int, feature_size: int, *, offset: int = 0,
                  device=None) -> torch.Tensor:
     """Bool [num_rows]: True for real vocabulary rows, False for the
-    ``padded_vocab`` pad rows after them (one device: no shard offset)."""
-    return torch.arange(num_rows, device=device) < feature_size
+    ``padded_vocab`` pad rows after them. ``offset``: the global row of a
+    shard's first row (0 on one device)."""
+    return torch.arange(num_rows, device=device) + offset < feature_size
 
 
-def mask_pad_rows(x: torch.Tensor, feature_size: int) -> torch.Tensor:
+def mask_pad_rows(x: torch.Tensor, feature_size: int,
+                  offset: int = 0) -> torch.Tensor:
     """Zero the pad rows of a table-shaped array (the dense path's embedding
     gradients: pad rows hold zeros and the l2 term excludes them, so this
-    makes their zero update a structural guarantee)."""
-    if x.shape[0] <= feature_size:
+    makes their zero update a structural guarantee). ``offset`` as in
+    :func:`pad_row_mask`."""
+    if offset + x.shape[0] <= feature_size:
         return x
-    keep = pad_row_mask(x.shape[0], feature_size, device=x.device)
+    keep = pad_row_mask(x.shape[0], feature_size, offset=offset,
+                        device=x.device)
     keep = keep.reshape((-1,) + (1,) * (x.dim() - 1))
     return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -321,3 +345,281 @@ def set_rows_scalar(table: torch.Tensor, entry: PlanEntry,
         vals = torch.where(any_real, v, table[0]).expand(idx.shape[0])
         table.index_copy_(0, idx, vals.contiguous())
     return table
+
+
+# ---------------------------------------------------------------------------
+# The model axis: tables row-sharded over --mesh_model ranks
+# ---------------------------------------------------------------------------
+
+
+class ModelAxis(NamedTuple):
+    """This rank's place on the model axis: shard ``index`` of ``size``,
+    and ``group``, the process group of its model peers (None: the default
+    group, when the model axis spans every rank)."""
+    index: int
+    size: int
+    group: Any = None
+
+
+def shard_rows(table: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """This shard's rows of a full table-shaped tensor (a copy)."""
+    rows = table.shape[0] // axis.size
+    if rows * axis.size != table.shape[0]:
+        raise ValueError(f"table rows {table.shape[0]} not divisible by "
+                         f"{axis.size} shards")
+    return table[axis.index * rows:(axis.index + 1) * rows].clone()
+
+
+class _SumOverPeers(torch.autograd.Function):
+    """all_reduce (sum) over the model peers; the backward is the
+    identity (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """The peers' shards concatenated in shard order; the backward keeps
+    this shard's rows of the full cotangent."""
+
+    @staticmethod
+    def forward(ctx, local, axis):
+        ctx.index, ctx.rows = axis.index, local.shape[0]
+        parts = [torch.empty_like(local) for _ in range(axis.size)]
+        dist.all_gather(parts, local.contiguous(), group=axis.group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        off = ctx.index * ctx.rows
+        return g[off:off + ctx.rows], None
+
+
+def sum_over_peers(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """The model peers' ``x`` summed (the JAX ``psum`` over ``'model'``)."""
+    return _SumOverPeers.apply(x, axis.group)
+
+
+def gather_table(local: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """The full table from every peer's shard (the JAX all-gather
+    reassembly)."""
+    return _GatherRows.apply(local, axis)
+
+
+class ShardedIds(NamedTuple):
+    """One batch's ids as a row-sharded lookup reads them
+    (:func:`sharded_ids`)."""
+    ok: torch.Tensor                                # bool: ids in [-V, V)
+    mine: torch.Tensor                              # bool: owned here
+    shared: "embedding_kernels.SharedSegments"      # local ids [1, N]
+
+
+def sharded_ids(ids: torch.Tensor, rows_local: int,
+                axis: ModelAxis) -> ShardedIds:
+    """``ok`` marks the ids in [-V, V) of the full height V = rows_local *
+    size (wrapped as :func:`dense_ids` wraps them), ``mine`` those this
+    shard owns; ``shared`` holds the local ids (0 where not mine) and
+    leaves the other positions out of the gradient's segments."""
+    ids = ids.long()
+    v = rows_local * axis.size
+    ok = (ids >= -v) & (ids < v)
+    local = torch.where(ids < 0, ids + v, ids) - axis.index * rows_local
+    mine = ok & (local >= 0) & (local < rows_local)
+    safe = torch.where(mine, local, torch.zeros((), dtype=local.dtype,
+                                                device=local.device))
+    return ShardedIds(ok, mine, embedding_kernels.SharedSegments(
+        safe.reshape(1, -1), [rows_local], keep=mine.reshape(1, -1)))
+
+
+def sharded_lookup(local_table: torch.Tensor, ids: torch.Tensor,
+                   axis: ModelAxis,
+                   index: Optional[ShardedIds] = None) -> torch.Tensor:
+    """Row-sharded gather: the local masked take, then one all_reduce over
+    the model peers (identity backward). Equals :func:`lookup` on the full
+    table bit for bit, NaN rows for out-of-range ids included. ``index``:
+    :func:`sharded_ids` of these ids, shared with the batch's other
+    lookups."""
+    if index is None:
+        index = sharded_ids(ids, local_table.shape[0], axis)
+    ok, mine, shared = index
+    out = shared.rows(local_table).reshape(*ids.shape,
+                                           *local_table.shape[1:])
+    tail = [1] * (local_table.dim() - 1)
+    zero = torch.zeros((), dtype=out.dtype, device=out.device)
+    out = sum_over_peers(torch.where(mine.reshape(*ids.shape, *tail), out,
+                                     zero), axis)
+    return torch.where(ok.reshape(*ids.shape, *tail), out,
+                       torch.full((), float("nan"), dtype=out.dtype,
+                                  device=out.device))
+
+
+def sharded_lookup_allgather(local_table: torch.Tensor, ids: torch.Tensor,
+                             axis: ModelAxis,
+                             dense: Optional[DenseIds] = None
+                             ) -> torch.Tensor:
+    """Row-sharded gather through the reassembled table: all-gather the
+    shards, then :func:`lookup` (``dense``: :func:`dense_ids` over the full
+    height). Traffic grows with the table, not the batch."""
+    return lookup(gather_table(local_table, axis), ids, dense)
+
+
+def _all_to_all(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """Block j of ``x`` [D * C, ...] to peer j; returns the D blocks
+    received, in peer order. gloo moves CUDA tensors through host copies
+    (:func:`exchange_transport`)."""
+    x = x.contiguous()
+    if exchange_transport(axis, x.device) == "host":
+        host = x.cpu()
+        got = torch.empty_like(host)
+        dist.all_to_all_single(got, host, group=axis.group)
+        return got.to(x.device)
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=axis.group)
+    return out
+
+
+def exchange_transport(axis: ModelAxis, device) -> str:
+    """How the row exchange's all_to_all moves a tensor on ``device``:
+    ``"device"`` (NCCL on the card; gloo on the CPU) or ``"host"`` (gloo
+    with CUDA tensors: a copy to the host and back around the call). Fixed
+    by the group's backend, never by a failure."""
+    backend = (dist.get_backend(axis.group) if axis.group is not None
+               else dist.get_backend())
+    if torch.device(device).type == "cuda" and backend == "gloo":
+        return "host"
+    return "device"
+
+
+class ExchangePlan(NamedTuple):
+    """Static-shape routing of one table's row exchange, built each step
+    from the (model-replicated) plan. ``reqs`` pads each owner's bucket to
+    the slice capacity C = ceil(U / D) with the fill id ``num_rows``, which
+    owners answer with zero rows.
+
+    reqs:     int32 [D, C]  row ids this peer requests from each owner.
+    flat_idx: int64 [C]     position in the flattened [D*C] response block
+                            of each of this peer's uid slots; D*C (reads
+                            zero) for fill slots.
+    num_rows: int           global rows of the table (the fill id).
+    rows_local: int         rows per shard.
+    num_shards: int         D, the model axis.
+    n_ids: int              U, the plan's uid slots.
+    shard: int              this peer's shard index.
+    """
+    reqs: torch.Tensor
+    flat_idx: torch.Tensor
+    num_rows: int
+    rows_local: int
+    num_shards: int
+    n_ids: int
+    shard: int
+
+
+def build_exchange(entry: PlanEntry, num_shards: int,
+                   shard: int) -> ExchangePlan:
+    """Bucket this peer's slice of the uid slots (C of them, slice
+    ``shard``) by owner shard: the uids are sorted, so each owner's run is
+    contiguous and two ``searchsorted`` bounds find it. No communication:
+    every peer holds the same plan."""
+    if entry.num_rows % num_shards:
+        raise ValueError(f"table rows {entry.num_rows} not divisible by "
+                         f"{num_shards} shards")
+    uids = entry.uids.to(torch.int32)
+    dev = uids.device
+    n = uids.shape[0]
+    d = num_shards
+    rows_local = entry.num_rows // d
+    cap = -(-n // d)
+    pad = torch.full((d * cap - n,), entry.num_rows, dtype=torch.int32,
+                     device=dev)
+    sl = torch.cat([uids, pad])[shard * cap:(shard + 1) * cap]
+    bounds = torch.searchsorted(
+        sl, torch.arange(d + 1, dtype=torch.int32, device=dev) * rows_local,
+        side="left", out_int32=True)
+    starts, ends = bounds[:-1], bounds[1:]
+    slot = torch.arange(cap, dtype=torch.int32, device=dev)
+    idx = starts[:, None] + slot[None, :]
+    fill = torch.full((), entry.num_rows, dtype=torch.int32, device=dev)
+    reqs = torch.where(idx < ends[:, None],
+                       sl[torch.clamp(idx, 0, cap - 1).long()], fill)
+    owner = torch.div(sl, rows_local, rounding_mode="floor")
+    rank = slot - starts[torch.clamp(owner, 0, d - 1).long()]
+    flat_idx = torch.where(owner < d, owner * cap + rank,
+                           torch.full((), d * cap, dtype=torch.int32,
+                                      device=dev)).long()
+    return ExchangePlan(reqs=reqs, flat_idx=flat_idx,
+                        num_rows=entry.num_rows, rows_local=rows_local,
+                        num_shards=d, n_ids=n, shard=shard)
+
+
+@torch.no_grad()
+def exchange_rows(local_table: torch.Tensor, ex: ExchangePlan,
+                  axis: ModelAxis) -> torch.Tensor:
+    """Gather ``ex``'s uid rows from a row-sharded table: all_to_all the
+    requests, answer from the owned rows (other ids read zero), all_to_all
+    the answers back, place this peer's slice and sum the peers' slices
+    with one all_reduce. Returns [U, ...] equal to :func:`gather_rows` on
+    the full table bit for bit."""
+    d, cap = ex.num_shards, ex.reqs.shape[1]
+    tail = tuple(local_table.shape[1:])
+    recv = _all_to_all(ex.reqs.reshape(-1), axis)
+    local = recv.long() - ex.shard * ex.rows_local
+    ok = (local >= 0) & (local < ex.rows_local)
+    safe = torch.where(ok, local, torch.zeros_like(local))
+    zero = torch.zeros((), dtype=local_table.dtype,
+                       device=local_table.device)
+    resp = torch.where(trailing_dims(ok, 1 + len(tail)),
+                       local_table.index_select(0, safe), zero)
+    got = _all_to_all(resp, axis)
+    hit = ex.flat_idx < d * cap
+    mine = torch.where(trailing_dims(hit, 1 + len(tail)), got.index_select(
+        0, torch.where(hit, ex.flat_idx, torch.zeros_like(ex.flat_idx))),
+        zero)
+    full = torch.zeros((d * cap,) + tail, dtype=local_table.dtype,
+                       device=local_table.device)
+    full[ex.shard * cap:(ex.shard + 1) * cap] = mine
+    dist.all_reduce(full, group=axis.group)
+    return full[:ex.n_ids]
+
+
+@torch.no_grad()
+def owner_scatter_add(g_rows: torch.Tensor, entry: PlanEntry,
+                      num_shards: int, shard: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-uid cotangents into this shard's table space: (grad
+    [rows_local, ...], touched bool [rows_local]). Ids another shard owns
+    and the plan's fill slots go to the sentinel row ``rows_local``, which
+    is cut off. The real uids are distinct, so each kept row has one
+    contributor and ``index_add_`` (0.0 + g) is exact in any order."""
+    rows_local = entry.num_rows // num_shards
+    local = entry.uids.long() - shard * rows_local
+    owned = (local >= 0) & (local < rows_local) & valid_rows(entry)
+    safe = torch.where(owned, local, torch.full_like(local, rows_local))
+    grad = torch.zeros((rows_local + 1,) + tuple(g_rows.shape[1:]),
+                       dtype=g_rows.dtype, device=g_rows.device)
+    grad.index_add_(0, safe, g_rows)
+    touched = torch.zeros(rows_local + 1, dtype=torch.bool,
+                          device=g_rows.device)
+    touched[safe] = True
+    return grad[:rows_local], touched[:rows_local]
+
+
+def exchange_payload_bytes(n_ids: int, row_elems: int, num_shards: int,
+                           itemsize: int = 4) -> int:
+    """Per-device bytes of one table's forward exchange (the JAX
+    package's formula): the request all_to_all (D*C int32 ids), the
+    response all_to_all (D*C rows) and the all_reduce's reassembly buffer
+    (D*C rows; a ring moves about 2(D-1)/D of it), C = ceil(n_ids / D).
+    Zero unsharded."""
+    if num_shards <= 1:
+        return 0
+    cap = -(-n_ids // num_shards)
+    block = num_shards * cap
+    return block * 4 + 2 * block * row_elems * itemsize

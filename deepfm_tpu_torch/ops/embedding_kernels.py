@@ -416,15 +416,20 @@ class SharedSegments:
     one :func:`position_segments_tables` call, one segments launch for up
     to ``MAX_TABLES`` tables) and then shared by every lookup that gathers
     with these ids: both embedding names of a dense step sort their
-    positions once."""
+    positions once. ``keep`` (bool [T, N] or None) leaves the other
+    positions out of every run: a row-sharded lookup's ids that another
+    shard owns, whose cotangent the lookup zeroes (the CPU's plain sum adds
+    their +0.0, which changes no sum)."""
 
-    def __init__(self, ids: torch.Tensor, num_slots: Sequence[int]):
+    def __init__(self, ids: torch.Tensor, num_slots: Sequence[int],
+                 keep: Optional[torch.Tensor] = None):
         if ids.dim() != 2 or len(num_slots) != ids.shape[0]:
             raise ValueError(f"shared segments need ids [T, N] and T slot "
                              f"counts; got {tuple(ids.shape)}, "
                              f"{len(num_slots)} counts")
         self.ids = ids
         self.num_slots = [int(u) for u in num_slots]
+        self.keep = keep
         self._built: Optional[List[Segments]] = None
         self._lock = threading.Lock()  # backward passes may run on threads
 
@@ -433,8 +438,8 @@ class SharedSegments:
         call."""
         with self._lock:
             if self._built is None:
-                self._built = position_segments_tables(self.ids,
-                                                       self.num_slots)
+                self._built = position_segments_tables(
+                    self.ids, self.num_slots, self.keep)
         return self._built[t]
 
     def rows(self, table: torch.Tensor, t: int = 0) -> torch.Tensor:

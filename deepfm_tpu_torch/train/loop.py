@@ -52,7 +52,7 @@ the same steps as ``fit`` over the same batch order, so the two are
 bit-identical.
 
 Data parallelism (``--mesh_data N`` over N processes, ``parallel.mesh``):
-every rank holds the whole replicated state and steps over its
+every rank holds the replicated state and steps over its
 ``batch_size / N`` rows. The gradients are averaged over the ranks once
 per optimizer apply (the JAX ``pmean`` over ``'data'``: under
 accumulation once per apply, not per microbatch) in one all_reduce of a
@@ -61,19 +61,33 @@ reported loss; with ``_hier_groups`` set they go through
 ``mesh.hierarchical_pmean`` instead. The learning rate is scaled by N
 under ``scale_lr_by_world``, BN takes its batch statistics over the ranks
 (``models.common.cross_replica_bn``), and each rank draws its own dropout
-(a generator seeded per step from the run's seed and the rank). The
-sparse update under a mesh warns and trains dense, and the hot/cold tier
-raises, as in the JAX package. ``fit`` keeps the ranks in lockstep: each
-round of ``steps_per_loop`` batches the ranks exchange their counts and
-all dispatch the global minimum (``_stage_multiprocess``); ``evaluate``
-pads with zero-weight batches until every rank is done
-(``lockstep_batches``) and sums the metric state over the ranks. Every
-collective is issued from the fit thread, in the same order on every
-rank; the staging ring still transfers ahead on its own thread.
+(a generator seeded per step from the run's seed and the data index).
+``fit`` keeps the ranks in lockstep: each round of ``steps_per_loop``
+batches the ranks exchange their counts and all dispatch the global
+minimum (``_stage_multiprocess``); ``evaluate`` pads with zero-weight
+batches until every rank is done (``lockstep_batches``) and sums the
+metric state over the data ranks. Every collective starts from the fit
+thread, in the same order on every rank; the staging ring still transfers
+ahead on its own thread.
 
-Not ported yet, raising ``NotImplementedError`` naming its flag: a model
-axis (``--mesh_model > 1``) and ``--embedding_shard rows`` under a mesh
-(ROADMAP queue 1 item 4).
+The model axis (``--mesh_model M``, D * M processes): the embedding tables
+and their optimizer slots are row-sharded over the M model peers of a
+mesh row, which read the same batch (the data shard is the data index's)
+and draw the same dropout; everything else is replicated. The dense
+update looks up through ``--embedding_lookup masked_psum`` or
+``allgather_table`` (``ops.embedding``), sums the l2 term over the model
+peers, masks pad rows at the shard's offset and averages every gradient
+over the data group (the mesh column) only. ``--embedding_update sparse
+--embedding_shard rows`` runs ``_sharded_sparse_step_impl`` (the JAX
+program of that name): the plan on the replicated batch, the row exchange
+over the model peers, the take kernels over the exchanged rows, the
+owner-local scatter, one all_reduce over the data group, and lazy Adam
+over the owned rows; with M = 1 it is the data-parallel sparse update. The
+sparse update under a mesh without the row plane warns and trains dense,
+and the hot/cold tier raises, as in the JAX package. Checkpoints and
+exports hold the full tables (``full_state``: the shards gathered), and a
+restore slices them (``local_snapshot``), so a checkpoint moves between
+meshes.
 """
 
 from __future__ import annotations
@@ -164,21 +178,13 @@ def _with_weight(batch: Batch, bs: int) -> Batch:
 
 
 def check_ported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for a Trainer option that the port has
-    not reached yet, naming its flag."""
-    multi = cfg.mesh_data > 1 or cfg.num_processes > 1
-    unported = [
-        (cfg.mesh_model > 1,
-         f"--mesh_model {cfg.mesh_model} (embedding rows sharded over a "
-         "model axis, ROADMAP queue 1 item 4)"),
-        (multi and cfg.embedding_shard == "rows",
-         "--embedding_shard rows under a mesh (the row exchange, ROADMAP "
-         "queue 1 item 4)"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not yet ported to deepfm_tpu_torch")
+    """The Trainer's check before any process group starts: every option
+    of the JAX Trainer is ported, and under ``--dist_mode 1`` (the process
+    count is the config's) the mesh must cover the processes:
+    ``--mesh_data`` x ``--mesh_model`` = ``--num_processes``, else
+    ``ValueError`` naming the flags."""
+    if cfg.dist_mode == 1:
+        mesh_lib.mesh_shape(cfg, max(int(cfg.num_processes), 1))
 
 
 def _staged_records(args) -> int:
@@ -398,26 +404,36 @@ class Trainer:
         self._task_names = tuple(getattr(self.model, "task_names",
                                          ("ctr",)))
         self._multitask = len(self._task_names) > 1
-        # The data axis: one rank per GPU, every tensor replicated.
+        # The mesh: D data ranks (the gradient average, BN's statistics,
+        # the learning rate's scale, the AUC sums, the dropout stream) by M
+        # model ranks (the tables' rows), one GPU each.
         self.mesh_info = (mesh_info if mesh_info is not None
                           else mesh_lib.build_mesh(cfg))
-        self._world = self.mesh_info.data_size
-        self._rank = bootstrap.process_index() if self._world > 1 else 0
+        mi = self.mesh_info
+        self._world = mi.data_size
+        self._procs = mi.num_processes
+        self._rank = mi.data_index
+        self._data_group = mi.data_group()
+        self._shard = mi.model_axis()
         self.opt = opt_lib.build_optimizer(cfg, world_size=self._world)
         self._embed_names = self.model.embedding_param_names()
         # Sparse (touched-rows-only) embedding updates with lazy Adam; the
         # tables' flat state names, and the rest of the params, which the
         # base optimizer updates. Under a mesh the sparse plane needs the
-        # row exchange (--embedding_shard rows, not ported): replicated
-        # tables with per-rank sparse plans would drift apart, so the run
+        # row exchange (--embedding_shard rows): replicated tables with
+        # per-rank sparse plans would drift apart, so without it the run
         # trains dense, as the JAX Trainer does.
         self.sparse_embed = cfg.embedding_update == "sparse"
-        if self.sparse_embed and self.mesh_info.is_mesh:
+        if (self.sparse_embed and mi.is_mesh
+                and cfg.embedding_shard != "rows"):
             log.warning(
                 "embedding_update=sparse under a mesh needs the row "
                 "exchange plane (--embedding_shard rows) -> falling back "
                 "to dense embedding updates")
             self.sparse_embed = False
+        # The row plane's mesh program (_sharded_sparse_step_impl); one
+        # process keeps the single-device sparse step.
+        self._row_plane = self.sparse_embed and mi.is_mesh
         emb = self.model.emb
         self._embed_keys = {n: {k: emb.param_key(n, k)
                                 for k in emb.table_keys()}
@@ -426,6 +442,9 @@ class Trainer:
                       for p in keys.values()}
         self._rest_keys = [k for k, _ in self.model.named_parameters()
                            if k not in embed_flat]
+        # Which state tensors are row-sharded (the JAX partition specs).
+        self._param_specs = mesh_lib.param_pspecs(
+            dict(self.model.named_parameters()), embed_flat, mi.model_size)
         # Hot/cold tiered embedding storage (config-validated: sparse
         # update, monolithic table).
         self._tier = None
@@ -453,9 +472,12 @@ class Trainer:
         # This rank's dropout generator under a mesh (seeded per step).
         self._rank_rng: Optional[torch.Generator] = None
         self._grad_bytes: Optional[int] = None
-        # Collective and dispatch timings of the active fit, when timed.
+        # Collective and dispatch timings of the active fit, when timed:
+        # the gradient all_reduces and the row exchanges.
         self._time_comm = os.environ.get(TIME_COLLECTIVES_ENV, "") == "1"
         self._comm_marks: List[Any] = []
+        self._exchange_marks: List[Any] = []
+        self._exchange_bytes = 0
 
     # ------------------------------------------------------------------
     # State
@@ -471,9 +493,16 @@ class Trainer:
         seed = self.cfg.seed if seed is None else seed
         gen = torch.Generator(device=self.device).manual_seed(seed)
         model = get_model(self.cfg, device=self.device, generator=gen)
-        params = {k: v.detach().requires_grad_()
-                  for k, v in model.named_parameters()}
+        params = {k: v.detach() for k, v in model.named_parameters()}
         model_state = {k: v.detach() for k, v in model.named_buffers()}
+        del model
+        if self._shard is not None:
+            # Every rank draws the full tables from the seed and keeps its
+            # rows: a sharded init is the one-device init, sliced.
+            params = {k: emb_ops.shard_rows(v, self._shard)
+                      if self._param_specs[k] else v
+                      for k, v in params.items()}
+        params = {k: v.requires_grad_() for k, v in params.items()}
         opt_state = self._init_opt_state(
             {k: v.detach() for k, v in params.items()})
         rng = torch.Generator(device=self.device).manual_seed(seed + 1)
@@ -501,7 +530,8 @@ class Trainer:
                      model_state: Dict[str, torch.Tensor]) -> TrainState:
         """Copy flat ``{name: tensor}`` weights (``params_from_jax``, an
         artifact's) into ``state``, in place; returns the state. Under
-        tiering, load into ``init_state(tiered=False)``, then adopt."""
+        tiering, load into ``init_state(tiered=False)``, then adopt. Under
+        a model axis the full tables are cut to this rank's rows."""
         with torch.no_grad():
             for src, dst in ((params, state.params),
                              (model_state, state.model_state)):
@@ -509,11 +539,56 @@ class Trainer:
                     raise ValueError(f"weights {sorted(src)} do not match "
                                      f"the model's {sorted(dst)}")
                 for k, v in src.items():
+                    if (self._shard is not None and dst is state.params
+                            and self._param_specs[k]):
+                        v = emb_ops.shard_rows(v, self._shard)
                     dst[k].copy_(v)
         return state
 
+    def _opt_specs(self, opt_state: Any) -> Any:
+        return mesh_lib.opt_state_pspecs(opt_state, self._param_specs,
+                                         self._embed_names)
+
+    @torch.no_grad()
+    def full_state(self, state: TrainState) -> TrainState:
+        """``state`` with the full tables and optimizer slots: under a
+        model axis each row-sharded tensor is all-gathered over the model
+        peers (a collective: every rank calls it), else ``state``
+        itself. What a checkpoint and an export hold, whatever the mesh."""
+        if self._shard is None:
+            return state
+        axis = self._shard
+
+        def gather(t: torch.Tensor) -> torch.Tensor:
+            return emb_ops.gather_table(t.detach(), axis)
+
+        params = {k: gather(v) if self._param_specs[k] else v
+                  for k, v in state.params.items()}
+        opt = _map_rows(state.opt_state, self._opt_specs(state.opt_state),
+                        gather)
+        return TrainState(step=state.step, params=params, opt_state=opt,
+                          model_state=state.model_state, rng=state.rng)
+
+    def local_snapshot(self, snap: Dict[str, Any]) -> Dict[str, Any]:
+        """A full (mesh-independent) checkpoint snapshot cut to this rank's
+        rows of every row-sharded tensor: what ``TrainState.load_dict``
+        of a sharded state takes. Unchanged without a model axis."""
+        if self._shard is None:
+            return snap
+        axis = self._shard
+
+        def cut(t: torch.Tensor) -> torch.Tensor:
+            return emb_ops.shard_rows(t, axis)
+
+        params = {k: cut(v) if self._param_specs.get(k) else v
+                  for k, v in snap["params"].items()}
+        opt = _map_rows(snap["opt_state"], self._opt_specs(snap["opt_state"]),
+                        cut)
+        return {**snap, "params": params, "opt_state": opt}
+
     def servable_model(self, state: TrainState) -> torch.nn.Module:
-        """An eval-mode module holding ``state``'s weights (for export)."""
+        """An eval-mode module holding ``state``'s weights (for export; a
+        sharded state goes through :meth:`full_state` first)."""
         model = get_model(self.cfg, device="meta")
         model.load_state_dict(
             {k: v.detach() for k, v in {**state.params,
@@ -543,18 +618,22 @@ class Trainer:
         microbatch within an accumulated apply)."""
         self.model.train(train)
         gen = self._dropout_generator(state, micro) if train else None
-        with common_lib.cross_replica_bn(self._world if train else 1):
+        with common_lib.cross_replica_bn(self._world if train else 1,
+                                         self._data_group):
             return functional_call(
                 self.model, {**state.params, **state.model_state},
                 (batch["feat_ids"], batch["feat_vals"]),
-                {"generator": gen, **emb_kw, **self._hist_kwargs(batch)})
+                {"generator": gen, "shard": self._shard, **emb_kw,
+                 **self._hist_kwargs(batch)})
 
     def _dropout_generator(self, state: TrainState,
                            micro: int = 0) -> torch.Generator:
-        """The state's generator on one device. Under a mesh each rank
-        draws different dropout (the JAX ``fold_in(rng, axis_index)``): a
-        generator seeded from (seed, step, microbatch, rank), so a resumed
-        run draws what an uninterrupted one does."""
+        """The state's generator without a data axis (model peers draw the
+        same masks from it). Under a data axis each data rank draws
+        different dropout (the JAX ``fold_in(rng, axis_index('data'))``): a
+        generator seeded from (seed, step, microbatch, data index), the
+        same on the data index's model peers, so a resumed run draws what
+        an uninterrupted one does."""
         if self._world <= 1:
             return state.rng
         if self._rank_rng is None:
@@ -604,20 +683,34 @@ class Trainer:
             logits = self._logits(state, batch, train=True)
             labels = self._batch_labels(batch)
             xent = torch.mean(self._per_example_loss(logits, labels))
-            l2 = self.model.l2_loss(state.params)
+            l2 = self.model.l2_loss(state.params, shard=self._shard)
             grads = dict(zip(names, _grads(
                 xent + l2, [state.params[n] for n in names])))
-        # Pad rows never move: their gradient is already zero (no real id
-        # reaches them; the l2 term excludes them), and this makes it so.
+        self._mask_pad_grads(grads)
+        return xent.detach(), l2.detach(), grads
+
+    def _mask_pad_grads(self, grads: Dict[str, torch.Tensor]) -> None:
+        """Pad rows never move: their gradient is already zero (no real id
+        reaches them; the l2 term excludes them), and this makes it so (at
+        the shard's global offset under a model axis)."""
         for keys in self._embed_keys.values():
             for p in keys.values():
-                grads[p] = self.model.emb.mask_pad_grads(grads[p])
-        return xent.detach(), l2.detach(), grads
+                off = (self._shard.index * grads[p].shape[0]
+                       if self._shard is not None else 0)
+                grads[p] = self.model.emb.mask_pad_grads(grads[p], off)
+
+    def _l2_total(self, l2: torch.Tensor) -> torch.Tensor:
+        """The l2 term of the whole tables: this shard's part summed over
+        the model peers (the JAX ``psum`` over ``'model'``)."""
+        if self._shard is None:
+            return l2
+        return emb_ops.sum_over_peers(l2, self._shard)
 
     def loss_and_grads(self, state: TrainState,
                        batch: Dict[str, torch.Tensor]):
         """``(loss, xent, grads)`` of this rank's batch, loss = xent + l2
-        (see :meth:`_loss_terms`; no collective)."""
+        (see :meth:`_loss_terms`; l2 is this shard's part under a model
+        axis)."""
         xent, l2, grads = self._loss_terms(state, batch)
         return xent + l2, xent, grads
 
@@ -627,12 +720,16 @@ class Trainer:
         and returns it with the step's ``loss`` and ``xent`` (on the
         device: reading them waits for the card). Under a mesh the
         gradients and xent are averaged over the data ranks first (the l2
-        term is the same on every rank)."""
+        term is the same on every data rank; under a model axis its value
+        is summed over the model peers)."""
         if self.sparse_embed:
+            if self._row_plane:
+                return self._sharded_sparse_step_impl(state, batch)
             return self._sparse_step_impl(state, batch)
         xent, l2, grads = self._loss_terms(state, batch)
         if self._world > 1:
             xent = self._pmean_grads(grads, xent)
+        l2 = self._l2_total(l2)
         self.opt.apply(state.params, grads, state.opt_state)
         state.step += 1
         return state, {"loss": xent + l2, "xent": xent}
@@ -642,10 +739,11 @@ class Trainer:
                      xent: torch.Tensor) -> torch.Tensor:
         """THE gradient sync point of data parallelism (Horovod's allreduce
         in the reference, the JAX ``pmean`` over ``'data'``): ``grads``
-        replaced in place by their mean over the data ranks, and the mean
-        xent returned. One all_reduce of a flat buffer per dtype; xent
-        rides the float32 one. With ``_hier_groups`` the buffers go
-        through ``hierarchical_pmean`` (intra-host, then inter-host)."""
+        replaced in place by their mean over the data ranks (the data
+        group: this rank's mesh column), and the mean xent returned. One
+        all_reduce of a flat buffer per dtype; xent rides the float32 one.
+        With ``_hier_groups`` the buffers go through ``hierarchical_pmean``
+        (intra-host, then inter-host)."""
         buckets: Dict[torch.dtype, List[str]] = {}
         for name, g in grads.items():
             buckets.setdefault(g.dtype, []).append(name)
@@ -661,7 +759,7 @@ class Trainer:
             mesh_lib.hierarchical_pmean(flats, self._hier_groups, self._world)
         else:
             for flat in flats:
-                dist.all_reduce(flat)
+                dist.all_reduce(flat, group=self._data_group)
                 flat.div_(self._world)
         if mark is not None:
             self._comm_marks.append((mark, self._comm_mark()))
@@ -696,11 +794,12 @@ class Trainer:
         """Bytes of ONE gradient all_reduce (``mesh.grad_payload_bytes``
         of the model's params), from shapes only."""
         if self._grad_bytes is None:
-            emb = {p for keys in self._embed_keys.values()
-                   for p in keys.values()}
+            emb = [p for n in self._embed_names
+                   for p in self._embed_keys[n].values()]
             self._grad_bytes = mesh_lib.grad_payload_bytes(
                 dict(self.model.named_parameters()), emb,
-                self.mesh_info.model_size)
+                self.mesh_info.model_size,
+                embedding_shard="rows" if self._row_plane else "off")
         return self._grad_bytes
 
     # -- sparse embedding update ----------------------------------------
@@ -874,6 +973,135 @@ class Trainer:
         state.step += 1
         return state, {"loss": (xent + l2).detach(), "xent": xent.detach()}
 
+    # -- the row plane under a mesh (--embedding_shard rows) ---------------
+    def _sharded_sparse_step_impl(self, state: TrainState,
+                                  batch: Dict[str, torch.Tensor]
+                                  ) -> Tuple[TrainState,
+                                             Dict[str, torch.Tensor]]:
+        """One sparse optimizer step under the mesh with row-sharded tables
+        (the JAX ``_sharded_sparse_step_impl``; the tables and their lazy
+        Adam slots hold this rank's rows of an M-way model axis, M = 1 on a
+        data-only mesh):
+
+          1. The batch's plan is built as on one device (the plan kernel;
+             model peers read the same batch, so every peer holds the same
+             plan).
+          2. ``build_exchange`` splits the uid slots M ways;
+             ``exchange_rows`` fetches each table's [U, ...] rows from
+             their owners, bit-equal to gathering from the full table
+             (with M = 1, ``gather_rows`` of the whole table).
+          3. The rows are the gradient leaves; the take kernels view them
+             and sum their cotangents in position order.
+          4. ``owner_scatter_add`` lands each name's row gradients in this
+             shard's table space, with the touched marks; ONE all_reduce
+             over the data group (``_pmean_grads``: the other params'
+             gradients, every table gradient, the touched marks as float32
+             and xent) averages them, the marks becoming the union.
+          5. Lazy Adam sweeps the owned rows under the union
+             (``sparse_adam_masked``), with the touched-rows l2 gradient
+             ``l2_reg * row`` added post hoc (in the loss it would weigh a
+             row by how many data ranks touched it).
+
+        The idle decays follow the one-device step of the layout: the
+        shared ``exp2`` pair of the fused leg (monolithic, kernels on),
+        else ``pow`` per table as the plan leg's row-form Adam computes
+        them. So at 1 x M the tables equal the one-device run's bit for
+        bit: every element of the exchange and of the scatter has one
+        nonzero part, and each row's cotangents sum in the one-device
+        order. The loss carries no collective; the l2 value is summed
+        over the model peers."""
+        emb = self.model.emb
+        axis = self._shard
+        d = emb.num_shards
+        shard = axis.index if axis is not None else 0
+        names = self._embed_names
+        tabs = self._tables(state)
+        rest = [state.params[k] for k in self._rest_keys]
+        labels = self._batch_labels(batch)
+        plan = emb.sparse_plan(batch["feat_ids"])
+        with torch.no_grad():
+            if d > 1:
+                mark = self._comm_mark()
+                ex = {key: emb_ops.build_exchange(e, d, shard)
+                      for key, e in plan.items()}
+                rows0 = {n: {key: emb_ops.exchange_rows(
+                    tabs[n][key], ex[key], axis) for key in plan}
+                    for n in names}
+                if mark is not None:
+                    self._exchange_marks.append((mark, self._comm_mark()))
+                self._exchange_bytes = sum(
+                    emb_ops.exchange_payload_bytes(
+                        e.uids.shape[0], max(tabs[n][key][0].numel(), 1), d,
+                        tabs[n][key].element_size())
+                    for n in names for key, e in plan.items())
+            else:
+                rows0 = {n: emb.gather_rows(emb.from_tables(tabs[n]), plan)
+                         for n in names}
+        with torch.enable_grad():
+            leaves = {n: {k: r.detach().requires_grad_()
+                          for k, r in rows.items()}
+                      for n, rows in rows0.items()}
+            logits = self._logits(state, batch, train=True, emb_rows=leaves,
+                                  emb_plan=plan)
+            xent = torch.mean(self._per_example_loss(logits, labels))
+            flat = [(n, k) for n in names for k in leaves[n]]
+            grads = _grads(xent, [leaves[n][k] for n, k in flat] + rest)
+        sync: Dict[Any, torch.Tensor] = dict(zip(self._rest_keys,
+                                                 grads[len(flat):]))
+        for (n, key), g in zip(flat, grads):
+            sync[("row", n, key)], touched = emb_ops.owner_scatter_add(
+                g, plan[key], d, shard)
+            sync[("touched", key)] = touched.float()
+        xent = xent.detach()
+        if self._world > 1:
+            xent = self._pmean_grads(sync, xent)
+        opt = state.opt_state
+        self.opt.apply({k: state.params[k] for k in self._rest_keys},
+                       {k: sync[k] for k in self._rest_keys}, opt["base"])
+        count = opt["count"] + 1
+        l2 = self._owner_adam(state, tabs, list(plan), sync, count)
+        opt["count"] = count
+        state.step += 1
+        return state, {"loss": xent + l2, "xent": xent}
+
+    @torch.no_grad()
+    def _owner_adam(self, state: TrainState,
+                    tabs: Dict[str, Dict[str, torch.Tensor]],
+                    keys: List[str], sync: Dict[Any, torch.Tensor],
+                    count: int) -> torch.Tensor:
+        """Step 5 of :meth:`_sharded_sparse_step_impl`, in place; returns
+        the l2 term's value over the whole tables (the touched rows of every
+        shard, before the update)."""
+        opt_embed = state.opt_state["embed"]
+        l2_reg = self.cfg.l2_reg
+        shared_decay = (self._use_fused_backward()
+                        and self.model.emb.padded_vocab
+                        <= ek.PLAN_COUNT_MAX_ROWS)
+        l2 = torch.zeros((), dtype=torch.float32, device=self.device)
+        for key in keys:
+            touched = sync[("touched", key)] > 0
+            decay = None
+            if shared_decay:
+                idle = (count - opt_embed[self._embed_names[0]][key].tau
+                        ).float()
+                decay = (torch.exp2(idle * float(np.float32(np.log2(0.9)))),
+                         torch.exp2(idle * float(np.float32(
+                             np.log2(0.999)))))
+            for name in self._embed_names:
+                tab = tabs[name][key]
+                g_eff = sync[("row", name, key)]
+                if l2_reg:
+                    sq = tab.float() * tab.float()
+                    keep = emb_ops.trailing_dims(touched, sq.dim())
+                    l2 = l2 + 0.5 * torch.sum(torch.where(
+                        keep, sq, torch.zeros((), dtype=sq.dtype,
+                                              device=sq.device)))
+                    g_eff = g_eff + l2_reg * tab.float()
+                opt_lib.sparse_adam_masked(tab, g_eff, touched,
+                                           opt_embed[name][key], count,
+                                           lr=self.opt.lr, decay=decay)
+        return self._l2_total(l2_reg * l2)
+
     # -- gradient accumulation -------------------------------------------
     def _accum_step_impl(self, state: TrainState,
                          batches: List[Dict[str, torch.Tensor]]
@@ -916,7 +1144,7 @@ class Trainer:
                 torch._foreach_add_(grads, g)
             xent_sum = xent_sum + xent.detach()
         with torch.enable_grad():
-            l2 = self.model.l2_loss(state.params)
+            l2 = self.model.l2_loss(state.params, shard=self._shard)
             g_l2 = torch.autograd.grad(l2, params, allow_unused=True)
         for g, gi in zip(grads, g_l2):
             if gi is not None:
@@ -925,12 +1153,11 @@ class Trainer:
         xent = xent_sum / a
         if self._world > 1:
             xent = self._pmean_grads(gd, xent)
-        for keys in self._embed_keys.values():
-            for p in keys.values():
-                gd[p] = self.model.emb.mask_pad_grads(gd[p])
+        self._mask_pad_grads(gd)
         self.opt.apply(state.params, gd, state.opt_state)
         state.step += a
-        return state, {"loss": (xent + l2).detach(), "xent": xent}
+        return state, {"loss": (xent + self._l2_total(l2.detach())),
+                       "xent": xent}
 
     def _sparse_accum_step_impl(self, state: TrainState,
                                 batches: List[Dict[str, torch.Tensor]]
@@ -1126,7 +1353,7 @@ class Trainer:
         if tier is not None:
             staged = self._stage_tiered(batches, k, cfg.transfer_ahead,
                                         tier.start_staging())
-        elif world > 1:
+        elif self._procs > 1:
             staged = self._stage_multiprocess(batches, k, cfg.transfer_ahead)
         else:
             staged = self._stage(batches, k, cfg.transfer_ahead)
@@ -1140,6 +1367,7 @@ class Trainer:
         meter = prof_lib.ThroughputMeter()
         comm_applies = 0
         self._comm_marks = []
+        self._exchange_marks = []
         dispatch_marks: List[Tuple[Any, Any]] = []
         t0 = time.time()
         try:
@@ -1236,13 +1464,20 @@ class Trainer:
                 comm_applies * self._grad_payload_bytes())
             out["collective_strategy"] = (
                 "hierarchical" if self._hier_groups is not None else "flat")
+        if self._row_plane and self._shard is not None and n_steps:
+            out["exchange_bytes"] = float(self._exchange_bytes)
         if self._time_comm and n_steps:
             if self._comm_marks:
                 out["collective_device_ms"] = float(np.median(
                     [self._elapsed_ms(a, b) for a, b in self._comm_marks]))
+            if self._exchange_marks:
+                out["exchange_device_ms"] = float(np.median(
+                    [self._elapsed_ms(a, b)
+                     for a, b in self._exchange_marks]))
             out["dispatch_device_ms"] = float(np.median(
                 [self._elapsed_ms(a, b) for a, b in dispatch_marks]))
         self._comm_marks = []
+        self._exchange_marks = []
         if tier is not None:
             out.update({f"hotcold_{k_}": float(v)
                         for k_, v in tier.stats.items()})
@@ -1382,7 +1617,10 @@ class Trainer:
         if self._multitask:
             return "multi-task run (the decoded-cache column set carries a "\
                    "single label column)"
-        if self._world > 1:
+        if self.mesh_info.model_size > 1:
+            return "model-parallel mesh (row-sharded embedding lookups "\
+                   "read the staged batches of the mesh row)"
+        if self._procs > 1:
             return "multi-process run (device columns would need per-host "\
                    "record sharding)"
         if getattr(pipe, "decoded_cache", "off") == "off":
@@ -1620,11 +1858,12 @@ class Trainer:
         names = self._task_names
         world = self._world
         local_bs = mesh_lib.local_batch_size(cfg, world)
+        group = self._data_group
         auc_states = [metrics_lib.auc_init(cfg.auc_num_thresholds,
                                            device=self.device)
                       for _ in names]
         loss_state = metrics_lib.mean_init(device=self.device)
-        if world > 1:
+        if self._procs > 1:
             staged = ((_with_weight(b, local_bs) if real else b, real)
                       for b, real in self.lockstep_batches(
                           batches, lambda: self._dummy_eval_batch(local_bs)))
@@ -1663,8 +1902,8 @@ class Trainer:
                 out.update({f"auc_{t}": 0.0 for t in names})
             return out
         if world > 1:
-            auc_states = [metrics_lib.auc_psum(a) for a in auc_states]
-            loss_state = metrics_lib.mean_psum(loss_state)
+            auc_states = [metrics_lib.auc_psum(a, group) for a in auc_states]
+            loss_state = metrics_lib.mean_psum(loss_state, group)
         aucs = [float(metrics_lib.auc_compute(a))  # device sync
                 for a in auc_states]
         auc = aucs[0]
@@ -1699,6 +1938,20 @@ class Trainer:
                 probs = (self.model.probs_from_logits(logits)
                          if self._multitask else torch.sigmoid(logits))
                 yield probs.cpu().numpy()
+
+
+def _map_rows(tree: Any, specs: Any, fn: Callable) -> Any:
+    """``tree`` with ``fn`` applied to every tensor whose spec (the
+    matching leaf of ``specs``, ``parallel.mesh.opt_state_pspecs``) is the
+    model axis; NamedTuples and dicts rebuilt, other leaves kept."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(**{k: _map_rows(v, getattr(specs, k), fn)
+                             for k, v in tree._asdict().items()})
+    if isinstance(tree, dict):
+        return {k: _map_rows(v, specs[k], fn) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and specs == mesh_lib.MODEL_AXIS:
+        return fn(tree)
+    return tree
 
 
 def _grads(out: torch.Tensor, inputs: List[torch.Tensor],

@@ -66,8 +66,17 @@ the CPU. It bootstraps the process group (``parallel.bootstrap``) under
   * ``--online_mode`` raises ``NotImplementedError``, as the JAX package's
     does.
 
-Modes the port has not reached raise ``NotImplementedError`` naming their
-flag (see ``check_task_ported``): a model axis (``--mesh_model > 1``).
+Under a model axis (``--mesh_data D --mesh_model M``, D * M processes,
+``parallel.mesh``) the files, the records and ``batch_size / D`` rows are
+sharded by the DATA index over D, so the M model peers of a mesh row read
+the same batches; eval sums its metrics over the data ranks; infer keeps
+the predictions of model index 0, re-interleaved over the data ranks. A
+checkpoint holds the full tables (``Trainer.full_state``, a collective on
+every rank; the chief writes) and a restore cuts them to the rank's rows
+(``Trainer.local_snapshot``), so a checkpoint restores on any mesh; an
+export gathers the tables first and writes the one-device artifact.
+``check_task_ported`` checks the mesh against ``--num_processes`` before
+any process group starts.
 
 Every pipeline takes the input flags: the native decoder and its pooled
 emission (``--use_native_decoder``, ``--native_assembly``,
@@ -129,10 +138,27 @@ log = logging.getLogger(__name__)
 
 
 def check_task_ported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for a task mode the port has not
-    reached yet, naming its flag: the Trainer's (``check_ported``: a
-    model axis, the row exchange)."""
+    """The tasks' check before any process group starts: the
+    Trainer's (``check_ported``: the mesh must cover ``--num_processes``,
+    else ``ValueError`` naming the flags)."""
     check_ported(cfg)
+
+
+def _data_axis(cfg: Config) -> Tuple[int, int]:
+    """(data index, data size) of this process: the mesh row's index and
+    the number of rows (``parallel.mesh``); (rank, world) without a model
+    axis."""
+    world = bootstrap.process_count()
+    if world == 1:
+        return 0, 1
+    _, model = mesh_lib.mesh_shape(cfg, world)
+    return bootstrap.process_index() // model, world // model
+
+
+def _data_workers_per_host(cfg: Config) -> int:
+    """Data ranks per host: ``worker_per_host`` over the model axis (model
+    peers are adjacent ranks, so a host holds whole mesh rows)."""
+    return max(max(cfg.worker_per_host, 1) // max(cfg.mesh_model, 1), 1)
 
 
 def resolve_files(directory: str, prefix: str) -> List[str]:
@@ -188,31 +214,36 @@ def resolve_channel_dirs(cfg: Config, *, process_index: Optional[int] = None
                 f"local worker: have {len(train_names)} channels "
                 f"{train_names} for worker_per_host={wph} "
                 f"(reference contract, README-EN.md:82)")
-        rank = (bootstrap.process_index() if process_index is None
+        rank = (_data_axis(cfg)[0] if process_index is None
                 else process_index)
-        train_dir = _channel_path(cfg, train_names[rank % wph], require=True)
+        train_dir = _channel_path(
+            cfg, train_names[rank % _data_workers_per_host(cfg)],
+            require=True)
     else:
         train_dir = _channel_path(cfg, train_names[0])
     return train_dir, eval_dir
 
 
 def _local_batch_size(cfg: Config, world: Optional[int] = None) -> int:
-    """This rank's (or each of ``world`` ranks') rows of the global
+    """This rank's (or each of ``world`` data ranks') rows of the global
     ``batch_size``."""
     return mesh_lib.local_batch_size(
-        cfg, bootstrap.process_count() if world is None else world)
+        cfg, _data_axis(cfg)[1] if world is None else world)
 
 
 def _shard_spec(cfg: Config, files: List[str], rank: Optional[int] = None,
                 world: Optional[int] = None) -> shard_lib.ShardSpec:
-    """This rank's (or ``rank``'s of ``world``) share of ``files``."""
-    rank = bootstrap.process_index() if rank is None else rank
-    world = bootstrap.process_count() if world is None else world
+    """This rank's (or data rank ``rank``'s of ``world``) share of
+    ``files``: the data index's, the same on its model peers."""
+    if rank is None or world is None:
+        index, size = _data_axis(cfg)
+        rank = index if rank is None else rank
+        world = size if world is None else world
+    wph = _data_workers_per_host(cfg)
     return shard_lib.shard_files(
         files, enable_data_multi_path=cfg.enable_data_multi_path,
         enable_s3_shard=cfg.enable_s3_shard, rank=rank,
-        local_rank=rank % max(cfg.worker_per_host, 1), world_size=world,
-        workers_per_host=cfg.worker_per_host)
+        local_rank=rank % wph, world_size=world, workers_per_host=wph)
 
 
 def _validate_shard_coverage(cfg: Config, files: List[str]) -> None:
@@ -221,11 +252,11 @@ def _validate_shard_coverage(cfg: Config, files: List[str]) -> None:
     and checks the same thing). Under ``enable_s3_shard`` this host's
     local workers cover this host's files; private multi-path channels
     are not one list, so they are not checked."""
-    world = bootstrap.process_count()
+    world = _data_axis(cfg)[1]
     if world <= 1 or cfg.enable_data_multi_path:
         return
     if cfg.enable_s3_shard:
-        ranks = range(min(max(cfg.worker_per_host, 1), world))
+        ranks = range(min(_data_workers_per_host(cfg), world))
     else:
         ranks = range(world)
     specs = [_shard_spec(cfg, files, rank=r) for r in ranks]
@@ -388,7 +419,7 @@ def _restore_or_init(trainer: Trainer, cfg: Config, require: bool,
     mgr = mgr or ckpt_lib.CheckpointManager(
         cfg.model_dir, max_to_keep=cfg.keep_checkpoint_max)
     if mgr.latest_step() is not None:
-        return adopted(mgr.restore(state))
+        return adopted(mgr.restore(state, shard=trainer.local_snapshot))
     if require:
         raise FileNotFoundError(
             f"task '{cfg.task_type}' needs a checkpoint in model_dir="
@@ -398,16 +429,22 @@ def _restore_or_init(trainer: Trainer, cfg: Config, require: bool,
 
 def _ckpt_state(trainer: Trainer, state: TrainState) -> TrainState:
     """What goes into every checkpoint: under tiering the densified state
-    with full-shape Adam slots; otherwise ``state`` itself."""
+    with full-shape Adam slots; under a model axis the gathered full state
+    (a collective: every rank calls this); otherwise ``state`` itself."""
     tier = trainer._tier
-    return tier.checkpoint_state(state) if tier is not None else state
+    if tier is not None:
+        return tier.checkpoint_state(state)
+    return trainer.full_state(state)
 
 
 def _servable_state(trainer: Trainer, state: TrainState) -> TrainState:
     """What the export serves: under tiering the full tables, not the hot
-    window."""
+    window; under a model axis the gathered tables (every rank calls
+    this)."""
     tier = trainer._tier
-    return tier.densified(state) if tier is not None else state
+    if tier is not None:
+        return tier.densified(state)
+    return trainer.full_state(state)
 
 
 def run(cfg: Config, device="cuda") -> Dict[str, float]:
@@ -493,7 +530,7 @@ def _files_fingerprint(files: List[str], cfg: Optional[Config] = None
                  .encode())
         if cfg.enable_data_multi_path:
             tagged = []
-            for r in range(max(cfg.worker_per_host, 1)):
+            for r in range(_data_workers_per_host(cfg)):
                 try:
                     chan_dir, _ = resolve_channel_dirs(cfg, process_index=r)
                     tagged.extend((f"c{r}", p)
@@ -523,7 +560,9 @@ def _consumption_layout(cfg: Config) -> List:
     processes (each reads its shard at ``batch_size / world`` rows) rides
     the tag of a multi-process run."""
     world = bootstrap.process_count()
-    tag = "torch-2" if world == 1 else f"torch-2-w{world}"
+    model = max(cfg.mesh_model, 1)
+    tag = ("torch-2" if world == 1 else f"torch-2-w{world}" if model == 1
+           else f"torch-2-w{world // model}x{model}")
     return [tag, cfg.steps_per_loop, int(cfg.use_native_decoder),
             cfg.batch_size, cfg.shuffle_buffer, cfg.seed,
             int(cfg.drop_remainder), int(cfg.shuffle_files),
@@ -573,11 +612,13 @@ def _resume_position(cfg: Config, restored_step: int, files_digest: str,
 
 def _export(trainer: Trainer, cfg: Config, state: TrainState
             ) -> Optional[str]:
-    """The servable artifact of ``state``, written by the chief only."""
+    """The servable artifact of ``state``, written by the chief only
+    (every rank takes part in gathering a sharded state's tables)."""
+    full = _servable_state(trainer, state)
     if not bootstrap.is_chief():
         return None
     out = os.path.join(cfg.servable_model_dir, str(int(state.step)))
-    model = trainer.servable_model(_servable_state(trainer, state))
+    model = trainer.servable_model(full)
     return export_lib.export_serving(model, cfg, out, step=int(state.step))
 
 
@@ -842,7 +883,8 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
             result["step_ms_p50"] = fit_m.get("step_ms_p50", 0.0)
             result.update({k: v for k, v in fit_m.items()
                            if k.startswith(("hotcold_", "staging_",
-                                            "collective_", "dispatch_"))})
+                                            "collective_", "dispatch_",
+                                            "exchange_"))})
 
     def attempt(state: TrainState) -> TrainState:
         """One training attempt from ``state``: the resume position, the
@@ -1121,7 +1163,8 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
                         f"checkpoint exists to roll back to (set model_dir "
                         f"or use on_nonfinite=skip)") from rs
                 health.record_rollback()
-                state = mgr.restore(trainer.init_state())
+                state = mgr.restore(trainer.init_state(),
+                                    shard=trainer.local_snapshot)
                 # The save cadence restarts from the restored checkpoint.
                 mgr._last_should_save_step = None
                 log.warning("rolled back: restored checkpoint step %d after "
@@ -1177,12 +1220,13 @@ def _task_infer(trainer: Trainer, cfg: Config) -> Dict[str, float]:
     if not te_files:
         raise FileNotFoundError("no inference tfrecords found")
     state = _restore_or_init(trainer, cfg, require=True)
-    world = bootstrap.process_count()
-    rank = bootstrap.process_index()
+    procs = bootstrap.process_count()
+    rank, world = _data_axis(cfg)
     local_bs = _local_batch_size(cfg)
-    # Record-level shard: each rank predicts every world-th record and the
-    # predictions are re-interleaved into global order before the chief
-    # writes them.
+    # Record-level shard: each data rank predicts every world-th record
+    # (its model peers the same records) and the predictions of model
+    # index 0 are re-interleaved into global order before the chief writes
+    # them.
     files = tuple(sorted(te_files))
     pipeline = make_pipeline(cfg, list(files), shuffle=False,
                              drop_remainder=False, shard=shard_lib.ShardSpec(
@@ -1191,7 +1235,7 @@ def _task_infer(trainer: Trainer, cfg: Config) -> Dict[str, float]:
     real_rows: List[int] = []
 
     def feed():
-        if world > 1:
+        if procs > 1:
             # Lockstep rounds, as eval's: every rank feeds the same number
             # of batches (an exhausted rank dummies, their output dropped).
             src = trainer.lockstep_batches(pipeline, lambda: zero_batch(
@@ -1213,8 +1257,10 @@ def _task_infer(trainer: Trainer, cfg: Config) -> Dict[str, float]:
     tail = (cfg.num_tasks,) if cfg.num_tasks > 1 else ()
     local = (np.concatenate(probs) if probs
              else np.zeros((0,) + tail, np.float32)).astype(np.float32)
-    if world > 1:
-        all_probs = _interleave_rank_shards(*bootstrap.allgather_rows(local))
+    if procs > 1:
+        gathered, counts = bootstrap.allgather_rows(local)
+        col0 = slice(None, None, procs // world)  # model index 0 of each row
+        all_probs = _interleave_rank_shards(gathered[col0], counts[col0])
     else:
         all_probs = local
     out_path = os.path.join(pred_dir, "pred.txt")

@@ -23,7 +23,12 @@ raises. ``latest_step`` and ``restore`` read through ``retry_policy``.
 
 Under data parallelism only the chief writes (saves, async saves and
 ``clear_model_dir``); every rank holds the same replicated state and
-restores the same checkpoint from the shared ``model_dir``.
+restores the same checkpoint from the shared ``model_dir``. Under a model
+axis the caller hands :meth:`CheckpointManager.save` the gathered full
+state (``Trainer.full_state``) and :meth:`CheckpointManager.restore` a
+``shard`` function that cuts the full arrays to the rank's rows
+(``Trainer.local_snapshot``): a checkpoint's arrays never depend on the
+mesh.
 """
 
 from __future__ import annotations
@@ -249,9 +254,13 @@ class CheckpointManager:
         self.wait()
         self._executor.close()
 
-    def restore(self, template, step: Optional[int] = None):
+    def restore(self, template, step: Optional[int] = None, *,
+                shard: Optional[Callable[[Dict[str, Any]],
+                                         Dict[str, Any]]] = None):
         """Load a checkpoint (default: the latest) into ``template``'s
-        tensors, in place, on their devices; returns the template."""
+        tensors, in place, on their devices; returns the template.
+        ``shard`` maps the loaded snapshot to the template's layout first
+        (a row-sharded state's rows)."""
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
@@ -260,7 +269,7 @@ class CheckpointManager:
                                           map_location="cpu",
                                           weights_only=True),
                        f"restore(step {step}, {self._dir})")
-        template.load_dict(d)
+        template.load_dict(d if shard is None else shard(d))
         log.info("restored checkpoint step %d from %s", step, self._dir)
         return template
 

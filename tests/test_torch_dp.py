@@ -188,9 +188,10 @@ def _rank_main(spec_path, rank):
     bootstrap.destroy()
 
 
-def run_ranks(world, spec, tmp, timeout=RANK_TIMEOUT_S):
-    """Run ``world`` rank processes of this file on ``spec``; one failure
-    (or the timeout) kills the others and fails with their output."""
+def run_ranks(world, spec, tmp, timeout=RANK_TIMEOUT_S, script=None):
+    """Run ``world`` rank processes of ``script`` (default: this file) on
+    ``spec``, as ``script <spec.json> <rank>``; one failure (or the
+    timeout) kills the others and fails with their output."""
     spec = {**spec, "world": world, "store": str(tmp / "store"),
             "out": str(tmp)}
     path = tmp / "spec.json"
@@ -198,7 +199,8 @@ def run_ranks(world, spec, tmp, timeout=RANK_TIMEOUT_S):
     env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1",
            bootstrap.TIMEOUT_ENV: "60"}
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), str(path), str(r)],
+        [sys.executable, script or os.path.abspath(__file__), str(path),
+         str(r)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(world)]
     deadline = time.time() + timeout
@@ -485,16 +487,23 @@ def test_hier_run_matches_flat_run(dp4):
                               "din"])
 def test_grad_payload_bytes_matches_jax(kw):
     """``mesh.grad_payload_bytes`` over the port's params equals the JAX
-    package's over its param tree (the dense leg, one model column)."""
+    package's over its param tree (the dense leg, one model column; and
+    the ``embedding_shard rows`` leg, the full table plus the touched
+    mask, which the data-only row plane reduces)."""
     jax, JaxConfig, JaxTrainer, flatten, _ = _jax()
     from deepfm_tpu.parallel import mesh as jax_mesh  # noqa: PLC0415
     jt = JaxTrainer(JaxConfig(**_kw(**kw), mesh_data=1, mesh_model=1))
     js = jt.init_state()
-    want = jax_mesh.grad_payload_bytes(js.params, tuple(jt._embed_names), 1)
+    names = tuple(jt._embed_names)
+    want = jax_mesh.grad_payload_bytes(js.params, names, 1)
     tr = Trainer(Config(**_kw(**kw)), device="cpu")
     assert tr._grad_payload_bytes() == want
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        mesh_lib.grad_payload_bytes({}, (), embedding_shard="rows")
+    keys = [k for n in names for k in tr._embed_keys[n].values()]
+    params = dict(tr.model.named_parameters())
+    assert mesh_lib.grad_payload_bytes(
+        params, keys, 1, embedding_shard="rows") == \
+        jax_mesh.grad_payload_bytes(js.params, names, 1,
+                                    embedding_shard="rows")
 
 
 @pytest.mark.parametrize("world", [1, 2, 4])

@@ -332,15 +332,23 @@ def test_online_mode_with_two_processes_raises_as_jax(data_dir, monkeypatch):
 
 
 def test_mesh_model_still_raises_naming_item_4(data_dir, tmp_path):
-    cfg = Config(**_kw(data_dir, str(tmp_path), mesh_model=2))
-    with pytest.raises(NotImplementedError,
-                       match=r"--mesh_model 2 .*queue 1 item 4.* not yet "
-                             r"ported"):
-        tasks.check_task_ported(cfg)
-    with pytest.raises(NotImplementedError, match="--embedding_shard rows"):
-        tasks.check_task_ported(Config(**_kw(
-            data_dir, str(tmp_path), embedding_update="sparse",
-            embedding_shard="rows", mesh_data=2)))
+    """The model axis and ``--embedding_shard rows`` under a mesh are
+    ported: the tasks' up-front check passes them when the mesh
+    covers ``--num_processes``, and raises ``ValueError`` naming
+    ``--mesh_data`` / ``--mesh_model`` (never a queue item) when it does
+    not."""
+    ok = dict(mesh_model=2, dist_mode=1, num_processes=2)
+    tasks.check_task_ported(Config(**_kw(data_dir, str(tmp_path), **ok)))
+    tasks.check_task_ported(Config(**_kw(
+        data_dir, str(tmp_path), embedding_update="sparse",
+        embedding_shard="rows", mesh_data=2, dist_mode=1,
+        num_processes=2)))
+    for bad, flag in ((dict(ok, num_processes=3), "--mesh_model 2"),
+                      (dict(ok, mesh_data=2), "--mesh_data 2")):
+        with pytest.raises(ValueError, match=flag) as e:
+            tasks.check_task_ported(Config(**_kw(data_dir, str(tmp_path),
+                                                 **bad)))
+        assert "queue 1" not in str(e.value)
 
 
 @pytest.mark.parametrize("world,counts", [(2, [3, 2]), (3, [4, 4, 3]),

@@ -78,7 +78,9 @@ def test_every_module_imports_without_jax():
     "deepfm_tpu_torch.rec", "deepfm_tpu_torch.rec.index",
     "deepfm_tpu_torch.rec.cascade", "deepfm_tpu_torch.parallel.bootstrap",
     "deepfm_tpu_torch.parallel.mesh", "deepfm_tpu_torch.fanout",
-    "deepfm_tpu_torch.data.sharding", "deepfm_tpu_torch.utils.logging"])
+    "deepfm_tpu_torch.data.sharding", "deepfm_tpu_torch.utils.logging",
+    "deepfm_tpu_torch.ops.embedding", "deepfm_tpu_torch.ops.embedding_kernels",
+    "deepfm_tpu_torch.models.common", "deepfm_tpu_torch.train.optimizers"])
 def test_module_list_covers_the_runtime_modules(module):
     """The fit loop's runtime (the staging ring, the guard and its state
     snapshot, preemption and its fault seams), the input path (the native
@@ -89,9 +91,11 @@ def test_module_list_covers_the_runtime_modules(module):
     graphs, the multi-task heads, the sequence models and their masked
     softmax, the two-label and history codec and generator, the weight
     carry-over), retrieval (the twin tower, the candidate index, the
-    cascade) and data parallelism (the bootstrap, the data axis, the
-    fan-out launcher, the shard policy, rank-aware logging) are among the
-    modules the first check imports without jax."""
+    cascade), data parallelism (the bootstrap, the data axis, the
+    fan-out launcher, the shard policy, rank-aware logging) and the model
+    axis (the row-sharded lookups and the row exchange, the embedding
+    schema, the lazy Adam over a shard) are among the modules the first
+    check imports without jax."""
     assert module in _modules()
 
 

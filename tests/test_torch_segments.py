@@ -281,8 +281,8 @@ def test_shared_dense_gradient_equals_per_name(hashed, monkeypatch):
     lookup = type(model)._emb_lookup
     monkeypatch.setattr(  # each name builds its own index
         type(model), "_emb_lookup",
-        lambda self, name, feat_ids, rows, plan, index=None: lookup(
-            self, name, feat_ids, rows, plan))
+        lambda self, name, feat_ids, rows, plan, index=None, shard=None:
+        lookup(self, name, feat_ids, rows, plan, shard=shard))
     own_out = model(ids, vals)
     own = torch.autograd.grad(own_out.sum(), params)
     np.testing.assert_array_equal(shared_out.detach().numpy(),

@@ -254,8 +254,9 @@ def test_eval_infer_export_need_a_checkpoint(data_dir, tmp_path):
 ])
 def test_unported_modes_raise_naming_their_flag(data_dir, tmp_path, flag,
                                                 value):
-    """Each mode the port has not reached (a model axis) raises naming its
-    flag. The others are ported and their train tasks run one epoch: online
+    """A model axis wider than the process group (``--mesh_model 2`` in one
+    process) raises naming its flag, as a configuration error. The others
+    are ported and their train tasks run one epoch: online
     and pipe mode, publishing, TensorBoard, the profiler window, throttled
     eval, the input service, gradient accumulation, the decoded cache, the
     device-resident dataset (with a pool that covers the epoch, so it does
@@ -286,8 +287,9 @@ def test_unported_modes_raise_naming_their_flag(data_dir, tmp_path, flag,
         if flag == "profile_dir":
             assert os.listdir(kw[flag])
         return
-    with pytest.raises(NotImplementedError,
-                       match=f"--{named}.* not yet ported"):
+    with pytest.raises(ValueError,
+                       match=f"--{named} 2 does not divide the number of "
+                             "processes"):
         tasks.run(_cfg(data_dir, str(tmp_path), **kw), device="cpu")
 
 

@@ -425,12 +425,12 @@ def test_unported_guard_policies_raise(policy):
     ("device_dataset", True, "--device_dataset"),
 ])
 def test_unported_trainer_flags_raise(flag, value, match):
-    """A model axis still raises naming its flag; a data axis wider than
-    the process group (``--mesh_data 2`` in one process) raises naming its
-    flag too, as a configuration error; gradient accumulation, the stall
+    """A model axis or a data axis wider than the process group
+    (``--mesh_model 2`` or ``--mesh_data 2`` in one process) raises naming
+    its flag, as a configuration error; gradient accumulation, the stall
     watchdog and the device-resident dataset are ported and pass."""
     kw = _kw(**{flag: value})
-    if flag == "mesh_data":
+    if flag in ("mesh_data", "mesh_model"):
         check_ported(Config(**kw))
         with pytest.raises(ValueError, match=match):
             Trainer(Config(**kw), device="cpu")
