@@ -82,6 +82,10 @@ class TFRecordWriter:
         self._f.write(record)
         self._f.write(struct.pack("<I", masked_crc32c(record)))
 
+    def flush(self) -> None:
+        if self._f:
+            self._f.flush()
+
     def close(self) -> None:
         if self._f:
             self._f.close()

@@ -352,7 +352,7 @@ class ServingEngine:
 
     @classmethod
     def serve_latest(cls, publish_dir: str, *, poll_secs: float = 2.0,
-                     watcher_kw: Optional[dict] = None,
+                     watcher_kw: Optional[dict] = None, device="cuda",
                      **kw: Any) -> "ServingEngine":
         """Engine following ``<publish_dir>/LATEST`` with hot swap.
 
@@ -364,7 +364,8 @@ class ServingEngine:
         (``LatestWatcher._warm_buckets``) compiles exactly the shapes the
         engine will flush — the near-zero-blackout contract the serving
         drill asserts. (The engine pads flushes to the same buckets, so
-        the inner BucketedPredict passes through.)
+        the inner BucketedPredict passes through.) Artifacts load onto
+        ``device`` unless ``watcher_kw`` brings its own loader.
         """
         from ..utils import export as export_lib  # lazy: loads torch
         stats = kw.pop("stats", None) or ServingStats(
@@ -375,7 +376,7 @@ class ServingEngine:
         resolved = tuple(sorted({int(b) for b in bucket_src} | {max_batch}))
         wkw = dict(watcher_kw or {})
         wkw.setdefault("loader", lambda path: export_lib.load_serving(
-            path, buckets=resolved))
+            path, buckets=resolved, device=device))
         wkw.setdefault("on_error",
                        lambda exc: stats.record_watcher_error())
         # The watcher's initial check_once fires on_swap from inside

@@ -19,17 +19,27 @@
   process died mid-publish.
 * Input path: :class:`FlakyFS` installs itself as the fileio fault
   injector and fails scripted reads and opens, which the input path's
-  retry must heal; ``DEEPFM_TPU_READ_FAULT_EVERY=k`` (the JAX package's
-  variable) arms one for a whole process through
-  :func:`install_env_faults`, which the train task calls at start.
+  retry must heal.
+* Whole drills: :class:`ChaosSchedule` is one seeded, time-indexed plan of
+  every kind above (and the ones a drill process executes itself),
+  serialized to canonical JSON; ``DEEPFM_TPU_CHAOS_SCHEDULE`` (inline JSON
+  or ``@path``) carries it into a process, and :func:`install_env_faults`,
+  which the train task calls at start, arms it. The legacy
+  ``DEEPFM_TPU_READ_FAULT_EVERY=k`` still works: it becomes a
+  ``read_faults`` event of the schedule. Same seed and parameters give the
+  same JSON and fingerprint as the JAX package's schedule.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import io
+import json
 import os
+import random
 import threading
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 from ..data import fileio
 
@@ -168,18 +178,262 @@ class BatchPoisoner:
             yield batch
 
 
+# Env-carried chaos, read by :func:`install_env_faults` (the variables are
+# the JAX package's):
+#   * DEEPFM_TPU_READ_FAULT_EVERY=k: the single-knob read-fault variable;
+#     it becomes a read_faults event of the schedule.
+#   * DEEPFM_TPU_CHAOS_SCHEDULE=<json|@path>: a serialized ChaosSchedule.
+#   * DEEPFM_TPU_CHAOS_STATE=<path>: the one-shot guard across supervised
+#     restarts (which one-shot events an earlier incarnation armed).
 READ_FAULT_ENV = "DEEPFM_TPU_READ_FAULT_EVERY"
+CHAOS_ENV = "DEEPFM_TPU_CHAOS_SCHEDULE"
+CHAOS_STATE_ENV = "DEEPFM_TPU_CHAOS_STATE"
+
+# The port's train task reads its step triggers under these names
+# (``train/tasks.py``); the schedule's step kinds set them.
+_STEP_TRIGGER_ENV = {
+    "preempt_after_steps": "DEEPFM_TPU_TORCH_PREEMPT_AFTER_STEPS",
+    "fault_after_steps": "DEEPFM_TPU_TORCH_FAULT_AFTER_STEPS",
+    "hold_after_steps": "DEEPFM_TPU_TORCH_PREEMPT_HOLD_AFTER_STEPS",
+}
 
 
 def install_env_faults() -> Optional["FlakyFS"]:
-    """Arm ``FlakyFS(read_fail_every=k)`` as the process's fileio injector
-    when ``DEEPFM_TPU_READ_FAULT_EVERY=k`` (k > 0) is set; None otherwise."""
-    every = int(os.environ.get(READ_FAULT_ENV, "0") or 0)
-    if every <= 0:
+    """Arm the process's env-carried chaos (the schedule of
+    ``DEEPFM_TPU_CHAOS_SCHEDULE`` merged with
+    ``DEEPFM_TPU_READ_FAULT_EVERY``); returns the armed :class:`FlakyFS`,
+    or None when nothing asks for read faults."""
+    schedule = ChaosSchedule.from_env(os.environ)
+    if schedule is None:
         return None
-    fs = FlakyFS(read_fail_every=every)
-    fileio.set_fault_injector(fs)
-    return fs
+    return schedule.install(state_path=os.environ.get(CHAOS_STATE_ENV) or None)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChaosEvent:
+    """One scheduled fault: ``kind`` at ``at_s`` seconds from drill start.
+
+    ``at_s`` is advisory for process-local kinds (they are armed at
+    process start and fire at their seam's own trigger point); it is the
+    firing time for the drill-side kinds, which the drill executes against
+    its own clock."""
+
+    at_s: float
+    kind: str
+    arg: Tuple[Tuple[str, Any], ...] = ()
+
+    def get(self, key: str, default: Any = None) -> Any:
+        for k, v in self.arg:
+            if k == key:
+                return v
+        return default
+
+    @staticmethod
+    def make(at_s: float, kind: str, **arg: Any) -> "ChaosEvent":
+        return ChaosEvent(round(float(at_s), 3), str(kind),
+                          tuple(sorted(arg.items())))
+
+
+class ChaosSchedule:
+    """Seeded, time-indexed fault plan over every injection seam.
+
+    * ``generate(seed, ...)`` draws event times from ``random.Random(seed)``
+      (the language pins its sequence), so the same call reproduces the
+      same plan, and the same plan as the JAX package's ``generate``.
+    * ``to_json()``/``from_json()`` round-trip it canonically (sorted keys,
+      times rounded to 1 ms); ``fingerprint()`` hashes the JSON.
+    * ``install()`` arms every PROCESS_KIND through its seam: read faults
+      -> a :class:`FlakyFS`; ``publish_crash`` -> :func:`set_publish_crash`;
+      ``cold_fetch`` -> :func:`set_cold_fetch_plan`; ``nan_batches`` ->
+      :func:`set_nan_plan`; the step kinds -> the port's
+      ``DEEPFM_TPU_TORCH_*_AFTER_STEPS`` variables, which the train task
+      reads after :func:`install_env_faults`. One-shot kinds are guarded
+      by ``state_path``, so a supervised restart does not re-arm them.
+    * DRIVER_KINDS are executed by the drill process itself (:meth:`due`):
+      a SIGTERM to the trainer, a slow serving executor, and the poisoned
+      challengers of the experiment drill.
+    """
+
+    PROCESS_KINDS = ("read_faults", "publish_crash", "cold_fetch",
+                     "nan_batches", "preempt_after_steps",
+                     "fault_after_steps", "hold_after_steps")
+    DRIVER_KINDS = ("preempt", "executor_slow", "challenger_nan",
+                    "challenger_stale", "challenger_slow")
+    #: kinds that must fire once per drill, not once per process start
+    ONESHOT_KINDS = ("publish_crash", "cold_fetch", "nan_batches")
+    KINDS = PROCESS_KINDS + DRIVER_KINDS
+
+    def __init__(self, events: Iterable[ChaosEvent], *,
+                 seed: Optional[int] = None):
+        events = tuple(sorted(events, key=lambda e: e.at_s))
+        for ev in events:
+            if ev.kind not in self.KINDS:
+                raise ValueError(
+                    f"unknown chaos kind {ev.kind!r} (know {self.KINDS})")
+        self.events = events
+        self.seed = seed
+
+    @classmethod
+    def generate(cls, seed: int, *, horizon_s: float,
+                 read_fault_every: int = 0,
+                 publish_crashes: int = 0,
+                 publish_crash_stage: str = "before_rename",
+                 preemptions: int = 0,
+                 cold_fetch_fails: int = 0,
+                 nan_batches: int = 0,
+                 executor_slow_events: int = 0,
+                 executor_slow_ms: float = 0.0,
+                 executor_slow_calls: int = 0,
+                 challenger_nan_events: int = 0,
+                 challenger_nan_batches: int = 3,
+                 challenger_stale_events: int = 0,
+                 challenger_slow_events: int = 0,
+                 challenger_slow_ms: float = 0.0,
+                 challenger_slow_calls: int = 0) -> "ChaosSchedule":
+        """Draw a plan for a drill of ``horizon_s`` seconds. Event times
+        land in the middle 20-80% of the horizon (the slow-executor window
+        in 20-50%, so its recovery fits too). The draws come in the JAX
+        package's order, kind by kind, so the plans are equal."""
+        rng = random.Random(int(seed))
+        events: List[ChaosEvent] = []
+        if read_fault_every > 0:
+            events.append(ChaosEvent.make(
+                0.0, "read_faults", every=int(read_fault_every)))
+        for _ in range(int(publish_crashes)):
+            events.append(ChaosEvent.make(
+                rng.uniform(0.2, 0.8) * horizon_s, "publish_crash",
+                stage=str(publish_crash_stage)))
+        for _ in range(int(preemptions)):
+            events.append(ChaosEvent.make(
+                rng.uniform(0.2, 0.8) * horizon_s, "preempt"))
+        if cold_fetch_fails > 0:
+            events.append(ChaosEvent.make(
+                0.0, "cold_fetch", fails=int(cold_fetch_fails)))
+        if nan_batches > 0:
+            batches = sorted(rng.sample(range(2, 50), int(nan_batches)))
+            events.append(ChaosEvent.make(
+                0.0, "nan_batches", batches=tuple(batches)))
+        for _ in range(int(executor_slow_events)):
+            events.append(ChaosEvent.make(
+                rng.uniform(0.2, 0.5) * horizon_s, "executor_slow",
+                delay_ms=round(float(executor_slow_ms), 3),
+                calls=int(executor_slow_calls)))
+        for _ in range(int(challenger_nan_events)):
+            batches = sorted(rng.sample(range(0, 20),
+                                        int(challenger_nan_batches)))
+            events.append(ChaosEvent.make(
+                rng.uniform(0.2, 0.8) * horizon_s, "challenger_nan",
+                batches=tuple(batches)))
+        for _ in range(int(challenger_stale_events)):
+            events.append(ChaosEvent.make(
+                rng.uniform(0.2, 0.8) * horizon_s, "challenger_stale"))
+        for _ in range(int(challenger_slow_events)):
+            events.append(ChaosEvent.make(
+                rng.uniform(0.2, 0.8) * horizon_s, "challenger_slow",
+                delay_ms=round(float(challenger_slow_ms), 3),
+                calls=int(challenger_slow_calls)))
+        return cls(events, seed=int(seed))
+
+    # -- serialization --------------------------------------------------
+    def to_json(self) -> str:
+        return json.dumps(
+            {"seed": self.seed,
+             "events": [{"at_s": ev.at_s, "kind": ev.kind,
+                         "arg": dict(ev.arg)} for ev in self.events]},
+            sort_keys=True, separators=(",", ":"))
+
+    @classmethod
+    def from_json(cls, text: str) -> "ChaosSchedule":
+        spec = json.loads(text)
+        events = []
+        for ev in spec["events"]:
+            arg = {k: (tuple(v) if isinstance(v, list) else v)
+                   for k, v in ev.get("arg", {}).items()}
+            events.append(ChaosEvent.make(ev["at_s"], ev["kind"], **arg))
+        return cls(events, seed=spec.get("seed"))
+
+    @classmethod
+    def from_env(cls, environ) -> Optional["ChaosSchedule"]:
+        """The schedule of ``CHAOS_ENV`` (inline JSON or ``@/path``) merged
+        with ``READ_FAULT_ENV``, which becomes a ``read_faults`` event
+        unless the schedule has one. None when neither asks for anything."""
+        schedule = None
+        spec = environ.get(CHAOS_ENV, "")
+        if spec:
+            if spec.startswith("@"):
+                with open(spec[1:], encoding="utf-8") as f:
+                    spec = f.read()
+            schedule = cls.from_json(spec)
+        every = int(environ.get(READ_FAULT_ENV, "0") or 0)
+        if every > 0 and (schedule is None
+                          or not schedule.events_of("read_faults")):
+            events = schedule.events if schedule is not None else ()
+            seed = schedule.seed if schedule is not None else None
+            schedule = cls(
+                events + (ChaosEvent.make(0.0, "read_faults", every=every),),
+                seed=seed)
+        return schedule
+
+    def fingerprint(self) -> str:
+        """Stable hex id of the exact plan (two runs with equal
+        fingerprints replayed the same chaos)."""
+        return hashlib.sha256(self.to_json().encode()).hexdigest()[:16]
+
+    # -- queries --------------------------------------------------------
+    def events_of(self, *kinds: str) -> Tuple[ChaosEvent, ...]:
+        return tuple(ev for ev in self.events if ev.kind in kinds)
+
+    def due(self, now_s: float, fired: set) -> List[ChaosEvent]:
+        """Driver-side pump: DRIVER_KINDS events scheduled at or before
+        ``now_s`` not yet in ``fired`` (which this call updates)."""
+        out = []
+        for i, ev in enumerate(self.events):
+            if ev.kind in self.DRIVER_KINDS and i not in fired \
+                    and ev.at_s <= now_s:
+                fired.add(i)
+                out.append(ev)
+        return out
+
+    # -- process-local arming -------------------------------------------
+    def install(self, state_path: Optional[str] = None) -> Optional["FlakyFS"]:
+        """Arm every process-local kind through its seam.
+
+        Continuous kinds (read faults, step triggers) re-arm on every call:
+        a restarted process lives in the same weather. ONESHOT_KINDS arm
+        at most once per ``state_path`` (an atomically replaced JSON list
+        of armed event keys), so one scheduled publish crash fires once
+        per drill even across supervised restarts."""
+        armed: List[str] = []
+        if state_path and os.path.exists(state_path):
+            with open(state_path, encoding="utf-8") as f:
+                armed = json.load(f)
+        newly: List[str] = []
+        fs: Optional[FlakyFS] = None
+        for i, ev in enumerate(self.events):
+            key = f"{i}:{ev.kind}"
+            if ev.kind in self.ONESHOT_KINDS and key in armed:
+                continue
+            if ev.kind == "read_faults":
+                fs = FlakyFS(read_fail_every=int(ev.get("every", 0)))
+                fileio.set_fault_injector(fs)
+            elif ev.kind == "publish_crash":
+                set_publish_crash(ev.get("stage", "before_rename"))
+                newly.append(key)
+            elif ev.kind == "cold_fetch":
+                set_cold_fetch_plan(int(ev.get("fails", 0)))
+                newly.append(key)
+            elif ev.kind == "nan_batches":
+                set_nan_plan(ev.get("batches", ()))
+                newly.append(key)
+            elif ev.kind in _STEP_TRIGGER_ENV:
+                os.environ[_STEP_TRIGGER_ENV[ev.kind]] = str(
+                    int(ev.get("steps", 0)))
+        if newly and state_path:
+            tmp = state_path + ".tmp"
+            with open(tmp, "w", encoding="utf-8") as f:
+                json.dump(armed + newly, f)
+            os.replace(tmp, state_path)
+        return fs
 
 
 class FlakyStream(io.RawIOBase):

@@ -80,7 +80,15 @@ def test_every_module_imports_without_jax():
     "deepfm_tpu_torch.parallel.mesh", "deepfm_tpu_torch.fanout",
     "deepfm_tpu_torch.data.sharding", "deepfm_tpu_torch.utils.logging",
     "deepfm_tpu_torch.ops.embedding", "deepfm_tpu_torch.ops.embedding_kernels",
-    "deepfm_tpu_torch.models.common", "deepfm_tpu_torch.train.optimizers"])
+    "deepfm_tpu_torch.models.common", "deepfm_tpu_torch.train.optimizers",
+    "deepfm_tpu_torch.loop", "deepfm_tpu_torch.loop.health",
+    "deepfm_tpu_torch.loop.metrics", "deepfm_tpu_torch.loop.traffic",
+    "deepfm_tpu_torch.loop.impressions", "deepfm_tpu_torch.loop.join",
+    "deepfm_tpu_torch.loop.skew", "deepfm_tpu_torch.serve.replicas",
+    "deepfm_tpu_torch.serve.frontend", "deepfm_tpu_torch.serve.experiment",
+    "deepfm_tpu_torch.train.promote", "deepfm_tpu_torch.drills",
+    "deepfm_tpu_torch.drills.supervise", "deepfm_tpu_torch.drills.serving",
+    "deepfm_tpu_torch.drills.production"])
 def test_module_list_covers_the_runtime_modules(module):
     """The fit loop's runtime (the staging ring, the guard and its state
     snapshot, preemption and its fault seams), the input path (the native
@@ -94,8 +102,11 @@ def test_module_list_covers_the_runtime_modules(module):
     cascade), data parallelism (the bootstrap, the data axis, the
     fan-out launcher, the shard policy, rank-aware logging) and the model
     axis (the row-sharded lookups and the row exchange, the embedding
-    schema, the lazy Adam over a shard) are among the modules the first
-    check imports without jax."""
+    schema, the lazy Adam over a shard), serving scale-out and the
+    production loop (the feedback layer, the replica fleet, the
+    shared-memory frontend, the experiment router, the promotion
+    controller, the supervisor and the drills) are among the modules the
+    first check imports without jax."""
     assert module in _modules()
 
 
