@@ -280,9 +280,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
    runs this phase alone (no result lines); ``--phase experiment`` runs the
    experiment drill alone at the reference width over several seeds, at
    the drill's overrides for that width and at the JAX drill's parameters.
+16. Drills phase (``deepfm_tpu_torch.drills.{fault,preempt,online}``) at
+   the reference width: the fault drill (read faults healed, one corrupt
+   record skipped, bit-identical to a clean run on the staged, RAM-cache
+   and device-resident paths; the raise policy's path and offset; one
+   failed save tolerated), the preemption drill (a launcher subprocess
+   SIGTERMed at its hold sentinel exits 42, supervised relaunches preempt
+   themselves, final params bit-identical to the baseline, staged and
+   device-resident) and the online drill (the same under read faults while
+   shards arrive; every artifact audited; the versions shared with a clean
+   replay bit-equal). One line a drill: seconds, subprocesses, restarts,
+   faults injected and healed.
+17. Remote-seam phase: a local stand-in for an object store (``LocalStore``,
+   ``tf.io.gfile``'s duck type over a temporary directory, no network)
+   installed with ``fileio.set_remote_fs`` carries a checkpoint save and
+   restore, ``export_serving``/``load_serving``, a ``Publisher`` publish and
+   one served batch (bit-equal to the same weights exported locally), and a
+   TFRecord round trip through ``python -m
+   deepfm_tpu_torch.tools.libsvm_to_tfrecord``. Also one ``mfu`` line: the
+   card's datasheet peak (``utils.mfu.device_peak_flops``), basis
+   ``measured-device-peak``. ``python3 chip_smoke.py --phase drills`` runs
+   phases 16 and 17 alone (no result lines).
 
-The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``. Without a CUDA device the script
+Each group of phases ends with a ``phase <name>: <s>s (total <s>s)`` line
+(wall clock). The line before the last is a JSON object describing each
+kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the script
 exits non-zero and prints no result. Every kernel's launch count is read
 over main-path runs with the counts set to 0 just before each: the FM
 kernels over the dense train task (``launches``), the sparse train tasks
@@ -321,6 +343,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import glob
 import hashlib
 import io
 import json
@@ -346,7 +369,10 @@ from deepfm_tpu_torch import _native, launch  # noqa: E402
 from deepfm_tpu_torch import config as config_lib  # noqa: E402
 from deepfm_tpu_torch.config import Config  # noqa: E402
 from deepfm_tpu_torch.data import cache as cache_lib  # noqa: E402
-from deepfm_tpu_torch.data import fileio, libsvm  # noqa: E402
+from deepfm_tpu_torch.data import fileio, libsvm, tfrecord  # noqa: E402
+from deepfm_tpu_torch.drills import fault as fault_drill  # noqa: E402
+from deepfm_tpu_torch.drills import online as online_drill  # noqa: E402
+from deepfm_tpu_torch.drills import preempt as preempt_drill  # noqa: E402
 from deepfm_tpu_torch.drills import production as prod_drill  # noqa: E402
 from deepfm_tpu_torch.drills import serving as serving_drill  # noqa: E402
 from deepfm_tpu_torch.data import pipeline as pipe_lib  # noqa: E402
@@ -373,7 +399,9 @@ from deepfm_tpu_torch.train.publish import Publisher  # noqa: E402
 from deepfm_tpu_torch.train.state import StateSnapshot  # noqa: E402
 from deepfm_tpu_torch.utils import checkpoint as ckpt_lib  # noqa: E402
 from deepfm_tpu_torch.utils import export as export_lib  # noqa: E402
+from deepfm_tpu_torch.tools import libsvm_to_tfrecord  # noqa: E402
 from deepfm_tpu_torch.utils import faults  # noqa: E402
+from deepfm_tpu_torch.utils import mfu as mfu_lib  # noqa: E402
 from deepfm_tpu_torch.utils import preempt as preempt_lib  # noqa: E402
 from deepfm_tpu_torch.utils import profiling as prof_lib  # noqa: E402
 
@@ -3058,6 +3086,7 @@ RESUME_PER_SHARD, RESUME_PREEMPT_AFTER = 2048, 5
 INPUT_WORKERS = 2
 PROFILE_STEPS = 8
 # Names of the port's CUDA kernels in a torch.profiler trace.
+ANNOTATED_STEP = "chip_smoke.annotated_step"
 PROFILED_KERNELS = ("fm_fwd", "fm_bwd_kernel", "segments_kernel",
                     "take_bwd")
 
@@ -3482,11 +3511,25 @@ def profiler_phase(workdir: str, data: dict, cfg: Config,
     if dev.type == "cuda":
         assert all(found.values()), (found, sorted(kernels)[:40])
     tb_files = (os.listdir(tb) if os.path.isdir(tb) else [])
+    # One step wrapped in annotate under maybe_trace: the region's name is
+    # in the exported trace.
+    trainer = Trainer(cfg, device=dev)
+    state = trainer.init_state(SEED)
+    batch = trainer.put_batch(random_batches(cfg, 1, SEED)[0])
+    with prof_lib.maybe_trace(os.path.join(workdir, "profile_block"),
+                              device=dev) as block:
+        with prof_lib.annotate(ANNOTATED_STEP):
+            trainer.train_step(state, batch)
+    with open(block["path"], encoding="utf-8") as f:
+        block_events = json.load(f)["traceEvents"]
+    assert ANNOTATED_STEP in {e.get("name") for e in block_events}
     print(f"profiler: {traces[0]} holds {len(events)} events, "
           f"{len(kernels)} distinct kernels; the port's: {found}; "
           f"TensorBoard summaries: "
           f"{'written' if tb_files else 'disabled (tensorboard not importable)'}"
-          f" ({len(tb_files)} event files)")
+          f" ({len(tb_files)} event files); maybe_trace + annotate: "
+          f"{ANNOTATED_STEP!r} in {os.path.basename(block['path'])} "
+          f"({len(block_events)} events)")
 
 
 # ---------------------------------------------------------------------------
@@ -5205,7 +5248,11 @@ EXPERIMENT_SEED = 7         # the seed the experiment drill's gates hold at
 TRAIN_PATH_KERNELS = ("fused_fm", "fused_fm_bwd", "take_bwd", "segments")
 NOT_COUNTED = {"production_full_trainer": (
     "the full production drill's trainer is a deepfm_tpu_torch.launch "
-    "subprocess; its launches stay in that process (not counted)")}
+    "subprocess; its launches stay in that process (not counted)"),
+    "drill_subprocesses": (
+    "the preemption and online drills' held and supervised trainers are "
+    "deepfm_tpu_torch.launch subprocesses; drill_preempt and drill_online "
+    "count the drill process's own runs, restores and audits")}
 
 
 def _lat(x) -> str:
@@ -5402,6 +5449,255 @@ def production_phase(workdir: str, cfg: Config, dev: torch.device) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# The fault, preemption and online drills; the remote seam; the MFU basis
+# ---------------------------------------------------------------------------
+
+REMOTE_ROOT = "mock://chip-smoke"
+REMOTE_RECORDS = 512      # LibSVM lines through the converter
+REMOTE_SHARDS = 2
+REMOTE_SERVE_ROWS = 256   # one served batch: a full serving flush
+
+
+def drills_phase(workdir: str, cfg: Config, dev: torch.device) -> dict:
+    """The port's fault, preemption and online drills at ``cfg``'s width,
+    each at its own record counts (every bit-identity assertion raises).
+    Returns ``launches_by_path`` entries ``drill_fault``, ``drill_preempt``
+    and ``drill_online``: the launches of each drill's own process (its
+    in-process runs, restores and audits); the launcher subprocesses'
+    launches stay in those processes."""
+    model = serving_drill.model_of(cfg)
+    card = card_line()
+    paths = {}
+
+    def read(name):
+        c = _counts()
+        if dev.type == "cuda":
+            missing = [k for k in TRAIN_PATH_KERNELS if c[k] == 0]
+            assert not missing, f"{name}: {missing} never launched"
+        paths[name] = c
+
+    print(f"drills phase: model {model} on {dev} ({card})")
+    _zero_counts()
+    f = fault_drill.run_drill(os.path.join(workdir, "drill_fault"),
+                              model=model, device=dev, verbose=False)
+    read("drill_fault")
+    print(f"drill fault: seconds={f['seconds']} runs={f['runs']} "
+          f"subprocesses=0 restarts=0 steps={f['steps']} read_faults "
+          f"injected={f['read_faults_injected']} healed="
+          f"{f['read_faults_healed']} bad_records_skipped="
+          f"{f['bad_records']} save_faults injected="
+          f"{f['save_faults_injected']} healed="
+          f"{f['save_faults_injected']} raise_policy names {f['victim'][0]} "
+          f"at byte {f['victim'][1]}; params bit-identical to the clean "
+          f"run on the staged, decoded_cache and device_dataset paths "
+          f"({card})")
+    _zero_counts()
+    p = preempt_drill.run_drill(os.path.join(workdir, "drill_preempt"),
+                                model=model, device=dev, verbose=False)
+    read("drill_preempt")
+    sub = sum(p[k]["subprocesses"] for k, _ in preempt_drill.PATHS)
+    print(f"drill preempt: seconds={p['seconds']} subprocesses={sub} "
+          + " ".join(f"{k}: steps={p[k]['steps']} restarts="
+                     f"{p[k]['restarts']} sigterm_and_self_preempts="
+                     f"{p[k]['exit_42']} exit_42={p[k]['exit_42']} "
+                     f"resumed={p[k]['exit_42']}"
+                     for k, _ in preempt_drill.PATHS)
+          + f"; params bit-identical to the uninterrupted baseline on both "
+          f"paths ({card})")
+    _zero_counts()
+    o = online_drill.run_drill(os.path.join(workdir, "drill_online"),
+                               model=model, device=dev, verbose=False)
+    read("drill_online")
+    print(f"drill online: seconds={o['seconds']} subprocesses="
+          f"{o['subprocesses']} restarts={o['restarts']} steps={o['steps']} "
+          f"preemptions injected={o['exit_42']} healed={o['exit_42']} "
+          f"(read faults every {online_drill.READ_FAULT_EVERY}th read in "
+          f"the held child) shards_admitted={o['shards_admitted']} "
+          f"versions={o['versions_live']} bit-equal to a clean replay: "
+          f"{o['versions_bit_equal']} ({card})")
+    return paths
+
+
+class LocalStore:
+    """``tf.io.gfile``'s duck type over a local directory, for the remote
+    seam: ``scheme://rest`` is ``<root>/rest``. Counts its calls by op."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self.ops = {}
+
+    def _local(self, path: str, op: str = "") -> str:
+        if op:
+            self.ops[op] = self.ops.get(op, 0) + 1
+        return os.path.join(self.root, *path.split("://", 1)[1].split("/"))
+
+    def GFile(self, path, mode="r"):  # noqa: N802 (gfile's name)
+        local = self._local(path, "GFile")
+        if "w" in mode or "a" in mode:
+            os.makedirs(os.path.dirname(local), exist_ok=True)
+        return open(local, mode)
+
+    def glob(self, pattern):
+        scheme = pattern.split("://", 1)[0]
+        return [f"{scheme}://"
+                + os.path.relpath(p, self.root).replace(os.sep, "/")
+                for p in glob.glob(self._local(pattern, "glob"))]
+
+    def isdir(self, path):
+        return os.path.isdir(self._local(path, "isdir"))
+
+    def exists(self, path):
+        return os.path.exists(self._local(path, "exists"))
+
+    def stat(self, path):
+        return types.SimpleNamespace(
+            length=os.path.getsize(self._local(path, "stat")))
+
+    def makedirs(self, path):
+        os.makedirs(self._local(path, "makedirs"), exist_ok=True)
+
+    def rmtree(self, path):
+        shutil.rmtree(self._local(path, "rmtree"))
+
+    def remove(self, path):
+        os.remove(self._local(path, "remove"))
+
+    def rename(self, src, dst, overwrite=False):
+        s, d = self._local(src, "rename"), self._local(dst)
+        if os.path.exists(d) and overwrite:
+            shutil.rmtree(d)
+        os.rename(s, d)
+
+
+def _libsvm_lines(cfg: Config, n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.feature_size, (n, cfg.field_size))
+    vals = rng.random((n, cfg.field_size), dtype=np.float32)
+    labels = (rng.random(n) < 0.3).astype(np.float32)
+    return [libsvm.format_libsvm_line(float(labels[i]), ids[i], vals[i])
+            for i in range(n)]
+
+
+def remote_phase(workdir: str, cfg: Config, dev: torch.device) -> dict:
+    """The fileio seam over :class:`LocalStore` at ``cfg``'s width: a
+    checkpoint saved and restored bit for bit, an artifact exported and
+    published on the store and one batch served from it bit-equal to the
+    same weights exported locally, and a TFRecord round trip through the
+    converter. Returns the ``launches_by_path`` entry ``remote_seam``."""
+    store = LocalStore(os.path.join(workdir, "store"))
+    prev = fileio.set_remote_fs(store)
+    t0 = time.time()
+    try:
+        _zero_counts()
+        trainer = Trainer(cfg, device=dev)
+        state = trainer.init_state(SEED)
+        for b in random_batches(cfg, 2, SEED + 1):
+            state, _ = trainer.train_step(state, trainer.put_batch(b))
+        step = int(state.step)
+        mgr = ckpt_lib.CheckpointManager(f"{REMOTE_ROOT}/ckpt")
+        mgr.save(step, state, force=True)
+        back = mgr.restore(trainer.init_state(SEED + 7))
+        mgr.close()
+        assert back.step == step
+        for k in state.params:
+            assert torch.equal(back.params[k], state.params[k]), k
+        assert torch.equal(back.rng.get_state(), state.rng.get_state())
+
+        model = trainer.servable_model(state)
+        remote = export_lib.export_serving(
+            model, cfg, f"{REMOTE_ROOT}/servable/{step}", step=step)
+        local = export_lib.export_serving(
+            model, cfg, os.path.join(workdir, "servable_local", str(step)),
+            step=step)
+        pub = Publisher(cfg, f"{REMOTE_ROOT}/publish")
+        pub.publish_now(state, step)
+        pub.close()
+        latest = export_lib.read_latest(f"{REMOTE_ROOT}/publish")
+        assert latest == f"{REMOTE_ROOT}/publish/{step}", latest
+        batch = random_batches(cfg.replace(batch_size=REMOTE_SERVE_ROWS), 1,
+                               SEED + 2)[0]
+        want = export_lib.load_serving(local, device=dev)(
+            batch["feat_ids"], batch["feat_vals"])
+        for path in (remote, latest):
+            got = export_lib.load_serving(path, device=dev)(
+                batch["feat_ids"], batch["feat_vals"])
+            assert np.array_equal(got, want), (path, np.abs(got - want).max())
+        counts = _counts()
+        if dev.type == "cuda":
+            missing = [k for k in TRAIN_PATH_KERNELS if counts[k] == 0]
+            assert not missing, f"remote_seam: {missing} never launched"
+
+        text = os.path.join(workdir, "remote.libsvm")
+        lines = _libsvm_lines(cfg, REMOTE_RECORDS, SEED + 3)
+        with open(text, "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+        out = f"{REMOTE_ROOT}/data/tr.tfrecords"
+        assert libsvm_to_tfrecord.main(
+            ["--input", text, "--output", out, "--field-size",
+             str(cfg.field_size), "--num-shards", str(REMOTE_SHARDS)]) == 0
+        loc = os.path.join(workdir, "remote_local", "tr.tfrecords")
+        libsvm.convert_libsvm_file(text, loc, field_size=cfg.field_size,
+                                   num_shards=REMOTE_SHARDS)
+        shards = fileio.glob(f"{REMOTE_ROOT}/data/tr.tfrecords-*")
+        assert len(shards) == REMOTE_SHARDS, shards
+        back_lines = []
+        for i, shard in enumerate(shards):
+            suffix = f"-{i:05d}-of-{REMOTE_SHARDS:05d}"
+            assert shard.endswith(suffix)
+            with open(loc + suffix, "rb") as f:
+                assert fileio.read_bytes(shard) == f.read(), shard
+            txt = os.path.join(workdir, f"remote_back{i}.libsvm")
+            n = libsvm.tfrecord_to_libsvm(shard, txt, cfg.field_size)
+            assert n == len(tfrecord.read_all_records(shard))
+            with open(txt, encoding="utf-8") as f:
+                back_lines.append(f.read().splitlines())
+        # Round-robin shards: record i is line i // shards of shard i % k.
+        assert [back_lines[i % REMOTE_SHARDS][i // REMOTE_SHARDS]
+                for i in range(REMOTE_RECORDS)] == lines
+    finally:
+        fileio.set_remote_fs(prev)
+    assert not os.path.exists(os.path.join(HERE, "mock:"))
+    print(f"remote seam: {REMOTE_ROOT} over a local stand-in; checkpoint "
+          f"step {step} saved and restored bit for bit; artifact exported, "
+          f"published (LATEST -> {latest.rsplit('/', 1)[-1]}) and "
+          f"{REMOTE_SERVE_ROWS} rows served bit-equal to the local export; "
+          f"{REMOTE_RECORDS} records converted into {REMOTE_SHARDS} shards "
+          f"byte-identical to a local conversion and read back; ops "
+          f"{dict(sorted(store.ops.items()))}; "
+          f"{time.time() - t0:.2f}s ({card_line()})")
+    return {"remote_seam": counts}
+
+
+class PhaseClock:
+    """Wall seconds of the smoke's phases, one line as each ends: where the
+    script's time limit goes."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {name}: {now - self.t:.1f}s (total "
+              f"{now - self.t0:.1f}s)", flush=True)
+        self.t = now
+
+
+def mfu_line() -> None:
+    peak, name, basis = mfu_lib.device_peak_flops("cuda")
+    print(f"mfu: device_peak_flops={peak!r} name={name!r} basis={basis} "
+          f"(utils/mfu.py: NVIDIA H100 Tensor Core GPU datasheet, dense "
+          f"BF16) ({card_line()})")
+    assert basis == mfu_lib.BASIS_MEASURED, (name, basis)
+
+
+def drills_seam_phases(workdir: str, cfg: Config, dev: torch.device) -> dict:
+    """Phases 16 and 17 (``--phase drills``)."""
+    paths = drills_phase(workdir, cfg, dev)
+    paths.update(remote_phase(workdir, cfg, dev))
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -5454,6 +5750,16 @@ def main() -> int:
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         return 0
+    if sys.argv[1:] == ["--phase", "drills"]:
+        # Phases 16 and 17 alone: the fault, preemption and online drills,
+        # the remote seam and the MFU line; no result lines.
+        mfu_line()
+        workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=HERE)
+        try:
+            drills_seam_phases(workdir, Config(), torch.device("cuda"))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        return 0
     if sys.argv[1:] == ["--phase", "experiment"]:
         # The experiment drill's seed sweep at the reference width; no
         # result lines.
@@ -5475,6 +5781,8 @@ def main() -> int:
             shutil.rmtree(workdir, ignore_errors=True)
         return 0
 
+    clock = PhaseClock()
+    mfu_line()
     fm_err, fm_t = kernel_phase()
     kern_ms, plain_ms, bound_ms, bound_by, ms_source = fm_t[TIMED_SHAPE]
     bwd_err, (bwd_ms, bwd_plain_ms, bwd_bound_ms, bwd_bound_by,
@@ -5488,6 +5796,7 @@ def main() -> int:
     install_t = install_phase()
     accum_t = accum_kernels_phase()
     hist_t = history_kernels_phase()
+    clock.lap("kernels")
 
     cfg = Config()
     dev = torch.device("cuda")
@@ -5498,11 +5807,13 @@ def main() -> int:
     staging_phase(cfg, dev)
     guard_phase(cfg, dev)
     watchdog_phase(cfg, dev)
+    clock.lap("parity and runtime")
     workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=HERE)
     try:
         data = make_train_data(workdir, cfg)
         decoder_phase(data, cfg)
         golden_phase(workdir)
+        clock.lap("data and decoder")
         paths = {}
         paths["train"], dense_res = train_phase(workdir, data, cfg, dev)
         # One epoch: the per-record path's rate is the point, and a
@@ -5513,9 +5824,12 @@ def main() -> int:
         for name, kw in {**SPARSE_LAYOUTS, "sparse_tiered": TIERED}.items():
             paths["train_" + name] = train_phase(
                 workdir, data, cfg.replace(**kw), dev, name=name)[0]
+        clock.lap("train tasks")
         paths.update(cache_phase(workdir, data, cfg, dev))
         paths.update(dd_phase(workdir, data, cfg, dev))
+        clock.lap("cache and device-resident")
         bad_records_phase(workdir, data, cfg, dev)
+        clock.lap("bad records")
         paths["train_pipe"] = pipe_phase(workdir, data, cfg, dev,
                                          dense_res["examples_per_sec"])
         paths["train_input_workers"] = input_service_phase(workdir, data,
@@ -5527,26 +5841,36 @@ def main() -> int:
         paths["train_online_hashed"] = online_resume_phase(workdir, data,
                                                            cfg, dev)
         profiler_phase(workdir, data, cfg, dev)
+        clock.lap("pipe, input service, online, profiler")
         for name, kw in ACCUM_LAYOUTS.items():
             paths["train_accum_" + name] = train_phase(
                 workdir, data, cfg.replace(grad_accum_steps=ACCUM,
                                            steps_per_loop=8, **kw),
                 dev, name="accum_" + name, epochs=1)[0]
         rollback_preempt_phase(workdir, cfg, dev)
+        clock.lap("accumulation tasks, rollback and preemption")
         zoo_paths, zoo_artifacts, zoo_data = zoo_phase(workdir, cfg, dev,
                                                        data)
         paths.update(zoo_paths)
+        clock.lap("zoo")
         retrieval_paths, retrieval_t = retrieval_phase(
             workdir, cfg.replace(**ZOO["din"]), dev, zoo_data["history"],
             zoo_artifacts["din"])
         paths.update(retrieval_paths)
+        clock.lap("retrieval")
         paths.update(dp_phase(workdir, data, cfg, dev))
+        clock.lap("data parallelism")
         paths.update(mp_phase(workdir, data, cfg, dev))
+        clock.lap("model axis")
         train_step_timing(cfg)
         accum_step_timing(cfg)
         serve_launches, artifact = serve_phase(workdir, cfg, dev)
         forward_timing(artifact, cfg)
+        clock.lap("step timings and serve")
         paths.update(production_phase(workdir, cfg, dev))
+        clock.lap("production")
+        paths.update(drills_seam_phases(workdir, cfg, dev))
+        clock.lap("drills and remote seam")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -71,7 +71,9 @@ def _write_len_delimited(field_number: int, payload: bytes,
     out += payload
 
 
-def _encode_feature(value: np.ndarray, kind: str) -> bytes:
+def encode_feature(value, kind: str) -> bytes:
+    """Encode one Feature message; ``kind`` is ``float``, ``int64`` or
+    ``bytes`` (a list of byte strings)."""
     inner = bytearray()
     if kind == "float":
         _write_len_delimited(1, np.asarray(value, dtype="<f4").tobytes(),
@@ -83,6 +85,10 @@ def _encode_feature(value: np.ndarray, kind: str) -> bytes:
             write_varint(v, payload)
         _write_len_delimited(1, bytes(payload), inner)
         field = 3
+    elif kind == "bytes":
+        for v in value:
+            _write_len_delimited(1, v, inner)
+        field = 1
     else:
         raise ValueError(f"unknown feature kind {kind!r}")
     out = bytearray()
@@ -97,7 +103,7 @@ def encode_example(features: Dict[str, Tuple[np.ndarray, str]]) -> bytes:
     for name, (value, kind) in features.items():
         entry = bytearray()
         _write_len_delimited(1, name.encode("utf-8"), entry)
-        _write_len_delimited(2, _encode_feature(value, kind), entry)
+        _write_len_delimited(2, encode_feature(value, kind), entry)
         _write_len_delimited(1, bytes(entry), feat_map)
     out = bytearray()
     _write_len_delimited(1, bytes(feat_map), out)
@@ -164,8 +170,24 @@ def _decode_int64_list(buf: bytes) -> np.ndarray:
     return np.asarray(vals, dtype=np.int64)
 
 
-def _decode_feature(buf: bytes):
-    """One Feature message -> its float or int64 values (None for bytes)."""
+def _decode_bytes_list(buf: bytes) -> List[bytes]:
+    pos, end = 0, len(buf)
+    vals: List[bytes] = []
+    while pos < end:
+        tag, pos = read_varint(buf, pos)
+        field, wt = tag >> 3, tag & 7
+        if field == 1 and wt == 2:
+            n, pos = read_varint(buf, pos)
+            vals.append(buf[pos:pos + n])
+            pos += n
+        else:
+            pos = _skip_field(buf, pos, wt)
+    return vals
+
+
+def decode_feature(buf: bytes):
+    """One Feature message -> (kind, values): ``float``, ``int64`` or
+    ``bytes`` (an empty message reads as no bytes)."""
     pos, end = 0, len(buf)
     while pos < end:
         tag, pos = read_varint(buf, pos)
@@ -176,12 +198,19 @@ def _decode_feature(buf: bytes):
         n, pos = read_varint(buf, pos)
         payload = buf[pos:pos + n]
         pos += n
+        if field == 1:
+            return "bytes", _decode_bytes_list(payload)
         if field == 2:
-            return _decode_float_list(payload)
+            return "float", _decode_float_list(payload)
         if field == 3:
-            return _decode_int64_list(payload)
-        return None
-    return None
+            return "int64", _decode_int64_list(payload)
+    return "bytes", []
+
+
+def _decode_feature(buf: bytes):
+    """One Feature message -> its float or int64 values (None for bytes)."""
+    kind, value = decode_feature(buf)
+    return None if kind == "bytes" else value
 
 
 def decode_example(buf: bytes) -> Dict[str, np.ndarray]:

@@ -1,5 +1,18 @@
-"""Filesystem seam of the input path, local paths only (the port's copy of
-the local half of ``deepfm_tpu.data.fileio``).
+"""Filesystem seam: local paths plus remote object stores (``gs://`` and
+the like); the port's copy of ``deepfm_tpu.data.fileio``.
+
+Every byte-level reader of the port opens files through :func:`open_stream`
+and lists them through :func:`glob`; checkpoints, artifacts, sidecars and
+predictions go through the same functions. A URL-style path
+(:func:`is_remote`) goes to the module's remote backend, an object with
+``tf.io.gfile``'s duck type: ``GFile(path, mode)``, ``glob``, ``isdir``,
+``exists``, ``stat(path).length``, ``makedirs``, ``rmtree``, ``remove`` and
+``rename(src, dst, overwrite=True)``. :func:`set_remote_fs` installs one
+(a test's stand-in, or a caller's own store). Otherwise the first remote op
+builds the default backend over ``fsspec``, imported then and only then, so
+a local run never needs the package; without it a remote path raises
+``RuntimeError`` naming the scheme and the package. Any other path is plain
+POSIX I/O.
 
 Every metadata op and every open runs under the module
 :class:`~deepfm_tpu_torch.utils.retry.RetryPolicy`, and
@@ -7,9 +20,6 @@ Every metadata op and every open runs under the module
 and seeking to the last good byte offset. A process-wide fault injector
 (:func:`set_fault_injector`, ``utils.faults.FlakyFS``) scripts failures
 INSIDE the retry loop, so the healing path itself is what gets exercised.
-
-Remote object stores (``gs://`` and the like) are not ported: such a path
-raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,6 +38,10 @@ _retry_policy = _retry.RetryPolicy()
 
 # Process-wide fault injector (see utils/faults.py). None in production.
 _injector = None
+
+# The remote backend (tf.io.gfile's duck type); None until installed or
+# until the first remote op builds the fsspec one.
+_remote_fs = None
 
 
 def set_retry_policy(policy: _retry.RetryPolicy) -> _retry.RetryPolicy:
@@ -51,86 +65,201 @@ def set_fault_injector(inj) -> None:
     _injector = inj
 
 
+def set_remote_fs(fs):
+    """Install the backend of remote paths (``tf.io.gfile``'s duck type);
+    ``None`` goes back to the lazily built fsspec one. Returns the
+    previous backend."""
+    global _remote_fs
+    prev, _remote_fs = _remote_fs, fs
+    return prev
+
+
 def is_remote(path: str) -> bool:
     return "://" in path
 
 
-def _local(path: str) -> str:
-    if is_remote(path):
-        raise NotImplementedError(
-            f"remote path {path!r}: object stores are not yet ported to "
-            "deepfm_tpu_torch (local files only)")
-    return path
+class FsspecGfile:
+    """``tf.io.gfile``'s duck type over ``fsspec``: each path picks its
+    filesystem by scheme, and listings come back as URIs of the form the
+    caller used (``memory://b/x``, ``gs://bucket/x``)."""
+
+    def __init__(self, fsspec):
+        self._fsspec = fsspec
+
+    def _fs(self, path: str):
+        return self._fsspec.core.url_to_fs(path)
+
+    def GFile(self, path: str, mode: str = "r"):  # noqa: N802 (gfile's name)
+        return self._fsspec.open(path, mode).open()
+
+    def glob(self, pattern: str) -> List[str]:
+        scheme, rest = pattern.split("://", 1)
+        fs, stripped = self._fs(pattern)
+        return [f"{scheme}://{p if rest.startswith('/') else p.lstrip('/')}"
+                for p in fs.glob(stripped)]
+
+    def isdir(self, path: str) -> bool:
+        fs, p = self._fs(path)
+        return bool(fs.isdir(p))
+
+    def exists(self, path: str) -> bool:
+        fs, p = self._fs(path)
+        return bool(fs.exists(p))
+
+    def stat(self, path: str):
+        fs, p = self._fs(path)
+        return _Stat(int(fs.size(p)))
+
+    def makedirs(self, path: str) -> None:
+        fs, p = self._fs(path)
+        fs.makedirs(p, exist_ok=True)
+
+    def rmtree(self, path: str) -> None:
+        fs, p = self._fs(path)
+        fs.rm(p, recursive=True)
+
+    def remove(self, path: str) -> None:
+        fs, p = self._fs(path)
+        fs.rm_file(p)
+
+    def rename(self, src: str, dst: str, overwrite: bool = False) -> None:
+        fs, s = self._fs(src)
+        _, d = self._fs(dst)
+        if fs.exists(d):
+            if not overwrite:
+                raise FileExistsError(dst)
+            fs.rm(d, recursive=True)
+        fs.mv(s, d, recursive=True)
+
+
+class _Stat:
+    def __init__(self, length: int):
+        self.length = length
+
+
+def _gfile(path: str):
+    """The remote backend, built over fsspec at the first remote op."""
+    global _remote_fs
+    if _remote_fs is None:
+        try:
+            import fsspec  # noqa: PLC0415 (lazy: remote paths only)
+        except ImportError as e:
+            scheme = path.split("://", 1)[0]
+            raise RuntimeError(
+                f"remote path {path!r}: the {scheme}:// scheme needs the "
+                "fsspec package (not installed); copy the data to a local "
+                "path, or install fsspec, or set_remote_fs() a backend"
+            ) from e
+        _remote_fs = FsspecGfile(fsspec)
+    return _remote_fs
 
 
 def open_stream(path: str, mode: str = "rb") -> BinaryIO:
-    """Open a local path, retrying transient open failures."""
-    _local(path)
-
+    """Open a (possibly remote) path, retrying transient open failures."""
     def _open() -> BinaryIO:
         if _injector is not None:
             _injector.on_op("open", path)
-        f: BinaryIO = open(path, mode)
+        if is_remote(path):
+            f: BinaryIO = _gfile(path).GFile(path, mode)
+        else:
+            f = open(path, mode)
         if _injector is not None and "r" in mode and "+" not in mode:
             f = _injector.wrap_stream(path, f)
         return f
     return _retry_policy.call(_open, op_name=f"open({path})")
 
 
-def size(path: str) -> int:
-    """Byte length of a local file."""
-    _local(path)
+def read_bytes(path: str) -> bytes:
+    """A whole (possibly remote) file: checkpoints, artifacts and sidecars.
+    A remote path reads through :func:`open_stream`; a local file is read
+    directly, outside the fault injector, which scripts faults into the
+    input path's streams only."""
+    if is_remote(path):
+        with open_stream(path, "rb") as f:
+            return f.read()
+    with open(path, "rb") as f:
+        return f.read()
 
-    def _size_op() -> int:
-        if _injector is not None:
-            _injector.on_op("size", path)
-        return os.path.getsize(path)
-    return _retry_policy.call(_size_op, op_name=f"size({path})")
 
-
-def _metadata_op(name: str, path: str, fn: Callable[[], object]):
-    """``fn`` under the retry policy, with the fault injector's hook."""
-    _local(path)
-
+def _metadata_op(name: str, path: str, local: Callable[[], object],
+                 remote: Callable[[object], object]):
+    """One metadata op under the retry policy, with the fault injector's
+    hook: ``remote(backend)`` for a remote path, else ``local()``."""
     def _op():
         if _injector is not None:
             _injector.on_op(name, path)
-        return fn()
+        if is_remote(path):
+            return remote(_gfile(path))
+        return local()
     return _retry_policy.call(_op, op_name=f"{name}({path})")
 
 
+def size(path: str) -> int:
+    """Byte length of a (possibly remote) file."""
+    return _metadata_op("size", path, lambda: os.path.getsize(path),
+                        lambda g: int(g.stat(path).length))
+
+
 def glob(pattern: str) -> List[str]:
-    """Sorted matches of a local glob pattern."""
-    return _metadata_op("glob", pattern,
-                        lambda: sorted(_glob.glob(pattern)))
+    """Sorted matches of a (possibly remote) glob pattern."""
+    return sorted(_metadata_op("glob", pattern,
+                               lambda: _glob.glob(pattern),
+                               lambda g: g.glob(pattern)))
 
 
 def isdir(path: str) -> bool:
-    return _metadata_op("isdir", path, lambda: os.path.isdir(path))
+    return _metadata_op("isdir", path, lambda: os.path.isdir(path),
+                        lambda g: g.isdir(path))
 
 
 def exists(path: str) -> bool:
-    return _metadata_op("exists", path, lambda: os.path.exists(path))
+    return _metadata_op("exists", path, lambda: os.path.exists(path),
+                        lambda g: g.exists(path))
 
 
 def makedirs(path: str) -> None:
-    os.makedirs(_local(path), exist_ok=True)
+    if is_remote(path):
+        _gfile(path).makedirs(path)
+        return
+    os.makedirs(path, exist_ok=True)
 
 
 def rmtree(path: str) -> None:
-    shutil.rmtree(_local(path))
+    if is_remote(path):
+        _gfile(path).rmtree(path)
+        return
+    shutil.rmtree(path)
+
+
+def remove(path: str) -> None:
+    """Delete one (possibly remote) file."""
+    if is_remote(path):
+        _gfile(path).remove(path)
+        return
+    os.remove(path)
 
 
 def replace(src: str, dst: str) -> None:
-    """Atomically move ``src`` over ``dst`` (file or directory): readers see
-    the old artifact or the complete new one, never a partial state."""
-    os.replace(_local(src), _local(dst))
+    """Move ``src`` over ``dst`` (file or directory).
+
+    Local paths use ``os.replace``, atomic on POSIX: readers see the old
+    artifact or the complete new one, never a partial state. Remote stores
+    rename with overwrite, and an object-store rename is not guaranteed
+    atomic: a reader may see a partly moved directory there."""
+    if is_remote(src) or is_remote(dst):
+        _gfile(src if is_remote(src) else dst).rename(src, dst,
+                                                      overwrite=True)
+        return
+    os.replace(src, dst)
 
 
 def fsync_dir(path: str) -> None:
-    """fsync a directory so a just-completed rename survives a crash."""
+    """fsync a local directory so a just-completed rename survives a crash.
+    A no-op on a remote store (durability is the store's contract)."""
+    if is_remote(path):
+        return
     try:
-        fd = os.open(_local(path), os.O_RDONLY)
+        fd = os.open(path, os.O_RDONLY)
     except OSError:
         return
     try:
@@ -141,13 +270,18 @@ def fsync_dir(path: str) -> None:
 
 def write_atomic(path: str, data) -> None:
     """Write ``data`` (str or bytes) so readers see the old content or the
-    new, never a torn file: a same-directory temp file, flushed and
-    fsynced, renamed over ``path``, then the directory fsynced. Every
+    new, never a torn file. Locally: a same-directory temp file, flushed
+    and fsynced, renamed over ``path``, then the directory fsynced. Every
     pointer and sidecar of the online path (``LATEST``, the stream's
-    high-water mark) is written so."""
+    high-water mark) is written so. On a remote store one object write is
+    already all or nothing."""
     if isinstance(data, str):
         data = data.encode("utf-8")
-    d = os.path.dirname(_local(path)) or "."
+    if is_remote(path):
+        with open_stream(path, "wb") as f:
+            f.write(data)
+        return
+    d = os.path.dirname(path) or "."
     tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
     try:
         with open(tmp, "wb") as f:
@@ -160,6 +294,42 @@ def write_atomic(path: str, data) -> None:
             os.remove(tmp)
         raise
     fsync_dir(d)
+
+
+def append(path: str, data) -> None:
+    """Append ``data`` (str or bytes) to a (possibly remote) file. Locally
+    an fsynced append; an object store has no append, so the object is
+    rewritten whole in one write."""
+    if isinstance(data, str):
+        data = data.encode("utf-8")
+    if is_remote(path):
+        old = read_bytes(path) if exists(path) else b""
+        write_atomic(path, old + data)
+        return
+    with open(path, "ab") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def join(base: str, *parts: str) -> str:
+    """Path join that keeps a remote base's URI: object stores always use
+    '/', whatever the platform's separator."""
+    if is_remote(base):
+        out = base.rstrip("/")
+        for p in parts:
+            out += "/" + str(p).strip("/")
+        return out
+    return os.path.join(base, *parts)
+
+
+def normalize_dir(path: str) -> str:
+    """Absolute form of a local path; a remote URI passes through without
+    its trailing '/' (``os.path.abspath`` would mangle it into
+    ``/cwd/gs:/bucket/...``)."""
+    if is_remote(path):
+        return path.rstrip("/")
+    return os.path.abspath(path)
 
 
 class ResilientStream(io.RawIOBase):
@@ -292,5 +462,4 @@ def open_resilient(path: str, *,
                                                None]] = None,
                    ) -> ResilientStream:
     """Open ``path`` for reading behind transparent reopen-and-seek retry."""
-    _local(path)
     return ResilientStream(path, policy=policy, on_retry=on_retry)

@@ -1,8 +1,9 @@
-"""LibSVM text -> TFRecord conversion and the synthetic CTR generator.
+"""LibSVM text <-> TFRecord conversion and the synthetic CTR generator.
 
-The port's copy of the conversion and generator subset of
-``deepfm_tpu.data.libsvm``: each LibSVM line ``"label id:val id:val ..."``
-becomes one ``Example{label: float, ids: int64[F], values: float[F]}``.
+The port's copy of ``deepfm_tpu.data.libsvm``: each LibSVM line
+``"label id:val id:val ..."`` becomes one ``Example{label: float,
+ids: int64[F], values: float[F]}``; the converter shards its output on
+request, and ``tfrecord_to_libsvm`` is the reverse path for round trips.
 ``generate_synthetic_ctr`` writes the same bytes as the JAX package's for
 the same arguments, with the optional ``label2`` and history keys.
 """
@@ -31,20 +32,55 @@ def parse_libsvm_line(line: str) -> Tuple[float, np.ndarray, np.ndarray]:
     return label, ids, vals
 
 
+def format_libsvm_line(label: float, ids: np.ndarray,
+                       vals: np.ndarray) -> str:
+    toks = [f"{label:g}"] + [f"{int(i)}:{float(v):g}"
+                             for i, v in zip(ids, vals)]
+    return " ".join(toks)
+
+
 def convert_libsvm_file(in_path: str, out_path: str, *,
-                        field_size: Optional[int] = None) -> int:
-    """Convert a LibSVM text file to one TFRecord file; returns the record
-    count."""
+                        field_size: Optional[int] = None,
+                        num_shards: int = 1) -> int:
+    """Convert a LibSVM text file to TFRecord file(s); returns the record
+    count. With ``num_shards > 1`` the records go round-robin into
+    ``{out_path}-00000-of-0000N`` shards. ``out_path`` may be a remote URL
+    (the fileio seam)."""
+    if num_shards < 1:
+        raise ValueError("num_shards must be >= 1")
+    if num_shards == 1:
+        writers = [tfrecord.TFRecordWriter(out_path)]
+    else:
+        writers = [tfrecord.TFRecordWriter(
+            f"{out_path}-{s:05d}-of-{num_shards:05d}")
+            for s in range(num_shards)]
     n = 0
-    with tfrecord.TFRecordWriter(out_path) as w, open(in_path, "r") as f:
-        for line in f:
-            if not line.strip():
-                continue
-            label, ids, vals = parse_libsvm_line(line)
-            if field_size is not None and ids.shape[0] != field_size:
-                raise ValueError(f"line {n}: expected {field_size} features, "
-                                 f"got {ids.shape[0]}")
-            w.write(example_codec.encode_ctr_example(label, ids, vals))
+    try:
+        with open(in_path, "r") as f:
+            for line in f:
+                if not line.strip():
+                    continue
+                label, ids, vals = parse_libsvm_line(line)
+                if field_size is not None and ids.shape[0] != field_size:
+                    raise ValueError(f"line {n}: expected {field_size} "
+                                     f"features, got {ids.shape[0]}")
+                writers[n % num_shards].write(
+                    example_codec.encode_ctr_example(label, ids, vals))
+                n += 1
+    finally:
+        for w in writers:
+            w.close()
+    return n
+
+
+def tfrecord_to_libsvm(in_path: str, out_path: str, field_size: int) -> int:
+    """The reverse conversion, for round trips; returns the record count."""
+    n = 0
+    with open(out_path, "w") as out:
+        for rec in tfrecord.iter_records(in_path):
+            label, ids, vals = example_codec.decode_ctr_example(rec,
+                                                                field_size)
+            out.write(format_libsvm_line(label, ids, vals) + "\n")
             n += 1
     return n
 

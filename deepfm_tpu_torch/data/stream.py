@@ -171,7 +171,7 @@ class UnboundedFileStream:
                 out.append((line, None))
             return out
         return [(p, None)
-                for p in fileio.glob(os.path.join(self._source, self._pattern))]
+                for p in fileio.glob(fileio.join(self._source, self._pattern))]
 
     def _poll_once(self) -> bool:
         """One watcher pass; returns True iff new files were admitted.

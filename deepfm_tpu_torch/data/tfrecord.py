@@ -1,9 +1,8 @@
-"""TFRecord container I/O for local files: framing + masked CRC32C, and
-the Python framer that locates a bad frame and applies the bad-record
-policy.
+"""TFRecord container I/O: framing + masked CRC32C, and the Python framer
+that locates a bad frame and applies the bad-record policy.
 
-The port's copy of ``deepfm_tpu.data.tfrecord`` (local paths only). The
-on-disk format is TensorFlow's TFRecord:
+The port's copy of ``deepfm_tpu.data.tfrecord``; remote paths go through
+the fileio seam. The on-disk format is TensorFlow's TFRecord:
 
     uint64  length (little-endian)
     uint32  masked_crc32c(length bytes)
@@ -66,13 +65,18 @@ def masked_crc32c(data: bytes) -> int:
 
 
 class TFRecordWriter:
-    """Append serialized records to a local TFRecord file."""
+    """Append serialized records to a TFRecord file: a local path, or an
+    object-store URL through the fileio seam."""
 
     def __init__(self, path: str):
+        from . import fileio  # noqa: PLC0415 (import cycle at module load)
+        if fileio.is_remote(path):
+            self._f: Optional[BinaryIO] = fileio.open_stream(path, "wb")
+            return
         parent = os.path.dirname(path)
         if parent:
             os.makedirs(parent, exist_ok=True)
-        self._f: Optional[BinaryIO] = open(path, "wb")
+        self._f = open(path, "wb")
 
     def write(self, record: bytes) -> None:
         assert self._f is not None, "writer closed"
@@ -153,9 +157,10 @@ def iter_records_from_stream(stream: BinaryIO, *, verify_crc: bool = True,
 def iter_records(path: str, *, verify_crc: bool = True, policy=None,
                  resilient: bool = False, retry_policy=None,
                  on_retry=None) -> Iterator[bytes]:
-    """Iterate the records of a local TFRecord file. ``resilient=True``
-    reads through ``fileio.ResilientStream``, so transient mid-file read
-    errors heal by reopen-and-seek."""
+    """Iterate the records of a TFRecord file (local, or remote through the
+    fileio seam). ``resilient=True`` reads through
+    ``fileio.ResilientStream``, so transient mid-file read errors heal by
+    reopen-and-seek."""
     from . import fileio  # noqa: PLC0415 (import cycle at module load)
     if resilient:
         with fileio.open_resilient(path, policy=retry_policy,
@@ -163,9 +168,19 @@ def iter_records(path: str, *, verify_crc: bool = True, policy=None,
             yield from iter_records_from_stream(
                 f, verify_crc=verify_crc, path=path, policy=policy)
         return
-    with open(fileio._local(path), "rb", buffering=1 << 20) as f:
+    if fileio.is_remote(path):
+        with fileio.open_stream(path, "rb") as f:
+            yield from iter_records_from_stream(
+                f, verify_crc=verify_crc, path=path, policy=policy)
+        return
+    with open(path, "rb", buffering=1 << 20) as f:
         yield from iter_records_from_stream(
             f, verify_crc=verify_crc, path=path, policy=policy)
+
+
+def read_all_records(path: str, *, verify_crc: bool = True) -> List[bytes]:
+    """The records of one file, in order, as a list of bytes."""
+    return list(iter_records(path, verify_crc=verify_crc))
 
 
 def split_record_frames(buf: bytes, *, verify_crc: bool = False,

@@ -58,7 +58,6 @@ import json
 import os
 import signal
 import subprocess
-import sys
 import tempfile
 import threading
 import time
@@ -75,7 +74,8 @@ from ..utils import device as device_lib
 from ..utils import export as export_lib
 from ..utils import faults as faults_lib
 from .serving import model_of, reference_model
-from .supervise import run_supervised
+from .supervise import (REPO_ROOT, child_env, launcher_cmd,
+                        run_supervised)
 
 #: The JAX drill's model (its ``FEATURE_SIZE``, ``FIELD_SIZE`` and
 #: ``_flags``).
@@ -94,8 +94,6 @@ SMOKE = dict(duration_s=8.0, base_qps=8.0, peak_qps=30.0, max_rows=4,
              read_fault_every=0, idle_timeout_s=0.0, auc_windows=3)
 
 MIN_HOT_SWAPS = 3
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
 
 # Overload drill (degradation ladder under executor_slow chaos): the flood
 # is sized so the ranking engine saturates only while the injected slow
@@ -144,15 +142,6 @@ CACHE_DRILL = dict(duration_s=1.2, offered_qps=120.0, users=4_000,
                    queue_rows=4096, repeat_p=0.5, cache_rows=2048,
                    user_cache_rows=512, k=5, timeout_s=30.0)
 
-# The trainer subprocess's step triggers and chaos variables: a drill
-# passes only its own schedule to its trainer.
-_CHILD_ENV_DROP = ("DEEPFM_TPU_TORCH_PREEMPT_HOLD_AFTER_STEPS",
-                   "DEEPFM_TPU_TORCH_PREEMPT_AFTER_STEPS",
-                   "DEEPFM_TPU_TORCH_FAULT_AFTER_STEPS",
-                   faults_lib.READ_FAULT_ENV, faults_lib.CHAOS_ENV,
-                   faults_lib.CHAOS_STATE_ENV)
-
-
 def _say_factory(verbose):
     return (lambda msg: print(f"[production_drill] {msg}", flush=True)) \
         if verbose else (lambda msg: None)
@@ -181,30 +170,6 @@ def _flags(data_dir, model_dir, publish_every, idle_timeout_s,
         # trace-<pid>.json next to the drill's; merge() stitches them.
         flags.update(trace=trace, trace_dir=trace_dir)
     return flags
-
-
-def _cmd(flags, device):
-    """The trainer's command line: the launcher on the card, or (for a CPU
-    run) ``launch.main`` with ``device="cpu"``."""
-    if device.type == "cuda":
-        argv = [sys.executable, "-m", "deepfm_tpu_torch.launch"]
-    else:
-        argv = [sys.executable, "-c",
-                "import sys; from deepfm_tpu_torch import launch; "
-                "sys.exit(launch.main(sys.argv[1:], device='cpu'))"]
-    for name, value in flags.items():
-        argv += [f"--{name}", str(int(value) if isinstance(value, bool)
-                                  else value)]
-    return argv
-
-
-def _env(**extra):
-    env = dict(os.environ, PYTHONPATH=_REPO_ROOT + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    for k in _CHILD_ENV_DROP:
-        env.pop(k, None)
-    env.update({k: str(v) for k, v in extra.items()})
-    return env
 
 
 class _LogicalClock:
@@ -418,7 +383,7 @@ def _subprocess_trainer(cmd, env, cell, done_evt, logs, out):
     results = out.setdefault("results", [])
 
     def spawn(c):
-        p = subprocess.Popen(c, cwd=_REPO_ROOT, env=env,
+        p = subprocess.Popen(c, cwd=REPO_ROOT, env=env,
                              stdout=subprocess.PIPE, text=True)
         cell["proc"] = p
         lines = list(p.stdout)
@@ -536,12 +501,12 @@ def _run_core(workdir, *, mode, seed, pace, say, trace="off", tb_dir="",
         sched_file = os.path.join(workdir, "chaos_schedule.json")
         with open(sched_file, "w", encoding="utf-8") as f:
             f.write(schedule.to_json())
-        env = _env(**{faults_lib.CHAOS_ENV: "@" + sched_file,
+        env = child_env(**{faults_lib.CHAOS_ENV: "@" + sched_file,
                       faults_lib.CHAOS_STATE_ENV: state_file})
         trainer_thread = threading.Thread(
             target=_subprocess_trainer,
-            args=(_cmd(flags, dev), env, cell, done_evt, sup_logs,
-                  trainer_out))
+            args=(launcher_cmd(flags, dev), env, cell, done_evt,
+                  sup_logs, trainer_out))
     else:
         schedule.install(
             state_path=os.path.join(workdir, "chaos_state.json"))

@@ -14,16 +14,61 @@ Usage:
         [--backoff_secs S] -- python -m deepfm_tpu_torch.launch ...
 
 Everything after ``--`` is the command to supervise.
+
+Also here, for the drills that supervise a trainer: :func:`launcher_cmd`,
+the trainer's command line, and :func:`child_env`, its environment.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
 import sys
 import time
 
+from ..utils import faults as faults_lib
 from ..utils import preempt as preempt_lib
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+#: The trainer's step triggers (``train.tasks``' ``PREEMPT_HOLD_ENV``,
+#: ``PREEMPT_AFTER_ENV`` and ``FAULT_AFTER_ENV``), read faults and chaos
+#: variables: :func:`child_env` drops them, so a drill passes its trainer
+#: only its own.
+CHILD_ENV_DROP = ("DEEPFM_TPU_TORCH_PREEMPT_HOLD_AFTER_STEPS",
+                  "DEEPFM_TPU_TORCH_PREEMPT_AFTER_STEPS",
+                  "DEEPFM_TPU_TORCH_FAULT_AFTER_STEPS",
+                  faults_lib.READ_FAULT_ENV, faults_lib.CHAOS_ENV,
+                  faults_lib.CHAOS_STATE_ENV)
+
+
+def launcher_cmd(flags, device) -> list:
+    """The trainer's command line for ``flags`` (``{name: value}``): the
+    launcher on the card, or (``device`` on the CPU) ``launch.main`` with
+    ``device="cpu"``."""
+    if str(device).startswith("cuda"):
+        argv = [sys.executable, "-m", "deepfm_tpu_torch.launch"]
+    else:
+        argv = [sys.executable, "-c",
+                "import sys; from deepfm_tpu_torch import launch; "
+                "sys.exit(launch.main(sys.argv[1:], device='cpu'))"]
+    for name, value in flags.items():
+        argv += [f"--{name}", str(int(value) if isinstance(value, bool)
+                                  else value)]
+    return argv
+
+
+def child_env(**extra) -> dict:
+    """This process's environment with the repo on ``PYTHONPATH``, without
+    :data:`CHILD_ENV_DROP`, plus ``extra``."""
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    for k in CHILD_ENV_DROP:
+        env.pop(k, None)
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
 
 
 def run_supervised(cmd, *, max_restarts=5, backoff_secs=1.0,

@@ -420,8 +420,13 @@ class EmbeddingSchema:
                           generator=generator, device=device)
         pad = self.padded_vocab - self.feature_size
         if pad:
-            t = torch.cat([t, torch.zeros((pad, *trailing), dtype=t.dtype,
-                                          device=device)])
+            # A slice copy, not torch.cat: cat's meta kernel (the trainer
+            # builds its template on meta) imports torch._dynamo, seconds
+            # of every launcher process's start.
+            full = torch.zeros((self.padded_vocab, *trailing), dtype=t.dtype,
+                               device=device)
+            full[:self.feature_size] = t
+            t = full
         return t
 
     def tables(self, entry: Entry) -> Dict[str, torch.Tensor]:

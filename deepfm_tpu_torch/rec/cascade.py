@@ -149,8 +149,8 @@ class CascadeModel:
         self.device = device_lib.resolve(device)
         self.rank_fn = export_lib.load_serving(path, buckets=buckets,
                                                device=self.device)
-        with open(os.path.join(path, "model_config.json")) as f:
-            meta = json.load(f)
+        meta = json.loads(fileio.read_bytes(
+            fileio.join(path, "model_config.json")).decode("utf-8"))
         self.field_size = int(meta["config"]["field_size"])
         self.hist_len = int(meta.get("history_len", 0))
         self.outputs = tuple(meta["signature"]["outputs"])

@@ -100,6 +100,12 @@ def mean_init(*, device=None) -> MeanState:
                      count=torch.zeros((), device=device))
 
 
+def mean_update(state: MeanState, value: torch.Tensor,
+                count=1.0) -> MeanState:
+    return MeanState(total=state.total + value.float() * count,
+                     count=state.count + count)
+
+
 def mean_compute(state: MeanState) -> torch.Tensor:
     return state.total / torch.clamp(state.count, min=1.0)
 

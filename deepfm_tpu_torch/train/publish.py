@@ -19,9 +19,9 @@ exposing a half-written directory. :class:`Publisher` is a fit-loop hook:
     flight, due cadences are counted as skipped, not queued.
   * **Atomicity** — the artifact (``export_serving`` with ``step=``) is
     staged under a dot-prefixed directory in the publish dir, completed
-    (marker written last), fsynced, then ``os.replace``d to its final
-    ``<step>/`` name; only then does ``LATEST`` move, logged first to the
-    pointer history and never backwards. A crash at any point leaves the
+    (marker written last), fsynced, then renamed (``fileio.replace``) to
+    its final ``<step>/`` name; only then does ``LATEST`` move, logged
+    first to the pointer history and never backwards. A crash at any point leaves the
     previous artifact set intact or a complete new artifact, never a
     partly visible one. An ``extra_export`` hook writes further servables
     (the cascade's towers and index) into the staging dir before the
@@ -164,14 +164,14 @@ class Publisher:
                     mstate: Dict[str, torch.Tensor],
                     step: int) -> Optional[str]:
         version = str(step)
-        final_dir = os.path.join(self._dir, version)
-        if fileio.exists(os.path.join(final_dir, export_lib.COMPLETE_MARKER)):
+        final_dir = fileio.join(self._dir, version)
+        if fileio.exists(fileio.join(final_dir, export_lib.COMPLETE_MARKER)):
             # Idempotent republish (a replay after a resume hits the same
             # cadence step): the bytes would be the same. LATEST still
             # advances, which heals a crash between rename and pointer.
             self._advance_latest(version)
             return final_dir
-        staging = os.path.join(self._dir, f".staging-{version}-{os.getpid()}")
+        staging = fileio.join(self._dir, f".staging-{version}-{os.getpid()}")
         if fileio.isdir(staging):
             fileio.rmtree(staging)
         model = get_model(self._cfg, device="meta")

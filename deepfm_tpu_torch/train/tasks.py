@@ -100,7 +100,6 @@ tables, and the train result carries the tier's ``hotcold_*`` stats.
 
 from __future__ import annotations
 
-import glob as _glob
 import hashlib
 import json
 import logging
@@ -165,10 +164,10 @@ def resolve_files(directory: str, prefix: str) -> List[str]:
     """Glob ``{prefix}*.tfrecords``; fall back to all ``*.tfrecords``."""
     if not directory:
         return []
-    files = _glob.glob(os.path.join(directory, f"{prefix}*.tfrecords"))
+    files = fileio.glob(fileio.join(directory, f"{prefix}*.tfrecords"))
     if not files:
-        files = _glob.glob(os.path.join(directory, "*.tfrecords"))
-    return sorted(files)
+        files = fileio.glob(fileio.join(directory, "*.tfrecords"))
+    return files
 
 
 def _channel_path(cfg: Config, name: str, *, require: bool = False) -> str:
@@ -181,8 +180,8 @@ def _channel_path(cfg: Config, name: str, *, require: bool = False) -> str:
         c if c.isalnum() else "_" for c in name).upper()
     if os.environ.get(env_key):
         return os.environ[env_key]
-    sub = os.path.join(cfg.data_dir, name) if cfg.data_dir else ""
-    if sub and os.path.isdir(sub):
+    sub = fileio.join(cfg.data_dir, name) if cfg.data_dir else ""
+    if sub and fileio.isdir(sub):
         return sub
     if require:
         raise FileNotFoundError(
@@ -374,7 +373,7 @@ def make_online_pipeline(cfg: Config, train_dir: str, *, skip_batches: int = 0
             "must be chief-coordinated before ranks can record-shard an "
             "unbounded stream consistently")
     health = pipe_lib.DataHealth()
-    sidecar = (os.path.join(cfg.model_dir, _STREAM_SIDECAR)
+    sidecar = (fileio.join(cfg.model_dir, _STREAM_SIDECAR)
                if cfg.model_dir else "")
     stream = stream_lib.UnboundedFileStream(
         train_dir, pattern="tr*.tfrecords", sidecar_path=sidecar,
@@ -412,7 +411,7 @@ def _restore_or_init(trainer: Trainer, cfg: Config, require: bool,
             raise FileNotFoundError(
                 f"task '{cfg.task_type}' requires model_dir")
         return adopted(state)
-    if require and not os.path.isdir(cfg.model_dir):
+    if require and not fileio.isdir(cfg.model_dir):
         raise FileNotFoundError(
             f"task '{cfg.task_type}' needs a checkpoint in model_dir="
             f"{cfg.model_dir!r}")
@@ -463,7 +462,7 @@ def run(cfg: Config, device="cuda") -> Dict[str, float]:
                         trace_dir=obs_dir)
     snap_writer = None
     if cfg.metrics_snapshot_secs > 0:
-        os.makedirs(obs_dir, exist_ok=True)
+        fileio.makedirs(obs_dir)
         snap_writer = obs_metrics.SnapshotWriter(
             os.path.join(obs_dir, f"metrics-{os.getpid()}.jsonl"),
             cfg.metrics_snapshot_secs)
@@ -490,7 +489,7 @@ _RESUME_META = "resume_meta.json"
 
 
 def _write_resume_meta(model_dir: str, meta: Dict) -> None:
-    fileio.write_atomic(os.path.join(model_dir, _RESUME_META),
+    fileio.write_atomic(fileio.join(model_dir, _RESUME_META),
                         json.dumps(meta))
 
 
@@ -498,12 +497,11 @@ def _read_resume_meta(model_dir: str,
                       health: guard_lib.TrainHealth) -> Optional[Dict]:
     """The resume sidecar, or None. An unreadable one degrades to
     checkpoint-step-only resume (the interrupted epoch replays)."""
-    path = os.path.join(model_dir, _RESUME_META)
-    if not os.path.exists(path):
+    path = fileio.join(model_dir, _RESUME_META)
+    if not fileio.exists(path):
         return None
     try:
-        with open(path, encoding="utf-8") as f:
-            return json.load(f)
+        return json.loads(fileio.read_bytes(path).decode("utf-8"))
     except (ValueError, OSError) as exc:
         log.warning("resume sidecar %s unreadable (%r); falling back to "
                     "checkpoint-step-only resume", path, exc)
@@ -539,7 +537,7 @@ def _files_fingerprint(files: List[str], cfg: Optional[Config] = None
                     tagged.append((f"c{r}", "<unresolved>"))
     for tag, path in sorted(tagged):
         try:
-            n = os.path.getsize(path) if path != "<unresolved>" else -2
+            n = fileio.size(path) if path != "<unresolved>" else -2
         except OSError:
             n = -1
         name = f"{tag}={os.path.basename(path)}" if tag else \
@@ -617,7 +615,7 @@ def _export(trainer: Trainer, cfg: Config, state: TrainState
     full = _servable_state(trainer, state)
     if not bootstrap.is_chief():
         return None
-    out = os.path.join(cfg.servable_model_dir, str(int(state.step)))
+    out = fileio.join(cfg.servable_model_dir, str(int(state.step)))
     model = trainer.servable_model(full)
     return export_lib.export_serving(model, cfg, out, step=int(state.step))
 
@@ -931,7 +929,7 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
         if cfg.online_mode and (cfg.publish_every_steps
                                 or cfg.publish_every_secs):
             pdir = cfg.publish_dir or (
-                os.path.join(cfg.model_dir, "publish") if cfg.model_dir
+                fileio.join(cfg.model_dir, "publish") if cfg.model_dir
                 else "")
             if not pdir:
                 raise ValueError("--publish_every_steps/secs needs "
@@ -971,10 +969,11 @@ def _task_train(trainer: Trainer, cfg: Config) -> Dict[str, float]:
                 if held[0] or s.step - restored_step < hold_after:
                     return
                 held[0] = True
-                sentinel = os.path.join(cfg.model_dir or ".",
-                                        ".preempt_hold")
-                with open(sentinel, "w", encoding="utf-8") as f:
-                    f.write(str(s.step))
+                # Atomic: a reader polling for the sentinel never sees it
+                # empty.
+                fileio.write_atomic(
+                    fileio.join(cfg.model_dir or ".", ".preempt_hold"),
+                    str(s.step))
                 deadline = time.time() + 120.0
                 while not listener.triggered():
                     if time.time() > deadline:
@@ -1263,9 +1262,9 @@ def _task_infer(trainer: Trainer, cfg: Config) -> Dict[str, float]:
         all_probs = _interleave_rank_shards(gathered[col0], counts[col0])
     else:
         all_probs = local
-    out_path = os.path.join(pred_dir, "pred.txt")
+    out_path = fileio.join(pred_dir, "pred.txt")
     if bootstrap.is_chief():
-        with open(out_path, "w", encoding="utf-8") as f:
+        with fileio.open_stream(out_path, "w") as f:
             # One line per record; a multi-task model writes one
             # space-separated column per task.
             for p in all_probs:

@@ -1,12 +1,13 @@
-"""Checkpoint and resume on a local ``model_dir`` (the port's counterpart of
+"""Checkpoint and resume on a ``model_dir`` (the port's counterpart of
 ``deepfm_tpu.utils.checkpoint``, which wraps Orbax).
 
 One file per checkpoint, ``ckpt-<step>.pt``: the :class:`TrainState`
-snapshot (``TrainState.to_dict``) written with ``torch.save`` to a private
-temporary file and renamed into place, so a reader sees a whole checkpoint
-or none. ``max_to_keep`` newest checkpoints are kept. Orbax checkpoints of
-the JAX package do not load here: weights carry over as numpy
-(``utils.params``).
+snapshot (``TrainState.to_dict``) written with ``torch.save``. Locally it
+goes to a private temporary file, fsynced and renamed into place, so a
+reader sees a whole checkpoint or none; on a remote ``model_dir``
+(``gs://`` and the like, through ``data.fileio``) it is one object write.
+``max_to_keep`` newest checkpoints are kept. Orbax checkpoints of the JAX
+package do not load here: weights carry over as numpy (``utils.params``).
 
 Saves are asynchronous by default, as Orbax's are. A save first takes a
 completed host copy of the state on the caller's thread (the steps update
@@ -34,16 +35,17 @@ mesh.
 from __future__ import annotations
 
 import concurrent.futures
+import io
 import logging
 import os
 import re
-import shutil
 import tempfile
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..data import fileio
 from ..parallel import bootstrap
 from . import retry as retry_lib
 
@@ -97,8 +99,8 @@ class CheckpointManager:
                  save_interval_steps: int = 0, async_save: bool = True,
                  max_save_failures: int = 3,
                  retry_policy: Optional[retry_lib.RetryPolicy] = None):
-        self._dir = os.path.abspath(directory)
-        os.makedirs(self._dir, exist_ok=True)
+        self._dir = fileio.normalize_dir(directory)
+        fileio.makedirs(self._dir)
         self.max_to_keep = max(int(max_to_keep), 1)
         self.save_interval_steps = save_interval_steps
         self._last_should_save_step: Optional[int] = None
@@ -121,7 +123,7 @@ class CheckpointManager:
         return self._dir
 
     def _path(self, step: int) -> str:
-        return os.path.join(self._dir, f"ckpt-{int(step)}.pt")
+        return fileio.join(self._dir, f"ckpt-{int(step)}.pt")
 
     def _read(self, fn: Callable, op_name: str):
         if self._retry is None:
@@ -131,8 +133,8 @@ class CheckpointManager:
     def _listing(self) -> List[int]:
         def listing() -> List[int]:
             steps = []
-            for name in os.listdir(self._dir):
-                m = _CKPT_RE.match(name)
+            for path in fileio.glob(fileio.join(self._dir, "ckpt-*.pt")):
+                m = _CKPT_RE.match(path.rsplit("/", 1)[-1])
                 if m:
                     steps.append(int(m.group(1)))
             return sorted(steps)
@@ -150,21 +152,27 @@ class CheckpointManager:
 
     # -- saving --------------------------------------------------------
     def _do_save(self, step: int, snapshot: Dict[str, Any]) -> None:
-        """Write one host snapshot: temp file, fsync, rename, prune. The
-        seam a test patches to inject a failing write."""
-        fd, tmp = tempfile.mkstemp(dir=self._dir, prefix=".tmp-ckpt-")
-        try:
-            with os.fdopen(fd, "wb") as f:
-                torch.save(snapshot, f)
-                f.flush()
-                os.fsync(f.fileno())
-            os.replace(tmp, self._path(step))
-        except BaseException:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-            raise
+        """Write one host snapshot (locally: temp file, fsync, rename; on a
+        remote store: one object write), then prune. The seam a test
+        patches to inject a failing write."""
+        if fileio.is_remote(self._dir):
+            buf = io.BytesIO()
+            torch.save(snapshot, buf)
+            fileio.write_atomic(self._path(step), buf.getvalue())
+        else:
+            fd, tmp = tempfile.mkstemp(dir=self._dir, prefix=".tmp-ckpt-")
+            try:
+                with os.fdopen(fd, "wb") as f:
+                    torch.save(snapshot, f)
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(tmp, self._path(step))
+            except BaseException:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise
         for old in self._listing()[:-self.max_to_keep]:
-            os.remove(self._path(old))
+            fileio.remove(self._path(old))
         log.info("checkpoint saved at step %d -> %s", step, self._dir)
 
     def _write(self, step: int, snapshot: Dict[str, Any],
@@ -265,9 +273,9 @@ class CheckpointManager:
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint found in {self._dir}")
-        d = self._read(lambda: torch.load(self._path(step),
-                                          map_location="cpu",
-                                          weights_only=True),
+        d = self._read(lambda: torch.load(
+                           io.BytesIO(fileio.read_bytes(self._path(step))),
+                           map_location="cpu", weights_only=True),
                        f"restore(step {step}, {self._dir})")
         template.load_dict(d if shard is None else shard(d))
         log.info("restored checkpoint step %d from %s", step, self._dir)
@@ -292,6 +300,6 @@ def clear_model_dir(directory: str) -> None:
     chief only (the caller puts the other ranks behind a barrier)."""
     if not bootstrap.is_chief():
         return
-    if os.path.isdir(directory):
-        shutil.rmtree(directory)
+    if fileio.isdir(directory):
+        fileio.rmtree(directory)
         log.info("cleared existing model dir %s", directory)

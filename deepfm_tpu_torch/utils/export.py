@@ -21,15 +21,16 @@ it unchanged. The result also carries ``raw_call(ids, vals) -> logits``,
 the same forward on device tensors with no host copy (the fused
 cascade's ranker, ``rec.cascade``).
 
-Paths are local. Remote storage schemes (the JAX package's ``fileio``
-layer), StableHLO and the TF SavedModel sidecar are not part of the port.
+Every file goes through ``data.fileio``, so an artifact dir may be local
+or on a remote store (``gs://`` and the like). StableHLO and the TF
+SavedModel sidecar are not part of the port.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import logging
-import os
 import threading
 import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
@@ -82,13 +83,17 @@ def serving_input_cols(model, cfg: Config) -> int:
 def export_serving(model: torch.nn.Module, cfg: Config, out_dir: str, *,
                    step: int = 0) -> str:
     """Write the servable artifact of ``model``; returns the artifact path."""
-    os.makedirs(out_dir, exist_ok=True)
+    fileio.makedirs(out_dir)
 
     # 1. Weights: one flat {name: tensor} dict, on the CPU, so any device
-    # can load it.
+    # can load it; serialized in memory and written in one write (a remote
+    # stream cannot seek).
     flat = {k: v.detach().cpu().contiguous()
             for k, v in model.state_dict().items()}
-    torch.save(flat, os.path.join(out_dir, _PARAMS_FILE))
+    buf = io.BytesIO()
+    torch.save(flat, buf)
+    with fileio.open_stream(fileio.join(out_dir, _PARAMS_FILE), "wb") as f:
+        f.write(buf.getbuffer())
 
     # 2. Signature/config metadata (the JAX package's schema). A multi-task
     # artifact names one output per task; a sequence model's inputs are
@@ -110,14 +115,12 @@ def export_serving(model: torch.nn.Module, cfg: Config, out_dir: str, *,
         "config": cfg.to_dict(),
         "step": int(step),
     }
-    with open(os.path.join(out_dir, _CONFIG_FILE), "w", encoding="utf-8") as f:
-        json.dump(meta, f, indent=2)
-        f.flush()
-        os.fsync(f.fileno())
+    fileio.write_atomic(fileio.join(out_dir, _CONFIG_FILE),
+                        json.dumps(meta, indent=2))
 
     # 3. Completion marker — strictly last, atomically.
-    fileio.write_atomic(os.path.join(out_dir, COMPLETE_MARKER),
-                 json.dumps({"step": meta["step"]}))
+    fileio.write_atomic(fileio.join(out_dir, COMPLETE_MARKER),
+                        json.dumps({"step": meta["step"]}))
     log.info("exported servable model to %s", out_dir)
     return out_dir
 
@@ -219,16 +222,17 @@ def load_model(artifact_dir: str, *, device="cuda",
 
     Raises :class:`ArtifactIncomplete` when the dir lacks its completion
     marker."""
-    if not os.path.exists(os.path.join(artifact_dir, COMPLETE_MARKER)):
+    if not fileio.exists(fileio.join(artifact_dir, COMPLETE_MARKER)):
         raise ArtifactIncomplete(
             f"{artifact_dir} has no {COMPLETE_MARKER} marker — the artifact "
             "is incomplete (crashed or in-flight export); refusing to load")
     dev = device_lib.resolve(device)
-    with open(os.path.join(artifact_dir, _CONFIG_FILE), encoding="utf-8") as f:
-        meta = json.load(f)
+    meta = json.loads(fileio.read_bytes(
+        fileio.join(artifact_dir, _CONFIG_FILE)).decode("utf-8"))
     cfg = Config.from_dict({**meta["config"], **overrides})
-    weights = torch.load(os.path.join(artifact_dir, _PARAMS_FILE),
-                         map_location=dev, weights_only=True)
+    weights = torch.load(
+        io.BytesIO(fileio.read_bytes(fileio.join(artifact_dir, _PARAMS_FILE))),
+        map_location=dev, weights_only=True)
     from ..models import get_model  # noqa: PLC0415 (models import this package)
     model = get_model(cfg, device="meta")
     model.load_state_dict(weights, assign=True)
@@ -313,21 +317,20 @@ def load_serving(artifact_dir: str, *,
 def write_latest(publish_dir: str, version: str) -> None:
     """Point ``<publish_dir>/LATEST`` at artifact dir ``version`` (basename).
     Atomic: a crashed update leaves the previous pointer intact."""
-    fileio.write_atomic(os.path.join(publish_dir, LATEST_FILE), str(version))
+    fileio.write_atomic(fileio.join(publish_dir, LATEST_FILE), str(version))
 
 
 def read_latest(publish_dir: str) -> Optional[str]:
     """Full path of the newest published artifact, or None when no pointer
     exists yet (or it dangles — points at a dir that is gone)."""
-    pointer = os.path.join(publish_dir, LATEST_FILE)
-    if not os.path.exists(pointer):
+    pointer = fileio.join(publish_dir, LATEST_FILE)
+    if not fileio.exists(pointer):
         return None
-    with open(pointer, "rb") as f:
-        version = f.read().decode("utf-8").strip()
+    version = fileio.read_bytes(pointer).decode("utf-8").strip()
     if not version:
         return None
-    path = os.path.join(publish_dir, version)
-    return path if os.path.exists(path) else None
+    path = fileio.join(publish_dir, version)
+    return path if fileio.exists(path) else None
 
 
 # Append-only audit sidecar next to LATEST: one JSON line per pointer move,
@@ -355,31 +358,27 @@ def append_pointer_event(publish_dir: str, version: str, actor: str,
         if all(tail.get(k) == entry[k] for k in ("version", "actor",
                                                   "reason")):
             return tail
-    path = os.path.join(publish_dir, POINTER_HISTORY_FILE)
-    with open(path, "a", encoding="utf-8") as f:
-        f.write(json.dumps(entry, sort_keys=True,
-                           separators=(",", ":")) + "\n")
-        f.flush()
-        os.fsync(f.fileno())
+    fileio.append(fileio.join(publish_dir, POINTER_HISTORY_FILE),
+                  json.dumps(entry, sort_keys=True,
+                             separators=(",", ":")) + "\n")
     return entry
 
 
 def pointer_history(publish_dir: str) -> list:
     """All pointer-history events, oldest first. A torn final line (a crash
     mid-append) is dropped: the retried append rewrites it whole."""
-    path = os.path.join(publish_dir, POINTER_HISTORY_FILE)
-    if not os.path.exists(path):
+    path = fileio.join(publish_dir, POINTER_HISTORY_FILE)
+    if not fileio.exists(path):
         return []
     out = []
-    with open(path, "r", encoding="utf-8") as f:
-        for line in f:
-            line = line.strip()
-            if not line:
-                continue
-            try:
-                out.append(json.loads(line))
-            except ValueError:
-                break  # torn tail: everything after it is suspect
+    for line in fileio.read_bytes(path).decode("utf-8").splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            out.append(json.loads(line))
+        except ValueError:
+            break  # torn tail: everything after it is suspect
     return out
 
 

@@ -485,6 +485,8 @@ class FlakyFS:
       per pair.
     * ``op_failures``: e.g. ``{"open": 1, "size": 2}``: the first N calls of
       that fileio op raise, one fault per call.
+    * ``save_failures=n``: the first n ``CheckpointManager._do_save`` calls
+      raise (patched while the context is active).
 
     A context manager; the ``injected_*`` counters let a test check that
     ``DataHealth`` reported exactly the injected faults.
@@ -492,16 +494,20 @@ class FlakyFS:
 
     def __init__(self, *, read_fail_every: int = 0,
                  read_fail_offsets: Iterable[Tuple[str, int]] = (),
-                 op_failures: Optional[Dict[str, int]] = None):
+                 op_failures: Optional[Dict[str, int]] = None,
+                 save_failures: int = 0):
         self.read_fail_every = int(read_fail_every)
         self._offset_plan = [(str(sub), int(off))
                              for sub, off in read_fail_offsets]
         self._offset_fired = [False] * len(self._offset_plan)
         self._op_remaining = dict(op_failures or {})
+        self._save_remaining = int(save_failures)
         self._lock = threading.Lock()
         self._read_calls = 0
         self.injected_read_faults = 0
         self.injected_op_faults = 0
+        self.injected_save_faults = 0
+        self._ckpt_patch = None  # (class, original _do_save) while active
 
     def on_op(self, op: str, path: str) -> None:
         with self._lock:
@@ -538,9 +544,34 @@ class FlakyFS:
                 f"injected transient read fault ({reason}) on {path} "
                 f"at byte {pos}")
 
+    def _patch_checkpoint_saves(self) -> None:
+        from . import checkpoint as ckpt_lib  # noqa: PLC0415 (imports torch)
+        fs = self
+        original = ckpt_lib.CheckpointManager._do_save
+
+        def flaky_do_save(mgr, step, snapshot):
+            with fs._lock:
+                inject = fs._save_remaining > 0
+                if inject:
+                    fs._save_remaining -= 1
+                    fs.injected_save_faults += 1
+            if inject:
+                raise InjectedFault(
+                    f"injected checkpoint-save fault at step {step}")
+            return original(mgr, step, snapshot)
+
+        ckpt_lib.CheckpointManager._do_save = flaky_do_save
+        self._ckpt_patch = (ckpt_lib.CheckpointManager, original)
+
     def __enter__(self) -> "FlakyFS":
         fileio.set_fault_injector(self)
+        if self._save_remaining > 0:
+            self._patch_checkpoint_saves()
         return self
 
     def __exit__(self, *exc) -> None:
         fileio.set_fault_injector(None)
+        if self._ckpt_patch is not None:
+            cls, original = self._ckpt_patch
+            cls._do_save = original
+            self._ckpt_patch = None

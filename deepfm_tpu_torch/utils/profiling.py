@@ -1,7 +1,13 @@
-"""Step-time and throughput meter, the host input path's per-stage timer
-and the profiler's step window (the ``ThroughputMeter``,
-``HostStageStats`` and ``StepWindowTracer`` of
-``deepfm_tpu.utils.profiling``)."""
+"""Step-time and throughput meter, the host input path's per-stage timer,
+the profiler's step window and its block and region helpers (the
+``ThroughputMeter``, ``HostStageStats``, ``StepWindowTracer``,
+``maybe_trace`` and ``annotate`` of ``deepfm_tpu.utils.profiling``).
+
+Usage:
+    with maybe_trace(cfg.profile_dir, device=dev):
+        with annotate("train_step"):
+            ... steps ...
+"""
 
 from __future__ import annotations
 
@@ -14,6 +20,61 @@ from typing import Dict, Iterator, List, Optional
 from ..obs import metrics as metrics_lib
 
 log = logging.getLogger(__name__)
+
+
+def _activities(cuda: bool):
+    import torch  # noqa: PLC0415 (profiling is opt-in)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
+
+
+def _export(prof, profile_dir: str, cuda: bool) -> str:
+    """Stop ``prof`` and write its Chrome trace as the next
+    ``trace-<pid>-<n>.json`` of ``profile_dir``; returns the path."""
+    if cuda:
+        import torch  # noqa: PLC0415
+        torch.cuda.synchronize()
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    n = len([f for f in os.listdir(profile_dir)
+             if f.startswith(f"trace-{os.getpid()}-")])
+    path = os.path.join(profile_dir, f"trace-{os.getpid()}-{n}.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
+@contextlib.contextmanager
+def maybe_trace(profile_dir: Optional[str], *, device="cuda"
+                ) -> Iterator[Optional[dict]]:
+    """``torch.profiler`` over the block when ``profile_dir`` is set (CUDA
+    activity too when ``device`` is a card), exported as a Chrome trace
+    into ``profile_dir`` like :class:`StepWindowTracer`'s; a no-op
+    otherwise. Yields a dict that holds ``"path"`` once the block ends
+    (``None`` when off)."""
+    if not profile_dir:
+        yield None
+        return
+    import torch  # noqa: PLC0415 (profiling is opt-in)
+    cuda = str(device).startswith("cuda")
+    prof = torch.profiler.profile(activities=_activities(cuda))
+    out: dict = {}
+    prof.start()
+    try:
+        yield out
+    finally:
+        out["path"] = _export(prof, profile_dir, cuda)
+        log.info("profiler trace -> %s", out["path"])
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named region in the profiler's timeline
+    (``torch.profiler.record_function``)."""
+    import torch  # noqa: PLC0415 (profiling is opt-in)
+    with torch.profiler.record_function(name):
+        yield
 
 
 class StepWindowTracer:
@@ -48,10 +109,8 @@ class StepWindowTracer:
         self._seen += steps_done
         if self._prof is None and self._seen >= self.start_step:
             import torch  # noqa: PLC0415 (profiling is opt-in)
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if self._cuda:
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            self._prof = torch.profiler.profile(activities=acts)
+            self._prof = torch.profiler.profile(
+                activities=_activities(self._cuda))
             self._prof.start()
         elif (self._prof is not None
               and self._seen >= self.start_step + self.num_steps):
@@ -60,16 +119,7 @@ class StepWindowTracer:
     def _stop(self) -> None:
         prof, self._prof = self._prof, None
         self._done = True
-        if self._cuda:
-            import torch  # noqa: PLC0415
-            torch.cuda.synchronize()
-        prof.stop()
-        os.makedirs(self.profile_dir, exist_ok=True)
-        n = len([f for f in os.listdir(self.profile_dir)
-                 if f.startswith(f"trace-{os.getpid()}-")])
-        self.trace_path = os.path.join(self.profile_dir,
-                                       f"trace-{os.getpid()}-{n}.json")
-        prof.export_chrome_trace(self.trace_path)
+        self.trace_path = _export(prof, self.profile_dir, self._cuda)
         log.info("profiler trace of steps %d..%d -> %s", self.start_step,
                  self._seen, self.trace_path)
 

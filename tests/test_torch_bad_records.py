@@ -7,6 +7,7 @@ CPU only, no real backoff sleeps.
 
 import os
 import struct
+import sys
 
 import numpy as np
 import pytest
@@ -251,11 +252,16 @@ def test_env_read_faults_arm_the_injector(monkeypatch):
         fileio.set_fault_injector(None)
 
 
-def test_remote_paths_are_not_ported():
+def test_remote_paths_are_not_ported(monkeypatch):
+    """Remote paths go to the seam's backend; without one installed and
+    without fsspec to build the default, the input path's reads and stats
+    raise naming the scheme and the missing package."""
     from deepfm_tpu_torch.data import fileio
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        fileio.open_resilient("gs://bucket/tr.tfrecords")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    monkeypatch.setattr(fileio, "_remote_fs", None)
+    monkeypatch.setitem(sys.modules, "fsspec", None)
+    with pytest.raises(RuntimeError, match="gs:// scheme needs the fsspec"):
+        fileio.open_resilient("gs://bucket/tr.tfrecords").read(1)
+    with pytest.raises(RuntimeError, match="gs:// scheme needs the fsspec"):
         fileio.size("gs://bucket/tr.tfrecords")
 
 

@@ -88,7 +88,10 @@ def test_every_module_imports_without_jax():
     "deepfm_tpu_torch.serve.frontend", "deepfm_tpu_torch.serve.experiment",
     "deepfm_tpu_torch.train.promote", "deepfm_tpu_torch.drills",
     "deepfm_tpu_torch.drills.supervise", "deepfm_tpu_torch.drills.serving",
-    "deepfm_tpu_torch.drills.production"])
+    "deepfm_tpu_torch.drills.production", "deepfm_tpu_torch.drills.fault",
+    "deepfm_tpu_torch.drills.preempt", "deepfm_tpu_torch.drills.online",
+    "deepfm_tpu_torch.utils.mfu", "deepfm_tpu_torch.tools",
+    "deepfm_tpu_torch.tools.libsvm_to_tfrecord"])
 def test_module_list_covers_the_runtime_modules(module):
     """The fit loop's runtime (the staging ring, the guard and its state
     snapshot, preemption and its fault seams), the input path (the native
@@ -105,9 +108,45 @@ def test_module_list_covers_the_runtime_modules(module):
     schema, the lazy Adam over a shard), serving scale-out and the
     production loop (the feedback layer, the replica fleet, the
     shared-memory frontend, the experiment router, the promotion
-    controller, the supervisor and the drills) are among the modules the
-    first check imports without jax."""
+    controller, the supervisor and the drills), the fault, preemption and
+    online drills, the MFU basis and the converter tool are among the
+    modules the first check imports without jax."""
     assert module in _modules()
+
+
+def _fsspec_imports():
+    for path in _sources():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), filename=path)
+        for line, name in _imported_roots(tree):
+            if name == "fsspec":
+                yield os.path.relpath(path, ROOT), line
+
+
+def test_fsspec_is_imported_only_by_the_remote_resolver():
+    """The one third-party import beside torch and numpy: fsspec, inside
+    ``fileio._gfile``, which the first remote path reaches. Importing
+    every module and ``chip_smoke`` leaves it unimported."""
+    found = list(_fsspec_imports())
+    assert [p for p, _ in found] == [os.path.join("deepfm_tpu_torch", "data",
+                                                  "fileio.py")]
+    with open(os.path.join(PKG, "data", "fileio.py"), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    resolver = next(n for n in tree.body
+                    if isinstance(n, ast.FunctionDef) and n.name == "_gfile")
+    assert resolver.lineno <= found[0][1] <= resolver.end_lineno
+    script = "\n".join([
+        "import importlib, sys",
+        f"for m in {_modules()!r}:",
+        "    importlib.import_module(m)",
+        "import chip_smoke",
+        "print('fsspec' in sys.modules)",
+    ])
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "False"
 
 
 def test_worker_import_chain_leaves_torch_out():

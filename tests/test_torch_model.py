@@ -7,6 +7,8 @@ plain FM formula (``pallas_fm.supported`` is False there) and the port's
 ``fused_fm`` its plain version.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -127,6 +129,25 @@ def test_init_pads_rows_with_zeros_and_draws_glorot():
     limit = (6.0 / (F * 16 + 16)) ** 0.5
     w0 = model.tower.layers[0].w.detach()
     assert float(w0.abs().max()) <= limit and float(w0.abs().max()) > 0.9 * limit
+
+
+def test_trainer_template_imports_no_dynamo():
+    """The trainer builds its module on the meta device; the padded table
+    must not go through a meta op whose kernel imports ``torch._dynamo``
+    (seconds of every launcher process's start)."""
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = ("import sys; from deepfm_tpu_torch.config import Config; "
+              "from deepfm_tpu_torch.train import Trainer; "
+              "t = Trainer(Config(feature_size=1000, field_size=5), "
+              "device='cpu'); t.init_state(); "
+              "print('torch._dynamo' in sys.modules)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", script], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "False"
 
 
 def test_generator_seeds_the_init():
