@@ -3085,8 +3085,10 @@ ONLINE_BASELINE_S = 3.0
 RESUME_PER_SHARD, RESUME_PREEMPT_AFTER = 2048, 5
 INPUT_WORKERS = 2
 PROFILE_STEPS = 8
+# The layer spans of one dense DeepFM step (obs.trace).
+STEP_SPANS = ("train.step", "embed.fwd", "fm.fwd", "tower.fwd", "train.loss",
+              "train.backward", "embed.bwd", "fm.bwd", "train.optimizer")
 # Names of the port's CUDA kernels in a torch.profiler trace.
-ANNOTATED_STEP = "chip_smoke.annotated_step"
 PROFILED_KERNELS = ("fm_fwd", "fm_bwd_kernel", "segments_kernel",
                     "take_bwd")
 
@@ -3511,25 +3513,33 @@ def profiler_phase(workdir: str, data: dict, cfg: Config,
     if dev.type == "cuda":
         assert all(found.values()), (found, sorted(kernels)[:40])
     tb_files = (os.listdir(tb) if os.path.isdir(tb) else [])
-    # One step wrapped in annotate under maybe_trace: the region's name is
-    # in the exported trace.
+    # One step under the span tracer: each layer span of the step, timed
+    # on the card.
     trainer = Trainer(cfg, device=dev)
     state = trainer.init_state(SEED)
     batch = trainer.put_batch(random_batches(cfg, 1, SEED)[0])
-    with prof_lib.maybe_trace(os.path.join(workdir, "profile_block"),
-                              device=dev) as block:
-        with prof_lib.annotate(ANNOTATED_STEP):
-            trainer.train_step(state, batch)
-    with open(block["path"], encoding="utf-8") as f:
-        block_events = json.load(f)["traceEvents"]
-    assert ANNOTATED_STEP in {e.get("name") for e in block_events}
+    trace_lib.configure("full", export_env=False)
+    try:
+        trainer.train_step(state, batch)
+        spans_path = trace_lib.export(os.path.join(workdir, "spans.json"))
+    finally:
+        trace_lib.reset()
+    with open(spans_path, encoding="utf-8") as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    dev_ms = {}
+    for e in spans:
+        if dev.type == "cuda":
+            assert "dev_dur" in e["args"], e
+            dev_ms[e["name"]] = (dev_ms.get(e["name"], 0.0)
+                                 + e["args"]["dev_dur"] / 1e3)
+    assert set(STEP_SPANS) <= {e["name"] for e in spans}, spans
     print(f"profiler: {traces[0]} holds {len(events)} events, "
           f"{len(kernels)} distinct kernels; the port's: {found}; "
           f"TensorBoard summaries: "
           f"{'written' if tb_files else 'disabled (tensorboard not importable)'}"
-          f" ({len(tb_files)} event files); maybe_trace + annotate: "
-          f"{ANNOTATED_STEP!r} in {os.path.basename(block['path'])} "
-          f"({len(block_events)} events)")
+          f" ({len(tb_files)} event files); step spans (device ms): "
+          + ", ".join(f"{n} {dev_ms.get(n, float('nan')):.3f}"
+                      for n in STEP_SPANS))
 
 
 # ---------------------------------------------------------------------------

@@ -39,6 +39,7 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..obs import trace as trace_lib
 from ..ops import fm as fm_ops
 from ..ops.embedding import ModelAxis
 from ..ops.fused_fm import fused_fm
@@ -60,9 +61,10 @@ def fm_block(cfg: Config, w: torch.Tensor, feat_vals: torch.Tensor,
     of ``csrc/fused_fm.cu``, for any F and K. Off, the plain formula. (The
     JAX package takes its Pallas kernel on a TPU only, so on the CPU its
     reference is the plain formula.)"""
-    if cfg.use_pallas:
-        return fused_fm(w, feat_vals, xv)
-    return first_order(w, feat_vals) + fm_ops.fm_interaction(xv)
+    with trace_lib.span("fm.fwd", device=xv.device):
+        if cfg.use_pallas:
+            return fused_fm(w, feat_vals, xv)
+        return first_order(w, feat_vals) + fm_ops.fm_interaction(xv)
 
 
 def init_cross_layer(d: int, cross_rank: int, *,
@@ -196,11 +198,12 @@ class GraphModel(nn.Module):
                shard: Optional[ModelAxis] = None) -> Dict[str, torch.Tensor]:
         """The embedding stage: ``{name: [B,F,...]}`` for ``names``, the
         dense lookups sharing one index of the batch's ids."""
-        index = None if emb_rows is not None else self.emb.dense_index(
-            feat_ids, self._entry(names[0]), shard)
-        return {n: self._emb_lookup(n, feat_ids, emb_rows, emb_plan, index,
-                                    shard)
-                for n in names}
+        with trace_lib.span("embed.fwd", device=feat_ids.device):
+            index = None if emb_rows is not None else self.emb.dense_index(
+                feat_ids, self._entry(names[0]), shard)
+            return {n: self._emb_lookup(n, feat_ids, emb_rows, emb_plan,
+                                        index, shard)
+                    for n in names}
 
     def l2_loss(self, params: Optional[Mapping[str, torch.Tensor]] = None,
                 *, emb_rows: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
@@ -293,7 +296,8 @@ class GraphDeepFM(GraphModel):
         w, v = e["fm_w"], e["fm_v"]  # [B,F], [B,F,K]
         xv = v * feat_vals[..., None]
         y_wv = fm_block(self.cfg, w, feat_vals, xv)
-        y_d = self._tower(self._deep_in(xv), generator)
+        with trace_lib.span("tower.fwd", device=xv.device):
+            y_d = self._tower(self._deep_in(xv), generator)
         return self.fm_b[0] + y_wv + y_d
 
 
@@ -312,7 +316,8 @@ class GraphWideDeep(GraphDeepFM):
         e = self._embed(feat_ids, feat_vals, emb_rows, emb_plan, shard=shard)
         y_wide = first_order(e["fm_w"], feat_vals)
         xv = e["fm_v"] * feat_vals[..., None]
-        y_d = self._tower(self._deep_in(xv), generator)
+        with trace_lib.span("tower.fwd", device=xv.device):
+            y_d = self._tower(self._deep_in(xv), generator)
         return self.fm_b[0] + y_wide + y_d
 
 
@@ -346,15 +351,16 @@ class GraphDCNv2(GraphDeepFM):
         v = self._embed(feat_ids, feat_vals, emb_rows, emb_plan,
                         names=("fm_v",), shard=shard)["fm_v"]
         x0 = self._deep_in(v * feat_vals[..., None])
-        cross_out = cross_network(self.cross, x0.to(cdt))
-        h = common.apply_hidden_stack(
-            self.tower.layers, self.bn, x0, train=self.training,
-            dropout_keep=cfg.dropout_rates, use_bn=cfg.batch_norm,
-            bn_decay=cfg.batch_norm_decay, generator=generator,
-            compute_dtype=cdt)
-        combined = torch.cat([cross_out, h.to(cdt)], dim=1)
-        return self.fm_b[0] + common.dense_head(combined, self.head.w,
-                                                self.head.b)
+        with trace_lib.span("tower.fwd", device=x0.device):
+            cross_out = cross_network(self.cross, x0.to(cdt))
+            h = common.apply_hidden_stack(
+                self.tower.layers, self.bn, x0, train=self.training,
+                dropout_keep=cfg.dropout_rates, use_bn=cfg.batch_norm,
+                bn_decay=cfg.batch_norm_decay, generator=generator,
+                compute_dtype=cdt)
+            combined = torch.cat([cross_out, h.to(cdt)], dim=1)
+            y = common.dense_head(combined, self.head.w, self.head.b)
+        return self.fm_b[0] + y
 
 
 class DLRM(GraphDeepFM):
@@ -381,5 +387,8 @@ class DLRM(GraphDeepFM):
         e = self._embed(feat_ids, feat_vals, emb_rows, emb_plan, shard=shard)
         xv = e["fm_v"] * feat_vals[..., None]
         y_first = first_order(e["fm_w"], feat_vals)
-        top_in = torch.cat([self._deep_in(xv), dot_interaction(xv)], dim=1)
-        return self.fm_b[0] + y_first + self._tower(top_in, generator)
+        with trace_lib.span("tower.fwd", device=xv.device):
+            top_in = torch.cat([self._deep_in(xv), dot_interaction(xv)],
+                               dim=1)
+            y_d = self._tower(top_in, generator)
+        return self.fm_b[0] + y_first + y_d

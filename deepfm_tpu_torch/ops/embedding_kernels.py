@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import _native
+from ..obs import trace as trace_lib
 from . import embedding as emb_ops
 
 #: embedding_kernels values (config-validated).
@@ -651,25 +652,26 @@ class TakeRowsSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        t = len(ctx.num_slots)
-        saved = ctx.saved_tensors
-        inv, masks = saved[:t], saved[t:] or None
-        g = g.contiguous()
-        segs = list(ctx.segments or [None] * t)
-        if g.device.type == "cpu":
-            grads = [reference_take_bwd(
-                g if masks is None else g * masks[i][:, None], v, u)
-                for i, (v, u) in enumerate(zip(inv, ctx.num_slots))]
-        elif masks is None or all(s is not None for s in segs):
-            segs = [position_segments(v, u) if s is None else s
-                    for v, u, s in zip(inv, ctx.num_slots, segs)]
-            grads = _launch_take_bwd_tables(g, segs, ctx.num_slots)
-        else:
-            grads = [_launch_take_bwd(g, s, u) if s is not None else
-                     _launch_take_bwd(g * masks[i][:, None],
-                                      position_segments(v, u), u)
-                     for i, (v, u, s) in enumerate(zip(inv, ctx.num_slots,
-                                                       segs))]
+        with trace_lib.span("embed.bwd", device=g.device):
+            t = len(ctx.num_slots)
+            saved = ctx.saved_tensors
+            inv, masks = saved[:t], saved[t:] or None
+            g = g.contiguous()
+            segs = list(ctx.segments or [None] * t)
+            if g.device.type == "cpu":
+                grads = [reference_take_bwd(
+                    g if masks is None else g * masks[i][:, None], v, u)
+                    for i, (v, u) in enumerate(zip(inv, ctx.num_slots))]
+            elif masks is None or all(s is not None for s in segs):
+                segs = [position_segments(v, u) if s is None else s
+                        for v, u, s in zip(inv, ctx.num_slots, segs)]
+                grads = _launch_take_bwd_tables(g, segs, ctx.num_slots)
+            else:
+                grads = [_launch_take_bwd(g, s, u) if s is not None else
+                         _launch_take_bwd(g * masks[i][:, None],
+                                          position_segments(v, u), u)
+                         for i, (v, u, s) in enumerate(zip(
+                             inv, ctx.num_slots, segs))]
         return (None, None, None, *grads)
 
 
@@ -711,9 +713,12 @@ class IndexRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        idx, = ctx.saved_tensors
-        seg = ctx.shared.segments(ctx.t) if g.device.type == "cuda" else None
-        return segment_sum(g, idx, ctx.rows, segments=seg), None, None, None
+        with trace_lib.span("embed.bwd", device=g.device):
+            idx, = ctx.saved_tensors
+            seg = (ctx.shared.segments(ctx.t) if g.device.type == "cuda"
+                   else None)
+            return (segment_sum(g, idx, ctx.rows, segments=seg), None, None,
+                    None)
 
 
 def index_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,7 @@ import threading
 import torch
 
 from .. import _native
+from ..obs import trace as trace_lib
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
@@ -147,12 +148,13 @@ class FusedFM(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        w, vals, xv = ctx.saved_tensors
-        g = g.float().contiguous()
-        if w.device.type == "cpu":
-            grads = reference_fm_bwd(g, w, vals, xv)
-        else:
-            grads = _launch_bwd(g, w, vals, xv)
+        with trace_lib.span("fm.bwd", device=g.device):
+            w, vals, xv = ctx.saved_tensors
+            g = g.float().contiguous()
+            if w.device.type == "cpu":
+                grads = reference_fm_bwd(g, w, vals, xv)
+            else:
+                grads = _launch_bwd(g, w, vals, xv)
         return tuple(d if need else None
                      for d, need in zip(grads, ctx.needs_input_grad))
 

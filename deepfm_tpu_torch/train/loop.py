@@ -130,9 +130,9 @@ log = logging.getLogger(__name__)
 Batch = Dict[str, np.ndarray]
 
 #: Set to 1 to time the gradient all_reduce and each dispatch on the
-#: device's clock (CUDA events; host time on the CPU): ``fit`` then
-#: reports the medians ``collective_device_ms`` per apply and
-#: ``dispatch_device_ms`` per dispatch.
+#: device's clock (``obs.trace.device_mark``: CUDA events; host time on
+#: the CPU): ``fit`` then reports the medians ``collective_device_ms`` per
+#: apply and ``dispatch_device_ms`` per dispatch.
 TIME_COLLECTIVES_ENV = "DEEPFM_TPU_TORCH_TIME_COLLECTIVES"
 
 
@@ -676,17 +676,19 @@ class Trainer:
     def _loss_terms(self, state: TrainState,
                     batch: Dict[str, torch.Tensor]):
         """Training-mode forward and backward: ``(xent, l2, grads)``, the
-        gradient of xent + l2 with pad-row gradients zeroed. Updates the
-        BN running statistics in ``state`` and draws from its generator."""
+        gradient of xent + l2 (pad rows' as autograd leaves them:
+        :meth:`_mask_pad_grads` zeroes them). Updates the BN running
+        statistics in ``state`` and draws from its generator."""
         names = list(state.params)
         with torch.enable_grad():
             logits = self._logits(state, batch, train=True)
-            labels = self._batch_labels(batch)
-            xent = torch.mean(self._per_example_loss(logits, labels))
-            l2 = self.model.l2_loss(state.params, shard=self._shard)
-            grads = dict(zip(names, _grads(
-                xent + l2, [state.params[n] for n in names])))
-        self._mask_pad_grads(grads)
+            with trace_lib.span("train.loss", device=self.device):
+                labels = self._batch_labels(batch)
+                xent = torch.mean(self._per_example_loss(logits, labels))
+                l2 = self.model.l2_loss(state.params, shard=self._shard)
+            with trace_lib.span("train.backward", device=self.device):
+                grads = dict(zip(names, _grads(
+                    xent + l2, [state.params[n] for n in names])))
         return xent.detach(), l2.detach(), grads
 
     def _mask_pad_grads(self, grads: Dict[str, torch.Tensor]) -> None:
@@ -712,6 +714,7 @@ class Trainer:
         (see :meth:`_loss_terms`; l2 is this shard's part under a model
         axis)."""
         xent, l2, grads = self._loss_terms(state, batch)
+        self._mask_pad_grads(grads)
         return xent + l2, xent, grads
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
@@ -721,18 +724,22 @@ class Trainer:
         device: reading them waits for the card). Under a mesh the
         gradients and xent are averaged over the data ranks first (the l2
         term is the same on every data rank; under a model axis its value
-        is summed over the model peers)."""
-        if self.sparse_embed:
-            if self._row_plane:
-                return self._sharded_sparse_step_impl(state, batch)
-            return self._sparse_step_impl(state, batch)
-        xent, l2, grads = self._loss_terms(state, batch)
-        if self._world > 1:
-            xent = self._pmean_grads(grads, xent)
-        l2 = self._l2_total(l2)
-        self.opt.apply(state.params, grads, state.opt_state)
-        state.step += 1
-        return state, {"loss": xent + l2, "xent": xent}
+        is summed over the model peers). Pad rows' gradients are zeroed
+        after the average, with the optimizer."""
+        with trace_lib.span("train.step", device=self.device):
+            if self.sparse_embed:
+                if self._row_plane:
+                    return self._sharded_sparse_step_impl(state, batch)
+                return self._sparse_step_impl(state, batch)
+            xent, l2, grads = self._loss_terms(state, batch)
+            if self._world > 1:
+                xent = self._pmean_grads(grads, xent)
+            l2 = self._l2_total(l2)
+            with trace_lib.span("train.optimizer", device=self.device):
+                self._mask_pad_grads(grads)
+                self.opt.apply(state.params, grads, state.opt_state)
+            state.step += 1
+            return state, {"loss": xent + l2, "xent": xent}
 
     # -- gradient sync -----------------------------------------------------
     def _pmean_grads(self, grads: Dict[str, torch.Tensor],
@@ -774,21 +781,9 @@ class Trainer:
         return xent
 
     def _comm_mark(self):
-        """A timing mark when collectives are timed: a CUDA event recorded
-        on the current stream, or the host clock on the CPU."""
-        if not self._time_comm:
-            return None
-        if self.device.type == "cuda":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
-
-    @staticmethod
-    def _elapsed_ms(a, b) -> float:
-        if isinstance(a, float):
-            return (b - a) * 1e3
-        return float(a.elapsed_time(b))
+        """A timing mark (``obs.trace.device_mark``) when collectives are
+        timed, else None."""
+        return trace_lib.device_mark(self.device) if self._time_comm else None
 
     def _grad_payload_bytes(self) -> int:
         """Bytes of ONE gradient all_reduce (``mesh.grad_payload_bytes``
@@ -1469,13 +1464,13 @@ class Trainer:
         if self._time_comm and n_steps:
             if self._comm_marks:
                 out["collective_device_ms"] = float(np.median(
-                    [self._elapsed_ms(a, b) for a, b in self._comm_marks]))
+                    [trace_lib.elapsed_ms(a, b) for a, b in self._comm_marks]))
             if self._exchange_marks:
                 out["exchange_device_ms"] = float(np.median(
-                    [self._elapsed_ms(a, b)
+                    [trace_lib.elapsed_ms(a, b)
                      for a, b in self._exchange_marks]))
             out["dispatch_device_ms"] = float(np.median(
-                [self._elapsed_ms(a, b) for a, b in dispatch_marks]))
+                [trace_lib.elapsed_ms(a, b) for a, b in dispatch_marks]))
         self._comm_marks = []
         self._exchange_marks = []
         if tier is not None:
@@ -1740,8 +1735,10 @@ class Trainer:
                         prev_m = m
                     with trace_lib.span("train.dispatch", steps=mm,
                                         examples=mm * bsz):
-                        group = self._dd_batches(dev_cols, idx, start, mm,
-                                                 bsz)
+                        with trace_lib.span("train.feed",
+                                            device=self.device):
+                            group = self._dd_batches(dev_cols, idx, start,
+                                                     mm, bsz)
                         if mm == 1:
                             state, m = self.train_step(state, group[0])
                         else:

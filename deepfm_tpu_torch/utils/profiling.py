@@ -1,13 +1,8 @@
-"""Step-time and throughput meter, the host input path's per-stage timer,
-the profiler's step window and its block and region helpers (the
-``ThroughputMeter``, ``HostStageStats``, ``StepWindowTracer``,
-``maybe_trace`` and ``annotate`` of ``deepfm_tpu.utils.profiling``).
-
-Usage:
-    with maybe_trace(cfg.profile_dir, device=dev):
-        with annotate("train_step"):
-            ... steps ...
-"""
+"""Step-time and throughput meter, the host input path's per-stage timer
+and the profiler's step window (the ``ThroughputMeter``,
+``HostStageStats`` and ``StepWindowTracer`` of
+``deepfm_tpu.utils.profiling``). Named regions of a run are
+``obs.trace`` spans, timed on the card too where given a device."""
 
 from __future__ import annotations
 
@@ -43,38 +38,6 @@ def _export(prof, profile_dir: str, cuda: bool) -> str:
     path = os.path.join(profile_dir, f"trace-{os.getpid()}-{n}.json")
     prof.export_chrome_trace(path)
     return path
-
-
-@contextlib.contextmanager
-def maybe_trace(profile_dir: Optional[str], *, device="cuda"
-                ) -> Iterator[Optional[dict]]:
-    """``torch.profiler`` over the block when ``profile_dir`` is set (CUDA
-    activity too when ``device`` is a card), exported as a Chrome trace
-    into ``profile_dir`` like :class:`StepWindowTracer`'s; a no-op
-    otherwise. Yields a dict that holds ``"path"`` once the block ends
-    (``None`` when off)."""
-    if not profile_dir:
-        yield None
-        return
-    import torch  # noqa: PLC0415 (profiling is opt-in)
-    cuda = str(device).startswith("cuda")
-    prof = torch.profiler.profile(activities=_activities(cuda))
-    out: dict = {}
-    prof.start()
-    try:
-        yield out
-    finally:
-        out["path"] = _export(prof, profile_dir, cuda)
-        log.info("profiler trace -> %s", out["path"])
-
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named region in the profiler's timeline
-    (``torch.profiler.record_function``)."""
-    import torch  # noqa: PLC0415 (profiling is opt-in)
-    with torch.profiler.record_function(name):
-        yield
 
 
 class StepWindowTracer:

@@ -37,6 +37,10 @@ def pytest_configure(config):
         "markers", "slow: long-running tests excluded from tier-1")
     config.addinivalue_line(
         "markers",
+        "card: needs an NVIDIA card; skips inside the test without one (run "
+        "on the card with --noconftest, since this file imports jax)")
+    config.addinivalue_line(
+        "markers",
         "input_service: multi-process shared-memory input service tests "
         "(slab ring protocol in-process; worker-fleet tests spawn real "
         "processes)")

@@ -1,14 +1,12 @@
 """The port's last helpers against the JAX package's: ``utils.mfu`` (the
 basis labels, the CPU's nominal peak, the card's datasheet table),
-``utils.profiling``'s ``maybe_trace`` and ``annotate``, ``data.libsvm``'s
-``format_libsvm_line``, ``tfrecord_to_libsvm`` and sharded
-``convert_libsvm_file``, ``data.tfrecord.read_all_records``, the
+``data.libsvm``'s ``format_libsvm_line``, ``tfrecord_to_libsvm`` and
+sharded ``convert_libsvm_file``, ``data.tfrecord.read_all_records``, the
 converter module ``deepfm_tpu_torch.tools.libsvm_to_tfrecord``, and the
 last public names a module-by-module diff found: the feature codec's
 ``encode_feature``/``decode_feature`` and ``train.metrics.mean_update``.
 """
 
-import json
 import os
 import subprocess
 import sys
@@ -25,7 +23,7 @@ from deepfm_tpu.utils import mfu as jax_mfu
 from deepfm_tpu_torch.data import example_codec, libsvm, tfrecord
 from deepfm_tpu_torch.train import metrics
 from deepfm_tpu_torch.tools import libsvm_to_tfrecord
-from deepfm_tpu_torch.utils import mfu, profiling
+from deepfm_tpu_torch.utils import mfu
 
 torch.set_num_threads(1)
 
@@ -71,34 +69,6 @@ def test_an_unknown_card_is_unavailable(monkeypatch, name):
                                              mfu.BASIS_UNAVAILABLE)
     assert mfu.mfu_pct(1e9, 1e5, "cuda") == (None, mfu.BASIS_UNAVAILABLE,
                                              name)
-
-
-# -- maybe_trace / annotate ---------------------------------------------------
-
-def test_annotate_names_appear_in_a_maybe_trace_export(tmp_path):
-    with profiling.maybe_trace(str(tmp_path), device="cpu") as out:
-        for i in range(3):
-            with profiling.annotate(f"dfm_region_{i}"):
-                torch.ones(64, 64).sum()
-    with open(out["path"]) as f:
-        events = json.load(f)["traceEvents"]
-    names = {e.get("name") for e in events}
-    assert {"dfm_region_0", "dfm_region_1", "dfm_region_2"} <= names
-    assert os.path.dirname(out["path"]) == str(tmp_path)
-    # A second block writes the next file.
-    with profiling.maybe_trace(str(tmp_path), device="cpu") as out2:
-        torch.zeros(3).sum()
-    assert out2["path"] != out["path"] and len(os.listdir(tmp_path)) == 2
-
-
-def test_maybe_trace_without_a_dir_is_a_noop(tmp_path):
-    with profiling.maybe_trace("") as out:
-        with profiling.annotate("unseen"):
-            torch.ones(4).sum()
-    assert out is None
-    with profiling.maybe_trace(None) as out:
-        pass
-    assert out is None
 
 
 # -- libsvm -------------------------------------------------------------------
