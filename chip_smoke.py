@@ -87,7 +87,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
    Then the history lookup's kernels at DIN's and BST's shape (B = 1,024 x
    L = 20 = 20,480 positions of fm_v, padded positions at id 0): its
    segments build and ``ek.segment_sum`` at D = 32, bit-equal to the
-   numpy oracle, timed beside their bound and library calls.
+   numpy oracle, timed beside their bound and library calls. Then the
+   take backward's long-run path at the benchmark cell's shape (B =
+   131,072 x 39 positions over the padded vocabulary, 13 runs of 131,072)
+   at D = 32 and 1: bit-equal to the numpy oracle and its second launch,
+   the launch's long runs and positions, its time by kernel beside the
+   recorded figures before the path; and at the hashed step's four tables
+   (no long run) the long kernel's own time, the cost of finding none.
+   ``python3 chip_smoke.py --phase take_bwd`` runs every take-backward
+   check of these phases alone (no result lines).
 8. Determinism: the dense, sparse monolithic and dense hashed layouts
    and DIN over ragged histories trained twice for 20 steps from the same
    seed on the same batches; losses and every embedding table must be
@@ -1266,6 +1274,124 @@ def take_tables_phase(n: int = PLAN_N, plain_iters: int = 200):
     return timing, seg_t
 
 
+# The benchmark cell's batch (DeepFM at the reference recipe's widths on
+# Criteo, B = 131,072, F = 39, the padded vocabulary): the 13 integer
+# fields are ids 0..12, one each at every row; the 26 categorical fields are
+# uniform over equal slices of the other ids (perfbench/gen/traffic.py).
+CELL_B = 131_072
+CELL_F = 39
+CELL_INTEGER = 13
+CELL_SLICE = (117_581 - CELL_INTEGER) // (CELL_F - CELL_INTEGER)
+# The take backward's ms a step at that shape before the long-run path, by
+# width, from the benchmark's traced window (PERF.md; H100 80GB HBM3, 700 W):
+# printed beside this run's times as recorded figures.
+PREV_CELL_TAKE_BWD_MS = {32: 104.7, 1: 10.2}
+
+
+def cell_ids(rng) -> np.ndarray:
+    """int64 [B * F]: one cell batch's ids, position b * F + f."""
+    ids = np.empty((CELL_B, CELL_F), np.int64)
+    ids[:, :CELL_INTEGER] = np.arange(CELL_INTEGER)
+    base = CELL_INTEGER + np.arange(CELL_F - CELL_INTEGER) * CELL_SLICE
+    ids[:, CELL_INTEGER:] = base + rng.integers(
+        0, CELL_SLICE, (CELL_B, CELL_F - CELL_INTEGER))
+    return ids.reshape(-1)
+
+
+def short_name(name: str) -> str:
+    return name.replace("void ", "").replace("at::native::", "").replace(
+        "(anonymous namespace)::", "")[:90]
+
+
+def kernel_ms_by_name(fn, iters: int = 10) -> dict:
+    """Device ms per call of ``fn`` by kernel name (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / (
+                1e3 * iters)
+    return out
+
+
+def take_bwd_long_phase() -> dict:
+    """The take backward's long-run path (runs of more than ``ek.LONG_RUN``
+    positions) at the benchmark cell's shape: T = 1, N = 5,111,808, U =
+    117,632, 13 runs of 131,072 beside ~29-position runs, at D = 32 and 1,
+    bit-equal to the numpy ascending-p oracle and to a second launch, with
+    the launch's long runs and positions; its time by kernel beside the
+    recorded figures before the path. Then the hashed step's four tables
+    (no run above ``ek.LONG_RUN``): the long kernel's own device time, the
+    cost of finding none, and the call's."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 80)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 81)
+    ids = torch.from_numpy(cell_ids(rng)).to(dev)
+    n = ids.shape[0]
+    seg = ek.position_segments(ids, MONO_ROWS)
+    want = (CELL_INTEGER, CELL_INTEGER * CELL_B)
+    out = {}
+    for d in (32, 1):
+        g = torch.randn(n, d, device=dev, generator=gen)
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        a = ek._launch_take_bwd_tables(g, [seg], [MONO_ROWS], stats)[0]
+        b = ek._launch_take_bwd_tables(g, [seg], [MONO_ROWS])[0]
+        torch.cuda.synchronize()
+        assert tuple(stats.tolist()) == want, (d, stats.tolist())
+        assert torch.equal(a, b), d
+        assert np.array_equal(a.cpu().numpy(), take_bwd_oracle(
+            g, ids, None, MONO_ROWS)), d
+        fn = lambda: ek._launch_take_bwd_tables(  # noqa: E731
+            g, [seg], [MONO_ROWS])
+        call = cuda_ms(fn, iters=20, warmup=3)
+        split = kernel_ms_by_name(fn)
+        bound = take_bwd_bound(d, [n], [MONO_ROWS])[0]
+        out[d] = (call, split, bound)
+        print(f"take_bwd cell shape D={d} N={n} U={MONO_ROWS} "
+              f"({CELL_INTEGER} runs of {CELL_B}): bit-equal to the numpy "
+              f"ascending-p oracle and to its second launch; long runs "
+              f"{stats[0].item()}, positions {stats[1].item()}; call_ms="
+              f"{call:.6f} (cuda_events) device ms by kernel "
+              + ", ".join(f"{short_name(k)}={v:.6f}"
+                          for k, v in sorted(split.items()))
+              + f" (profiler) bound_ms={bound:.6f}; recorded, not this "
+              f"run: {PREV_CELL_TAKE_BWD_MS[d]} ms a step before the "
+              f"long-run path (PERF.md)")
+
+    ids4, masks = hashed_step_ids(np.random.default_rng(SEED + 82))
+    plans = ek.plan_build_tables(
+        torch.from_numpy(ids4).to(dev), [HASHED_ROWS] * HASHED_TABLES,
+        [torch.from_numpy(m).to(dev) for m in masks])
+    segs = ek.position_segments_tables(
+        torch.stack([p.inv for p in plans]), PLAN_N,
+        torch.stack([p.mask > 0 for p in plans]))
+    slots = [PLAN_N] * HASHED_TABLES
+    for d in (1, 32):
+        g = torch.randn(PLAN_N, d, device=dev, generator=gen)
+        stats = torch.ones(2, dtype=torch.int64, device=dev)
+        ek._launch_take_bwd_tables(g, segs, slots, stats)
+        torch.cuda.synchronize()
+        assert stats.tolist() == [0, 0], stats.tolist()
+        fn = lambda: ek._launch_take_bwd_tables(g, segs, slots)  # noqa: E731
+        call = cuda_ms(fn, iters=200)
+        split = kernel_ms_by_name(fn, iters=50)
+        out[("hashed", d)] = (call, split)
+        print(f"take_bwd hashed step T={HASHED_TABLES} D={d} N=U={PLAN_N} "
+              f"(no long run): call_ms={call:.6f} (cuda_events) device ms "
+              f"by kernel " + ", ".join(f"{short_name(k)}={v:.6f}" for k, v
+                                        in sorted(split.items()))
+              + " (profiler); the long kernel's is the "
+              "cost of finding none")
+    return out
+
+
 def take_phase():
     """Take forward and backward kernels vs plain and the CPU oracle, at
     D = 1 and 32, U = N = 39,936: random slots (every run a few positions
@@ -2019,24 +2145,10 @@ def tiered_dispatch_timing(cfg: Config, top: bool, n: int = 20) -> None:
 def top_kernels(fn, iters: int = 10, top: int = 8,
                 label: str = "kernel_path") -> None:
     """Device time per step by kernel name, largest first."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us()
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    short = lambda n: n.replace("void ", "").replace(  # noqa: E731
-        "at::native::", "").replace("(anonymous namespace)::", "")[:90]
+    ranked = sorted(kernel_ms_by_name(fn, iters).items(),
+                    key=lambda kv: -kv[1])[:top]
     print(f"train step {label} top kernels (us per step): " + "; ".join(
-        f"{short(name)}={us / iters:.1f}" for name, us in ranked))
+        f"{short_name(name)}={ms * 1e3:.1f}" for name, ms in ranked))
 
 
 def serve_phase(workdir: str, cfg: Config, dev: torch.device,
@@ -5779,6 +5891,17 @@ def main() -> int:
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         return 0
+    if sys.argv[1:] == ["--phase", "take_bwd"]:
+        # Every take-backward check of the kernel phases (one table a
+        # launch, the hashed step's four tables, segment_sum, the
+        # accumulation group's and the history lookup's shapes) and the
+        # long-run path at the benchmark cell's shape; no result lines.
+        take_phase()
+        segment_sum_phase()
+        accum_kernels_phase()
+        history_kernels_phase()
+        take_bwd_long_phase()
+        return 0
     if sys.argv[1:] == ["--phase", "dp"]:
         # The data-parallel phase alone (a quick check of that path); no
         # result lines.
@@ -5806,6 +5929,7 @@ def main() -> int:
     install_t = install_phase()
     accum_t = accum_kernels_phase()
     hist_t = history_kernels_phase()
+    take_bwd_long_phase()
     clock.lap("kernels")
 
     cfg = Config()

@@ -59,7 +59,7 @@ def _bind_embedding(lib: ctypes.CDLL) -> None:
     fwd.restype = ctypes.c_int
     bwd = lib.dfm_take_bwd
     bwd.argtypes = [_P, ptrs, ptrs, ptrs, ints, ctypes.c_int, ctypes.c_int64,
-                    ctypes.c_int64, ctypes.c_int, _P]
+                    ctypes.c_int64, ctypes.c_int, _P, _P, _P]
     bwd.restype = ctypes.c_int
     install = lib.dfm_install
     install.argtypes = [ptrs, ints, ctypes.c_int, _P, ctypes.c_int64,

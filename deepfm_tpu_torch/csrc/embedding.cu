@@ -167,6 +167,47 @@
 // The wider rows' empty slots are streamed out as zeros (st.global.cs). The
 // grid is one wave of resident blocks.
 //
+// What held that design back on long runs: a run is walked by one group of
+// lanes (one lane at D = 1), a handful of positions per memory round trip.
+// In DeepFM's Criteo step (B = 131,072, F = 39, 117,632 rows), the 13
+// integer fields are one id each at every row: 13 runs of 131,072
+// positions a table. The fm_v launch (D = 32) took 104.7 ms a step and
+// the fm_w launch (D = 1) 10.2 ms, ~0.8 us a position at D = 32, while 13
+// groups of 8 lanes were the only work on 132 SMs (H100 80GB HBM3, 700 W):
+// memory latency, not the adds, set the time. The ascending-p order itself
+// needs one chain of dependent adds per column, 131,072 long: ~4 cycles an
+// add, ~0.3 ms.
+//
+// The long-run path: a run of more than kLongRun positions is left by the
+// kernels above, which mark it in long_mask (one 32-bit word a warp, bit l
+// for its slot s0 + l; every word is written on every launch, so nothing
+// is cleared first), and summed by take_bwd_long_kernel, launched next on
+// the same stream. Every CTA of that launch reads the mask and numbers the
+// long runs in the same order; a CTA takes one 32-byte slice of one run's
+// rows (a sector: a D = 32 float32 run gives 4 CTAs, so each SM's read
+// rate stays well under its share of L2 and memory). Four producer warps
+// fill a ring of kLongStages stages of kLongStage positions in shared
+// memory: each reads a stage's order entries (those of its next two turns
+// in flight) and issues one cp.async per row chunk, which arrive on the
+// stage's mbarrier as they land (2-byte bfloat16 units, a size cp.async
+// lacks, go through registers). One consumer warp adds each stage from
+// shared memory in ascending p from 0.0, lane e owning element e of the
+// slice: one chain of add_rn a lane, each lane kLongBatch positions of
+// loads ahead of its adds, across stage boundaries, then frees the stage.
+// So the sum waits on its chain of adds, with ~2,000 positions of rows in
+// flight, not on a round trip per handful. No atomics, no split of a
+// column's chain, the same adds and bfloat16 rounding as the walk above:
+// the same bits. At the Criteo step's shape the fm_v launch takes 0.68 ms
+// (0.45 of it the long kernel) and the fm_w launch 0.51 ms (0.47), against
+// the chain's ~0.3 ms floor; a lane holding a float4 chunk, four chains,
+// took 0.72 ms in its long kernel (H100 80GB HBM3, 700 W). A launch
+// without long runs pays the second launch, whose CTAs read the mask, find
+// nothing and exit: ~3 us of device time at the hashed step.
+// kLongRun is from a sweep on that card (summed over a D = 32 and a D = 1
+// launch): runs of 128 positions cost less in the walk above, which
+// overlaps the short runs, and runs of 256 and more less here; the
+// lengths between were not measured, so runs of up to 256 stay on the walk.
+//
 // ---------------------------------------------------------------------------
 // dfm_install: replaces `_install_kernel` (pallas_embedding.py:302, reached
 // through `install_pallas`), for up to 8 tables that share one slots
@@ -287,6 +328,14 @@ constexpr int kSegLong = 1024;             // runs a block sorts in shared memor
 constexpr int kSegMaxBlocks = 1024;
 constexpr int64_t kSegMaxPositions = 1 << 30;  // T * N, int32 loops
 constexpr int kSegBlocksPerSm = 1;         // at most, of the resident ones
+constexpr int kLongRun = 256;              // longer runs: the long-run path
+constexpr int kLongSlice = 32;             // bytes of a row one long CTA sums
+constexpr int kLongStage = 128;            // positions a ring stage holds
+constexpr int kLongStages = 16;            // stages in a long CTA's ring
+constexpr int kLongProducers = 4;          // warps that fill the ring
+constexpr int kLongThreads = 32 * (1 + kLongProducers);
+constexpr int kLongWords = 32;             // mask words a thread reads a pass
+constexpr int kLongRing = kLongStages * kLongStage * kLongSlice;  // bytes
 
 __device__ __forceinline__ int plan_id(int32_t id, int rows) {
   return (id < 0 || id > rows) ? rows : id;
@@ -671,12 +720,16 @@ struct TakeBwdArgs {
   const int32_t* order[kMaxTables];   // [n]
   const int32_t* starts[kMaxTables];  // [u_t + 1]
   void* out[kMaxTables];              // [u_t, chunks]
+  uint32_t* long_mask;  // [warps]: bit l of word w set where warp w's slot
+                        // s0 + l holds more than kLongRun positions
+  long long* stats;     // null, or {long runs, their positions} of a launch
   int u[kMaxTables];
   int warp_end[kMaxTables];  // inclusive prefix of ceil(u_t / 32)
   int warps;   // warp_end of the last table
   int tables;
   int chunks;  // chunks of the kernel's chunk type per row
   int group;   // lanes per slot: the power of two >= chunks, at most 32
+  int lchunks;  // units of the long-run kernel's unit type per row
 };
 
 constexpr int kBwdBatch = 8;  // slots a group starts at once
@@ -751,9 +804,16 @@ take_bwd_lane_kernel(const __grid_constant__ TakeBwdArgs a) {
        w < a.warps; w += stride) {
     const BwdTable b = bwd_table(a, w);
     const int s = (w - b.first_warp) * 32 + lane;
-    if (s >= b.u) continue;
-    int j = __ldg(b.starts + s);
-    const int end = __ldg(b.starts + s + 1);
+    int j = 0, end = 0;
+    if (s < b.u) {
+      j = __ldg(b.starts + s);
+      end = __ldg(b.starts + s + 1);
+    }
+    // A long run is marked for take_bwd_long_kernel and left to it.
+    const bool lng = end - j > kLongRun;
+    const unsigned longs = __ballot_sync(0xffffffffu, lng);
+    if (lane == 0) a.long_mask[w] = longs;
+    if (s >= b.u || lng) continue;
     C acc = zero_chunk<C>();
     for (; j + 4 <= end; j += 4) {
       const C x0 = __ldg(g + __ldg(b.order + j));
@@ -796,6 +856,9 @@ take_bwd_kernel(const __grid_constant__ TakeBwdArgs a) {
       lo = __ldg(starts + s0 + lane);
       hi = __ldg(starts + s0 + lane + 1);
     }
+    // Long runs are marked for take_bwd_long_kernel and left to it.
+    const unsigned longs = __ballot_sync(0xffffffffu, hi - lo > kLongRun);
+    if (lane == 0) a.long_mask[w] = longs;
     for (int c0 = 0; c0 < chunks; c0 += gs) {  // one pass while D fits
       const int c = c0 + lg;
       const bool active = c < chunks;
@@ -810,7 +873,9 @@ take_bwd_kernel(const __grid_constant__ TakeBwdArgs a) {
           const int src = ((r0 + r) * per_round + k) & 31;
           beg[r] = __shfl_sync(0xffffffffu, lo, src);
           end[r] = __shfl_sync(0xffffffffu, hi, src);
-          if (r0 + r >= gs || s0 + src >= u) end[r] = -1;  // no such slot
+          if (r0 + r >= gs || s0 + src >= u || ((longs >> src) & 1u)) {
+            end[r] = -1;  // no such slot, or a long run
+          }
           head[r] = 0;
           if (lg == 0 && beg[r] < end[r]) head[r] = __ldg(order + beg[r]);
         }
@@ -836,6 +901,344 @@ take_bwd_kernel(const __grid_constant__ TakeBwdArgs a) {
           }
         }
       }
+    }
+  }
+}
+
+// The long-run path's pipeline and barriers (the header note): mbarriers in
+// shared memory, and cp.async copies that arrive on one when they land.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared.b64 st, [%0];\n}\n" ::"r"(
+          smem_addr(bar))
+      : "memory");
+}
+// Arrives once every cp.async this thread issued before has landed.
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// Waits until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+// One unit from device memory into shared memory, in flight until an
+// mbar_arrive_copies: cp.async of 4, 8 or 16 bytes.
+template <typename V>
+__device__ __forceinline__ void copy_async(V* dst, const V* src) {
+  static_assert(sizeof(V) == 4 || sizeof(V) == 8 || sizeof(V) == 16, "");
+  if constexpr (sizeof(V) == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "n"(static_cast<int>(sizeof(V)))
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ __nv_bfloat162 add_rn(__nv_bfloat162 acc,
+                                                 __nv_bfloat162 x) {
+  return __halves2bfloat162(add_rn(__low2bfloat16(acc), __low2bfloat16(x)),
+                            add_rn(__high2bfloat16(acc), __high2bfloat16(x)));
+}
+template <>
+__device__ __forceinline__ __nv_bfloat162 zero_chunk<__nv_bfloat162>() {
+  return __float2bfloat162_rn(0.0f);
+}
+
+// The x-th set bit of m (x < popcount(m)).
+__device__ __forceinline__ int nth_bit(uint32_t m, int x) {
+  for (int i = 0; i < x; ++i) m &= m - 1;
+  return __ffs(m) - 1;
+}
+
+constexpr int kLongBatch = 16;  // positions a consumer lane has loaded ahead
+
+// The element a consumer lane sums: float, or bfloat16 for the bfloat16
+// units.
+template <typename V>
+using LongElem = typename std::conditional<
+    std::is_same<V, __nv_bfloat16>::value ||
+        std::is_same<V, __nv_bfloat162>::value,
+    __nv_bfloat16, float>::type;
+
+// Units [z * kUnits, + kUnits) of the rows of one long run, the slot of
+// lane `bit` of mask warp w. Warps 1..kLongProducers fill the ring, a stage
+// a turn each, with the order entries of their next two turns in flight;
+// in warp 0, lane e adds element e of the slice over the stages in
+// ascending p (one chain of adds a lane: a lane holding a float4 would
+// issue four adds a position), loading kLongBatch positions ahead of its
+// adds, across stage boundaries. `seq` counts the stages this CTA ran
+// before, so the barriers' phases carry on from one run to the next.
+template <typename V>
+__device__ __forceinline__ void take_bwd_long_run(
+    const TakeBwdArgs& a, int w, int bit, int z, int& seq, V* ring,
+    uint64_t* full, uint64_t* empty, int (*pos)[kLongStage]) {
+  using E = LongElem<V>;
+  constexpr int kUnits = kLongSlice / sizeof(V);     // a power of two
+  constexpr int kElems = kLongSlice / sizeof(E);     // at most 32
+  constexpr int kCopies = kLongStage * kUnits / 32;  // a lane's, a stage
+  constexpr int kPer = kLongStage / 32;              // order entries, same
+  static_assert(kElems <= 32, "a consumer lane per element of a slice");
+  const BwdTable b = bwd_table(a, w);
+  const int s = (w - b.first_warp) * 32 + bit;
+  const int beg = __ldg(b.starts + s);
+  const int end = __ldg(b.starts + s + 1);
+  const int c0 = z * kUnits;
+  const int cw = min(kUnits, a.lchunks - c0);
+  const int stages = (end - beg + kLongStage - 1) / kLongStage;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (warp == 0) {
+    constexpr int kPerUnit = sizeof(V) / sizeof(E);
+    const int elems = a.lchunks * kPerUnit;  // a row's
+    const int ce = min(kElems, elems - z * kElems);
+    // Lanes past the slice add a copy of its last element, store nothing.
+    const int l = min(lane, ce - 1);
+    const E* ring_e = reinterpret_cast<const E*>(ring);
+    auto stage = [&](int st) {  // waits for stage st; its elements, lane l
+      const int q = seq + st;
+      mbar_wait(&full[q % kLongStages], (q / kLongStages) & 1);
+      return ring_e + (q % kLongStages) * kLongStage * kElems + l;
+    };
+    auto release = [&](int st) {
+      __syncwarp();
+      mbar_arrive(&empty[(seq + st) % kLongStages]);
+    };
+    const int whole = (end - beg) / kLongStage;  // stages of kLongStage
+    E acc = zero_chunk<E>();
+    E x[kLongBatch];
+    const E* src = whole > 0 ? stage(0) : nullptr;
+#pragma unroll
+    for (int j = 0; j < kLongBatch; ++j) {
+      if (whole > 0) x[j] = src[j * kElems];
+    }
+    for (int st = 0; st < whole; ++st) {
+#pragma unroll
+      for (int i = 0; i < kLongStage; i += kLongBatch) {
+        E y[kLongBatch];
+        if (i + kLongBatch < kLongStage) {
+#pragma unroll
+          for (int j = 0; j < kLongBatch; ++j) {
+            y[j] = src[(i + kLongBatch + j) * kElems];
+          }
+        } else if (st + 1 < whole) {  // the next stage's first batch
+          const E* nsrc = stage(st + 1);
+#pragma unroll
+          for (int j = 0; j < kLongBatch; ++j) y[j] = nsrc[j * kElems];
+        } else {
+#pragma unroll
+          for (int j = 0; j < kLongBatch; ++j) y[j] = x[j];
+        }
+#pragma unroll
+        for (int j = 0; j < kLongBatch; ++j) acc = add_rn(acc, x[j]);
+        if (i + kLongBatch >= kLongStage) {
+          release(st);
+          src = ring_e + ((seq + st + 1) % kLongStages) * kLongStage *
+                             kElems + l;
+        }
+#pragma unroll
+        for (int j = 0; j < kLongBatch; ++j) x[j] = y[j];
+      }
+    }
+    const int rest = end - beg - whole * kLongStage;
+    if (rest > 0) {  // a last, shorter stage
+      const E* tail = stage(whole);
+      for (int i = 0; i < rest; ++i) acc = add_rn(acc, tail[i * kElems]);
+      release(whole);
+    }
+    if (lane < ce) {
+      reinterpret_cast<E*>(b.out)[static_cast<int64_t>(s) * elems +
+                                  z * kElems + lane] = acc;
+    }
+  } else {
+    const int pw = warp - 1;
+    const V* g = static_cast<const V*>(a.g);
+    int sh = 0;
+    while ((1 << sh) < cw) ++sh;
+    const int cp = 1 << sh;
+    auto load_order = [&](int st, int (&ord)[kPer]) {
+#pragma unroll
+      for (int m = 0; m < kPer; ++m) {
+        const int j = beg + st * kLongStage + m * 32 + lane;
+        ord[m] = st < stages && j < end ? __ldg(b.order + j) : 0;
+      }
+    };
+    // One turn: stage st from the order entries in `ord`, which then
+    // load those of stage st + 2 * kLongProducers.
+    auto turn = [&](int st, int (&ord)[kPer]) {
+#pragma unroll
+      for (int m = 0; m < kPer; ++m) pos[pw][m * 32 + lane] = ord[m];
+      load_order(st + 2 * kLongProducers, ord);
+      __syncwarp();
+      const int q = seq + st;
+      const int k = q % kLongStages;
+      if (q >= kLongStages) mbar_wait(&empty[k], (q / kLongStages - 1) & 1);
+      const int cnt = min(kLongStage, end - beg - st * kLongStage);
+      V* dst = ring + k * kLongStage * kUnits;
+      // Copy i of the stage is unit i & (cp - 1) of position i >> sh, cp
+      // the power of two >= cw: the lanes of a narrow slice stay busy.
+      if constexpr (sizeof(V) >= 4) {
+#pragma unroll 4
+        for (int m = 0; m < kCopies; ++m) {
+          const int i = m * 32 + lane;
+          if ((i >> sh) >= kLongStage) break;
+          const int p = i >> sh;
+          const int c = i & (cp - 1);
+          if (p < cnt && c < cw) {
+            copy_async(dst + p * kUnits + c,
+                       g + static_cast<int64_t>(pos[pw][p]) * a.lchunks +
+                           c0 + c);
+          }
+        }
+        mbar_arrive_copies(&full[k]);
+      } else {  // 2-byte units, a size cp.async lacks: through registers,
+                // 16 loads a lane in flight
+        for (int m0 = 0; m0 < kCopies; m0 += 16) {
+          V x[16];
+#pragma unroll
+          for (int m = 0; m < 16; ++m) {
+            const int i = (m0 + m) * 32 + lane;
+            const int p = i >> sh;
+            const int c = i & (cp - 1);
+            if (p < cnt && c < cw) {
+              x[m] = g[static_cast<int64_t>(pos[pw][p]) * a.lchunks + c0 +
+                       c];
+            }
+          }
+#pragma unroll
+          for (int m = 0; m < 16; ++m) {
+            const int i = (m0 + m) * 32 + lane;
+            const int p = i >> sh;
+            const int c = i & (cp - 1);
+            if (p < cnt && c < cw) dst[p * kUnits + c] = x[m];
+          }
+        }
+        mbar_arrive(&full[k]);
+      }
+      __syncwarp();  // pos[pw] is written again next turn
+    };
+    int even[kPer], odd[kPer];
+    load_order(pw, even);
+    load_order(pw + kLongProducers, odd);
+    for (int st = pw; st < stages; st += 2 * kLongProducers) {
+      turn(st, even);
+      if (st + kLongProducers < stages) turn(st + kLongProducers, odd);
+    }
+  }
+  seq += stages;
+}
+
+// V: the unit a lane adds (float4, float2, float; __nv_bfloat162 or
+// __nv_bfloat16). Grid: one wave of resident CTAs of kLongThreads. Every
+// CTA reads the whole long_mask, kLongThreads * kLongWords words a pass,
+// and numbers its set bits (the long runs) in the same order; item k =
+// run * slices + slice goes to CTA k mod gridDim.x. CTA 0 writes `stats`
+// where it is given.
+template <typename V>
+__global__ void __launch_bounds__(kLongThreads)
+take_bwd_long_kernel(const __grid_constant__ TakeBwdArgs a) {
+  constexpr int kUnits = kLongSlice / sizeof(V);
+  extern __shared__ __align__(16) unsigned char long_ring[];
+  __shared__ __align__(8) uint64_t full[kLongStages];
+  __shared__ __align__(8) uint64_t empty[kLongStages];
+  __shared__ int pos[kLongProducers][kLongStage];
+  __shared__ int2 item;
+  __shared__ unsigned long long positions;
+  V* ring = reinterpret_cast<V*>(long_ring);
+  const int tid = threadIdx.x;
+  const bool count = a.stats != nullptr && blockIdx.x == 0;
+  if (tid == 0) positions = 0;
+  const int64_t slices = (a.lchunks + kUnits - 1) / kUnits;
+  const int64_t grid = gridDim.x;
+  const int64_t cta = blockIdx.x;
+  int64_t base = 0;  // long runs of the passes before
+  int seq = 0;
+  bool ready = false;  // barriers initialised
+  for (int w0 = 0; w0 < a.warps; w0 += kLongThreads * kLongWords) {
+    uint32_t word[kLongWords];
+    int mine = 0;
+#pragma unroll
+    for (int i = 0; i < kLongWords; ++i) {
+      const int w = w0 + i * kLongThreads + tid;
+      word[i] = w < a.warps ? a.long_mask[w] : 0u;
+      mine += __popc(word[i]);
+    }
+    int total;
+    const int before = block_exclusive_scan(mine, &total);
+    if (count && mine > 0) {  // the words again, not unrolled
+      long long n = 0;
+#pragma unroll 1
+      for (int i = 0; i < kLongWords; ++i) {
+        const int w = w0 + i * kLongThreads + tid;
+        for (uint32_t m = w < a.warps ? a.long_mask[w] : 0u; m != 0;
+             m &= m - 1) {
+          const BwdTable b = bwd_table(a, w);
+          const int s = (w - b.first_warp) * 32 + __ffs(m) - 1;
+          n += __ldg(b.starts + s + 1) - __ldg(b.starts + s);
+        }
+      }
+      atomicAdd(&positions, static_cast<unsigned long long>(n));
+    }
+    const int64_t lo = base * slices;
+    for (int64_t k = lo + ((cta - lo) % grid + grid) % grid;
+         k < (base + total) * slices; k += grid) {
+      const int r = static_cast<int>(k / slices - base);
+      if (r >= before && r < before + mine) {  // this thread holds run r
+        int x = r - before, w = 0, bit = 0;
+#pragma unroll
+        for (int i = 0; i < kLongWords; ++i) {
+          const int c = __popc(word[i]);
+          if (x >= 0 && x < c) {
+            w = w0 + i * kLongThreads + tid;
+            bit = nth_bit(word[i], x);
+          }
+          x -= c;
+        }
+        item = make_int2(w, bit);
+      }
+      if (!ready && tid < kLongStages) {
+        mbar_init(&full[tid], 32);
+        mbar_init(&empty[tid], 32);
+      }
+      ready = true;
+      __syncthreads();
+      const int2 it = item;
+      take_bwd_long_run<V>(a, it.x, it.y, static_cast<int>(k % slices), seq,
+                           ring, full, empty, pos);
+      __syncthreads();  // `item` is written again
+    }
+    base += total;
+  }
+  if (count) {
+    __syncthreads();
+    if (tid == 0) {
+      a.stats[0] = base;
+      a.stats[1] = static_cast<long long>(positions);
+      __threadfence_system();
     }
   }
 }
@@ -1314,14 +1717,15 @@ dim3 take_block(int chunks) {
 // once), or `need` blocks when fewer do.
 template <typename K>
 cudaError_t wave_blocks(K kernel, int threads, int64_t need,
-                        std::atomic<int>& per_sm, unsigned* blocks) {
+                        std::atomic<int>& per_sm, unsigned* blocks,
+                        int smem = 0) {
   int dev, sms, optin;
   cudaError_t err = device_facts(&dev, &sms, &optin);
   if (err != cudaSuccess) return err;
   int occ = per_sm.load();
   if (occ == 0) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, threads,
-                                                        0);
+                                                        smem);
     if (err != cudaSuccess) return err;
     occ = occ < 1 ? 1 : occ;
     per_sm.store(occ);
@@ -1345,10 +1749,14 @@ cudaError_t launch_take(const TakeArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <typename C>
+// The short runs' kernel (C: its chunk), then the long runs' (V: its unit)
+// on the same stream, which reads the long runs the first one marked.
+template <typename C, typename V>
 cudaError_t launch_take_bwd(const TakeBwdArgs& a, cudaStream_t s) {
   static std::atomic<int> lane_per_sm{0};
   static std::atomic<int> group_per_sm{0};
+  static std::atomic<int> long_per_sm{0};
+  static std::atomic<int> long_smem_set[kMaxDevices];
   const bool lane = a.group == 1;
   const int warps = kThreads / 32;
   unsigned blocks;
@@ -1362,6 +1770,22 @@ cudaError_t launch_take_bwd(const TakeBwdArgs& a, cudaStream_t s) {
   } else {
     take_bwd_kernel<C><<<blocks, kThreads, 0, s>>>(a);
   }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  int dev, sms, optin;
+  err = device_facts(&dev, &sms, &optin);
+  if (err != cudaSuccess) return err;
+  if (long_smem_set[dev].load() == 0) {
+    err = cudaFuncSetAttribute(take_bwd_long_kernel<V>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kLongRing);
+    if (err != cudaSuccess) return err;
+    long_smem_set[dev].store(1);
+  }
+  err = wave_blocks(take_bwd_long_kernel<V>, kLongThreads, INT32_MAX,
+                    long_per_sm, &blocks, kLongRing);
+  if (err != cudaSuccess) return err;
+  take_bwd_long_kernel<V><<<blocks, kLongThreads, kLongRing, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -1502,12 +1926,17 @@ extern "C" int dfm_take_fwd(const void* const* rows, const void* const* inv,
 
 // g [n, d] of `dtype` (0 = float32, 1 = bfloat16); order, starts, out:
 // host arrays of t device pointers to int32 [n], int32 [u[i]+1] and [u[i],
-// d] of `dtype`; 1 <= t <= 8, u[i] >= 1. The segment sum above for every
-// table, one launch. Same error return as the plan build.
+// d] of `dtype`; 1 <= t <= 8, u[i] >= 1; long_mask: int32 [sum over i of
+// ceil(u[i] / 32)], scratch whose content is ignored; stats: null, or
+// int64 [2] in device memory or pinned host memory, which receives the
+// long runs the launch took and their positions. The segment sum above for
+// every table: the short runs' launch, then the long runs'. Same error
+// return as the plan build.
 extern "C" int dfm_take_bwd(const void* g, const void* const* order,
                             const void* const* starts, void* const* out,
                             const int64_t* u, int t, int64_t n, int64_t d,
-                            int dtype, void* stream) {
+                            int dtype, void* long_mask, void* stats,
+                            void* stream) {
   if (t < 1 || t > kMaxTables || n < 0 || n >= INT32_MAX || d <= 0 ||
       (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1538,20 +1967,38 @@ extern "C" int dfm_take_bwd(const void* g, const void* const* order,
   if (row_bytes / chunk >= INT32_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (long_mask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   a.g = g;
+  a.long_mask = static_cast<uint32_t*>(long_mask);
+  if (stats != nullptr) {  // pinned host memory: its device address
+    cudaPointerAttributes attr;
+    cudaError_t err = cudaPointerGetAttributes(&attr, stats);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (attr.devicePointer == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    a.stats = static_cast<long long*>(attr.devicePointer);
+  }
   a.warps = static_cast<int>(warps);
   a.tables = t;
   a.chunks = static_cast<int>(row_bytes / chunk);
   a.group = 1;
   while (a.group < a.chunks && a.group < 32) a.group <<= 1;
+  a.lchunks = a.chunks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    return static_cast<int>(launch_take_bwd<__nv_bfloat16>(a, s));
+  if (dtype == 1) {  // the long runs' units: bfloat16 pairs where aligned
+    if (row_bytes % 4 == 0 && addr % 4 == 0) {
+      a.lchunks = static_cast<int>(row_bytes / 4);
+      return static_cast<int>(
+          launch_take_bwd<__nv_bfloat16, __nv_bfloat162>(a, s));
+    }
+    return static_cast<int>(
+        launch_take_bwd<__nv_bfloat16, __nv_bfloat16>(a, s));
   }
   switch (chunk) {
-    case 16: return static_cast<int>(launch_take_bwd<float4>(a, s));
-    case 8: return static_cast<int>(launch_take_bwd<float2>(a, s));
-    default: return static_cast<int>(launch_take_bwd<float>(a, s));
+    case 16: return static_cast<int>(launch_take_bwd<float4, float4>(a, s));
+    case 8: return static_cast<int>(launch_take_bwd<float2, float2>(a, s));
+    default: return static_cast<int>(launch_take_bwd<float, float>(a, s));
   }
 }
 

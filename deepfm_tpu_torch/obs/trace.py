@@ -37,6 +37,10 @@ most ``capacity`` unresolved pairs and waits for the oldest beyond that.
 Spans of one stream nest by their device intervals whatever thread
 opened them (autograd runs backward functions on a thread of its own).
 On the CPU, or with ``device=None``, a span is a host span.
+:func:`add_counts` hands the innermost open device span of the calling
+thread a function of counts that only the card's finished work can give
+(the take backward's long runs); the tracer calls it when the span
+resolves and adds what it returns to the span's args.
 :func:`device_mark` and :func:`elapsed_ms` are the program's one device
 timer (the training loop's collective and dispatch timings use them
 too).
@@ -59,7 +63,8 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, Iterable, List, Optional, Tuple,
+                    Union)
 
 MODES = ("off", "ring", "full")
 DEFAULT_CAPACITY = 65536
@@ -138,7 +143,8 @@ _NULL = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("_tracer", "_name", "_args", "_t0", "_device", "_e0")
+    __slots__ = ("_tracer", "_name", "_args", "_t0", "_device", "_e0",
+                 "_counts")
 
     def __init__(self, tracer: "Tracer", name: str, args: Dict,
                  device: Any = None):
@@ -148,10 +154,12 @@ class _Span:
         self._t0 = 0
         self._device = device
         self._e0 = None
+        self._counts: List[Callable[[], Dict[str, int]]] = []
 
     def __enter__(self) -> "_Span":
         if self._device is not None:
             self._e0 = self._tracer._device_enter(self._device)
+        self._tracer._open_spans().append(self)
         self._t0 = time.time_ns()
         return self
 
@@ -163,6 +171,7 @@ class _Span:
     def __exit__(self, *exc) -> bool:
         e1 = device_mark(self._device) if self._e0 is not None else None
         t1 = time.time_ns()
+        self._tracer._open_spans().pop()
         ev = {"name": self._name, "ph": "X", "ts": self._t0 / 1e3,
               "dur": (t1 - self._t0) / 1e3, "pid": os.getpid(),
               "tid": threading.get_ident()}
@@ -170,7 +179,7 @@ class _Span:
             ev["args"] = self._args
         self._tracer._emit(ev)
         if e1 is not None:
-            self._tracer._device_exit(ev, self._e0, e1)
+            self._tracer._device_exit(ev, self._e0, e1, self._counts)
         return False
 
 
@@ -194,6 +203,7 @@ class Tracer:
         self._ref: Optional[Tuple[Any, float]] = None
         self._open = 0
         self._pending: collections.deque = collections.deque()
+        self._local = threading.local()  # each thread's open spans
 
     @property
     def enabled(self) -> bool:
@@ -214,6 +224,23 @@ class Tracer:
             return _NULL
         return _Span(self, name, attrs, device if _on_card(device) else None)
 
+    def _open_spans(self) -> List[_Span]:
+        stack = getattr(self._local, "spans", None)
+        if stack is None:
+            stack = self._local.spans = []
+        return stack
+
+    def add_counts(self, fn: Callable[[], Dict[str, int]]) -> bool:
+        """Give ``fn`` to the innermost open device-timed span of this
+        thread; False (and ``fn`` is never called) where there is none."""
+        if self.mode == "off":
+            return False
+        for sp in reversed(self._open_spans()):
+            if sp._e0 is not None:
+                sp._counts.append(fn)
+                return True
+        return False
+
     # -- device spans ------------------------------------------------------
     def _device_enter(self, device: Any) -> Any:
         """The span's start mark, after the clock's anchor on first use;
@@ -227,18 +254,20 @@ class Tracer:
             self._open += 1
         return device_mark(device)
 
-    def _device_exit(self, ev: Dict, e0: Any, e1: Any) -> None:
+    def _device_exit(self, ev: Dict, e0: Any, e1: Any,
+                     counts: List[Callable[[], Dict[str, int]]]) -> None:
         with self._lock:
             self._open -= 1
-            self._pending.append((ev, e0, e1, self._open == 0))
+            self._pending.append((ev, e0, e1, self._open == 0, counts))
             self._settle(int(self.mode == "ring"
                              and len(self._pending) > self.capacity))
 
     def _settle(self, wait: int = 0) -> None:
         """Resolve closed pairs oldest first: those whose end has
-        completed, after waiting for the first ``wait``. Holds the lock."""
+        completed, after waiting for the first ``wait``; each adds the
+        counts it was given to its args. Holds the lock."""
         while self._pending:
-            ev, e0, e1, outer = self._pending[0]
+            ev, e0, e1, outer, counts = self._pending[0]
             if wait > 0:
                 e1.synchronize()
                 wait -= 1
@@ -250,6 +279,9 @@ class Tracer:
             args = ev["args"]
             args["dev_ts"] = ref_us + ms * 1e3
             args["dev_dur"] = elapsed_ms(e0, e1) * 1e3
+            for fn in counts:
+                for k, v in fn().items():
+                    args[k] = args.get(k, 0) + v
             if outer and ms >= _REANCHOR_MS:
                 # Nothing unresolved started before this span's end.
                 self._ref = (e1, args["dev_ts"] + args["dev_dur"])
@@ -360,6 +392,15 @@ def span(name: str, device: Any = None,
          **attrs) -> Union[_Span, _NullSpan]:
     """A host span; device-timed too where ``device`` is a card."""
     return _tracer.span(name, device, **attrs)
+
+
+def add_counts(fn: Callable[[], Dict[str, int]]) -> bool:
+    """Counts for the innermost open device-timed span of this thread:
+    ``fn`` is called once the span's work has run on the card (when the
+    span resolves, at :func:`export` at the latest), and each count it
+    returns is added to the span's args (summed over several calls). False
+    where tracing is off or no such span is open: ``fn`` is never called."""
+    return _tracer.add_counts(fn)
 
 
 def begin(name: str, **attrs) -> Optional[Tuple[str, int]]:

@@ -44,7 +44,12 @@ tables with one launch (:func:`install_rows_tables`).
 Launch counters are plain ints on this module: ``plan_launches``,
 ``take_fwd_launches``, ``take_bwd_launches``, ``segments_launches`` and
 ``install_launches``, each raised by one where its wrapper launches its
-kernel.
+kernel. A take backward sums runs of more than ``LONG_RUN`` positions on
+a path of their own (``csrc/embedding.cu``); while tracing is on, each
+launch's count of such runs and of their positions is added to the open
+``embed.bwd`` span's args (``long_runs``, ``long_positions``) and to the
+totals ``take_bwd_long_runs`` and ``take_bwd_long_positions``, once the
+card has run it (no host sync; nothing is counted with tracing off).
 """
 
 from __future__ import annotations
@@ -67,6 +72,10 @@ MODES = ("auto", "pallas", "xla", "off")
 #: (``csrc/embedding.cu`` ``kMaxTables``).
 MAX_TABLES = 8
 
+#: Runs of more positions than this take the take backward's long-run
+#: path (``csrc/embedding.cu`` ``kLongRun``).
+LONG_RUN = 256
+
 # The counting plan build does a [rows+1] prefix sum; above this many rows
 # the sort-based build is kept (``deepfm_tpu.ops.pallas_embedding``).
 PLAN_COUNT_MAX_ROWS = 2_000_000
@@ -79,6 +88,8 @@ take_fwd_launches = 0
 take_bwd_launches = 0
 segments_launches = 0
 install_launches = 0
+take_bwd_long_runs = 0
+take_bwd_long_positions = 0
 
 
 def _count(name: str) -> None:
@@ -583,13 +594,29 @@ def _check_take_bwd(g: torch.Tensor,
                              "cotangent's device")
 
 
+def _long_run_counts(stats: torch.Tensor) -> dict:
+    """A finished launch's long runs and their positions (``stats``,
+    pinned), added to the module's totals."""
+    global take_bwd_long_runs, take_bwd_long_positions
+    runs, positions = (int(x) for x in stats.tolist())
+    with _count_lock:
+        take_bwd_long_runs += runs
+        take_bwd_long_positions += positions
+    return {"long_runs": runs, "long_positions": positions}
+
+
 def _launch_take_bwd_tables(
         g: torch.Tensor,
         segments: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-        num_slots: Sequence[int]) -> List[torch.Tensor]:
+        num_slots: Sequence[int],
+        long_stats: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """One ``dfm_take_bwd`` launch for every table that shares the
     cotangent ``g`` [N, D]: table t's [num_slots[t], D] segment sums over
-    its ``segments[t]`` (order [N], starts [U_t+1])."""
+    its ``segments[t]`` (order [N], starts [U_t+1]). ``long_stats``, an
+    int64 [2] on the card or in pinned memory, receives the long runs the
+    launch took and their positions; while tracing is on, and without
+    it, a pinned pair of the launch's own goes to the open ``embed.bwd``
+    span (:func:`trace_lib.add_counts`)."""
     num_slots = [int(u) for u in num_slots]
     _check_take_bwd(g, segments, num_slots)
     d = g.shape[1]
@@ -599,6 +626,16 @@ def _launch_take_bwd_tables(
     if not run or d == 0:
         return outs
     t = len(run)
+    if long_stats is not None and (long_stats.dtype != torch.int64
+                                   or long_stats.shape != (2,)):
+        raise ValueError("long_stats is an int64 [2]")
+    if long_stats is None and trace_lib.enabled():
+        stats = torch.empty(2, dtype=torch.int64, pin_memory=True)
+        if trace_lib.add_counts(lambda: _long_run_counts(stats)):
+            long_stats = stats
+    # One mask word per warp of 32 slots, as the kernel numbers them.
+    long_mask = torch.empty(sum((num_slots[i] + 31) // 32 for i in run),
+                            dtype=torch.int32, device=g.device)
 
     def ptrs(ts):
         return (ctypes.c_void_p * t)(*(x.data_ptr() for x in ts))
@@ -609,7 +646,9 @@ def _launch_take_bwd_tables(
             g.data_ptr(), ptrs(segments[i][0] for i in run),
             ptrs(segments[i][1] for i in run), ptrs(outs[i] for i in run),
             (ctypes.c_int64 * t)(*(num_slots[i] for i in run)), t,
-            g.shape[0], d, _KERNEL_DTYPES[g.dtype], _stream(g.device))
+            g.shape[0], d, _KERNEL_DTYPES[g.dtype], long_mask.data_ptr(),
+            None if long_stats is None else long_stats.data_ptr(),
+            _stream(g.device))
     _native.check(err, "take backward")
     _count("take_bwd_launches")
     return outs

@@ -186,6 +186,52 @@ def test_pairs_resolve_once_complete_and_at_export(tmp_path, fake_card):
     assert np.diff(starts) == pytest.approx([1000.0] * 5)
 
 
+def test_counts_join_the_innermost_device_span_once_it_resolves(
+        tmp_path, fake_card):
+    trace_lib.configure("full", export_env=False)
+    tracer = trace_lib._tracer
+    calls = []
+
+    def counts(n):
+        calls.append(n)
+        return {"long_runs": n, "long_positions": 10 * n}
+
+    fake_card.done = False
+    with trace_lib.span("outer", device=CARD):
+        with trace_lib.span("embed.bwd", device=CARD):
+            with trace_lib.span("host"):  # no device time: passed over
+                assert trace_lib.add_counts(lambda: counts(1))
+            assert trace_lib.add_counts(lambda: counts(2))
+        fake_card.ms += 1.0
+    assert not calls  # the card has not run the span's work yet
+    assert len(tracer._pending) == 2
+    spans = {e["name"]: e for e in _x_events(
+        trace_lib.export(str(tmp_path / "t.json")))}
+    assert sorted(calls) == [1, 2]
+    assert spans["embed.bwd"]["args"]["long_runs"] == 3
+    assert spans["embed.bwd"]["args"]["long_positions"] == 30
+    assert "long_runs" not in spans["outer"]["args"]
+    assert "args" not in spans["host"]
+
+
+@pytest.mark.parametrize("where", ["off", "no_span", "host_span",
+                                   "capturing"])
+def test_counts_without_an_open_device_span_are_refused(fake_card, where):
+    if where != "off":
+        trace_lib.configure("full", export_env=False)
+    fake_card.capturing = where == "capturing"
+    fn = lambda: pytest.fail("counts read without a device span")  # noqa
+    if where in ("host_span", "capturing"):
+        with trace_lib.span("embed.bwd", device=None if where == "host_span"
+                            else CARD):
+            assert not trace_lib.add_counts(fn)
+    else:
+        assert not trace_lib.add_counts(fn)
+    fake_card.capturing = False
+    trace_lib._tracer.settle_all()
+    assert not trace_lib._tracer._open_spans()
+
+
 @pytest.mark.parametrize("capacity", [1, 4])
 def test_ring_holds_no_more_pairs_than_its_capacity(tmp_path, fake_card,
                                                     capacity):
