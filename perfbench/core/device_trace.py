@@ -160,11 +160,6 @@ class Context:
             return None
         return 100.0 * least / t
 
-    def per_step_ms(self, ops: List[DeviceOp]) -> Optional[float]:
-        if not ops or self.steps <= 0:
-            return None
-        return 1e3 * self.seconds(ops) / self.steps
-
     def busy_s(self) -> float:
         return busy_ns(self.ops, self.t0, self.t1) / 1e9
 

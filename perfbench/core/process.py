@@ -41,13 +41,12 @@ def run_process(cell: Dict, *, seed: int, seconds: float, trace: int,
     """One run: the result line and the check lines."""
     run = train_cell.Run(cell, seed=seed, device=device, t0=t0)
     run.setup()
-    shapes = train_cell.step_shapes(run.flags, run.bs, run.rows)
     metrics: Dict[str, Dict] = {}
     units = {m["name"]: m["unit"] for m in cell["end_to_end"]}
     units.update({m["name"]: m["unit"] for m in cell["per_layer"]})
     extra: Dict = {}
     if trace:
-        w = run.traced_window(shapes)
+        w = run.traced_window()
         ctx = w["ctx"]
     else:
         w = run.window(seconds)
@@ -58,7 +57,7 @@ def run_process(cell: Dict, *, seed: int, seconds: float, trace: int,
     if trace:
         for m in cell["per_layer"]:
             value = device_trace.finite_or_none(
-                registry.metric(m["name"]).read(ctx))
+                registry.metric(m["name"], cell["root"]).read(ctx))
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": units[m["name"]]}
         extra["busy_s"] = ctx.busy_s()

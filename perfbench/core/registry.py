@@ -6,11 +6,16 @@
   ``MOVES``, ``read(ctx)``);
 * a kernel's operations and bytes: ``perfbench/kernels/<kernel>.py``
   (``MATCH``, ``need(shapes)``);
+* a model family: ``perfbench/families/<model>.py``, by the
+  configuration's ``flags["model"]`` (the functions that
+  ``perfbench/families/__init__.py`` names);
 * a cell's limits for ``correct``: ``perfbench/limits/<workload>.json``;
 * the peaks: ``perfbench/peaks.json``.
 
 Adding any of them is adding a file and, for a cell, a configuration or
 a per-layer metric, a ``BENCHMARK.json`` entry; no file here changes.
+A cell's files are found under the root of the checkout its registry
+reads, which the cell carries as ``root``.
 """
 
 from __future__ import annotations
@@ -31,8 +36,12 @@ def _json(path: str) -> Dict:
         return json.load(f)
 
 
+def _path(kind: str, name: str, root: str) -> str:
+    return os.path.join(root, "perfbench", kind, f"{name}.py")
+
+
 def _module(kind: str, name: str, root: str) -> ModuleType:
-    path = os.path.join(root, "perfbench", kind, f"{name}.py")
+    path = _path(kind, name, root)
     if not os.path.isfile(path):
         raise KeyError(f"no {kind} file {path} for {name!r}")
     spec = importlib.util.spec_from_file_location(
@@ -83,6 +92,9 @@ class Registry:
     def kernel(self, name: str) -> ModuleType:
         return kernel(name, self.root)
 
+    def family(self, name: str) -> ModuleType:
+        return family(name, self.root)
+
     def end_to_end(self, workload: str) -> List[Dict]:
         return [m for m in self.benchmark["end_to_end"]
                 if workload in m.get("workloads", [workload])]
@@ -105,7 +117,8 @@ class Registry:
         """Everything one run of ``workload`` reads, its files found by
         the names in its entry."""
         w = self.workload(workload)
-        return {"workload": w, "config": self.config(w["config"]),
+        return {"root": self.root, "workload": w,
+                "config": self.config(w["config"]),
                 "traffic": self.traffic(w["traffic"]),
                 "limits": self.limits(w["name"]), "peaks": self.peaks(),
                 "end_to_end": self.end_to_end(w["name"]),
@@ -122,3 +135,15 @@ def metric(name: str, root: str = ROOT) -> ModuleType:
 def kernel(name: str, root: str = ROOT) -> ModuleType:
     """The operation and byte count of kernel ``name``."""
     return _module("kernels", name, root)
+
+
+@functools.lru_cache(maxsize=None)
+def family(name: str, root: str = ROOT) -> ModuleType:
+    """What the harness needs of model ``name`` (a configuration's
+    ``flags["model"]``): its rows, weights, step shapes, first-gradient
+    read and plain reference."""
+    path = _path("families", name, root)
+    if not os.path.isfile(path):
+        raise ValueError(f"no reference for model {name!r}: no family file "
+                         f"{path}")
+    return _module("families", name, root)

@@ -3,7 +3,10 @@ or traced window, and the comparison with the plain reference.
 
 The window drives ``Trainer.fit_device_resident`` over a feed of columns
 made from the seed (:class:`ResidentFeed`, the pipe contract that
-``train/tasks.py`` hands it), on one card.
+``train/tasks.py`` hands it), on one card. What depends on the model (the
+rows, the weights, the step shapes, the first-gradient read and the
+reference) is the family's (``perfbench/families/``), found by the
+configuration's ``flags["model"]``.
 
 Set-up builds one trainer and one state, loads the benchmark's weights
 into it, and drives it through the first ``checked_steps`` steps with the
@@ -15,6 +18,7 @@ state is freed.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import os
@@ -26,21 +30,8 @@ import numpy as np
 import torch
 
 from ..gen import traffic as gen
-from ..reference import models as ref
-from . import compare
 from . import device_trace
 from . import registry
-
-B1 = 0.9  # the program's Adam first-moment decay (train/optimizers.py)
-
-
-def step_shapes(flags: Dict, batch: int, rows: int) -> Dict:
-    """The shapes the kernel counts and the model operation count read."""
-    layers = [int(x) for x in str(flags["deep_layers"]).split(",") if x]
-    f, k = int(flags["field_size"]), int(flags["embedding_size"])
-    return {"batch": batch, "fields": f, "dim": k, "rows": rows,
-            "tower": [f * k] + layers,
-            "compute_bytes": 2 if flags["compute_dtype"] == "bfloat16" else 4}
 
 
 def program_config(cell: Dict, seed: int):
@@ -117,8 +108,7 @@ class Run:
         self.cell = cell
         self.t = cell["traffic"]
         self.flags = cell["config"]["flags"]
-        if self.flags["model"] != "deepfm":
-            raise ValueError(f"no reference for model {self.flags['model']!r}")
+        self.family = registry.family(self.flags["model"], cell["root"])
         self.seed = seed
         self.device = torch.device(device)
         self.t0 = t0
@@ -144,11 +134,7 @@ class Run:
         cfg = program_config(self.cell, self.seed)
         # The rows, made on the card and handed to the program as host
         # columns (what a decoded cache holds).
-        dev_cols = gen.make_columns(
-            self.t, vocab=int(self.flags["feature_size"]),
-            fields=int(self.flags["field_size"]),
-            records=int(self.t["records_per_card"]), seed=self.seed,
-            device=self.device)
+        dev_cols = self.family.columns(self.cell, self.seed, self.device)
         self.cols = host_columns(dev_cols)
         del dev_cols
         g = gen.generator(self.seed, self.device, gen.ORDERS)
@@ -163,14 +149,13 @@ class Run:
         self.trainer = Trainer(cfg, device=self.device)
         self.state = self.trainer.init_state()
         shapes = {k: tuple(v.shape) for k, v in self.state.params.items()}
-        v = int(self.flags["feature_size"])
-        w0 = gen.make_weights(shapes, seed=self.seed, device=self.device,
-                              real_rows={"fm_w": v, "fm_v": v})
+        w0 = self.family.weights(self.cell, shapes, self.seed, self.device)
         self.trainer.load_weights(self.state, w0, dict(
             self.state.model_state))
-        self.w0 = {k: x.cpu() for k, x in w0.items()}
+        self.w0 = self.family.hold(w0, self.cell, self.seed)
         del w0
-        self.rows = int(shapes["fm_w"][0])
+        self.step_shapes = self.family.step_shapes(self.flags, self.bs,
+                                                   shapes)
         self.feed = ResidentFeed(self.cols, self.bs, self.orders,
                                  f"perfbench-{self.seed}")
         why = self.trainer.device_dataset_ineligible(self.feed)
@@ -194,17 +179,16 @@ class Run:
 
     def _checked_steps(self) -> None:
         """The first steps, one dispatch each, recording what the
-        reference checks: each step's loss, the first gradient as Adam got
-        it (its first moment over 1 - b1) and every leaf's change."""
+        reference checks: each step's loss, the first gradient as the
+        optimizer got it (the family's read of its state) and every leaf's
+        change."""
         losses: List[torch.Tensor] = []
         grad1: Dict[str, float] = {}
 
         def hook(state, m):
             losses.append(m["loss"].detach().clone())
             if len(losses) == 1:
-                mu = state.opt_state["mu"]
-                grad1.update({k: float(torch.linalg.vector_norm(
-                    mu[k].double() / (1.0 - B1))) for k in mu})
+                grad1.update(self.family.first_grad_norms(state.opt_state))
 
         self._fit(int(self.t["checked_steps"]), hooks=[hook])
         change = {k: float(torch.linalg.vector_norm(
@@ -231,7 +215,7 @@ class Run:
         return {"steps": steps, "seconds": elapsed,
                 "examples_per_s": steps * self.bs / elapsed}
 
-    def traced_window(self, shapes: Dict) -> Dict:
+    def traced_window(self) -> Dict:
         """``trace_steps`` steps under the profiler and the program's span
         tracer: the per-layer readers' context."""
         from deepfm_tpu_torch.obs import trace as obs_trace  # noqa: PLC0415
@@ -252,8 +236,9 @@ class Run:
         peaks = self.cell["peaks"]
         ctx = device_trace.Context(
             ops=ops, spans=spans, t0=t0, t1=t1, steps=steps,
-            examples_per_s=eps, cards=1, shapes=shapes, peaks=peaks,
-            kernel=registry.kernel)
+            examples_per_s=eps, cards=1, shapes=self.step_shapes,
+            peaks=peaks, kernel=functools.partial(
+                registry.kernel, root=self.cell["root"]))
         return {"ctx": ctx, "steps": steps, "examples_per_s": eps}
 
     # -- after the window ----------------------------------------------------
@@ -276,13 +261,8 @@ class Run:
                 for i in range(n)]
 
     def reference(self, **kw) -> Dict:
-        """The reference's readings over the checked steps (``kw``: the
+        """The family's reference over the checked steps (``kw``: the
         control's ``quant``, a fault's ``rows``)."""
-        v = int(self.flags["feature_size"])
-        params = {k: (x[:v] if k in ("fm_w", "fm_v") else x).to(self.device)
-                  for k, x in self.w0.items()}
-        out = ref.train_steps(params, self.reference_batches(),
-                              lr=float(self.flags["learning_rate"]),
-                              l2=float(self.flags["l2_reg"]), **kw)
-        return {"losses": out["losses"], "grad1": compare.norms(out["grad1"]),
-                "change": compare.norms(out["change"])}
+        return self.family.reference(self.cell, self.w0,
+                                     self.reference_batches(), self.device,
+                                     **kw)

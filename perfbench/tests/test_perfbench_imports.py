@@ -41,10 +41,12 @@ def test_importing_every_module_loads_no_jax():
         f"sys.path.insert(0, {registry.ROOT!r})\n"
         "import perfbench.run, perfbench.calibrate\n"
         "from perfbench.core import process, registry\n"
-        "for kind in ('metrics', 'kernels'):\n"
+        "for kind, load in (('metrics', registry.metric),\n"
+        "                   ('kernels', registry.kernel),\n"
+        "                   ('families', registry.family)):\n"
         f"    for n in os.listdir(os.path.join({BENCH!r}, kind)):\n"
-        "        if n.endswith('.py'):\n"
-        "            getattr(registry, kind[:-1])(n[:-3])\n"
+        "        if n.endswith('.py') and n != '__init__.py':\n"
+        "            load(n[:-3])\n"
         "import deepfm_tpu_torch.train.loop\n"
         "print(sorted({m.split('.')[0] for m in sys.modules}))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

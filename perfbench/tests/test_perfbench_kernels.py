@@ -2,11 +2,12 @@
 
 import pytest
 
-from perfbench.core import device_trace, registry, train_cell
+from perfbench.core import device_trace, registry
 
 FLAGS = {"model": "deepfm", "field_size": 3, "embedding_size": 4,
          "deep_layers": "5,2", "compute_dtype": "bfloat16"}
-S = train_cell.step_shapes(FLAGS, batch=10, rows=100)
+DEEPFM = registry.family("deepfm")
+S = DEEPFM.step_shapes(FLAGS, 10, {"fm_w": (100,), "fm_v": (100, 4)})
 
 
 def test_shapes():
@@ -43,8 +44,13 @@ def test_tower_gemm():
 
 
 def test_mfu_flops_per_example():
-    mod = registry.metric("train_mfu_pct")
-    assert mod.flops_per_example(S) == 6 * (12 * 5 + 5 * 2 + 2)
+    assert S["flops_per_example"] == 6 * (12 * 5 + 5 * 2 + 2)
+    ctx = device_trace.Context(ops=[], spans=[], t0=0, t1=1, steps=1,
+                               examples_per_s=1e9, cards=2, shapes=S,
+                               peaks={"bf16_flops_per_s": 1e12},
+                               kernel=registry.kernel)
+    assert registry.metric("train_mfu_pct").read(ctx) == pytest.approx(
+        100.0 * S["flops_per_example"] * 1e9 / 2e12)
 
 
 @pytest.mark.parametrize("kernel", ["take_bwd", "segments", "fm_fwd",
@@ -53,10 +59,9 @@ def test_roofline_is_least_time_over_kernel_time(kernel):
     """A window whose kernels took exactly the least time reads 100%."""
     peaks = registry.Registry().peaks()
     mod = registry.kernel(kernel)
-    big = train_cell.step_shapes(dict(FLAGS, field_size=39,
-                                      embedding_size=32,
-                                      deep_layers="128,64,32"),
-                                 batch=65536, rows=117632)
+    big = DEEPFM.step_shapes(dict(FLAGS, field_size=39, embedding_size=32,
+                                  deep_layers="128,64,32"),
+                             65536, {"fm_w": (117632,), "fm_v": (117632, 32)})
     ctx = device_trace.Context(ops=[], spans=[], t0=0, t1=1, steps=4,
                                examples_per_s=1.0, cards=1, shapes=big,
                                peaks=peaks, kernel=registry.kernel)
