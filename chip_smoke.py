@@ -96,6 +96,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (no long run) the long kernel's own time, the cost of finding none.
    ``python3 chip_smoke.py --phase take_bwd`` runs every take-backward
    check of these phases alone (no result lines).
+   Then the per-feature path (``--model dlrm_dcnv2``) at the benchmark
+   cell ``dlrm_dcnv2.train.multihot``'s shapes (B = 16,384, K = 128, 26
+   tables of the published hotness, 3 to 10,000,000 rows, ids uniform):
+   with the launch counters zeroed, one sparse plan, every table's bag
+   view forward and its gradient back, launches counted against the
+   grouping by hotness; every plan bit-equal to ``make_plan_counting``,
+   every table's segments to ``reference_position_segments``, every take
+   forward to ``rows[inv]``, every take backward to an ascending-position
+   float32 sum on the card (itself bit-equal to the numpy oracle on the
+   3-row table) and to a second launch, whose long runs are counted
+   against the segments'; the 100-hot bags of a 10,000,000-row table
+   pooled through plan, gather and take bit-equal to ``table[ids]``
+   summed. ``python3 chip_smoke.py --phase dlrm`` runs it alone (no
+   result lines).
 8. Determinism: the dense, sparse monolithic and dense hashed layouts
    and DIN over ragged histories trained twice for 20 steps from the same
    seed on the same batches; losses and every embedding table must be
@@ -385,6 +399,7 @@ from deepfm_tpu_torch.drills import production as prod_drill  # noqa: E402
 from deepfm_tpu_torch.drills import serving as serving_drill  # noqa: E402
 from deepfm_tpu_torch.data import pipeline as pipe_lib  # noqa: E402
 from deepfm_tpu_torch.models import get_model  # noqa: E402
+from deepfm_tpu_torch.models.common import EmbeddingSchema  # noqa: E402
 from deepfm_tpu_torch.models.twin_tower import (  # noqa: E402
     TwinTower, tower_batch, train_twin_tower, twin_tower_step)
 from deepfm_tpu_torch.native import loader as tfr_loader  # noqa: E402
@@ -1390,6 +1405,142 @@ def take_bwd_long_phase() -> dict:
               + " (profiler); the long kernel's is the "
               "cost of finding none")
     return out
+
+
+DLRM_CONFIG = os.path.join(HERE, "perfbench", "configs", "dlrm_dcnv2.json")
+# The per-feature path's ids of one step: the benchmark cell's batch.
+DLRM_B = 16384
+
+
+def dlrm_ids(cfg: Config, rng, dev: torch.device) -> torch.Tensor:
+    """One batch of the cell's rows on the card: 13 dense columns (id 0),
+    then each feature's bag, ids uniform over its table's rows."""
+    cols = [np.zeros((DLRM_B, cfg.field_size - sum(
+        cfg.feature_hotness_values)), np.int32)]
+    cols += [rng.integers(0, r, (DLRM_B, h), dtype=np.int32) for h, r in
+             zip(cfg.feature_hotness_values, cfg.table_row_counts)]
+    return torch.from_numpy(np.concatenate(cols, axis=1)).to(dev)
+
+
+def ascending_sum(g: torch.Tensor, order: torch.Tensor,
+                  starts: torch.Tensor) -> torch.Tensor:
+    """[U, D]: each slot's cotangents g[order[i]], i in [starts[u],
+    starts[u + 1]), added one after another from 0.0 in float32 on the
+    card (the k-th add of every run at once): the take backward's order,
+    so its result is bit-equal."""
+    lens = (starts[1:] - starts[:-1]).long()
+    out = torch.zeros((lens.numel(), g.shape[1]), dtype=g.dtype,
+                      device=g.device)
+    by = torch.argsort(lens, descending=True)
+    first = starts[:-1].long()[by]
+    # active[k]: the slots whose run holds more than k positions, a prefix
+    # of ``by``.
+    active = torch.bincount(lens, minlength=1).flip(0).cumsum(0).flip(0)
+    active = active[1:].tolist()
+    for k, m in enumerate(active):
+        idx = by[:m]
+        out[idx] = out[idx] + g[order[first[:m] + k].long()]
+    return out
+
+
+def dlrm_kernels_phase() -> dict:
+    """The per-feature path's kernels at the cell's shapes (module
+    docstring, phase 7); returns the launches of one step by kernel."""
+    dev = torch.device("cuda")
+    with open(DLRM_CONFIG) as f:
+        flags = json.load(f)["flags"]
+    cfg = Config(**flags, batch_size=DLRM_B)
+    emb = EmbeddingSchema(cfg)
+    hot, rows = emb.hotness, emb.feature_rows
+    rng = np.random.default_rng(SEED + 90)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 91)
+    ids = dlrm_ids(cfg, rng, dev)
+    k = cfg.embedding_size
+
+    _zero_counts()
+    plan = emb.sparse_plan(ids)
+    views, gs, rows_in = {}, {}, {}
+    for f, (key, e) in enumerate(plan.items()):
+        r = torch.randn(e.uids.shape[0], k, device=dev, generator=gen)
+        r.requires_grad_(True)
+        rows_in[key] = r
+        views[key] = emb_ops.lookup_rows(r, e)
+        gs[key] = torch.randn(views[key].shape, device=dev, generator=gen)
+    got = torch.autograd.grad(list(views.values()), list(rows_in.values()),
+                              list(gs.values()))
+    grads = dict(zip(rows_in, got))
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in _counts().items()
+                if n in ("plan_build", "segments", "take_fwd", "take_bwd")}
+    # Expected: one plan launch for each group of up to eight tables of one
+    # hotness within the plan kernel's rows; one segments launch for each
+    # such group over every table; one take each way a table.
+
+    def groups(fs):
+        by = {}
+        for f in fs:
+            by[hot[f]] = by.get(hot[f], 0) + 1
+        return sum(-(-c // ek.MAX_TABLES) for c in by.values())
+
+    small = [f for f, r in enumerate(rows) if r <= ek.PLAN_COUNT_MAX_ROWS]
+    want = {"plan_build": groups(small), "segments": groups(range(len(hot))),
+            "take_fwd": len(hot), "take_bwd": len(hot)}
+    assert launches == want, (launches, want)
+
+    long_runs = long_pos = 0
+    for f, (key, e) in enumerate(plan.items()):
+        cols = emb.feature_ids(ids, f)
+        p = emb_ops.make_plan_counting(cols, rows[f])
+        assert torch.equal(e.uids, p.uids) and torch.equal(e.inv, p.inv), f
+        assert torch.equal(e.touched, p.touched), f
+        assert torch.equal(e.rank[p.touched], p.rank[p.touched]), f
+        order, starts = ek.reference_position_segments(e.inv, e.uids.shape[0])
+        assert torch.equal(e.segments[0], order), f
+        assert torch.equal(e.segments[1], starts), f
+        assert torch.equal(views[key].detach(), ek.reference_take(
+            rows_in[key].detach(), e.inv).reshape(views[key].shape)), f
+        g = gs[key].reshape(-1, k).contiguous()
+        want_g = ascending_sum(g, order, starts)
+        assert torch.equal(grads[key], want_g), f
+        if rows[f] == min(rows):
+            assert np.array_equal(want_g.cpu().numpy(), take_bwd_oracle(
+                g, e.inv.reshape(-1), None, e.uids.shape[0])), f
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        again = ek._launch_take_bwd_tables(g, [e.segments],
+                                           [e.uids.shape[0]], stats)[0]
+        lens = (starts[1:] - starts[:-1]).long()
+        runs = lens[lens > ek.LONG_RUN]
+        assert torch.equal(again, grads[key]), f
+        assert stats.tolist() == [runs.numel(), int(runs.sum())], (
+            f, stats.tolist())
+        long_runs += runs.numel()
+        long_pos += int(runs.sum())
+
+    # The 100-hot feature's table at its 10,000,000 rows: plan, gather at
+    # the plan's rows, take and bag sum against the plain lookup.
+    f = hot.index(max(hot))
+    table = torch.rand(rows[f], k, device=dev, generator=gen)
+    key = emb.table_keys()[f]
+    e = plan[key]
+    pooled = emb.pool_rows({key: emb_ops.gather_rows(table, e)}, {key: e})
+    plain = table[emb.feature_ids(ids, f).long()].sum(dim=1)
+    assert torch.equal(pooled[:, 0], plain)
+    del table
+
+    plan_ms = cuda_ms(lambda: emb.sparse_plan(ids), iters=10, warmup=2)
+    fwd_ms = cuda_ms(lambda: [emb_ops.lookup_rows(
+        rows_in[key].detach(), e) for key, e in plan.items()], iters=10,
+        warmup=2)
+    print(f"dlrm per-feature path B={DLRM_B} K={k} T={len(hot)} "
+          f"(rows {min(rows)}-{max(rows)}, {sum(hot)} ids a row): plans "
+          f"bit-equal to make_plan_counting, segments to "
+          f"reference_position_segments, take forward to rows[inv], take "
+          f"backward to the ascending-position sum and to a second launch; "
+          f"{long_runs} long runs of {long_pos} positions; the 100-hot bags "
+          f"of the {rows[f]}-row table bit-equal to table[ids] summed; "
+          f"launches a step {launches}; plan_ms={plan_ms:.6f} "
+          f"take_fwd_ms={fwd_ms:.6f} (cuda_events, all tables)")
+    return launches
 
 
 def take_phase():
@@ -5902,6 +6053,11 @@ def main() -> int:
         history_kernels_phase()
         take_bwd_long_phase()
         return 0
+    if sys.argv[1:] == ["--phase", "dlrm"]:
+        # The per-feature path's kernels at the DLRM-DCNv2 cell's shapes;
+        # no result lines.
+        dlrm_kernels_phase()
+        return 0
     if sys.argv[1:] == ["--phase", "dp"]:
         # The data-parallel phase alone (a quick check of that path); no
         # result lines.
@@ -5930,6 +6086,7 @@ def main() -> int:
     accum_t = accum_kernels_phase()
     hist_t = history_kernels_phase()
     take_bwd_long_phase()
+    dlrm_kernels_phase()
     clock.lap("kernels")
 
     cfg = Config()

@@ -28,6 +28,15 @@ import os
 from typing import Any, Dict, List, Optional, Sequence
 
 
+#: Dense (count) columns that lead a ``--model dlrm_dcnv2`` row: Criteo's
+#: integer features I1-I13.
+DENSE_FEATURES = 13
+
+
+def _int_list(s: str) -> List[int]:
+    return [int(x) for x in s.split(",") if x.strip()]
+
+
 def _env_json(name: str, default: Any) -> Any:
     raw = os.environ.get(name)
     if raw is None:
@@ -54,7 +63,7 @@ class Config:
     coordinator_address: str = ""     # jax.distributed coordinator (host:port)
 
     # ---- model hyperparameters (reference: model flags) ----
-    model: str = "deepfm"             # deepfm | widedeep | dcnv2 | dlrm | din | bst
+    model: str = "deepfm"             # deepfm | widedeep | dcnv2 | dlrm | din | bst | dlrm_dcnv2
     feature_size: int = 117581        # vocabulary size (reference ipynb:85)
     field_size: int = 39              # number of fields (reference ipynb:90)
     embedding_size: int = 32          # latent dim (reference flag default, ...py:44)
@@ -66,6 +75,13 @@ class Config:
     cross_rank: int = 0               # DCN-v2: low-rank dim for cross W (0 = full rank)
     l2_reg: float = 1e-4
     loss_type: str = "log_loss"       # log_loss | square_loss
+    # ---- DLRM-DCNv2 (--model dlrm_dcnv2; MLPerf Training's recommendation
+    #      model): the first DENSE_FEATURES columns of feat_vals feed a
+    #      bottom MLP, the rest are per-feature multi-hot bags, each summed
+    #      from a table of its own ----
+    bottom_layers: str = ""           # bottom MLP widths, the last = embedding_size
+    feature_hotness: str = ""         # ids in each feature's bag (comma list)
+    table_rows: str = ""              # rows of each feature's table (comma list)
 
     # ---- multi-task ranking (README "Multi-task ranking", TUNING §2.12) ----
     # Comma list of task names. One name = the single-task zoo (--model
@@ -99,7 +115,7 @@ class Config:
     index_kind: str = "brute"
 
     # ---- optimization ----
-    optimizer: str = "Adam"           # Adam | Adagrad | Momentum | ftrl
+    optimizer: str = "Adam"           # Adam | Adagrad | exact_adagrad | Momentum | ftrl
     learning_rate: float = 5e-4
     scale_lr_by_world: bool = True    # reference hvd: lr * hvd.size() (2-hvd-gpu/...py:149)
     num_epochs: int = 1
@@ -426,8 +442,9 @@ class Config:
         if self.metrics_snapshot_secs < 0:
             raise ValueError("metrics_snapshot_secs must be >= 0")
         if self.model not in ("deepfm", "widedeep", "dcnv2", "dlrm", "din",
-                              "bst"):
+                              "bst", "dlrm_dcnv2"):
             raise ValueError(f"unknown model: {self.model!r}")
+        self._validate_dlrm_dcnv2()
         if self.history_max_len < 0:
             raise ValueError("history_max_len must be >= 0")
         if self.index_kind not in ("brute", "ann"):
@@ -482,7 +499,8 @@ class Config:
         if any(w < 0 for w in weights):
             raise ValueError(
                 f"task_weights must be >= 0, got {self.task_weights!r}")
-        if self.optimizer.lower() not in ("adam", "adagrad", "momentum", "ftrl", "sgd"):
+        if self.optimizer.lower() not in ("adam", "adagrad", "exact_adagrad",
+                                          "momentum", "ftrl", "sgd"):
             raise ValueError(f"unknown optimizer: {self.optimizer!r}")
         if self.loss_type not in ("log_loss", "square_loss"):
             raise ValueError(f"unknown loss_type: {self.loss_type!r}")
@@ -645,11 +663,21 @@ class Config:
                 f"embedding_update must be dense|sparse, got "
                 f"{self.embedding_update!r}")
         if self.embedding_update == "sparse":
-            if self.optimizer.lower() != "adam":
+            if self.optimizer.lower() not in ("adam", "exact_adagrad"):
                 raise ValueError(
-                    "embedding_update=sparse implements the lazy/timestamped "
-                    "row update for Adam only; use --optimizer Adam or "
-                    "--embedding_update dense")
+                    "embedding_update=sparse implements the row update for "
+                    "two optimizers: Adam (lazy, timestamped) and "
+                    "exact_adagrad; use --optimizer Adam, --optimizer "
+                    "exact_adagrad or --embedding_update dense")
+            if self.optimizer.lower() == "exact_adagrad" and (
+                    self.embedding_tiering != "off"
+                    or self.embedding_shard == "rows"
+                    or self.grad_accum_steps > 1):
+                raise ValueError(
+                    "embedding_update=sparse with exact_adagrad runs on one "
+                    "card's sparse step only: no --embedding_tiering, "
+                    "--embedding_shard rows or --grad_accum_steps > 1 (their "
+                    "row planes carry lazy Adam's slots)")
             if self.mesh_model > 1 and self.embedding_shard != "rows":
                 raise ValueError(
                     "embedding_update=sparse under mesh_model>1 needs the "
@@ -761,7 +789,74 @@ class Config:
                 "device_dataset requires decoded_cache=ram|disk (the device "
                 "upload reads the cached columns)")
 
+    def _validate_dlrm_dcnv2(self) -> None:
+        """The per-feature fields name one another and the model: set
+        together, for ``--model dlrm_dcnv2`` only, on its one layout."""
+        try:
+            sizes = (self.bottom_layer_sizes, self.feature_hotness_values,
+                     self.table_row_counts)
+        except ValueError as exc:
+            raise ValueError(
+                "bottom_layers, feature_hotness and table_rows must be comma "
+                "lists of positive ints") from exc
+        bottom, hotness, rows = sizes
+        if self.model != "dlrm_dcnv2":
+            if bottom or hotness or rows:
+                raise ValueError(
+                    "bottom_layers, feature_hotness and table_rows belong to "
+                    "--model dlrm_dcnv2")
+            return
+        if not (bottom and hotness and rows):
+            raise ValueError(
+                "--model dlrm_dcnv2 needs bottom_layers, feature_hotness and "
+                "table_rows")
+        if any(x < 1 for x in (*bottom, *hotness, *rows)):
+            raise ValueError(
+                "bottom_layers, feature_hotness and table_rows must be "
+                "positive")
+        if len(hotness) != len(rows):
+            raise ValueError(
+                f"feature_hotness has {len(hotness)} features and table_rows "
+                f"{len(rows)}: one table per feature")
+        if self.field_size != DENSE_FEATURES + sum(hotness):
+            raise ValueError(
+                f"--model dlrm_dcnv2 reads {DENSE_FEATURES} dense columns and "
+                f"then each feature's bag: field_size must be "
+                f"{DENSE_FEATURES + sum(hotness)}, got {self.field_size}")
+        if bottom[-1] != self.embedding_size:
+            raise ValueError(
+                f"the bottom MLP's last width ({bottom[-1]}) must be "
+                f"embedding_size ({self.embedding_size}): it sits beside the "
+                "pooled bags in the cross network's input")
+        if self.embedding_buckets:
+            raise ValueError("--model dlrm_dcnv2 keeps one table per feature: "
+                             "unset embedding_buckets")
+        if self.embedding_tiering != "off":
+            raise ValueError("--model dlrm_dcnv2 keeps its tables on the "
+                             "device: --embedding_tiering off")
+        if self.embedding_update != "sparse":
+            raise ValueError("--model dlrm_dcnv2 trains with "
+                             "--embedding_update sparse (dense tables, their "
+                             "gradients and the optimizer's slots do not fit)")
+        if (self.mesh_model > 1 or self.embedding_shard == "rows"
+                or self.num_tasks > 1 or self.history_max_len > 0):
+            raise ValueError("--model dlrm_dcnv2 runs one task on one model "
+                             "rank: no --mesh_model, --embedding_shard rows, "
+                             "multi-task or history")
+
     # ---- derived views ------------------------------------------------
+    @property
+    def bottom_layer_sizes(self) -> List[int]:
+        return _int_list(self.bottom_layers)
+
+    @property
+    def feature_hotness_values(self) -> List[int]:
+        return _int_list(self.feature_hotness)
+
+    @property
+    def table_row_counts(self) -> List[int]:
+        return _int_list(self.table_rows)
+
     @property
     def deep_layer_sizes(self) -> List[int]:
         return [int(x) for x in self.deep_layers.split(",") if x.strip()]

@@ -16,6 +16,7 @@ import torch
 from ..config import Config
 from .dcnv2 import DCNv2  # noqa: F401
 from .deepfm import DeepFM  # noqa: F401
+from .dlrm_dcnv2 import DLRMDCNv2  # noqa: F401
 from .graph import DLRM  # noqa: F401
 from .multitask import MultiTaskModel  # noqa: F401
 from .sequence import GraphBST, GraphDIN  # noqa: F401
@@ -28,10 +29,11 @@ _REGISTRY = {
     "dlrm": DLRM,
     "din": GraphDIN,
     "bst": GraphBST,
+    "dlrm_dcnv2": DLRMDCNv2,
 }
 
 CtrModel = Union[DeepFM, WideDeep, DCNv2, DLRM, GraphDIN, GraphBST,
-                 MultiTaskModel]
+                 DLRMDCNv2, MultiTaskModel]
 
 
 def registered_models():

@@ -40,6 +40,7 @@ from typing import (Any, Dict, Iterator, List, Mapping, Optional, Sequence,
 import torch
 from torch import nn
 
+from ..obs import trace as trace_lib
 from ..ops import embedding as emb_ops
 from ..ops import embedding_kernels as ek
 
@@ -346,6 +347,12 @@ class EmbeddingSchema:
       bucket in it by stateless uint32 mixing (``ops.embedding.
       hash_bucket``), so the logical ``feature_size`` may exceed any one
       table.
+    * **per-feature** (``table_rows`` set, ``--model dlrm_dcnv2``): tables
+      ``{"t0": [R0, ...], ...}``, one per sparse feature. Feature f's ids
+      fill its own span of ``feat_ids``' columns (``hotness[f]`` wide,
+      after the dense columns) and are rows of table f, in [0, R_f); each
+      feature's bag is summed (:meth:`pool`, :meth:`pool_rows`). No pad
+      rows, as in the hashed layout.
 
     Under a model axis (an ``axis``, :class:`ops.embedding.ModelAxis`) an
     entry holds this rank's rows of each table: :meth:`lookup` reads the
@@ -356,7 +363,7 @@ class EmbeddingSchema:
     (``padded_vocab``).
 
     An *entry* is one param's table (monolithic) or dict of tables
-    (hashed). In the model's flat state the hashed tables are named
+    (hashed, per-feature). In the model's flat state those tables are named
     ``"<param>.<key>"`` (``fm_v.t0``), as ``params_from_jax`` flattens the
     JAX tree. The sparse update speaks :class:`ops.embedding.PlanEntry` per
     table key (``"table"`` when monolithic).
@@ -369,6 +376,15 @@ class EmbeddingSchema:
         self.feature_size = int(cfg.feature_size)
         self.buckets: List[int] = list(cfg.embedding_bucket_sizes)
         self.hashed = bool(self.buckets)
+        self.feature_rows: List[int] = list(cfg.table_row_counts)
+        self.per_feature = bool(self.feature_rows)
+        self.hotness: List[int] = list(cfg.feature_hotness_values)
+        # Feature f's columns of feat_ids: [starts[f], starts[f + 1]).
+        self.starts = [cfg.field_size - sum(self.hotness)]
+        for h in self.hotness:
+            self.starts.append(self.starts[-1] + h)
+        # (slots, rows, device) -> arange(slots) % rows (spread_index).
+        self._spreads: Dict[Tuple[int, int, torch.device], torch.Tensor] = {}
         self.assign = cfg.embedding_assign
         self.kernels = cfg.embedding_kernels
         self.lookup_strategy = cfg.embedding_lookup
@@ -381,28 +397,36 @@ class EmbeddingSchema:
                            if cfg.embedding_shard == "rows" else 1)
 
     # -- layout ---------------------------------------------------------
+    @property
+    def monolithic(self) -> bool:
+        return not (self.hashed or self.per_feature)
+
+    def _table_sizes(self) -> List[int]:
+        return self.feature_rows if self.per_feature else self.buckets
+
     def table_keys(self) -> List[str]:
-        if not self.hashed:
+        if self.monolithic:
             return [self.MONO]
-        return [f"t{i}" for i in range(len(self.buckets))]
+        return [f"t{i}" for i in range(len(self._table_sizes()))]
 
     def table_rows(self, key: str) -> int:
         """Row count of one physical table."""
-        if not self.hashed:
+        if self.monolithic:
             return self.padded_vocab
-        return self.buckets[int(key[1:])]
+        return self._table_sizes()[int(key[1:])]
 
     def num_physical_rows(self) -> int:
         """Rows actually allocated (vs the logical feature_size)."""
-        return sum(self.buckets) if self.hashed else self.padded_vocab
+        return self.padded_vocab if self.monolithic else sum(
+            self._table_sizes())
 
     def param_key(self, name: str, key: str) -> str:
         """Flat state name of one table of param ``name``."""
-        return name if not self.hashed else f"{name}.{key}"
+        return name if self.monolithic else f"{name}.{key}"
 
     def entry(self, params: Mapping[str, torch.Tensor], name: str) -> Entry:
         """Param ``name``'s entry out of a flat ``{name: tensor}`` state."""
-        if not self.hashed:
+        if self.monolithic:
             return params[name]
         return {k: params[self.param_key(name, k)] for k in self.table_keys()}
 
@@ -410,12 +434,12 @@ class EmbeddingSchema:
                    generator: Optional[torch.Generator],
                    device: torch.device) -> Entry:
         """Glorot-normal tables. Monolithic: over the REAL vocab, zero pad
-        rows after it. Hashed: one glorot table per bucket count, drawn in
-        table order from ``generator``."""
-        if self.hashed:
+        rows after it. Hashed and per-feature: one glorot table per bucket
+        or row count, drawn in table order from ``generator``."""
+        if not self.monolithic:
             return {f"t{i}": glorot_normal((b, *trailing),
                                            generator=generator, device=device)
-                    for i, b in enumerate(self.buckets)}
+                    for i, b in enumerate(self._table_sizes())}
         t = glorot_normal((self.feature_size, *trailing),
                           generator=generator, device=device)
         pad = self.padded_vocab - self.feature_size
@@ -431,10 +455,10 @@ class EmbeddingSchema:
 
     def tables(self, entry: Entry) -> Dict[str, torch.Tensor]:
         """Uniform dict view of an entry: {key: [rows, ...] table}."""
-        return entry if self.hashed else {self.MONO: entry}
+        return {self.MONO: entry} if self.monolithic else entry
 
     def from_tables(self, tables: Dict[str, torch.Tensor]) -> Entry:
-        return tables if self.hashed else tables[self.MONO]
+        return tables[self.MONO] if self.monolithic else tables
 
     # -- id -> (table, bucket) mapping ---------------------------------
     def _table_of(self, feat_ids: torch.Tensor) -> torch.Tensor:
@@ -482,7 +506,7 @@ class EmbeddingSchema:
         None). The hashed parts are summed in table order t0, t1, ..., as
         the JAX package sums them; under ``axis`` each part is this
         shard's owned buckets and ONE sum over the peers reassembles every
-        table's at once."""
+        table's at once. (Per-feature tables are read by :meth:`pool`.)"""
         if index is None:
             index = self.dense_index(feat_ids, entry, axis)
         if not self.hashed:
@@ -526,6 +550,8 @@ class EmbeddingSchema:
         name's backward."""
         with_segments = feat_ids.device.type == "cuda" and ek.resolve(
             self.kernels, "take") == "kernel"
+        if self.per_feature:
+            return self._feature_plan(feat_ids, with_segments)
         if not self.hashed:
             rows = self.padded_vocab if num_rows is None else int(num_rows)
             plan = {self.MONO: ek.plan_build(feat_ids, rows,
@@ -569,9 +595,104 @@ class EmbeddingSchema:
             plan = dict(zip(keys, entries))
         return plan
 
-    def gather_rows(self, entry: Entry, plan: Plan) -> Dict[str, torch.Tensor]:
-        """Touched rows per table: the sparse path's gradient leaf."""
+    def num_lookups(self, feat_ids: torch.Tensor) -> int:
+        """Ids of the batch that read a table: every column's, but the
+        dense columns' in the per-feature layout."""
+        if self.per_feature:
+            return int(feat_ids.shape[0]) * sum(self.hotness)
+        return int(feat_ids.numel())
+
+    def feature_ids(self, feat_ids: torch.Tensor, f: int) -> torch.Tensor:
+        """Feature ``f``'s bag ids [B, hotness[f]]: rows of table f."""
+        return feat_ids[:, self.starts[f]:self.starts[f + 1]]
+
+    def _feature_groups(self, legs: Sequence[str]) -> List[List[int]]:
+        """The features in groups that one launch can serve: equal hotness
+        (one id count N) and leg, at most ``ek.MAX_TABLES`` a group."""
+        by: Dict[Tuple[int, str], List[int]] = {}
+        for f, (h, leg) in enumerate(zip(self.hotness, legs)):
+            by.setdefault((h, leg), []).append(f)
+        return [fs[s:s + ek.MAX_TABLES] for fs in by.values()
+                for s in range(0, len(fs), ek.MAX_TABLES)]
+
+    def _feature_plan(self, feat_ids: torch.Tensor,
+                      with_segments: bool) -> Plan:
+        """One plan per feature over its bag's ids, table by table, on the
+        leg ``ek.resolve`` picks for its rows. The kernel leg builds one
+        launch for each group of equal hotness; the other legs build table
+        by table (``ek.plan_build``). The position segments follow
+        (``with_segments``), one launch for each group of equal hotness,
+        whatever its leg."""
+        legs = [ek.resolve(self.kernels, "plan", num_rows=r)
+                for r in self.feature_rows]
+        entries: List[Optional[emb_ops.PlanEntry]] = [None] * len(legs)
+        for f, leg in enumerate(legs):
+            if leg != "kernel":
+                entries[f] = ek.plan_build(self.feature_ids(feat_ids, f),
+                                           self.feature_rows[f],
+                                           mode=self.kernels)
+        for group in self._feature_groups(legs):
+            if legs[group[0]] != "kernel":
+                continue
+            ids = torch.stack([self.feature_ids(feat_ids, f) for f in group])
+            built = ek.plan_build_tables(
+                ids, [self.feature_rows[f] for f in group])
+            for f, e in zip(group, built):
+                entries[f] = e
+        if with_segments:
+            for group in self._feature_groups(["any"] * len(legs)):
+                inv = torch.stack([entries[f].inv.reshape(-1)
+                                   for f in group])
+                segs = ek.position_segments_tables(
+                    inv, [entries[f].uids.shape[0] for f in group])
+                for f, seg in zip(group, segs):
+                    entries[f] = entries[f]._replace(segments=seg)
+        return dict(zip(self.table_keys(), entries))
+
+    def pool(self, entry: Entry, feat_ids: torch.Tensor) -> torch.Tensor:
+        """Per-feature layout, the dense path: every feature's bag summed
+        from its table, [B, T, *trailing] (the lookups' gradient flows to
+        the tables)."""
+        parts = [emb_ops.lookup(entry[k], self.feature_ids(feat_ids, f))
+                 for f, k in enumerate(self.table_keys())]
+        with trace_lib.span("embed.pool", device=feat_ids.device):
+            return torch.stack([p.sum(dim=1) for p in parts], dim=1)
+
+    def pool_rows(self, rows: Dict[str, torch.Tensor],
+                  plan: Plan) -> torch.Tensor:
+        """Per-feature layout, the sparse update: every feature's bag
+        summed from its pre-gathered rows, [B, T, *trailing]. Each view is
+        one take (the kernel leg on the card: one take forward, and one
+        take backward over the plan's segments)."""
+        parts = [emb_ops.lookup_rows(rows[k], e, mode=self.kernels)
+                 for k, e in plan.items()]
+        with trace_lib.span("embed.pool", device=parts[0].device):
+            return torch.stack([p.sum(dim=1) for p in parts], dim=1)
+
+    def spread_index(self, plan: Plan) -> Dict[str, torch.Tensor]:
+        """``ops.embedding.spread_index`` of every table's plan, each
+        table's spread (slot s -> s mod rows) made once."""
+        out = {}
+        for k, e in plan.items():
+            n, dev = e.uids.shape[0], e.uids.device
+            spread = self._spreads.get((n, e.num_rows, dev))
+            if spread is None:
+                spread = torch.remainder(torch.arange(
+                    n, dtype=torch.int32, device=dev), e.num_rows)
+                self._spreads[(n, e.num_rows, dev)] = spread
+            out[k] = emb_ops.spread_index(e, spread)
+        return out
+
+    def gather_rows(self, entry: Entry, plan: Plan,
+                    index: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """Touched rows per table: the sparse path's gradient leaf. Fill
+        slots read zero, or, at an ``index`` per table
+        (``ops.embedding.spread_index``), real rows that no position
+        reads."""
         tabs = self.tables(entry)
+        if index is not None:
+            return {k: tabs[k].index_select(0, index[k]) for k in plan}
         return {k: emb_ops.gather_rows(tabs[k], plan[k]) for k in plan}
 
     def lookup_rows(self, rows: Dict[str, torch.Tensor],
@@ -605,7 +726,7 @@ class EmbeddingSchema:
         have no pad rows and are summed table by table. ``offset``: the
         global row of a shard's first row (this shard's part only; the
         caller sums the peers')."""
-        if self.hashed:
+        if not self.monolithic:
             return sum(l2_half_sum(t) for t in entry.values())
         return l2_half_sum(emb_ops.mask_pad_rows(entry, self.feature_size,
                                                  offset))
@@ -625,8 +746,9 @@ class EmbeddingSchema:
 
     def mask_pad_grads(self, grad_entry: torch.Tensor,
                        offset: int = 0) -> torch.Tensor:
-        """Zero pad-row gradients on the dense path (hashed tables have no
-        pad rows: the identity); ``offset`` as in :meth:`l2`."""
-        if self.hashed:
+        """Zero pad-row gradients on the dense path (hashed and per-feature
+        tables have no pad rows: the identity); ``offset`` as in
+        :meth:`l2`."""
+        if not self.monolithic:
             return grad_entry
         return emb_ops.mask_pad_rows(grad_entry, self.feature_size, offset)

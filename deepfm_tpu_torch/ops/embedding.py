@@ -245,7 +245,9 @@ def make_plan_counting(ids: torch.Tensor, num_rows: int,
     flat = plan_ids(ids, num_rows)
     n = flat.numel()
     mark = torch.zeros(num_rows + 1, dtype=torch.int32, device=flat.device)
-    mark[flat.long()] = 1
+    # index_fill_, not ``mark[ids] = 1``: that copies the scalar to the card
+    # from pageable memory, which waits for every queued launch.
+    mark.index_fill_(0, flat.long(), 1)
     csum = torch.cumsum(mark, 0, dtype=torch.int32)
     rank = csum - mark
     inv = rank[flat.long()]
@@ -260,6 +262,15 @@ def make_plan_counting(ids: torch.Tensor, num_rows: int,
 def valid_rows(entry: PlanEntry) -> torch.Tensor:
     """Bool [N]: which uid slots name a real (in-bounds) touched row."""
     return entry.uids < entry.num_rows
+
+
+def spread_index(entry: PlanEntry, spread: torch.Tensor) -> torch.Tensor:
+    """int32 [N]: each uid slot's table row, fill slot s at ``spread[s]``
+    (int32 [N], s mod rows: spread over the table, not piled on one row).
+    A gather at it reads real rows in the fill slots, and an add at it that
+    gives the fill slots zero changes no row: for a caller that needs no
+    zero fill."""
+    return torch.where(valid_rows(entry), entry.uids, spread)
 
 
 def gather_rows(table: torch.Tensor, entry: PlanEntry) -> torch.Tensor:

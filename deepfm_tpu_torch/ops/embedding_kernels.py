@@ -8,12 +8,18 @@ Each seam has up to three legs, picked by :func:`resolve` from the
   * ``kernel`` (``auto``, ``pallas``) -- the hand-written CUDA kernels of
     ``csrc/embedding.cu`` on CUDA tensors. A CPU tensor takes the kernel's
     plain version instead; a CUDA tensor launches the kernel or raises.
-  * ``opt`` (``xla``) -- the plain torch legs: the counting plan build,
-    ``rows[inv]`` with autograd's own backward, and the install's four
-    masked copies under one mask (``reference_install``).
-  * ``ref`` (``off``, and plans over more than ``PLAN_COUNT_MAX_ROWS``
-    rows) -- the sort-based plan, ``rows[inv]``, and one masked copy per
-    array (``install_array``, the JAX ``_jit_install``).
+  * ``opt`` (``xla``, and under ``auto``/``pallas`` the plans over more
+    than ``PLAN_COUNT_MAX_ROWS`` rows) -- the plain torch legs: the
+    counting plan build, ``rows[inv]`` with autograd's own backward, and
+    the install's four masked copies under one mask
+    (``reference_install``).
+  * ``ref`` (``off``) -- the sort-based plan, ``rows[inv]``, and one
+    masked copy per array (``install_array``, the JAX ``_jit_install``).
+
+Above ``PLAN_COUNT_MAX_ROWS`` rows the JAX package keeps the sort leg;
+the port takes the counting plan's plain version there on every layout
+(a [rows + 1] prefix sum on the card), since the sort leg's unique count
+waits for the card once a table a step. The plans are the same.
 
 All legs give bit-identical plans and installs. The take legs give
 identical values; their backward sums each uid slot's cotangents in
@@ -76,8 +82,9 @@ MAX_TABLES = 8
 #: path (``csrc/embedding.cu`` ``kLongRun``).
 LONG_RUN = 256
 
-# The counting plan build does a [rows+1] prefix sum; above this many rows
-# the sort-based build is kept (``deepfm_tpu.ops.pallas_embedding``).
+# The plan kernel counts over a [rows+1] id space; above this many rows
+# the counting plan's plain version builds the plan (the JAX package's
+# ``pallas_embedding`` keeps its sort-based build there).
 PLAN_COUNT_MAX_ROWS = 2_000_000
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -108,7 +115,7 @@ def resolve(mode: str, kernel: str, *, num_rows: int = 0) -> str:
     if mode == "off":
         return "ref"
     if kernel == "plan" and num_rows > PLAN_COUNT_MAX_ROWS:
-        return "ref"
+        return "opt"
     return "kernel" if mode in ("auto", "pallas") else "opt"
 
 

@@ -416,6 +416,8 @@ class Trainer:
         self._data_group = mi.data_group()
         self._shard = mi.model_axis()
         self.opt = opt_lib.build_optimizer(cfg, world_size=self._world)
+        # The sparse update's row form: exact Adagrad's, else lazy Adam's.
+        self._exact_adagrad = isinstance(self.opt, opt_lib.ExactAdagrad)
         self._embed_names = self.model.embedding_param_names()
         # Sparse (touched-rows-only) embedding updates with lazy Adam; the
         # tables' flat state names, and the rest of the params, which the
@@ -516,11 +518,13 @@ class Trainer:
         """Dense: the optimizer's state over all params. Sparse: the
         JAX package's ``{"base", "embed", "count"}`` layout, the optimizer
         over the non-embedding params, lazy-Adam slots per (param, table)
-        and the embeddings' step count (a host int)."""
+        (under ``exact_adagrad`` its accumulator) and the embeddings' step
+        count (a host int)."""
         if not self.sparse_embed:
             return self.opt.init(params)
-        embed = {n: {k: opt_lib.embed_adam_init(params[p])
-                     for k, p in keys.items()}
+        init = (opt_lib.embed_adagrad_init if self._exact_adagrad
+                else opt_lib.embed_adam_init)
+        embed = {n: {k: init(params[p]) for k, p in keys.items()}
                  for n, keys in self._embed_keys.items()}
         return {"base": self.opt.init({k: params[k] for k in self._rest_keys}),
                 "embed": embed, "count": 0}
@@ -807,9 +811,10 @@ class Trainer:
         """The fused formulation: the [B, F, D] batch views of each table
         are the gradient leaves (no plan), every name's cotangents land in
         one table-shaped scatter-add with an occupancy column, and lazy Adam
-        runs as a masked table sweep. Monolithic layout only;
-        ``--embedding_kernels off`` switches back to the plan path."""
-        return self.cfg.embedding_kernels != "off" and not self.model.emb.hashed
+        runs as a masked table sweep. Monolithic layout and lazy Adam
+        only; ``--embedding_kernels off`` switches back to the plan path."""
+        return (self.cfg.embedding_kernels != "off"
+                and self.model.emb.monolithic and not self._exact_adagrad)
 
     def _fused_tables_ok(self, tabs: Dict[str, torch.Tensor]) -> bool:
         heights = {t.shape[0] for t in tabs.values()}
@@ -889,15 +894,24 @@ class Trainer:
 
     @torch.no_grad()
     def _sparse_apply(self, state: TrainState, plan, rows0, g_rows,
-                      count: int) -> None:
+                      count: int, index=None) -> None:
         """Lazy-Adam apply and scatter writeback for every (name, table), in
-        place. The counting plans' touched/rank companions are stripped
-        first, as the JAX trainer strips them, so every leg writes back by
-        scatter."""
-        plan = {k: e._replace(touched=None, rank=None)
-                for k, e in plan.items()}
+        place; under exact Adagrad its step added at the rows' ``index``
+        (``opt_lib.sparse_adagrad_apply_tables``). The counting plans'
+        touched/rank companions are stripped first, as the JAX trainer
+        strips them, so every leg writes back by scatter."""
         opt_embed = state.opt_state["embed"]
         tabs = self._tables(state)
+        if self._exact_adagrad:
+            keys = list(plan)
+            for name in self._embed_names:
+                opt_lib.sparse_adagrad_apply_tables(
+                    [g_rows[name][k] for k in keys], [index[k] for k in keys],
+                    [opt_embed[name][k] for k in keys], lr=self.opt.lr,
+                    eps=self.opt.eps, tables=[tabs[name][k] for k in keys])
+            return
+        plan = {k: e._replace(touched=None, rank=None)
+                for k, e in plan.items()}
         for name in self._embed_names:
             for key, e in plan.items():
                 opt_lib.sparse_apply_rows(
@@ -918,52 +932,76 @@ class Trainer:
         are the leaves and one table-shaped scatter-add gathers their
         cotangents. The leaves are detached tensors differentiated with
         ``torch.autograd.grad``; the rest of the params go through the
-        optimizer as on the dense path."""
+        optimizer as on the dense path.
+
+        Spans: ``embed.plan`` (the plans and their segments; its args
+        count the batch's ``lookups``, ``unique_rows`` and the
+        ``sort_tables`` planned by the sort leg), ``embed.fwd`` (the
+        touched rows' gathers; the model opens its own for the views),
+        ``train.loss``, ``train.backward`` and ``train.optimizer`` (every
+        apply; args ``unique_rows`` and ``dense_params``)."""
         emb = self.model.emb
+        dev = self.device
         tabs = self._tables(state)
         rest = [state.params[k] for k in self._rest_keys]
         labels = self._batch_labels(batch)
         mono = {n: t[emb.MONO] for n, t in tabs.items()} \
-            if not emb.hashed else None
+            if emb.monolithic else None
         fused = self._use_fused_backward() and self._fused_tables_ok(mono)
         with torch.enable_grad():
             if fused:
                 plan = None
-                rows0 = {n: {emb.MONO: emb_ops.lookup(t, batch["feat_ids"])}
-                         for n, t in mono.items()}
+                with trace_lib.span("embed.fwd", device=dev):
+                    rows0 = {n: {emb.MONO: emb_ops.lookup(
+                        t, batch["feat_ids"])} for n, t in mono.items()}
             else:
-                plan = emb.sparse_plan(batch["feat_ids"])
-                rows0 = {n: emb.gather_rows(emb.from_tables(tabs[n]), plan)
-                         for n in self._embed_names}
+                with trace_lib.span("embed.plan", device=dev):
+                    plan = emb.sparse_plan(batch["feat_ids"])
+                    unique = _plan_counts(
+                        plan, emb.num_lookups(batch["feat_ids"]))
+                # Exact Adagrad adds its step at the gathered rows, so its
+                # fill slots need no zero rows (``_sparse_apply``).
+                index = emb.spread_index(plan) if self._exact_adagrad else None
+                with trace_lib.span("embed.fwd", device=dev):
+                    rows0 = {n: emb.gather_rows(emb.from_tables(tabs[n]),
+                                                plan, index)
+                             for n in self._embed_names}
             leaves = {n: {k: r.detach().requires_grad_()
                           for k, r in rows.items()}
                       for n, rows in rows0.items()}
             logits = self._logits(state, batch, train=True, emb_rows=leaves,
                                   emb_plan=plan)
-            xent = torch.mean(self._per_example_loss(logits, labels))
-            loss = xent
-            if not fused:
-                # Touched-rows-only l2: idle rows do not decay between
-                # touches. (The fused leg adds it in ``_fused_apply``.)
-                l2 = self.model.l2_loss(emb_rows=leaves, emb_plan=plan)
-                loss = xent + l2
+            with trace_lib.span("train.loss", device=dev):
+                xent = torch.mean(self._per_example_loss(logits, labels))
+                loss = xent
+                if not fused:
+                    # Touched-rows-only l2: idle rows do not decay between
+                    # touches. (The fused leg adds it in ``_fused_apply``.)
+                    l2 = self.model.l2_loss(emb_rows=leaves, emb_plan=plan)
+                    loss = xent + l2
             flat = [(n, k) for n in self._embed_names for k in leaves[n]]
-            grads = _grads(loss, [leaves[n][k] for n, k in flat] + rest)
+            with trace_lib.span("train.backward", device=dev):
+                grads = _grads(loss, [leaves[n][k] for n, k in flat] + rest)
         g_rows = {n: {} for n in self._embed_names}
         for (n, k), g in zip(flat, grads):
             g_rows[n][k] = g
         opt = state.opt_state
-        self.opt.apply({k: state.params[k] for k in self._rest_keys},
-                       dict(zip(self._rest_keys, grads[len(flat):])),
-                       opt["base"])
         count = opt["count"] + 1
-        if fused:
-            gext = self._fused_grad_ext(
-                mono, batch["feat_ids"],
-                {n: g[emb.MONO] for n, g in g_rows.items()})
-            l2 = self._fused_apply(state, mono, gext, count)
-        else:
-            self._sparse_apply(state, plan, rows0, g_rows, count)
+        with trace_lib.span("train.optimizer", device=dev):
+            self.opt.apply({k: state.params[k] for k in self._rest_keys},
+                           dict(zip(self._rest_keys, grads[len(flat):])),
+                           opt["base"])
+            if fused:
+                gext = self._fused_grad_ext(
+                    mono, batch["feat_ids"],
+                    {n: g[emb.MONO] for n, g in g_rows.items()})
+                l2 = self._fused_apply(state, mono, gext, count)
+            else:
+                self._sparse_apply(state, plan, rows0, g_rows, count, index)
+                if unique is not None:
+                    trace_lib.add_counts(lambda: {
+                        "unique_rows": int(unique),
+                        "dense_params": sum(p.numel() for p in rest)})
         opt["count"] = count
         state.step += 1
         return state, {"loss": (xent + l2).detach(), "xent": xent.detach()}
@@ -1189,7 +1227,7 @@ class Trainer:
         tabs = self._tables(state)
         rest = [state.params[k] for k in self._rest_keys]
         mono = {n: t[emb.MONO] for n, t in tabs.items()} \
-            if not emb.hashed else None
+            if emb.monolithic else None
         fused = self._use_fused_backward() and self._fused_tables_ok(mono)
         ids = torch.cat([b["feat_ids"] for b in batches])
         offs = [0]
@@ -1959,6 +1997,26 @@ def _grads(out: torch.Tensor, inputs: List[torch.Tensor],
     grads = torch.autograd.grad(out, inputs, allow_unused=True, **kw)
     return [torch.zeros_like(x) if g is None else g
             for x, g in zip(inputs, grads)]
+
+
+def _plan_counts(plan, lookups: int) -> Optional[torch.Tensor]:
+    """While tracing, hand the open ``embed.plan`` span the plan's counts:
+    ``lookups`` (ids planned), ``sort_tables`` (tables the sort leg built:
+    no touched marks) and ``unique_rows`` (real uid slots of every table,
+    summed on the card and read once the span has run). Returns the pinned
+    count for the optimizer's span, or None with tracing off."""
+    if not trace_lib.enabled():
+        return None
+    entries = list(plan.values())
+    total = torch.stack([emb_ops.valid_rows(e).sum() for e in entries]).sum()
+    unique = torch.empty((), dtype=torch.int64,
+                         pin_memory=total.device.type == "cuda")
+    unique.copy_(total, non_blocking=True)
+    sort_tables = sum(e.touched is None for e in entries)
+    trace_lib.add_counts(lambda: {"lookups": lookups,
+                                  "unique_rows": int(unique),
+                                  "sort_tables": sort_tables})
+    return unique
 
 
 def _groups(batches: Iterable[Batch], k: int) -> Iterator[List[Batch]]:

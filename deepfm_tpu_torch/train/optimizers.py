@@ -16,9 +16,15 @@ repeats optax's formulas, operation for operation:
     u = t.  SGD without momentum: u = g.
   * FTRL-Proximal, the JAX package's own transformation (``ftrl``).
 
-and the step is ``p = p + (-lr) * u``. These update every row of every
-table each step (the dense path); with ``--embedding_update sparse`` the
-embedding tables take the lazy Adam at the end of this module instead.
+and the step is ``p = p + (-lr) * u``. Beside them, ``exact_adagrad`` is
+the published Adagrad that MLPerf's DLRM-DCNv2 trains with (FBGEMM's exact
+Adagrad for its tables, ``torch.optim.Adagrad`` for the rest): the
+accumulator starts at 0 and eps (1e-8) is added outside the square root,
+    acc = acc + g^2;  u = g / (sqrt(acc) + eps).
+These update every row of every table each step (the dense path); with
+``--embedding_update sparse`` the embedding tables take the lazy Adam or,
+under ``exact_adagrad``, its row form (both at the end of this module)
+instead.
 Updates are written in place with ``torch._foreach_*`` over the parameter
 list, under ``torch.no_grad()``.
 
@@ -109,6 +115,26 @@ class Adagrad:
                               torch.zeros((), dtype=s.dtype, device=s.device))
             us.append(inv * g)
         _apply_step(ps, us, self.lr)
+
+
+class ExactAdagrad:
+    """The published Adagrad: ``acc = acc + g^2``, ``u = g / (sqrt(acc) +
+    eps)``, the accumulator from 0. Exact where a gradient is zero: the
+    parameter and its accumulator stay as they are."""
+
+    def __init__(self, lr: float, *, eps: float = 1e-8):
+        self.lr, self.eps = lr, eps
+
+    def init(self, params: Params) -> dict:
+        return {"sum_of_squares": _zeros(params)}
+
+    @torch.no_grad()
+    def apply(self, params: Params, grads: Params, state: dict) -> None:
+        ps, gs, accs = _lists(params, grads, state["sum_of_squares"])
+        torch._foreach_add_(accs, torch._foreach_mul(gs, gs))
+        den = torch._foreach_sqrt(accs)
+        torch._foreach_add_(den, self.eps)
+        _apply_step(ps, torch._foreach_div(gs, den), self.lr)
 
 
 class Sgd:
@@ -285,6 +311,47 @@ def sparse_apply_rows(rows0: torch.Tensor, g_rows: torch.Tensor,
     emb_ops.set_rows_scalar(oe.tau, entry, count)
 
 
+# ---------------------------------------------------------------------------
+# Sparse (touched-rows-only) exact Adagrad
+# ---------------------------------------------------------------------------
+#
+# A row no id touches has a zero gradient, under which ``ExactAdagrad``
+# moves neither the row nor its accumulator: the row form below is the
+# dense optimizer's step, with no correction for idle steps.
+
+
+def embed_adagrad_init(table: torch.Tensor) -> torch.Tensor:
+    """A table's accumulator: float32 zeros like it."""
+    return torch.zeros_like(table, dtype=torch.float32)
+
+
+@torch.no_grad()
+def sparse_adagrad_apply_tables(g_rows: List[torch.Tensor],
+                                index: List[torch.Tensor],
+                                accs: List[torch.Tensor], *, lr: float,
+                                eps: float,
+                                tables: List[torch.Tensor]) -> None:
+    """Every table's sparse exact-Adagrad step, IN PLACE: ``g_rows`` [N, ...]
+    are the gradients of the rows at ``index`` (``ops.embedding.
+    spread_index`` of the plan: real slots at unique rows, fill slots with a
+    zero gradient), ``ExactAdagrad``'s arithmetic over every table at once
+    (foreach ops), then the step and the squared gradient added into each
+    table and accumulator at ``index``. Each row takes one add of a nonzero
+    value at most (the fill slots add zeros), so the adds give the rows
+    ``ExactAdagrad`` gives, whatever their order."""
+    g = [x.float() for x in g_rows]
+    acc_rows = [a.index_select(0, i) for a, i in zip(accs, index)]
+    g2 = torch._foreach_mul(g, g)
+    torch._foreach_add_(acc_rows, g2)
+    den = torch._foreach_sqrt(acc_rows)
+    torch._foreach_add_(den, eps)
+    u = torch._foreach_div(g, den)
+    torch._foreach_mul_(u, -lr)
+    for table, acc, i, du, dg in zip(tables, accs, index, u, g2):
+        table.index_add_(0, i, du.to(table.dtype))
+        acc.index_add_(0, i, dg)
+
+
 def build_optimizer(cfg: Config, *, world_size: int = 1):
     """The configured optimizer, lr scaled by the data-parallel world size
     under ``scale_lr_by_world`` (world is 1 on one device)."""
@@ -296,6 +363,8 @@ def build_optimizer(cfg: Config, *, world_size: int = 1):
         return Adam(lr, b1=0.9, b2=0.999, eps=1e-8)
     if name == "adagrad":
         return Adagrad(lr, initial_accumulator_value=1e-8)
+    if name == "exact_adagrad":
+        return ExactAdagrad(lr, eps=1e-8)
     if name in ("momentum", "sgd"):
         return Sgd(lr, momentum=0.95 if name == "momentum" else None)
     if name == "ftrl":

@@ -124,13 +124,20 @@ def test_resolve_legs():
     assert ek.resolve("off", "take") == "ref"
     big = ek.PLAN_COUNT_MAX_ROWS + 1
     assert ek.PLAN_COUNT_MAX_ROWS == pemb.PLAN_COUNT_MAX_ROWS
-    assert ek.resolve("auto", "plan", num_rows=big) == "ref"
+    # Past the plan kernel's rows the counting plan's plain version (the
+    # JAX package keeps its sort leg there; the plans are the same).
+    assert ek.resolve("auto", "plan", num_rows=big) == "opt"
+    assert ek.resolve("xla", "plan", num_rows=big) == "opt"
+    assert ek.resolve("off", "plan", num_rows=big) == "ref"
     assert ek.resolve("auto", "take", num_rows=big) == "kernel"
     assert ek.MODES == pemb.MODES
     with pytest.raises(ValueError, match="embedding_kernels"):
         ek.resolve("bogus", "plan")
-    assert ek.plan_build(torch.zeros(4, dtype=torch.int32), big).touched \
-        is None
+    ids = torch.tensor([5, 0, 5, big], dtype=torch.int32)
+    p = ek.plan_build(ids, big)
+    assert p.touched is not None
+    _assert_plan_equal(p, pemb.reference_plan_numpy(ids.numpy(), big))
+    assert ek.plan_build(ids, big, mode="off").touched is None
 
 
 # ---------------------------------------------------------------------------
