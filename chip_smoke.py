@@ -108,8 +108,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    3-row table) and to a second launch, whose long runs are counted
    against the segments'; the 100-hot bags of a 10,000,000-row table
    pooled through plan, gather and take bit-equal to ``table[ids]``
-   summed. ``python3 chip_smoke.py --phase dlrm`` runs it alone (no
-   result lines).
+   summed. Then the sparse exact Adagrad (``dfm_sparse_adagrad``) over
+   the 26 full tables and accumulators for three consecutive steps, each
+   bit-equal to the foreach path (``sparse_adagrad_apply_tables``) run on
+   compact copies of the rows the steps touch, untouched rows unchanged,
+   one launch a step; its time beside its bound (20 B x touched rows x K
+   at 3.35 TB/s), the foreach path's and one ``index_add_`` pair a table.
+   ``python3 chip_smoke.py --phase dlrm`` runs both alone (no result
+   lines).
 8. Determinism: the dense, sparse monolithic and dense hashed layouts
    and DIN over ragged histories trained twice for 20 steps from the same
    seed on the same batches; losses and every embedding table must be
@@ -380,6 +386,7 @@ import threading
 import time
 import types
 import warnings
+from typing import Optional
 
 import numpy as np
 import torch
@@ -417,6 +424,7 @@ from deepfm_tpu_torch.serve import ReplicatedEngine, ServingEngine  # noqa: E402
 from deepfm_tpu_torch.train import Trainer, tasks  # noqa: E402
 from deepfm_tpu_torch.train import guard as guard_lib  # noqa: E402
 from deepfm_tpu_torch.train import loop as loop_lib  # noqa: E402
+from deepfm_tpu_torch.train import optimizers as opt_lib  # noqa: E402
 from deepfm_tpu_torch.train.optimizers import Adam  # noqa: E402
 from deepfm_tpu_torch.train.publish import Publisher  # noqa: E402
 from deepfm_tpu_torch.train.state import StateSnapshot  # noqa: E402
@@ -1412,12 +1420,13 @@ DLRM_CONFIG = os.path.join(HERE, "perfbench", "configs", "dlrm_dcnv2.json")
 DLRM_B = 16384
 
 
-def dlrm_ids(cfg: Config, rng, dev: torch.device) -> torch.Tensor:
+def dlrm_ids(cfg: Config, rng, dev: torch.device,
+             b: int = DLRM_B) -> torch.Tensor:
     """One batch of the cell's rows on the card: 13 dense columns (id 0),
     then each feature's bag, ids uniform over its table's rows."""
-    cols = [np.zeros((DLRM_B, cfg.field_size - sum(
+    cols = [np.zeros((b, cfg.field_size - sum(
         cfg.feature_hotness_values)), np.int32)]
-    cols += [rng.integers(0, r, (DLRM_B, h), dtype=np.int32) for h, r in
+    cols += [rng.integers(0, r, (b, h), dtype=np.int32) for h, r in
              zip(cfg.feature_hotness_values, cfg.table_row_counts)]
     return torch.from_numpy(np.concatenate(cols, axis=1)).to(dev)
 
@@ -1541,6 +1550,129 @@ def dlrm_kernels_phase() -> dict:
           f"launches a step {launches}; plan_ms={plan_ms:.6f} "
           f"take_fwd_ms={fwd_ms:.6f} (cuda_events, all tables)")
     return launches
+
+
+# The sparse exact Adagrad's steps held bit-equal, and its lr and eps
+# (the cell's: ``ExactAdagrad``'s eps).
+DLRM_ADAGRAD_STEPS = 3
+DLRM_LR, DLRM_EPS = 0.004, 1e-8
+
+
+def dlrm_adagrad_phase(cfg: Optional[Config] = None,
+                       dev: torch.device = torch.device("cuda")) -> dict:
+    """The sparse exact Adagrad at the cell's step (module docstring, phase
+    7): three consecutive steps of ``dfm_sparse_adagrad`` over the 26 full
+    tables and accumulators, bit-equal to the foreach path
+    (``sparse_adagrad_apply_tables``) run on compact copies of the rows
+    the three steps touch (both copies of 54 M rows do not fit beside each
+    other), untouched rows unchanged; then its time beside its bound, the
+    foreach path's and one ``index_add_`` pair a table. Returns the
+    times. (A rehearsal on the CPU: a small ``cfg`` of the model with
+    ``batch_size`` and ``dev`` cpu, where the wrapper takes the foreach
+    path and nothing is timed.)"""
+    if cfg is None:
+        torch.cuda.empty_cache()
+        with open(DLRM_CONFIG) as f:
+            cfg = Config(**json.load(f)["flags"], batch_size=DLRM_B)
+    emb = EmbeddingSchema(cfg)
+    rows, k, keys = emb.feature_rows, cfg.embedding_size, emb.table_keys()
+    rng = np.random.default_rng(SEED + 92)
+    plans = [emb.sparse_plan(dlrm_ids(cfg, rng, dev, cfg.batch_size))
+             for _ in range(DLRM_ADAGRAD_STEPS)]
+
+    def start(t: int, acc: bool) -> torch.Tensor:
+        """Table t's first value (uniform in +-0.5) or accumulator (in
+        [0, 1)), the same on every call."""
+        gen = torch.Generator(device=dev).manual_seed(SEED + 100 + 2 * t
+                                                      + int(acc))
+        x = torch.rand((rows[t], k), device=dev, generator=gen)
+        return x if acc else x.sub_(0.5)
+
+    def grads(step: int) -> list:
+        """The step's gradient rows, zero at fill slots (as the take
+        backward leaves them), the same on every call."""
+        gen = torch.Generator(device=dev).manual_seed(SEED + 200 + step)
+        out = []
+        for t, key in enumerate(keys):
+            u = plans[step][key].uids
+            g = torch.randn((u.shape[0], k), device=dev, generator=gen)
+            out.append(g.masked_fill_((u >= rows[t]).unsqueeze(1), 0.0))
+        return out
+
+    bits = lambda x: x.view(torch.int32)  # noqa: E731
+    union = [torch.unique(torch.cat([
+        p[key].uids[p[key].uids < rows[t]] for p in plans])).long()
+        for t, key in enumerate(keys)]
+    tabs = [start(t, False) for t in range(len(keys))]
+    accs = [start(t, True) for t in range(len(keys))]
+    ctabs = [x[u] for x, u in zip(tabs, union)]
+    caccs = [x[u] for x, u in zip(accs, union)]
+    before = opt_lib.adagrad_launches
+    for step in range(DLRM_ADAGRAD_STEPS):
+        g = grads(step)
+        uids = [plans[step][key].uids for key in keys]
+        opt_lib.sparse_adagrad_tables(g, uids, accs, lr=DLRM_LR,
+                                      eps=DLRM_EPS, tables=tabs)
+        # The foreach path on the compact rows: a real slot at its row's
+        # place in the union, a fill slot (zero gradient) spread over it.
+        index = []
+        for t, u in enumerate(uids):
+            spread = torch.remainder(torch.arange(
+                u.shape[0], device=dev), union[t].numel())
+            index.append(torch.where(u < rows[t], torch.searchsorted(
+                union[t], u.long()), spread))
+        opt_lib.sparse_adagrad_apply_tables(g, index, caccs, lr=DLRM_LR,
+                                            eps=DLRM_EPS, tables=ctabs)
+        for t, u in enumerate(union):
+            assert torch.equal(bits(tabs[t][u]), bits(ctabs[t])), (step, t)
+            assert torch.equal(bits(accs[t][u]), bits(caccs[t])), (step, t)
+        del g, index
+    launches = opt_lib.adagrad_launches - before
+    assert launches == (DLRM_ADAGRAD_STEPS if dev.type == "cuda" else 0), \
+        launches
+    del ctabs, caccs
+    for t, u in enumerate(union):
+        for x, acc in ((tabs[t], False), (accs[t], True)):
+            changed = (bits(x) != bits(start(t, acc))).any(dim=1)
+            changed[u] = False
+            assert not bool(changed.any()), (t, acc)
+    del union
+    if dev.type != "cuda":
+        return {"launches": launches}
+
+    uids = [plans[0][key].uids for key in keys]
+    g = grads(0)
+    touched = int(sum(int((u < r).sum()) for u, r in zip(uids, rows)))
+    slots = sum(u.shape[0] for u in uids)
+    bound_ms = 20 * touched * k / HBM_BYTES_PER_S * 1e3
+    kern_ms = cuda_ms(lambda: opt_lib.sparse_adagrad_tables(
+        g, uids, accs, lr=DLRM_LR, eps=DLRM_EPS, tables=tabs), iters=20,
+        warmup=3)
+    spread = emb.spread_index(plans[0])
+    index = [spread[key] for key in keys]
+    plain_ms = cuda_ms(lambda: opt_lib.sparse_adagrad_apply_tables(
+        g, index, accs, lr=DLRM_LR, eps=DLRM_EPS, tables=tabs), iters=5,
+        warmup=1)
+
+    def index_add_pair():
+        for tab, acc, i, x in zip(tabs, accs, index, g):
+            tab.index_add_(0, i, x)
+            acc.index_add_(0, i, x)
+
+    lib_ms = cuda_ms(index_add_pair, iters=5, warmup=1)
+    print(f"dlrm sparse adagrad B={cfg.batch_size} K={k} T={len(keys)} ({touched} "
+          f"touched rows of {slots} slots a step): dfm_sparse_adagrad "
+          f"bit-equal to the foreach path (sparse_adagrad_apply_tables) on "
+          f"tables and accumulators over {DLRM_ADAGRAD_STEPS} steps, "
+          f"untouched rows unchanged; {launches // DLRM_ADAGRAD_STEPS} "
+          f"launch a step; kernel_ms={kern_ms:.6f} bound_ms={bound_ms:.6f} "
+          f"(20 B x touched rows x K at 3.35 TB/s; "
+          f"{100 * bound_ms / kern_ms:.1f}% of it) plain_ms={plain_ms:.6f} "
+          f"library_ms={lib_ms:.6f} (one index_add_ pair a table) "
+          f"(cuda_events; {card_line()})")
+    return {"kernel_ms": kern_ms, "bound_ms": bound_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "launches": launches // DLRM_ADAGRAD_STEPS}
 
 
 def take_phase():
@@ -6054,9 +6186,10 @@ def main() -> int:
         take_bwd_long_phase()
         return 0
     if sys.argv[1:] == ["--phase", "dlrm"]:
-        # The per-feature path's kernels at the DLRM-DCNv2 cell's shapes;
-        # no result lines.
+        # The per-feature path's kernels at the DLRM-DCNv2 cell's shapes,
+        # its sparse Adagrad included; no result lines.
         dlrm_kernels_phase()
+        dlrm_adagrad_phase()
         return 0
     if sys.argv[1:] == ["--phase", "dp"]:
         # The data-parallel phase alone (a quick check of that path); no
@@ -6087,6 +6220,7 @@ def main() -> int:
     hist_t = history_kernels_phase()
     take_bwd_long_phase()
     dlrm_kernels_phase()
+    dlrm_adagrad_phase()
     clock.lap("kernels")
 
     cfg = Config()

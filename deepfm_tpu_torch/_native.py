@@ -74,10 +74,20 @@ def _bind_embedding(lib: ctypes.CDLL) -> None:
     scratch.restype = ctypes.c_int64
 
 
+def _bind_optimizer(lib: ctypes.CDLL) -> None:
+    ptrs = ctypes.POINTER(ctypes.c_void_p)
+    ints = ctypes.POINTER(ctypes.c_int64)
+    adagrad = lib.dfm_sparse_adagrad
+    adagrad.argtypes = [ptrs, ints, ints, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_float, ctypes.c_float, _P]
+    adagrad.restype = ctypes.c_int
+
+
 # Kernel library name -> function that declares its C signatures.
 _BINDERS: Dict[str, Callable[[ctypes.CDLL], None]] = {
     "fused_fm": _bind_fused_fm,
     "embedding": _bind_embedding,
+    "optimizer": _bind_optimizer,
 }
 
 _lock = threading.Lock()

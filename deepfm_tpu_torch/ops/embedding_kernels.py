@@ -16,6 +16,10 @@ Each seam has up to three legs, picked by :func:`resolve` from the
   * ``ref`` (``off``) -- the sort-based plan, ``rows[inv]``, and one
     masked copy per array (``install_array``, the JAX ``_jit_install``).
 
+The sparse exact Adagrad's seam (``"adagrad"``) is picked here too; its
+kernel (``csrc/optimizer.cu``) and its wrapper live in
+``train/optimizers.py``, and both plain legs are its foreach path.
+
 Above ``PLAN_COUNT_MAX_ROWS`` rows the JAX package keeps the sort leg;
 the port takes the counting plan's plain version there on every layout
 (a [rows + 1] prefix sum on the card), since the sort leg's unique count
@@ -106,11 +110,12 @@ def _count(name: str) -> None:
 
 def resolve(mode: str, kernel: str, *, num_rows: int = 0) -> str:
     """The leg ("kernel" | "opt" | "ref") of one seam ("plan" | "take" |
-    "install")."""
+    "install" | "adagrad", the last the sparse exact-Adagrad update of
+    ``train/optimizers.py``)."""
     if mode not in MODES:
         raise ValueError(f"embedding_kernels must be one of {MODES}, "
                          f"got {mode!r}")
-    if kernel not in ("plan", "take", "install"):
+    if kernel not in ("plan", "take", "install", "adagrad"):
         raise ValueError(f"unknown kernel {kernel!r}")
     if mode == "off":
         return "ref"

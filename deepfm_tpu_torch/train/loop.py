@@ -894,21 +894,24 @@ class Trainer:
 
     @torch.no_grad()
     def _sparse_apply(self, state: TrainState, plan, rows0, g_rows,
-                      count: int, index=None) -> None:
+                      count: int) -> None:
         """Lazy-Adam apply and scatter writeback for every (name, table), in
-        place; under exact Adagrad its step added at the rows' ``index``
-        (``opt_lib.sparse_adagrad_apply_tables``). The counting plans'
-        touched/rank companions are stripped first, as the JAX trainer
-        strips them, so every leg writes back by scatter."""
+        place; under exact Adagrad its row update at the plans' uids
+        (``opt_lib.sparse_adagrad_tables``: one kernel launch for a name's
+        tables on the card). The counting plans' touched/rank companions
+        are stripped first, as the JAX trainer strips them, so every leg
+        writes back by scatter."""
         opt_embed = state.opt_state["embed"]
         tabs = self._tables(state)
         if self._exact_adagrad:
             keys = list(plan)
             for name in self._embed_names:
-                opt_lib.sparse_adagrad_apply_tables(
-                    [g_rows[name][k] for k in keys], [index[k] for k in keys],
+                opt_lib.sparse_adagrad_tables(
+                    [g_rows[name][k] for k in keys],
+                    [plan[k].uids for k in keys],
                     [opt_embed[name][k] for k in keys], lr=self.opt.lr,
-                    eps=self.opt.eps, tables=[tabs[name][k] for k in keys])
+                    eps=self.opt.eps, tables=[tabs[name][k] for k in keys],
+                    mode=self.cfg.embedding_kernels)
             return
         plan = {k: e._replace(touched=None, rank=None)
                 for k, e in plan.items()}
@@ -939,7 +942,8 @@ class Trainer:
         ``sort_tables`` planned by the sort leg), ``embed.fwd`` (the
         touched rows' gathers; the model opens its own for the views),
         ``train.loss``, ``train.backward`` and ``train.optimizer`` (every
-        apply; args ``unique_rows`` and ``dense_params``)."""
+        apply; args ``unique_rows``, ``dense_params`` and, under exact
+        Adagrad on the card, ``adagrad_launches``)."""
         emb = self.model.emb
         dev = self.device
         tabs = self._tables(state)
@@ -959,8 +963,8 @@ class Trainer:
                     plan = emb.sparse_plan(batch["feat_ids"])
                     unique = _plan_counts(
                         plan, emb.num_lookups(batch["feat_ids"]))
-                # Exact Adagrad adds its step at the gathered rows, so its
-                # fill slots need no zero rows (``_sparse_apply``).
+                # Exact Adagrad leaves fill slots alone (``_sparse_apply``),
+                # so they need no zero rows: they read real rows here.
                 index = emb.spread_index(plan) if self._exact_adagrad else None
                 with trace_lib.span("embed.fwd", device=dev):
                     rows0 = {n: emb.gather_rows(emb.from_tables(tabs[n]),
@@ -997,7 +1001,7 @@ class Trainer:
                     {n: g[emb.MONO] for n, g in g_rows.items()})
                 l2 = self._fused_apply(state, mono, gext, count)
             else:
-                self._sparse_apply(state, plan, rows0, g_rows, count, index)
+                self._sparse_apply(state, plan, rows0, g_rows, count)
                 if unique is not None:
                     trace_lib.add_counts(lambda: {
                         "unique_rows": int(unique),

@@ -35,13 +35,18 @@ on the host in float32), so it checkpoints with ``torch.save``.
 
 from __future__ import annotations
 
+import ctypes
+import threading
 from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
 
+from .. import _native
 from ..config import Config
+from ..obs import trace as trace_lib
 from ..ops import embedding as emb_ops
+from ..ops import embedding_kernels as ek
 
 Params = Dict[str, torch.Tensor]
 
@@ -317,7 +322,12 @@ def sparse_apply_rows(rows0: torch.Tensor, g_rows: torch.Tensor,
 #
 # A row no id touches has a zero gradient, under which ``ExactAdagrad``
 # moves neither the row nor its accumulator: the row form below is the
-# dense optimizer's step, with no correction for idle steps.
+# dense optimizer's step, with no correction for idle steps. On the card
+# :func:`sparse_adagrad_tables` runs it as one hand-written kernel over
+# every table (``csrc/optimizer.cu``: each touched row's gradient,
+# accumulator and value read once, the last two written back), and
+# :func:`sparse_adagrad_apply_tables` is its plain version (foreach ops and
+# ``index_add_``), bit for bit the same.
 
 
 def embed_adagrad_init(table: torch.Tensor) -> torch.Tensor:
@@ -350,6 +360,123 @@ def sparse_adagrad_apply_tables(g_rows: List[torch.Tensor],
     for table, acc, i, du, dg in zip(tables, accs, index, u, g2):
         table.index_add_(0, i, du.to(table.dtype))
         acc.index_add_(0, i, dg)
+
+
+#: Tables one ``dfm_sparse_adagrad`` launch serves (``csrc/optimizer.cu``
+#: ``kMaxTables``).
+ADAGRAD_MAX_TABLES = 32
+
+#: ``dfm_sparse_adagrad`` launches, raised by one where
+#: :func:`sparse_adagrad_tables` launches the kernel.
+adagrad_launches = 0
+_count_lock = threading.Lock()
+
+
+def _check_sparse_adagrad(g_rows: List[torch.Tensor],
+                          uids: List[torch.Tensor], accs: List[torch.Tensor],
+                          tables: List[torch.Tensor]) -> None:
+    """What the kernel takes: 1 to ``ADAGRAD_MAX_TABLES`` tables of one
+    width K (a 1-D table is K = 1), each float32 table and accumulator
+    [rows(, K)], gradient rows [N(, K)] and int32 uids [N], contiguous, on
+    one device."""
+    t = len(tables)
+    if not 1 <= t <= ADAGRAD_MAX_TABLES or not (
+            len(g_rows) == len(uids) == len(accs) == t):
+        raise ValueError(
+            f"a sparse Adagrad launch serves 1 to {ADAGRAD_MAX_TABLES} "
+            f"tables with one gradient, uids and accumulator each; got "
+            f"{len(tables)} tables, {len(g_rows)} gradients, {len(uids)} "
+            f"uids, {len(accs)} accumulators")
+    width = tables[0].shape[1:]
+    for g, u, a, tab in zip(g_rows, uids, accs, tables):
+        if (tab.dim() not in (1, 2) or tab.shape[1:] != width
+                or a.shape != tab.shape or u.dim() != 1
+                or g.shape != u.shape + width):
+            raise ValueError(
+                f"sparse Adagrad expects tables and accumulators [rows(,K)] "
+                f"of one K, uids [N] and gradients [N(,K)]; got table "
+                f"{tuple(tab.shape)}, accumulator {tuple(a.shape)}, uids "
+                f"{tuple(u.shape)}, gradient {tuple(g.shape)}")
+    every = (*g_rows, *uids, *accs, *tables)
+    if any(x.device != tables[0].device for x in every):
+        raise ValueError("sparse Adagrad inputs lie on different devices")
+    if (any(x.dtype != torch.float32 for x in (*g_rows, *accs, *tables))
+            or any(u.dtype != torch.int32 for u in uids)):
+        raise TypeError("the sparse Adagrad kernel takes float32 tables, "
+                        "accumulators and gradients and int32 uids")
+    if not all(x.is_contiguous() for x in every):
+        raise ValueError("the sparse Adagrad kernel needs contiguous inputs")
+
+
+def _launch_sparse_adagrad(g_rows: List[torch.Tensor],
+                           uids: List[torch.Tensor],
+                           accs: List[torch.Tensor], *, lr: float,
+                           eps: float, tables: List[torch.Tensor]) -> None:
+    """One ``dfm_sparse_adagrad`` launch for every table; while tracing is
+    on, the launch is counted in the open span's ``adagrad_launches``."""
+    global adagrad_launches
+    _check_sparse_adagrad(g_rows, uids, accs, tables)
+    t = len(tables)
+    k = 1 if tables[0].dim() == 1 else tables[0].shape[1]
+    ptrs = [x.data_ptr() for parts in zip(g_rows, uids, tables, accs)
+            for x in parts]
+    lib = _native.load("optimizer")
+    dev = tables[0].device
+    with torch.cuda.device(dev):
+        err = lib.dfm_sparse_adagrad(
+            (ctypes.c_void_p * (4 * t))(*ptrs),
+            (ctypes.c_int64 * t)(*(u.shape[0] for u in uids)),
+            (ctypes.c_int64 * t)(*(tab.shape[0] for tab in tables)), t, k,
+            lr, eps, torch.cuda.current_stream(dev).cuda_stream)
+    _native.check(err, "sparse Adagrad")
+    with _count_lock:
+        adagrad_launches += 1
+    trace_lib.add_counts(lambda: {"adagrad_launches": 1})
+
+
+def adagrad_leg(mode: str, device: torch.device) -> str:
+    """``"kernel"`` where :func:`sparse_adagrad_tables` launches
+    ``dfm_sparse_adagrad`` (the ``auto`` and ``pallas`` modes on a CUDA
+    device), else ``"plain"``."""
+    return ("kernel" if ek.resolve(mode, "adagrad") == "kernel"
+            and device.type == "cuda" else "plain")
+
+
+@torch.no_grad()
+def sparse_adagrad_tables(g_rows: List[torch.Tensor],
+                          uids: List[torch.Tensor], accs: List[torch.Tensor],
+                          *, lr: float, eps: float,
+                          tables: List[torch.Tensor],
+                          mode: str = "auto") -> None:
+    """Every table's sparse exact-Adagrad step, IN PLACE, through the leg
+    ``ek.resolve(mode, "adagrad")`` picks: ``g_rows[t]`` [N, ...] are the
+    gradients of the plan's slots ``uids[t]`` (int32 [N]: touched rows,
+    then fill slots at the table's row count, whose gradient is zero).
+    The kernel leg (``auto``, ``pallas``) makes one ``dfm_sparse_adagrad``
+    launch for up to ``ADAGRAD_MAX_TABLES`` tables on CUDA tensors, and
+    raises where it cannot; the ``xla`` and ``off`` legs, and CPU tensors,
+    take :func:`sparse_adagrad_apply_tables` at the uids' spread index
+    (fill slot s at row s mod rows). Both give the same bits."""
+    if not tables or not len(g_rows) == len(uids) == len(accs) == len(
+            tables):
+        raise ValueError(f"sparse Adagrad takes one gradient, uids and "
+                         f"accumulator a table; got {len(tables)} tables, "
+                         f"{len(g_rows)} gradients, {len(uids)} uids, "
+                         f"{len(accs)} accumulators")
+    if adagrad_leg(mode, tables[0].device) == "kernel":
+        for s in range(0, len(tables), ADAGRAD_MAX_TABLES):
+            part = slice(s, s + ADAGRAD_MAX_TABLES)
+            _launch_sparse_adagrad(g_rows[part], uids[part], accs[part],
+                                   lr=lr, eps=eps, tables=tables[part])
+        return
+    index = []
+    for u, tab in zip(uids, tables):
+        rows = tab.shape[0]
+        spread = torch.remainder(torch.arange(
+            u.shape[0], dtype=u.dtype, device=u.device), rows)
+        index.append(torch.where(u < rows, u, spread))
+    sparse_adagrad_apply_tables(g_rows, index, accs, lr=lr, eps=eps,
+                                tables=tables)
 
 
 def build_optimizer(cfg: Config, *, world_size: int = 1):
